@@ -1,0 +1,220 @@
+"""DisentangleVAE, serving half (``pctd_tpu/models/disentangle_vae.py``):
+chord + texture encoders -> latents -> argmax PianoTree decode, and the
+latent-control API behind the four workflows.
+
+- ``swap``             decode with posterior means from mixed sources
+- ``posterior_sample`` sample around the posterior, optional sigma scaling
+- ``prior_sample``     replace chord and/or texture latent with N(0, scale^2)
+- ``interp``           SLERP on normalized latents + log-linear norm ramp
+
+Pure functions over a params tree (JAX names and layouts), with noise from
+an explicit ``torch.Generator``. The loss, the chord decoder and the
+pianotree texture encoder come with the training slice; only
+``compute_dtype="float32"`` is served.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from pctd_tpu_torch.config import ModelConfig
+from pctd_tpu_torch.models import chord_encoder as chd_enc
+from pctd_tpu_torch.models import pianotree_decoder as pt_dec
+from pctd_tpu_torch.models import texture_encoder as txt_enc
+from pctd_tpu_torch.ops import DiagNormal
+from pctd_tpu_torch.utils.device import resolve_device
+from pctd_tpu_torch.utils.weights import params_to
+
+
+def _check_served(cfg: ModelConfig) -> None:
+    if cfg.txt_encoder != "conv":
+        raise NotImplementedError(
+            f"texture encoder {cfg.txt_encoder!r}: the port serves 'conv'")
+    if cfg.compute_dtype != "float32":
+        raise NotImplementedError(
+            f"compute_dtype {cfg.compute_dtype!r}: the port serves float32")
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
+    """Random parameters with the JAX package's distributions, drawn on the
+    CPU from ``seed`` (so a seed names the same model on every device) and
+    moved to ``device`` (default ``cuda``). Holds the served modules:
+    ``chd_enc``, ``txt_enc``, ``dec``."""
+    _check_served(cfg)
+    device = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    params = {"chd_enc": chd_enc.init(gen, cfg),
+              "txt_enc": txt_enc.init_conv(gen, cfg),
+              "dec": pt_dec.init(gen, cfg)}
+    return params_to(params, device)
+
+
+def encode(params: dict, cfg: ModelConfig, pr_mat: torch.Tensor,
+           c: torch.Tensor) -> Tuple[DiagNormal, DiagNormal]:
+    """Posterior distributions (chord, texture)."""
+    _check_served(cfg)
+    return (chd_enc.apply(params["chd_enc"], c),
+            txt_enc.apply_conv(params["txt_enc"], pr_mat))
+
+
+def encode_chord(params: dict, cfg: ModelConfig, c: torch.Tensor
+                 ) -> DiagNormal:
+    """Chord latent alone from an expanded (B, 8, 36) chord tensor."""
+    _check_served(cfg)
+    return chd_enc.apply(params["chd_enc"], c)
+
+
+def decode_z(params: dict, cfg: ModelConfig, z_chd: torch.Tensor,
+             z_rhy: torch.Tensor, frame_decoder: str = "full", fw=None
+             ) -> torch.Tensor:
+    """Argmax decode of latents -> estimated grid (B, 32, K-1, 6) int32;
+    ``frame_decoder`` and ``fw`` as in
+    :func:`~pctd_tpu_torch.models.pianotree_decoder.decode_grid`."""
+    _check_served(cfg)
+    z = torch.cat([z_chd, z_rhy], dim=-1)
+    return pt_dec.decode_grid(params["dec"], cfg, z,
+                              frame_decoder=frame_decoder, fw=fw)
+
+
+def inference(params: dict, cfg: ModelConfig, pr_mat, c, sample: bool,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Encode -> (posterior draw | mean) -> decode."""
+    dist_chd, dist_rhy = encode(params, cfg, pr_mat, c)
+    if sample:
+        z_chd, z_rhy = (dist_chd.rsample(generator),
+                        dist_rhy.rsample(generator))
+    else:
+        z_chd, z_rhy = dist_chd.mean, dist_rhy.mean
+    return decode_z(params, cfg, z_chd, z_rhy)
+
+
+def swap(params: dict, cfg: ModelConfig, pr_mat1, pr_mat2, c1, c2,
+         fix_rhy: bool, fix_chd: bool) -> torch.Tensor:
+    """Compositional style transfer: texture from source 1 if ``fix_rhy``
+    else 2, chord from source 1 if ``fix_chd`` else 2."""
+    return inference(params, cfg, pr_mat1 if fix_rhy else pr_mat2,
+                     c1 if fix_chd else c2, sample=False)
+
+
+def posterior_sample(params: dict, cfg: ModelConfig,
+                     generator: torch.Generator, pr_mat, c,
+                     scale: Optional[float] = None, sample_chd: bool = True,
+                     sample_txt: bool = True) -> torch.Tensor:
+    """Variation by sampling around the posterior (std scaled by
+    ``scale``)."""
+    dist_chd, dist_rhy = encode(params, cfg, pr_mat, c)
+    if scale is not None:
+        dist_chd = DiagNormal(dist_chd.mean, dist_chd.std * scale)
+        dist_rhy = DiagNormal(dist_rhy.mean, dist_rhy.std * scale)
+    z_chd = dist_chd.rsample(generator) if sample_chd else dist_chd.mean
+    z_rhy = dist_rhy.rsample(generator) if sample_txt else dist_rhy.mean
+    return decode_z(params, cfg, z_chd, z_rhy)
+
+
+def prior_sample(params: dict, cfg: ModelConfig, generator: torch.Generator,
+                 pr_mat, c, sample_chd: bool = False,
+                 sample_rhy: bool = False, scale: float = 1.0
+                 ) -> torch.Tensor:
+    """Replace the chord and/or texture latent with N(0, scale^2) draws;
+    the other is drawn from its posterior."""
+    dist_chd, dist_rhy = encode(params, cfg, pr_mat, c)
+    if sample_chd:
+        dist_chd = DiagNormal(torch.zeros_like(dist_chd.mean),
+                              torch.full_like(dist_chd.std, scale))
+    if sample_rhy:
+        dist_rhy = DiagNormal(torch.zeros_like(dist_rhy.mean),
+                              torch.full_like(dist_rhy.std, scale))
+    return decode_z(params, cfg, dist_chd.rsample(generator),
+                    dist_rhy.rsample(generator))
+
+
+def interp_path(z1: np.ndarray, z2: np.ndarray, int_count: int = 10
+                ) -> np.ndarray:
+    """SLERP on normalized directions + log-linear norm interpolation,
+    host-side numpy on small latents."""
+    shape = z1.shape
+    z1 = z1.reshape(-1)
+    z2 = z2.reshape(-1)
+    n1, n2 = np.linalg.norm(z1), np.linalg.norm(z2)
+    u1, u2 = z1 / n1, z2 / n2
+    omega = np.arccos(np.clip(np.dot(u1, u2), -1.0, 1.0))
+    so = np.sin(omega)
+    t = np.linspace(0.0, 1.0, int_count)
+    if so < 1e-8:
+        dirs = (1 - t)[:, None] * u1[None] + t[:, None] * u2[None]
+    else:
+        dirs = (np.sin((1 - t) * omega)[:, None] / so * u1[None] +
+                np.sin(t * omega)[:, None] / so * u2[None])
+    norms = np.exp(np.linspace(np.log(n1), np.log(n2), int_count))
+    return (dirs * norms[:, None]).reshape((int_count,) + shape)
+
+
+def interp_latents(z1: np.ndarray, z2: np.ndarray, on: bool,
+                   int_count: int) -> np.ndarray:
+    """(B, d) endpoints -> (B, int_count, d): per-row SLERP paths when
+    ``on``, else z1 repeated."""
+    if on:
+        return np.stack([interp_path(a, b, int_count)
+                         for a, b in zip(z1, z2)])
+    return np.repeat(z1[:, None], int_count, axis=1)
+
+
+def interp(params: dict, cfg: ModelConfig, pr_mat1, c1, pr_mat2, c2,
+           interp_chd: bool = False, interp_rhy: bool = False,
+           int_count: int = 10) -> np.ndarray:
+    """Latent interpolation decode -> (B, int_count, 32, K-1, 6)."""
+    d_chd1, d_rhy1 = encode(params, cfg, pr_mat1, c1)
+    d_chd2, d_rhy2 = encode(params, cfg, pr_mat2, c2)
+    np_ = lambda t: t.detach().cpu().numpy()
+    B = pr_mat1.shape[0]
+    z_chds = interp_latents(np_(d_chd1.mean), np_(d_chd2.mean), interp_chd,
+                            int_count)
+    z_rhys = interp_latents(np_(d_rhy1.mean), np_(d_rhy2.mean), interp_rhy,
+                            int_count)
+    dev = pr_mat1.device
+    as_t = lambda a: torch.as_tensor(a.reshape(B * int_count, -1),
+                                     dtype=torch.float32, device=dev)
+    est = decode_z(params, cfg, as_t(z_chds), as_t(z_rhys))
+    spec = cfg.pianotree
+    return np_(est).reshape(B, int_count, spec.num_step,
+                            spec.max_simu_note - 1, 6)
+
+
+class DisentangleVAE:
+    """cfg + params + the latent-control entry points."""
+
+    def __init__(self, cfg: ModelConfig, params: dict):
+        _check_served(cfg)
+        self.cfg = cfg
+        self.params = params
+
+    @staticmethod
+    def init_model(cfg: Optional[ModelConfig] = None, seed: int = 0,
+                   device=None) -> "DisentangleVAE":
+        cfg = cfg or ModelConfig()
+        return DisentangleVAE(cfg, init_params(cfg, seed, device))
+
+    def encode(self, pr_mat, c):
+        return encode(self.params, self.cfg, pr_mat, c)
+
+    def decode_z(self, z_chd, z_rhy, frame_decoder: str = "full"):
+        return decode_z(self.params, self.cfg, z_chd, z_rhy, frame_decoder)
+
+    def inference(self, pr_mat, c, sample: bool = False, generator=None):
+        return inference(self.params, self.cfg, pr_mat, c, sample, generator)
+
+    def swap(self, pr_mat1, pr_mat2, c1, c2, fix_rhy, fix_chd):
+        return swap(self.params, self.cfg, pr_mat1, pr_mat2, c1, c2,
+                    fix_rhy, fix_chd)
+
+    def posterior_sample(self, generator, pr_mat, c, **kw):
+        return posterior_sample(self.params, self.cfg, generator, pr_mat, c,
+                                **kw)
+
+    def prior_sample(self, generator, pr_mat, c, **kw):
+        return prior_sample(self.params, self.cfg, generator, pr_mat, c, **kw)
+
+    def interp(self, pr_mat1, c1, pr_mat2, c2, **kw):
+        return interp(self.params, self.cfg, pr_mat1, c1, pr_mat2, c2, **kw)

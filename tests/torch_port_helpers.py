@@ -1,0 +1,62 @@
+"""Shared fixtures for the pctd_tpu_torch tests: the same weights and inputs
+for the JAX package and the port, made from seeds with numpy."""
+import copy
+
+import jax
+import numpy as np
+import torch
+
+from pctd_tpu import config as jcfg
+from pctd_tpu.models import disentangle_vae as jdv
+from pctd_tpu_torch import config as tcfg
+from pctd_tpu_torch.utils.weights import params_from_jax
+
+JAX_TINY = jcfg.tiny_model_config()
+TINY = tcfg.tiny_model_config()
+
+
+def jax_params(cfg=JAX_TINY, seed=0):
+    """The JAX package's parameter tree as numpy leaves."""
+    tree = jdv.init_params(jax.random.PRNGKey(seed), cfg)
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def port_params(jp):
+    return params_from_jax(jp, "cpu")
+
+
+def with_eos_bias(jp, offset, eos=129):
+    """A copy of ``jp`` whose pitch head favours eos by ``offset``, so frame
+    lengths spread below 15 and the masked summary is exercised."""
+    q = copy.deepcopy(jp)
+    q["dec"]["pitch_out"]["b"][eos] += np.float32(offset)
+    return q
+
+
+def eos_biased(jp, offset, lengths_of):
+    """The eos-biased variant of ``jp`` (see :func:`with_eos_bias`); with
+    random weights no eos occurs, and the tests' offsets spread the frame
+    lengths of their inputs, which this checks."""
+    q = with_eos_bias(jp, offset)
+    assert len(np.unique(lengths_of(q))) >= 3
+    return q
+
+
+def requests(B, seed):
+    """Synthetic (pr_mat (B, 32, 128), chord (B, 8, 36)) float32 inputs:
+    sparse onsets with durations 1..8, and root / chroma / bass chords."""
+    rng = np.random.RandomState(seed)
+    pr = np.zeros((B, 32, 128), np.float32)
+    on = rng.rand(B, 32, 128) < 0.02
+    pr[on] = rng.randint(1, 9, on.sum())
+    c = np.zeros((B, 8, 36), np.float32)
+    rows = np.arange(B)[:, None]
+    steps = np.arange(8)[None, :]
+    c[rows, steps, rng.randint(0, 12, (B, 8))] = 1.0
+    c[..., 12:24] = rng.randint(0, 2, (B, 8, 12))
+    c[rows, steps, 24 + rng.randint(0, 12, (B, 8))] = 1.0
+    return pr, c
+
+
+def t(a):
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
