@@ -1,19 +1,24 @@
-"""Chip smoke test of the pctd_tpu_torch serving path on one CUDA card.
+"""Chip smoke test of the pctd_tpu_torch serving and training paths on one
+CUDA card.
 
     python3 chip_smoke.py [--seed N]
 
-Builds the decode kernels from the sources in this checkout, holds each
-against its plain PyTorch version on the card, then serves the four
-latent-control workflows through ``Sampler(fixed_batch=128)`` at the
-canonical model width (random weights from ``--seed``) and shows that the
-served decodes went through the kernels. Prints one line per phase with its
-seconds, a ``{"kernels": [...]}`` line, and as its last line
+Builds the CUDA kernels from the sources in this checkout and holds each
+against its plain PyTorch version on the card: the decode kernels K3 and
+K4, the train-frame forward K1 and its backward K2 (K2a, the per-row chain,
+and K2b, the weight-gradient reduction). Then it serves the four
+latent-control workflows through ``Sampler(fixed_batch=128)`` and trains
+the model for a few steps through ``Trainer`` at B=128, both at the
+canonical model width (random weights from ``--seed``), and shows that each
+path went through its kernels. Prints one line per phase with its seconds,
+a ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``. Exits nonzero, printing no result,
 without a CUDA card or when any phase fails. Imports nothing of JAX.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import ctypes
 import json
@@ -25,11 +30,15 @@ import time
 import numpy as np
 import torch
 
-from pctd_tpu_torch.config import ModelConfig
+from pctd_tpu_torch.config import ModelConfig, TrainConfig
+from pctd_tpu_torch.data.loaders import SegmentCorpus, make_loaders
 from pctd_tpu_torch.models import disentangle_vae as dv
 from pctd_tpu_torch.models import pianotree_decoder as ptd
 from pctd_tpu_torch.models.sampler import Sampler
 from pctd_tpu_torch.ops.kernels import ar_decoder, build, full_decoder
+from pctd_tpu_torch.ops.kernels import train_frame as tf
+from pctd_tpu_torch.train import trainer as tr
+from pctd_tpu_torch.train.optim import global_norm
 
 #: H100 SXM peaks (NVIDIA data sheet): f32 on CUDA cores, HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
@@ -37,6 +46,13 @@ PEAK_BYTES = 3.35e12
 AGREE = 0.999          # discrete outputs, kernel vs plain
 SUMMARY_ATOL = 1e-4    # K3 summary on rows whose discrete outputs agree
 SIZES = (1, 37, 128, 300)
+NUMS_RTOL = 1e-5       # K1 CE numerators vs plain
+STATE_ATOL = 1e-4      # K1 summary and note hiddens vs plain
+GRAD_TOL = 1e-4        # K2 grads vs autograd of plain: x (1 + max|plain|)
+LOSS_RTOL = 1e-5       # train step 1, kernels vs plain path on the card
+NORM_RTOL = 1e-4       # its gradient global norm
+TRAIN_STEPS = 6
+TRAIN_B = 128
 
 
 class PhaseFailed(RuntimeError):
@@ -108,6 +124,200 @@ def full_work(fw, spec, B: int):
 def bound_ms(flops: float, nbytes: float):
     f, b = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return (f, "operations") if f >= b else (b, "bytes")
+
+
+def segments(rng: np.random.RandomState, n: int) -> SegmentCorpus:
+    """Synthetic raw segments in the loader's format: uint8 onset (2) /
+    sustain (1) / rest (0) rolls and raw [root, chroma, bass] chord rows."""
+    pr = np.zeros((n, 32, 128), np.uint8)
+    pr[rng.rand(n, 32, 128) < 0.03] = 2
+    for step in range(1, 32):
+        held = ((pr[:, step - 1] > 0) & (pr[:, step] == 0)
+                & (rng.rand(n, 128) < 0.6))
+        pr[:, step][held] = 1
+    chord = np.zeros((n, 8, 14), np.float32)
+    chord[..., 0] = rng.randint(0, 12, (n, 8))
+    chord[..., 1:13] = rng.randint(0, 2, (n, 8, 12))
+    chord[..., 13] = rng.randint(0, 12, (n, 8))
+    return SegmentCorpus(pr, chord)
+
+
+def frame_case(params, cfg, B: int, gen: torch.Generator):
+    """Train-frame weights and one frame's inputs at the shapes of the
+    training path: time hidden, ground-truth note embeddings, teacher coins
+    and integer targets (pads included)."""
+    spec = cfg.pianotree
+    K, W, P = spec.max_simu_note, spec.dur_width, spec.pitch_range
+    dev = gen.device
+    rn = lambda *s: torch.randn(s, device=dev, generator=gen)
+    ri = lambda hi, *s: torch.randint(0, hi, s, device=dev, generator=gen,
+                                      dtype=torch.int32)
+    cw = tf.CoreWeights(*(w.detach().contiguous()
+                          for w in tf.core_weights(params["dec"], cfg)))
+    return cw, dict(frame_h=rn(B, cfg.dec_time_hidden) * 0.6,
+                    x_emb=rn(B, K, cfg.note_emb_size) * 0.5,
+                    coins=ri(2, K - 1), gt_pitch=ri(P + 1, B, K - 1),
+                    gt_dur=ri(3, B, K - 1, W))
+
+
+def k1_rows(cw, spec, inp):
+    """K1 (with its stash) and the plain version on ``inp``; the rows whose
+    pitch, dur bits and lengths agree."""
+    got = tf.frame_fwd(cw, spec, **inp, stash=True)
+    want = tf.frame_recon_plain(cw, spec, **inp)
+    dec = torch.cat([want.pitch[..., None], want.bits], -1)
+    rows = (got[3] == dec).flatten(1).all(1) & (got[2] == want.lengths)
+    return rows, got, want
+
+
+def k2_grads(cw, spec, inp, g_nums, g_summ, plain: bool):
+    """Gradients of sum(g_nums * nums) + sum(g_summ * summary) with respect to
+    the 24 weights, frame_h and x_emb: through K1/K2 or autograd of the plain
+    version."""
+    leaves = [w.clone().requires_grad_(True) for w in cw]
+    fh = inp["frame_h"].clone().requires_grad_(True)
+    xe = inp["x_emb"].clone().requires_grad_(True)
+    args = (tf.CoreWeights(*leaves), spec, fh, xe, inp["coins"],
+            inp["gt_pitch"], inp["gt_dur"])
+    if plain:
+        out = tf.frame_recon_plain(*args)
+        nums, summ = out.nums, out.summary
+    else:
+        nums, summ = tf.frame_recon(*args)
+    ((nums * g_nums).sum() + (summ * g_summ).sum()).backward()
+    return [w.grad for w in leaves] + [fh.grad, xe.grad]
+
+
+@contextlib.contextmanager
+def plain_frames():
+    """Inside this context the decoder's teacher-forced frames run
+    ``frame_recon_plain`` on the card (autograd of it for gradients), for
+    the plain reference of a train step; the kernel route is restored on
+    exit."""
+    kernel_route = ptd.train_frame.frame_recon
+
+    def plain(*args):
+        out = tf.frame_recon_plain(*args)
+        return out.nums, out.summary
+
+    ptd.train_frame.frame_recon = plain
+    try:
+        yield
+    finally:
+        ptd.train_frame.frame_recon = kernel_route
+
+
+def train_frame_work(cw, spec, B: int):
+    """(FLOPs, bytes) of K1 (with its stash) and K2a for B rows of one frame:
+    their products (gates and selects are a few % more, not counted), each
+    weight read once, each input and output (stash, cotangents) once."""
+    d = tf.dims_of(cw, spec)
+    S, W = d.K - 1, d.W
+    slot = (d.E * 3 * d.NH + d.NH * 3 * d.NH + d.NH * d.P
+            + (d.NH + d.P) * d.DH + W * d.DH * 3 * d.DH + W * d.DH * 2)
+    summ = d.K * 2 * (d.E + d.EH) * 3 * d.EH
+    frame = d.TH * 4 * d.NH
+    k1_macs = frame + S * slot + summ       # S hidden-gate products: h0..h14
+    k2_macs = frame + S * (slot + W * 3 * d.DH) + summ
+    weights = sum(w.numel() for w in cw)
+    stash = sum(t.numel() for t in tf.new_stash(d, 1, "meta"))
+    cots = sum(t.numel() for t in tf.new_cotangents(d, 1, "meta"))
+    k1_io = (d.TH + d.K * d.E + S * (1 + W)                  # inputs
+             + (1 + W) + 2 * d.EH + 1 + S * (1 + W))          # outputs
+    k2_io = stash + cots + d.TH + d.K * d.E + 2 * d.EH + S * (1 + W) + 1
+    return ((2.0 * k1_macs * B, 4.0 * (weights + (k1_io + stash) * B)),
+            (2.0 * k2_macs * B, 4.0 * (weights + k2_io * B)))
+
+
+def wgrad_work(tasks):
+    """(FLOPs, bytes) of K2b: 2 N I O (+ N O adds for a bias) a task, each
+    operand read and each gradient written once."""
+    flops = sum((2.0 * t.I + (1 if t.gb.numel() else 0)) * t.N * t.O
+                for t in tasks)
+    nbytes = sum(4.0 * (t.N * (t.I + t.O) + (t.I + 1) * t.O) for t in tasks)
+    return flops, nbytes
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return ((a - b).abs() / b.abs().clamp(min=1e-30)).max().item()
+
+
+def plain_backward_ms(cw, spec, inp, d_nums, d_summ, n: int) -> float:
+    """Mean ms of the autograd backward of the plain frame version (K2's
+    plain version), CUDA events around each backward only."""
+    total = 0.0
+    for i in range(n + 1):
+        leaves = [w.clone().requires_grad_(True) for w in cw]
+        out = tf.frame_recon_plain(tf.CoreWeights(*leaves), spec, **inp)
+        loss = (out.nums * d_nums).sum() + (out.summary * d_summ).sum()
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        loss.backward()
+        e1.record()
+        torch.cuda.synchronize()
+        if i:                                   # the first one warms up
+            total += e0.elapsed_time(e1)
+    return total / n
+
+
+def optimizer_ms(trainer, n: int) -> float:
+    """Mean ms of one clip + Adam step over every parameter (on copies)."""
+    from pctd_tpu_torch.train.optim import Adam
+
+    leaves = [t.detach().clone() for t in trainer.leaves]
+    grads = [torch.randn_like(t) for t in leaves]
+    opt = Adam(leaves, trainer.tcfg)
+    return cuda_ms(lambda: opt.step(grads), n)
+
+
+def profile_step(trainer) -> dict:
+    """Device time of one train step by kernel group, from torch.profiler:
+    the train-frame kernels, cuBLAS/CUTLASS products (time GRU, encoders,
+    chord decoder, heads) and the other PyTorch kernels (gates, losses,
+    tensorize, optimizer); and the device's idle share of the step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = next(trainer.batches())
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        s0 = time.perf_counter()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - s0) * 1e6
+    kernels = [e for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        print("  profiler: no device events; breakdown not measured")
+        return {"measured": False}
+    groups = {"K1": 0.0, "K2a": 0.0, "K2b": 0.0, "gemm": 0.0, "other": 0.0}
+    spans = []
+    for e in kernels:
+        us = e.time_range.elapsed_us()
+        spans.append((e.time_range.start, e.time_range.end))
+        n = e.name
+        key = ("K1" if "train_fwd_kernel" in n else
+               "K2a" if "train_bwd_kernel" in n else
+               "K2b" if "wgrad_kernel" in n else
+               "gemm" if re.search(r"gemm|cutlass|cublas", n, re.I) else
+               "other")
+        groups[key] += us
+    busy, end = 0.0, -1.0
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    ms = {k: v / 1e3 for k, v in groups.items()}
+    out = {"measured": True, "wall_ms": wall_us / 1e3,
+           "device_busy_ms": busy / 1e3,
+           "idle_share": 1.0 - busy / wall_us, "kernel_ms": ms}
+    print(f"  profiled step: {wall_us / 1e3:.2f} ms wall (profiler on), "
+          f"device busy {busy / 1e3:.2f} ms, idle share "
+          f"{out['idle_share']:.3f}; device ms by group "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
+    return out
 
 
 def eos_variant(params, cfg, fw_of, h, sos):
@@ -183,9 +393,13 @@ def main() -> int:
     fw = fw_of(params)
     dims = build.decoder_dims(fw, spec)
     wst = build.DecoderWeightsC(*(t.data_ptr() for t in fw), *dims)
+    cw0 = tf.core_weights(params["dec"], cfg)
+    tw = build.train_weights(cw0, tf.dims_of(cw0, spec))
     for r in (1, 2, 4):
-        print(f"  shared memory, {r} row(s) a block: "
-              f"{lib.pctd_smem_bytes(ctypes.byref(wst), r)} B")
+        print(f"  shared memory, {r} row(s) a block: K3/K4 "
+              f"{lib.pctd_smem_bytes(ctypes.byref(wst), r)} B, K1 "
+              f"{lib.pctd_train_smem_bytes(ctypes.byref(tw), r, 0)} B, K2a "
+              f"{lib.pctd_train_smem_bytes(ctypes.byref(tw), r, 1)} B")
     h_probe = torch.randn(128, cfg.dec_time_hidden, device=dev,
                           generator=gen) * 0.6
     sos_probe = ptd.decode_inputs(
@@ -243,7 +457,71 @@ def main() -> int:
             k4_err, k4_agree = max(k4_err, err), min(k4_agree, ag)
     phase("K4 vs plain", t0)
 
-    # 6. serving: the main path, counted
+    # 6. K1 vs its plain version
+    t0 = time.perf_counter()
+    k1_err, k1_agree = 0.0, 1.0
+    for wname, (p, _) in weight_sets.items():
+        for B in (128, 37):
+            cw, inp = frame_case(p, cfg, B, gen)
+            with torch.no_grad():
+                rows, got, want = k1_rows(cw, spec, inp)
+                torch.cuda.synchronize()
+                ag = rows.float().mean().item()
+                check(ag >= AGREE, f"K1 {wname} B={B} decisions {ag}")
+                summ = (got[1] - want.summary).abs()[rows].max().item()
+                hs = (got[4].hs - want.hs).abs()[:, rows].max().item()
+                sub = {k: (v if k == "coins" else v[rows])
+                       for k, v in inp.items()}
+                nums = rel_err(tf.frame_fwd(cw, spec, **sub, stash=False)[0],
+                               tf.frame_recon_plain(cw, spec, **sub).nums)
+            hist = torch.bincount(got[2].long(), minlength=16).tolist()
+            print(f"  K1 {wname} B={B}: decisions agree on {ag:.6f} of "
+                  f"rows; on those nums rel err {nums:.3g}, summary "
+                  f"max|err| {summ:.3g}, hs max|err| {hs:.3g}; lengths "
+                  f"{hist}")
+            check(nums <= NUMS_RTOL, f"K1 {wname} B={B} nums {nums}")
+            check(max(summ, hs) <= STATE_ATOL,
+                  f"K1 {wname} B={B} summary/hs {summ} {hs}")
+            k1_err = max(k1_err, summ, hs)
+            k1_agree = min(k1_agree, ag)
+    phase("K1 vs plain", t0)
+
+    # 7. K2 (K2a chain + K2b weight grads) vs autograd of the plain version
+    t0 = time.perf_counter()
+    k2a_err = k2b_err = 0.0
+    for wname, (p, _) in weight_sets.items():
+        B = 128
+        cw, inp = frame_case(p, cfg, B, gen)
+        with torch.no_grad():
+            rows = k1_rows(cw, spec, inp)[0]
+        if not rows.all():
+            print(f"  K2 {wname}: K1 and plain decisions differ on "
+                  f"{int((~rows).sum())} of {B} rows; held on the others")
+        inp = {k: (v if k == "coins" else v[rows]) for k, v in inp.items()}
+        g_nums = torch.rand(1 + spec.dur_width, device=dev, generator=gen)
+        g_summ = torch.randn(int(rows.sum()), 2 * cfg.dec_emb_hidden,
+                             device=dev, generator=gen)
+        got = k2_grads(cw, spec, inp, g_nums, g_summ, plain=False)
+        want = k2_grads(cw, spec, inp, g_nums, g_summ, plain=True)
+        torch.cuda.synchronize()
+        names = list(tf.CoreWeights._fields) + ["d_frame_h", "d_x_emb"]
+        worst = []
+        for name, a, b in zip(names, got, want):
+            err = (a - b).abs().max().item()
+            tol = GRAD_TOL * (1.0 + b.abs().max().item())
+            check(err <= tol, f"K2 {wname} {name}: max|err| {err} > {tol}")
+            worst.append((err / tol, name, err))
+            if name.startswith("d_"):
+                k2a_err = max(k2a_err, err)
+            else:
+                k2b_err = max(k2b_err, err)
+        top = sorted(worst, reverse=True)[:3]
+        print(f"  K2 {wname} B={int(rows.sum())}: all 26 gradients within "
+              f"tolerance; closest to it: "
+              + ", ".join(f"{n} {e:.3g} ({r:.2f} of tol)" for r, n, e in top))
+    phase("K2 vs autograd of plain", t0)
+
+    # 8. serving: the main path, counted
     t0 = time.perf_counter()
     sampler = Sampler(params, cfg, fixed_batch=128, device=dev)
     ref_pr, ref_c = requests(rng, 4)
@@ -308,7 +586,75 @@ def main() -> int:
           f"a kernel of the path was not launched: {launches}")
     phase("serving", t0)
 
-    # 7. timing
+    # 9. training: the main path, counted
+    t0 = time.perf_counter()
+    tcfg = TrainConfig(batch_size=TRAIN_B, accum_steps=1, seed=args.seed)
+    corpora = (segments(rng, 64), segments(rng, 16))
+    train_b, val_b = make_loaders(*corpora, TRAIN_B, seed=args.seed)
+    trainer = tr.Trainer(cfg, tcfg, train_b, val_b, device=dev)
+    # the same loader again, for the first batch the trainer will take
+    first = next(make_loaders(*corpora, TRAIN_B, seed=args.seed)[0].epoch())
+    x, c, pr_mat = tr.batch_features(*trainer._to_device(first), cfg)
+    k1_before = tf.frame_fwd.launches
+    with plain_frames():
+        ref_m, ref_g = tr.loss_and_grads(
+            trainer.params, cfg, tcfg, 0,
+            torch.Generator(device=dev).manual_seed(tcfg.seed), x, c, pr_mat)
+    check(tf.frame_fwd.launches == k1_before,
+          "the plain reference step launched K1")
+    ref_m = {k: v.item() for k, v in ref_m.items()}
+    ref_norm = global_norm(ref_g).item()
+    del ref_g
+    for f in (tf.frame_fwd, tf.frame_bwd, tf.weight_grads,
+              full_decoder.decode_grid_full, ar_decoder.frame_decode):
+        f.launches = 0
+    trainer.train_steps(TRAIN_STEPS)
+    val = trainer.eval_epoch()
+    torch.cuda.synchronize()
+    train_launches = {"K1": tf.frame_fwd.launches,
+                      "K2a": tf.frame_bwd.launches,
+                      "K2b": tf.weight_grads.launches}
+    n_val = len(val_b)
+    print(f"  launches in {TRAIN_STEPS} train steps + {n_val} eval "
+          f"batch(es): {train_launches}")
+    T = spec.num_step
+    check(train_launches == {"K1": T * (TRAIN_STEPS + n_val),
+                             "K2a": T * TRAIN_STEPS,
+                             "K2b": T * TRAIN_STEPS},
+          f"train launches {train_launches}")
+    check(full_decoder.decode_grid_full.launches == 0
+          and ar_decoder.frame_decode.launches == 0,
+          "the training path launched a decode kernel")
+    for i, m in enumerate(trainer.history):
+        print(f"  step {i + 1}: loss {m['loss']:.6f} recon "
+              f"{m['recon_loss']:.6f} kl {m['kl_loss']:.6f} chord "
+              f"{m['chord_loss']:.6f} grad norm {trainer.grad_norms[i]:.6f}"
+              f" ({trainer.step_seconds[i] * 1e3:.1f} ms)")
+        check(all(np.isfinite(v) for v in m.values()), f"step {i + 1} {m}")
+    print(f"  val: loss {val['loss']:.6f}")
+    check(all(np.isfinite(v) for v in val.values()), f"val {val}")
+    step1 = trainer.history[0]
+    loss_err = max(abs(step1[k] - ref_m[k]) / max(abs(ref_m[k]), 1e-30)
+                   for k in dv.METRIC_NAMES)
+    norm_err = abs(trainer.grad_norms[0] - ref_norm) / ref_norm
+    print(f"  step 1 vs the plain path on the card: loss {step1['loss']!r}"
+          f" vs {ref_m['loss']!r}, recon {step1['recon_loss']!r} vs "
+          f"{ref_m['recon_loss']!r}; 11 metrics max rel err {loss_err:.3g}; "
+          f"grad norm {trainer.grad_norms[0]!r} vs {ref_norm!r} "
+          f"(rel err {norm_err:.3g})")
+    check(loss_err <= LOSS_RTOL, f"step 1 metrics rel err {loss_err}")
+    check(norm_err <= NORM_RTOL, f"step 1 grad norm rel err {norm_err}")
+    step_ms = float(np.median(trainer.step_seconds[1:])) * 1e3
+    training = {"step_ms_median_2_to_n": step_ms,
+                "segments_per_s": TRAIN_B / step_ms * 1e3,
+                "steps": TRAIN_STEPS, "batch": TRAIN_B,
+                "step1_metric_rel_err": loss_err,
+                "step1_grad_norm_rel_err": norm_err}
+    print(f"  train step (median of steps 2..{TRAIN_STEPS}): {step_ms:.2f} "
+          f"ms, {TRAIN_B / step_ms * 1e3:.1f} segments/s")
+    phase("training", t0)
+
+    # 10. timing
     t0 = time.perf_counter()
     timing = {}
     for B in (128, 512):
@@ -338,9 +684,53 @@ def main() -> int:
         for name, (ms, pms, bms, by) in timing[B].items():
             print(f"  B={B} {name} bound {bms:.4f} ms ({by}), "
                   f"{bms / ms:.3%} of it")
+
+    W, EH2 = spec.dur_width, 2 * cfg.dec_emb_hidden
+    for B in (128, 512):
+        cw, inp = frame_case(params, cfg, B, gen)
+        d = tf.dims_of(cw, spec)
+        fwd = lambda: tf.frame_fwd(cw, spec, **inp, stash=True)
+        _, _, lens, _, st = fwd()
+        d_nums = torch.rand(1 + W, device=dev, generator=gen)
+        d_summ = torch.randn(B, EH2, device=dev, generator=gen)
+        bwd = lambda: tf.frame_bwd(cw, spec, inp["frame_h"], inp["coins"],
+                                   inp["gt_pitch"], inp["gt_dur"], lens, st,
+                                   d_nums, d_summ)
+        ct = bwd()[2]
+        out = [tf.CoreWeights(*(torch.empty_like(w) for w in cw))
+               for _ in range(2)]
+        tasks = [tf.wgrad_tasks(d, B, inp["frame_h"], st, ct, g) for g in out]
+        k1 = cuda_ms(fwd, 10)
+        k2a = cuda_ms(bwd, 10)
+        k2b = cuda_ms(lambda: build.launch_wgrad(tasks[0]), 10)
+        k2b_plain = cuda_ms(lambda: tf.wgrad_plain(tasks[1]), 3)
+        k2b_vs = max((a - b).abs().max().item() / (1 + b.abs().max().item())
+                     for a, b in zip(*out))
+        check(k2b_vs <= GRAD_TOL, f"K2b vs its plain version {k2b_vs}")
+        with torch.no_grad():
+            k1p = cuda_ms(lambda: tf.frame_recon_plain(cw, spec, **inp), 2)
+        k2p = plain_backward_ms(cw, spec, inp, d_nums, d_summ, 2)
+        (f1, b1), (f2a, b2a) = train_frame_work(cw, spec, B)
+        timing[B].update({
+            "K1": (k1, k1p, *bound_ms(f1, b1)),
+            "K2a": (k2a, k2p, *bound_ms(f2a, b2a)),
+            "K2b": (k2b, k2b_plain, *bound_ms(*wgrad_work(tasks[0])))})
+        print(f"  B={B}: K1 {k1:.3f} ms (plain {k1p:.3f}), K2a {k2a:.3f} ms "
+              f"+ K2b {k2b:.3f} ms (plain K2, autograd backward, "
+              f"{k2p:.3f}; plain K2b {k2b_plain:.3f}); K2b vs its plain "
+              f"version: max|err| / (1 + max|plain|) {k2b_vs:.3g}")
+        for name in ("K1", "K2a", "K2b"):
+            ms, pms, bms, by = timing[B][name]
+            print(f"  B={B} {name} bound {bms:.4f} ms ({by}), "
+                  f"{bms / ms:.3%} of it")
+        del st, ct, tasks, out
+    opt_ms = optimizer_ms(trainer, 5)
+    print(f"  optimizer step (clip + Adam, all parameters): {opt_ms:.3f} ms")
+    profile = profile_step(trainer)
+    training.update({"optimizer_ms": opt_ms, "profile": profile})
     phase("timing", t0)
 
-    # 8. kernels
+    # 11. kernels
     rows = []
     src = "pctd_tpu_torch/ops/kernels/csrc/decoder.cu"
     for name, fn, err, ag, tol in (
@@ -362,7 +752,30 @@ def main() -> int:
                      "library_ms": None, "batch": 128,
                      "ms_b512": timing[512][key][0],
                      "plain_ms_b512": timing[512][key][1]})
-    print(json.dumps({"serving": serving, "card": card}))
+    tsrc = "pctd_tpu_torch/ops/kernels/csrc/train_frame.cu"
+    for key, name, fn, err, tol in (
+            ("K1", "K1 train_fwd_kernel",
+             "pctd_tpu/ops/pallas/train_frame.py:289", k1_err,
+             f"decisions agree on >= {AGREE} of rows; on those, nums rel "
+             f"err <= {NUMS_RTOL}, summary and hs max|err| <= {STATE_ATOL}"),
+            ("K2a", "K2a train_bwd_kernel",
+             "pctd_tpu/ops/pallas/train_frame.py:736", k2a_err,
+             f"d_frame_h, d_x_emb max|err| <= {GRAD_TOL} x (1 + max|plain|)"
+             " vs autograd of the plain version"),
+            ("K2b", "K2b wgrad_kernel",
+             "pctd_tpu/ops/pallas/train_frame.py:736", k2b_err,
+             f"24 weight grads max|err| <= {GRAD_TOL} x (1 + max|plain|) "
+             "vs autograd of the plain version")):
+        ms, pms, bms, by = timing[128][key]
+        rows.append({"name": name, "route": "cuda", "source": tsrc,
+                     "replaces": fn, "launches": train_launches[key],
+                     "max_abs_err": err, "tolerance": tol, "ms": ms,
+                     "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                     "library_ms": None, "batch": 128,
+                     "ms_b512": timing[512][key][0],
+                     "plain_ms_b512": timing[512][key][1]})
+    print(json.dumps({"serving": serving, "training": training,
+                      "card": card}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}))

@@ -7,11 +7,14 @@ copy of what it needs, ``config.py`` included.
 
 Layout mirrors ``pctd_tpu`` so each module's counterpart is easy to find:
 
-- ``pctd_tpu_torch.ops``      GRU ops, distributions, and the hand-written
-                              CUDA decode kernels (``ops.kernels``)
-- ``pctd_tpu_torch.models``   chord/texture encoders, the serving half of
-                              the PianoTree decoder, the latent-control API
-                              and the fixed-batch ``Sampler``
+- ``pctd_tpu_torch.ops``      GRU ops, distributions, losses, and the
+                              hand-written CUDA kernels (``ops.kernels``)
+- ``pctd_tpu_torch.models``   chord/texture encoders, the chord decoder, the
+                              PianoTree decoder, the latent-control API and
+                              loss, and the fixed-batch ``Sampler``
+- ``pctd_tpu_torch.data``     on-device tensorize and the batch loaders
+- ``pctd_tpu_torch.train``    schedules, clip + Adam, train/eval steps and
+                              the ``Trainer``
 - ``pctd_tpu_torch.utils``    init distributions, the weight bridge from the
                               JAX parameter tree, device selection
 

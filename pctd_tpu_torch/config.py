@@ -1,13 +1,14 @@
 """Model configuration: a copy of the JAX package's ``PianoTreeSpec``,
-``ChordSpec``, ``ModelConfig`` and ``tiny_model_config``
+``ChordSpec``, ``ModelConfig``, ``TrainConfig`` and ``tiny_model_config``
 (``pctd_tpu/config.py``), kept here because the port may not import
 ``pctd_tpu``. Field names and defaults are the JAX package's, so a config
 can be rebuilt from the other package's ``dataclasses.asdict``.
-``TrainConfig`` and ``DataConfig`` come with the training slice.
+``DataConfig`` comes with the corpus pipeline.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,10 +49,13 @@ class ChordSpec:
 class ModelConfig:
     """DisentangleVAE architecture. Every field of the JAX package's
     ``ModelConfig`` is kept (so configs round-trip between the packages);
-    the port reads the widths, ``txt_encoder`` and ``compute_dtype``.
-    The training-only switches (``remat_frames``, ``unroll_*``,
-    ``train_frame_kernel``, ``fused_loss``) take effect with the training
-    slice."""
+    the port reads the widths, ``txt_encoder``, ``compute_dtype`` and
+    ``fused_loss``. The port's loss always decodes frame by frame through
+    the train-frame kernel pair with the reconstruction CE fused in (the JAX
+    ``train_frame_kernel=True, fused_loss=True`` configuration), whatever
+    ``train_frame_kernel`` says; ``fused_loss=False`` (logits out) raises
+    ``NotImplementedError``. ``remat_frames`` and ``unroll_*`` are XLA
+    switches with no counterpart here."""
 
     chd_z_dim: int = 256
     txt_z_dim: int = 256
@@ -104,3 +108,31 @@ def tiny_model_config(**overrides) -> ModelConfig:
         chd_dec_z_in=8, note_emb_size=12, dec_emb_hidden=8,
         dec_time_hidden=16, dec_notes_hidden=12, dec_z_in=8,
         dec_dur_hidden=8, **overrides)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training hyperparameters (the JAX package's ``TrainConfig``, same
+    fields and defaults). ``accum_steps=0`` (automatic in the JAX package)
+    means one microbatch here: sizing it from the device memory is not
+    ported yet."""
+
+    batch_size: int = 128
+    n_epoch: int = 6
+    lr: float = 1e-3
+    lr_decay: float = 0.9999
+    lr_min: float = 1e-5
+    clip_norm: float = 1.0
+    beta: float = 0.1
+    weights: Tuple[float, float] = (1.0, 0.5)
+    # (high, low) pairs for tfr1 / tfr2 / tfr3
+    tf_rates: Tuple[Tuple[float, float], ...] = ((0.6, 0.0), (0.5, 0.0),
+                                                 (0.5, 0.0))
+    sched_horizon: float = 1.0
+    seed: int = 3345
+    weighted_dur: bool = False
+    # True: validate at the schedules' final values instead of the current
+    eval_fixed_schedule: bool = False
+    accum_steps: int = 0
+    result_root: str = "result"
+    save_every_epoch: bool = True

@@ -1,6 +1,7 @@
-"""DisentangleVAE, serving half (``pctd_tpu/models/disentangle_vae.py``):
-chord + texture encoders -> latents -> argmax PianoTree decode, and the
-latent-control API behind the four workflows.
+"""DisentangleVAE (``pctd_tpu/models/disentangle_vae.py``): chord + texture
+encoders -> latents -> argmax PianoTree decode and the latent-control API
+behind the four workflows; and the training loss (ELBO + auxiliary chord
+loss, the 11 ``METRIC_NAMES``).
 
 - ``swap``             decode with posterior means from mixed sources
 - ``posterior_sample`` sample around the posterior, optional sigma scaling
@@ -8,22 +9,25 @@ latent-control API behind the four workflows.
 - ``interp``           SLERP on normalized latents + log-linear norm ramp
 
 Pure functions over a params tree (JAX names and layouts), with noise from
-an explicit ``torch.Generator``. The loss, the chord decoder and the
-pianotree texture encoder come with the training slice; only
-``compute_dtype="float32"`` is served.
+an explicit ``torch.Generator``. The loss takes its latent noise and teacher
+coins as inputs (:class:`Noise`, drawn by :func:`draw_noise`), since the
+JAX package's key splits cannot be reproduced in torch. The pianotree
+texture encoder is not ported yet; only ``compute_dtype="float32"`` runs.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from pctd_tpu_torch.config import ModelConfig
+from pctd_tpu_torch.models import chord_decoder as chd_dec
 from pctd_tpu_torch.models import chord_encoder as chd_enc
 from pctd_tpu_torch.models import pianotree_decoder as pt_dec
 from pctd_tpu_torch.models import texture_encoder as txt_enc
-from pctd_tpu_torch.ops import DiagNormal
+from pctd_tpu_torch.ops import DiagNormal, kl_std_normal
+from pctd_tpu_torch.ops.losses import cross_entropy_mean
 from pctd_tpu_torch.utils.device import resolve_device
 from pctd_tpu_torch.utils.weights import params_to
 
@@ -40,14 +44,17 @@ def _check_served(cfg: ModelConfig) -> None:
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     """Random parameters with the JAX package's distributions, drawn on the
     CPU from ``seed`` (so a seed names the same model on every device) and
-    moved to ``device`` (default ``cuda``). Holds the served modules:
-    ``chd_enc``, ``txt_enc``, ``dec``."""
+    moved to ``device`` (default ``cuda``). Holds the whole model:
+    ``chd_enc``, ``txt_enc``, ``dec`` and the training-only ``chd_dec``
+    (drawn last, so a seed gives the served modules the same weights as
+    before it was added)."""
     _check_served(cfg)
     device = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     params = {"chd_enc": chd_enc.init(gen, cfg),
               "txt_enc": txt_enc.init_conv(gen, cfg),
-              "dec": pt_dec.init(gen, cfg)}
+              "dec": pt_dec.init(gen, cfg),
+              "chd_dec": chd_dec.init(gen, cfg)}
     return params_to(params, device)
 
 
@@ -128,6 +135,87 @@ def prior_sample(params: dict, cfg: ModelConfig, generator: torch.Generator,
                               torch.full_like(dist_rhy.std, scale))
     return decode_z(params, cfg, dist_chd.rsample(generator),
                     dist_rhy.rsample(generator))
+
+
+METRIC_NAMES = ("loss", "recon_loss", "pl", "dl", "kl_loss", "kl_chd",
+                "kl_rhy", "chord_loss", "root_loss", "chroma_loss",
+                "bass_loss")
+
+
+class Noise(NamedTuple):
+    """The random inputs of one loss evaluation: standard-normal latent noise
+    and the batch-global teacher coins."""
+    eps_chd: torch.Tensor   # (B, chd_z_dim)
+    eps_rhy: torch.Tensor   # (B, txt_z_dim)
+    coins1: torch.Tensor    # (T,) bool: gt frame summary as next time token
+    coins2: torch.Tensor    # (T, K) bool: gt note as next slot token
+    coins3: torch.Tensor    # (chord steps,) bool: gt beat as next token
+
+
+def draw_noise(gen: torch.Generator, cfg: ModelConfig, batch: int, tfr1,
+               tfr2, tfr3) -> Noise:
+    """A :class:`Noise` drawn from ``gen`` on its device: coins are
+    ``U(0, 1) < tfr`` per time step, note slot and chord beat."""
+    spec = cfg.pianotree
+    dev = gen.device
+    normal = lambda d: torch.randn((batch, d), generator=gen, device=dev)
+    uni = lambda *s: torch.rand(s, generator=gen, device=dev)
+    return Noise(normal(cfg.chd_z_dim), normal(cfg.txt_z_dim),
+                 uni(spec.num_step) < tfr1,
+                 uni(spec.num_step, spec.max_simu_note) < tfr2,
+                 uni(cfg.chord.num_step) < tfr3)
+
+
+def forward_parts(params: dict, cfg: ModelConfig, x, c, pr_mat,
+                  noise: Noise):
+    """Everything of the teacher-forced forward except the PianoTree decode:
+    note embeddings, encoders, z and the chord-decoder logits. Returns
+    (x_emb, lengths, dist_chd, dist_rhy, z, recon_chd)."""
+    x_emb, lengths = pt_dec.emb_x(params["dec"], x, cfg.pianotree)
+    dist_chd, dist_rhy = encode(params, cfg, pr_mat, c)
+    z_chd = dist_chd.rsample_eps(noise.eps_chd)
+    z = torch.cat([z_chd, dist_rhy.rsample_eps(noise.eps_rhy)], dim=-1)
+    recon_chd = chd_dec.apply(params["chd_dec"], z_chd, c, noise.coins3,
+                              cfg.chord.num_step)
+    return x_emb, lengths, dist_chd, dist_rhy, z, recon_chd
+
+
+def chord_loss(c: torch.Tensor, recon_root, recon_chroma, recon_bass):
+    """Root / chroma / bass CE against the expanded chord c (B, 8, 36)."""
+    root = c[:, :, 0:12].argmax(-1)
+    chroma = c[:, :, 12:24].to(torch.int64)
+    bass = c[:, :, 24:].argmax(-1)
+    root_l = cross_entropy_mean(recon_root, root)
+    chroma_l = cross_entropy_mean(recon_chroma, chroma)
+    bass_l = cross_entropy_mean(recon_bass, bass)
+    return root_l + chroma_l + bass_l, root_l, chroma_l, bass_l
+
+
+def loss(params: dict, cfg: ModelConfig, x, c, pr_mat, noise: Noise,
+         beta=0.1, weights=(1.0, 0.5), weighted_dur: bool = False
+         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """ELBO + auxiliary chord loss: (total, the 11 metrics by
+    ``METRIC_NAMES``). x (B, 32, K, 6) int grid, c (B, 8, 36), pr_mat
+    (B, 32, 128). The decode runs frame by frame through the K1/K2 kernel
+    pair on the card (:func:`~pctd_tpu_torch.models.pianotree_decoder.decode_recon`)."""
+    if not cfg.fused_loss:
+        raise NotImplementedError(
+            "fused_loss=False (the logits-out frame kernel mode) is not "
+            "ported; see ROADMAP.md, Queue 2")
+    x_emb, lengths, dist_chd, dist_rhy, z, recon_chd = forward_parts(
+        params, cfg, x, c, pr_mat, noise)
+    recon, pl, dl = pt_dec.decode_recon(
+        params["dec"], cfg, z, x_emb, lengths, noise.coins1, noise.coins2,
+        x, weights, weighted_dur)
+    kl_chd = kl_std_normal(dist_chd)
+    kl_rhy = kl_std_normal(dist_rhy)
+    kl = kl_chd + kl_rhy
+    chord, root_l, chroma_l, bass_l = chord_loss(c, *recon_chd)
+    total = recon + beta * kl + chord
+    metrics = dict(zip(METRIC_NAMES, (total, recon, pl, dl, kl, kl_chd,
+                                      kl_rhy, chord, root_l, chroma_l,
+                                      bass_l)))
+    return total, metrics
 
 
 def interp_path(z1: np.ndarray, z2: np.ndarray, int_count: int = 10

@@ -1,6 +1,7 @@
-"""PianoTree decoder, serving half (``pctd_tpu/models/pianotree_decoder.py``):
-the argmax autoregressive decode (time -> note -> duration) that serves the
-latent-control workflows, with the serving weight folds.
+"""PianoTree decoder (``pctd_tpu/models/pianotree_decoder.py``): the argmax
+autoregressive decode (time -> note -> duration) that serves the
+latent-control workflows, with the serving weight folds, and the
+teacher-forced decode fused with the reconstruction CE that trains it.
 
 - time level: GRU (hid 1024) over [previous-frame summary | z_in],
   init hidden = Linear(z);
@@ -11,19 +12,23 @@ latent-control workflows, with the serving weight folds.
 :func:`decode` is the nested-loop decode in plain ops (the JAX package's
 ``fold_heads=True`` XLA path); :func:`decode_grid` is the serving entry,
 which runs each frame through the K3 kernel (``frame_decoder="frame"``) or
-the whole decode through the K4 kernel (``"full"``, the default). The
-teacher-forced training half comes with the training slice.
+the whole decode through the K4 kernel (``"full"``, the default).
+:func:`decode_recon` is the training decode: the time GRU in tensor ops
+between frames and each frame through the K1/K2 kernel pair
+(:func:`~pctd_tpu_torch.ops.kernels.train_frame.frame_recon`), which emits
+the CE numerators; :func:`recon_loss` is the same loss from logits.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 from pctd_tpu_torch.config import ModelConfig, PianoTreeSpec
 from pctd_tpu_torch.ops import bigru_last_masked, gru_cell_pre, \
     gru_gates_pre, gru_init
-from pctd_tpu_torch.ops.kernels import ar_decoder, full_decoder
+from pctd_tpu_torch.ops.kernels import ar_decoder, full_decoder, train_frame
+from pctd_tpu_torch.ops.losses import cross_entropy_ignore, masked_ce_parts
 from pctd_tpu_torch.utils.init import dense_apply, dense_params, free_param
 
 #: column offset of the GRU hidden gates in the combined dur-chain
@@ -60,6 +65,28 @@ def init(gen: torch.Generator, cfg: ModelConfig) -> dict:
         "init_input": free_param(gen, (2 * cfg.dec_emb_hidden,)),
         "dur_sos": free_param(gen, (spec.dur_width,)),
     }
+
+
+def grid_lengths(x: torch.Tensor, spec: PianoTreeSpec) -> torch.Tensor:
+    """(B, T, K, 6) int grid -> (B, T) int32 valid note counts (K minus the
+    pad slots; sos and eos included)."""
+    return (spec.max_simu_note
+            - (x[..., 0] == spec.pitch_pad).sum(-1)).to(torch.int32)
+
+
+def grid_to_multihot(x: torch.Tensor, spec: PianoTreeSpec) -> torch.Tensor:
+    """(B, T, K, 6) int grid -> (B, T, K, note_size) float32: pitch one-hot
+    over pitch_range (the pad index maps to zeros) ++ the raw dur values."""
+    pitch_oh = torch.nn.functional.one_hot(
+        x[..., 0].long(), spec.pitch_range + 1)[..., :spec.pitch_range]
+    return torch.cat([pitch_oh, x[..., 1:]], -1).to(torch.float32)
+
+
+def emb_x(p: dict, x: torch.Tensor, spec: PianoTreeSpec
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, T, K, 6) grid -> (embedded (B, T, K, E), lengths (B, T))."""
+    mh = grid_to_multihot(x, spec).to(p["note_emb"]["w"].dtype)
+    return dense_apply(p["note_emb"], mh), grid_lengths(x, spec)
 
 
 def sos_token_raw(spec: PianoTreeSpec, device=None) -> torch.Tensor:
@@ -263,3 +290,86 @@ def decode_grid(p: dict, cfg: ModelConfig, z: torch.Tensor,
             fw, spec, h, sos_emb)
         steps.append(torch.cat([pitch_idx[..., None], dur_bits], -1))
     return torch.stack(steps, 1)
+
+
+#: per-bit weights of the weighted duration loss
+DUR_BIT_WEIGHTS = (1.0, 0.6, 0.4, 0.3, 0.3)
+
+
+def _weigh(pitch_loss, per_bit, dur_num_den, weights, weighted_dur):
+    """(loss, pitch_loss, dur_loss) from the pitch loss and the dur terms:
+    ``per_bit`` are the per-bit losses (weighted_dur) and ``dur_num_den``
+    the pooled (numerator, denominator)."""
+    if weighted_dur:
+        dur_loss = sum(w * l for w, l in zip(DUR_BIT_WEIGHTS, per_bit))
+    else:
+        num, den = dur_num_den
+        dur_loss = num / den.clamp(min=1)
+    return (weights[0] * pitch_loss + weights[1] * dur_loss, pitch_loss,
+            dur_loss)
+
+
+def decode_recon(p: dict, cfg: ModelConfig, z: torch.Tensor,
+                 x_emb: torch.Tensor, lengths: torch.Tensor,
+                 coins1: torch.Tensor, coins2: torch.Tensor,
+                 x: torch.Tensor, weights=(1.0, 0.5),
+                 weighted_dur: bool = False):
+    """Teacher-forced decode fused with the reconstruction CE. z (B, z_dim);
+    x_emb (B, T, K, E) and lengths (B, T) from :func:`emb_x`; coins1 (T,)
+    bool selects the ground-truth frame summary as the next time token;
+    coins2 (T, K) bool the ground-truth note as the next slot's token; x the
+    (B, T, K, 6) grid. Returns (recon, pitch_loss, dur_loss).
+
+    Each frame's :func:`~pctd_tpu_torch.ops.kernels.train_frame.frame_recon`
+    returns its CE numerators, summed over frames; the denominators are the
+    targets' mask counts."""
+    spec = cfg.pianotree
+    B = z.shape[0]
+    T, K, W = spec.num_step, spec.max_simu_note, spec.dur_width
+    h = dense_apply(p["z2hid"], z)
+    z_in = dense_apply(p["z2in"], z)
+    x_summary = bigru_last_masked(
+        p["emb_fwd"], p["emb_bwd"], x_emb.reshape(B * T, K, -1),
+        lengths.reshape(B * T)).reshape(B, T, -1)
+    tg = p["time_gru"]
+    token = p["init_input"].expand(B, -1)
+    tok_dim = token.shape[-1]
+    w_tok = tg.w_ih[:tok_dim]
+    gi_z = z_in @ tg.w_ih[tok_dim:] + tg.b_ih
+    cw = train_frame.core_weights(p, cfg)
+    gt_pitch = x[:, :, 1:, 0].to(torch.int32)
+    gt_dur = x[:, :, 1:, 1:].to(torch.int32)
+    nums = None
+    for t in range(T):
+        h = gru_cell_pre(tg, gi_z + token @ w_tok, h)
+        nums_t, summary = train_frame.frame_recon(
+            cw, spec, h, x_emb[:, t], coins2[t, 1:], gt_pitch[:, t],
+            gt_dur[:, t])
+        token = torch.where(coins1[t], x_summary[:, t], summary)
+        nums = nums_t if nums is None else nums + nums_t
+    den_p = (gt_pitch != spec.pitch_pad).sum()
+    den_d = (gt_dur != spec.dur_pad).sum(dim=(0, 1, 2))          # (W,)
+    pitch_loss = nums[0] / den_p.clamp(min=1)
+    per_bit = [nums[1 + i] / den_d[i].clamp(min=1) for i in range(W)]
+    return _weigh(pitch_loss, per_bit, (nums[1:].sum(), den_d.sum()),
+                  weights, weighted_dur)
+
+
+def recon_loss(x: torch.Tensor, out: DecoderOutput, spec: PianoTreeSpec,
+               weights=(1.0, 0.5), weighted_dur: bool = False):
+    """Pitch + duration reconstruction loss from logits: CE over grid slots
+    1..K-1 with pad targets ignored. Returns (loss, pitch_loss,
+    dur_loss). The training path does not call it (:func:`decode_recon`
+    fuses the CE into the frame kernel); it is the plain oracle that the
+    tests hold the fused loss and the JAX ``recon_loss`` against."""
+    gt_pitch = x[:, :, 1:, 0]
+    gt_dur = x[:, :, 1:, 1:]
+    pitch_loss = cross_entropy_ignore(out.pitch_logits, gt_pitch,
+                                      spec.pitch_pad)
+    if weighted_dur:
+        per_bit = [cross_entropy_ignore(out.dur_logits[..., i, :],
+                                        gt_dur[..., i], spec.dur_pad)
+                   for i in range(spec.dur_width)]
+        return _weigh(pitch_loss, per_bit, None, weights, True)
+    dur = masked_ce_parts(out.dur_logits, gt_dur, spec.dur_pad)
+    return _weigh(pitch_loss, None, dur, weights, False)

@@ -1,6 +1,7 @@
-"""Build and bind the decode kernels.
+"""Build and bind the CUDA kernels (decode: K3, K4; training: K1, K2).
 
-At first use on the card, one ``nvcc`` run compiles every ``csrc/*.cu`` into
+At first use on the card, ``nvcc`` compiles every ``csrc/*.cu`` to an object,
+one compiler process per source, all started together, and links them into
 a shared library with a plain C interface, which is loaded with ``ctypes``
 (no PyTorch headers, so the build takes seconds). The library goes to
 ``build/pctd_tpu_torch/`` at the repository root, named by a hash of the
@@ -20,11 +21,12 @@ from typing import List, NamedTuple, Sequence, Tuple
 import torch
 
 from pctd_tpu_torch.config import PianoTreeSpec
+from pctd_tpu_torch.ops.kernels import train_frame as tf
 from pctd_tpu_torch.ops.kernels.ar_decoder import FoldedWeights
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "pctd_tpu_torch"
-NVCC_FLAGS = ("-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+NVCC_FLAGS = ("-O3", "-std=c++17", "-Xcompiler", "-fPIC",
               "-gencode", "arch=compute_90a,code=sm_90a", "-Xptxas", "-v")
 
 
@@ -46,6 +48,28 @@ class Dims(NamedTuple):
 class DecoderWeightsC(ctypes.Structure):
     _fields_ = ([(f, ctypes.c_void_p) for f in FoldedWeights._fields]
                 + [(d, ctypes.c_int) for d in Dims._fields])
+
+
+def _pointers(name: str, fields) -> type:
+    return type(name, (ctypes.Structure,),
+                {"_fields_": [(f, ctypes.c_void_p) for f in fields]})
+
+
+class TrainWeightsC(ctypes.Structure):
+    _fields_ = ([(f, ctypes.c_void_p) for f in tf.CoreWeights._fields]
+                + [(d, ctypes.c_int) for d in tf.Dims._fields])
+
+
+TrainStashC = _pointers("TrainStashC", tf.Stash._fields)
+TrainCotangentsC = _pointers("TrainCotangentsC", tf.Cotangents._fields)
+
+
+class WgradTaskC(ctypes.Structure):
+    _fields_ = ([(f, ctypes.c_void_p) for f in ("X", "DY", "gW", "gb")]
+                + [(f, ctypes.c_int) for f in ("N", "I", "O", "n_in")]
+                + [(f, ctypes.c_longlong) for f in ("x_o", "x_i", "y_o",
+                                                    "y_i")]
+                + [(f, ctypes.c_int) for f in ("tiles_o", "tile0")])
 
 
 def decoder_dims(fw: FoldedWeights, spec: PianoTreeSpec) -> Dims:
@@ -73,18 +97,36 @@ def build() -> Tuple[Path, str]:
     for path in sorted(CSRC.glob("*.cu*")):
         digest.update(path.name.encode())
         digest.update(path.read_bytes())
-    lib = BUILD_DIR / f"libpctd_decoder_{digest.hexdigest()[:16]}.so"
+    lib = BUILD_DIR / f"libpctd_kernels_{digest.hexdigest()[:16]}.so"
     log = lib.with_suffix(".log")
     if not lib.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        tag = f"{lib.stem}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+        procs = [subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(sources, objs)]
+        reports = []
+        for src, proc in zip(sources, procs):
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                for other in procs:
+                    other.kill()
+                    other.wait()
+                raise RuntimeError(f"nvcc failed on {src.name} "
+                                   f"({proc.returncode}):\n{out}")
+            reports.append(out)
+        tmp = BUILD_DIR / f"{tag}.tmp"
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
-            capture_output=True, text=True)
+            [_nvcc(), "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
+             "-o", str(tmp), *map(str, objs)], capture_output=True, text=True)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                                f"{proc.stdout}{proc.stderr}")
-        log.write_text(proc.stdout + proc.stderr)
+        log.write_text("".join(reports))
         os.replace(tmp, lib)  # atomic: concurrent builds agree
     return lib, log.read_text() if log.exists() else ""
 
@@ -107,6 +149,19 @@ def library() -> ctypes.CDLL:
         lib.pctd_smem_bytes.restype = i32
         lib.pctd_error_string.argtypes = [i32]
         lib.pctd_error_string.restype = ctypes.c_char_p
+        tw = ctypes.POINTER(TrainWeightsC)
+        lib.pctd_train_fwd.argtypes = ([tw, i32, i32] + [ptr] * 9
+                                       + [ctypes.POINTER(TrainStashC), ptr])
+        lib.pctd_train_fwd.restype = i32
+        lib.pctd_train_bwd.argtypes = (
+            [tw, i32, i32] + [ptr] * 8
+            + [ctypes.POINTER(TrainStashC),
+               ctypes.POINTER(TrainCotangentsC), ptr])
+        lib.pctd_train_bwd.restype = i32
+        lib.pctd_train_wgrad.argtypes = [ctypes.POINTER(WgradTaskC), i32, ptr]
+        lib.pctd_train_wgrad.restype = i32
+        lib.pctd_train_smem_bytes.argtypes = [tw, i32, i32]
+        lib.pctd_train_smem_bytes.restype = i32
         _LIB.append(lib)
     return _LIB[0]
 
@@ -169,3 +224,58 @@ def launch(name: str, fw: FoldedWeights, dims: Dims, batch: int,
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.pctd_error_string(rc).decode()}")
+
+
+def _ptr(t) -> int:
+    """Device address of a tensor (0 for an empty one)."""
+    return t.data_ptr() if t.numel() else 0
+
+
+def _call(name: str, device: torch.device, *args) -> None:
+    lib = library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, name)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           f"{lib.pctd_error_string(rc).decode()}")
+
+
+def _train_rows(batch: int, device: torch.device) -> int:
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return rows_per_block(batch, sms)
+
+
+def train_weights(cw, d) -> TrainWeightsC:
+    return TrainWeightsC(*(_ptr(t) for t in cw), *d)
+
+
+def launch_train_fwd(cw, d, batch: int, tensors: Sequence[torch.Tensor],
+                     stash, rows: int = 0) -> None:
+    """Launch K1 (``pctd_train_fwd``); ``stash`` None skips the stash."""
+    device = tensors[0].device
+    st = None if stash is None else ctypes.byref(
+        TrainStashC(*(_ptr(t) for t in stash)))
+    _call("pctd_train_fwd", device, ctypes.byref(train_weights(cw, d)),
+          batch, rows or _train_rows(batch, device),
+          *(_ptr(t) for t in tensors), st)
+
+
+def launch_train_bwd(cw, d, batch: int, tensors: Sequence[torch.Tensor],
+                     stash, cot, rows: int = 0) -> None:
+    """Launch K2a (``pctd_train_bwd``)."""
+    device = tensors[0].device
+    _call("pctd_train_bwd", device, ctypes.byref(train_weights(cw, d)),
+          batch, rows or _train_rows(batch, device),
+          *(_ptr(t) for t in tensors),
+          ctypes.byref(TrainStashC(*(_ptr(t) for t in stash))),
+          ctypes.byref(TrainCotangentsC(*(_ptr(t) for t in cot))))
+
+
+def launch_wgrad(tasks) -> None:
+    """Launch K2b (``pctd_train_wgrad``) over ``WgradTask`` reductions."""
+    arr = (WgradTaskC * len(tasks))(*(
+        WgradTaskC(_ptr(t.X), _ptr(t.DY), _ptr(t.gW), _ptr(t.gb), t.N, t.I,
+                   t.O, t.n_in, t.x_o, t.x_i, t.y_o, t.y_i, 0, 0)
+        for t in tasks))
+    _call("pctd_train_wgrad", tasks[0].DY.device, arr, len(tasks))

@@ -23,6 +23,10 @@ names = [m.name for m in pkgutil.walk_packages(pctd_tpu_torch.__path__,
                                                "pctd_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+for name in ("data.loaders", "data.tensorize", "models.chord_decoder",
+             "ops.kernels.train_frame", "ops.losses", "train.optim",
+             "train.schedules", "train.trainer"):
+    assert "pctd_tpu_torch." + name in names, name
 import chip_smoke  # noqa: F401
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "pctd_tpu"))
@@ -34,8 +38,11 @@ from pctd_tpu_torch.models import disentangle_vae as dv
 from pctd_tpu_torch.models.sampler import Sampler
 assert not torch.cuda.is_available()
 params = dv.init_params(tiny_model_config(), seed=0, device="cpu")
+from pctd_tpu_torch.config import TrainConfig
+from pctd_tpu_torch.train.trainer import Trainer
 for call in (lambda: Sampler(params, tiny_model_config()),
-             lambda: dv.init_params(tiny_model_config())):
+             lambda: dv.init_params(tiny_model_config()),
+             lambda: Trainer(tiny_model_config(), TrainConfig(), None)):
     try:
         call()
     except RuntimeError as e:
@@ -55,7 +62,7 @@ def _run(args, **kw):
 def test_port_imports_without_jax_and_refuses_cpu_fallback():
     proc = _run(["-c", PROBE])
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.split()[-1]) >= 15
+    assert int(proc.stdout.split()[-1]) >= 28
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -99,9 +99,9 @@ def _flat(tree, prefix=""):
 
 
 def test_init_matches_jax_shapes_and_ranges():
-    """Same tree, shapes and uniform bounds as the JAX init of the served
-    modules (the chord decoder is training-only)."""
-    jp = _flat({k: v for k, v in jax_params().items() if k != "chd_dec"})
+    """Same tree, shapes and uniform bounds as the JAX init, the
+    training-only chord decoder included."""
+    jp = _flat(jax_params())
     tp = _flat(export_params(tdv.init_params(TINY, seed=3, device="cpu")))
     assert sorted(tp) == sorted(jp)
     for name, arr in tp.items():
