@@ -6,11 +6,13 @@ CUDA card.
 Builds the CUDA kernels from the sources in this checkout and holds each
 against its plain PyTorch version on the card: the decode kernels K3 and
 K4, the train-frame forward K1 and its backward K2 (K2a, the per-row chain,
-and K2b, the weight-gradient reduction). Then it serves the four
-latent-control workflows through ``Sampler(fixed_batch=128)`` and trains
-the model for a few steps through ``Trainer`` at B=128, both at the
-canonical model width (random weights from ``--seed``), and shows that each
-path went through its kernels. Prints one line per phase with its seconds,
+and K2b, the weight-gradient reduction), K1 and K2a in both their modes
+(CE fused in, and logits out). Then it serves the four latent-control
+workflows through ``Sampler(fixed_batch=128)`` and trains the model for a
+few steps through ``Trainer`` at B=128 in each loss mode
+(``ModelConfig.fused_loss`` True, then False), all at the canonical model
+width (random weights from ``--seed``), and shows that each path went
+through its kernels. Prints one line per phase with its seconds,
 a ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``. Exits nonzero, printing no result,
 without a CUDA card or when any phase fails. Imports nothing of JAX.
@@ -21,6 +23,7 @@ import argparse
 import contextlib
 import copy
 import ctypes
+import dataclasses
 import json
 import re
 import subprocess
@@ -51,7 +54,12 @@ STATE_ATOL = 1e-4      # K1 summary and note hiddens vs plain
 GRAD_TOL = 1e-4        # K2 grads vs autograd of plain: x (1 + max|plain|)
 LOSS_RTOL = 1e-5       # train step 1, kernels vs plain path on the card
 NORM_RTOL = 1e-4       # its gradient global norm
+MODES_RTOL = 1e-5      # step 1's metrics, logits out vs CE fused in
+CORE_TOL = 1e-4        # K1 logits out: logits, summary x (1 + max|plain|)
 TRAIN_STEPS = 6
+LOGITS_STEPS = 3       # train steps with logits out
+TURNS = 4              # timed train steps of each loss mode, in turns
+HOST_OPS = 8           # host ops listed by self time in a profiled step
 TRAIN_B = 128
 
 
@@ -188,29 +196,57 @@ def k2_grads(cw, spec, inp, g_nums, g_summ, plain: bool):
     return [w.grad for w in leaves] + [fh.grad, xe.grad]
 
 
+def core_inputs(inp):
+    """The logits-out frame's inputs of a :func:`frame_case` (no targets)."""
+    return {k: inp[k] for k in ("frame_h", "x_emb", "coins")}
+
+
+def core_decisions(pitch, dur):
+    """(B, K-1, 1+W) int32 [pitch argmax | dur bits] of logits."""
+    return torch.cat([pitch.argmax(-1, keepdim=True).to(torch.int32),
+                      (dur[..., 1] > dur[..., 0]).to(torch.int32)], -1)
+
+
+def core_grads(cw, spec, inp, cots, plain: bool):
+    """Gradients of the logits-out frame's outputs contracted with ``cots``
+    (d_pitch, d_dur, d_summ) with respect to the 24 weights, frame_h and
+    x_emb: through K1/K2 or autograd of the plain version."""
+    leaves = [w.clone().requires_grad_(True) for w in cw]
+    fh = inp["frame_h"].clone().requires_grad_(True)
+    xe = inp["x_emb"].clone().requires_grad_(True)
+    fn = tf.frame_core_plain if plain else tf.frame_core
+    out = fn(tf.CoreWeights(*leaves), spec, fh, xe, inp["coins"])
+    sum((o * g).sum() for o, g in zip(out[:3], cots)).backward()
+    return [w.grad for w in leaves] + [fh.grad, xe.grad]
+
+
 @contextlib.contextmanager
 def plain_frames():
     """Inside this context the decoder's teacher-forced frames run
-    ``frame_recon_plain`` on the card (autograd of it for gradients), for
-    the plain reference of a train step; the kernel route is restored on
-    exit."""
-    kernel_route = ptd.train_frame.frame_recon
+    ``frame_recon_plain`` and ``frame_core_plain`` on the card (autograd of
+    them for gradients), for the plain reference of a train step; the
+    kernel routes are restored on exit."""
+    kernel_routes = (ptd.train_frame.frame_recon, ptd.train_frame.frame_core)
 
     def plain(*args):
         out = tf.frame_recon_plain(*args)
         return out.nums, out.summary
 
     ptd.train_frame.frame_recon = plain
+    ptd.train_frame.frame_core = tf.frame_core_plain
     try:
         yield
     finally:
-        ptd.train_frame.frame_recon = kernel_route
+        ptd.train_frame.frame_recon, ptd.train_frame.frame_core = \
+            kernel_routes
 
 
-def train_frame_work(cw, spec, B: int):
-    """(FLOPs, bytes) of K1 (with its stash) and K2a for B rows of one frame:
-    their products (gates and selects are a few % more, not counted), each
-    weight read once, each input and output (stash, cotangents) once."""
+def train_frame_work(cw, spec, B: int, logits: bool = False):
+    """(FLOPs, bytes) of K1 (with its stash) and K2a for B rows of one frame,
+    in loss mode or with ``logits`` out: their products (gates and selects
+    are a few % more, not counted), each weight read once, each input and
+    output (stash, cotangents; targets or logits and their cotangents)
+    once."""
     d = tf.dims_of(cw, spec)
     S, W = d.K - 1, d.W
     slot = (d.E * 3 * d.NH + d.NH * 3 * d.NH + d.NH * d.P
@@ -225,6 +261,11 @@ def train_frame_work(cw, spec, B: int):
     k1_io = (d.TH + d.K * d.E + S * (1 + W)                  # inputs
              + (1 + W) + 2 * d.EH + 1 + S * (1 + W))          # outputs
     k2_io = stash + cots + d.TH + d.K * d.E + 2 * d.EH + S * (1 + W) + 1
+    if logits:      # no targets or numerators: logits out, their cotangents
+        k1_io = (d.TH + d.K * d.E
+                 + S * (d.P + 2 * W) + 2 * d.EH + 1 + S * (1 + W))
+        k2_io = (stash + cots + d.TH + d.K * d.E + 2 * d.EH
+                 + S * (d.P + 2 * W) + 1)
     return ((2.0 * k1_macs * B, 4.0 * (weights + (k1_io + stash) * B)),
             (2.0 * k2_macs * B, 4.0 * (weights + k2_io * B)))
 
@@ -242,14 +283,21 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return ((a - b).abs() / b.abs().clamp(min=1e-30)).max().item()
 
 
-def plain_backward_ms(cw, spec, inp, d_nums, d_summ, n: int) -> float:
+def plain_backward_ms(cw, spec, inp, cots, n: int,
+                      logits: bool = False) -> float:
     """Mean ms of the autograd backward of the plain frame version (K2's
-    plain version), CUDA events around each backward only."""
+    plain version) in loss mode, its outputs contracted with ``cots`` =
+    (d_nums, d_summ), or with ``logits`` out, (d_pitch, d_dur, d_summ); CUDA
+    events around each backward only."""
     total = 0.0
     for i in range(n + 1):
-        leaves = [w.clone().requires_grad_(True) for w in cw]
-        out = tf.frame_recon_plain(tf.CoreWeights(*leaves), spec, **inp)
-        loss = (out.nums * d_nums).sum() + (out.summary * d_summ).sum()
+        leaves = tf.CoreWeights(*(w.clone().requires_grad_(True)
+                                  for w in cw))
+        if logits:
+            out = tf.frame_core_plain(leaves, spec, **core_inputs(inp))[:3]
+        else:
+            out = tf.frame_recon_plain(leaves, spec, **inp)[:2]
+        loss = sum((o * g).sum() for o, g in zip(out, cots))
         torch.cuda.synchronize()
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
@@ -310,13 +358,19 @@ def profile_step(trainer) -> dict:
             busy += b - max(a, end)
             end = b
     ms = {k: v / 1e3 for k, v in groups.items()}
+    host = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
+                  reverse=True)[:HOST_OPS]
+    host_ms = {e.key: e.self_cpu_time_total / 1e3 for e in host}
     out = {"measured": True, "wall_ms": wall_us / 1e3,
            "device_busy_ms": busy / 1e3,
-           "idle_share": 1.0 - busy / wall_us, "kernel_ms": ms}
+           "idle_share": 1.0 - busy / wall_us, "kernel_ms": ms,
+           "host_self_ms_top": host_ms}
     print(f"  profiled step: {wall_us / 1e3:.2f} ms wall (profiler on), "
           f"device busy {busy / 1e3:.2f} ms, idle share "
           f"{out['idle_share']:.3f}; device ms by group "
           + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
+    print("  host self time by op (profiler on), top: "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in host_ms.items()))
     return out
 
 
@@ -521,6 +575,84 @@ def main() -> int:
               + ", ".join(f"{n} {e:.3g} ({r:.2f} of tol)" for r, n, e in top))
     phase("K2 vs autograd of plain", t0)
 
+    # 7b. K1 in logits-out mode vs its plain version
+    t0 = time.perf_counter()
+    k1l_err = 0.0
+    for wname, (p, _) in weight_sets.items():
+        for B in (128, 37):
+            cw, inp = frame_case(p, cfg, B, gen)
+            with torch.no_grad():
+                pitch, dur, summ, lens, decisions, _ = tf.frame_core_fwd(
+                    cw, spec, **core_inputs(inp), stash=False)
+                want = tf.frame_core_plain(cw, spec, **core_inputs(inp))
+            torch.cuda.synchronize()
+            plain_dec = core_decisions(want.pitch_logits, want.dur_logits)
+            bad = int((decisions != plain_dec).flatten(1).any(1).sum())
+            check(bad == 0, f"K1 logits out {wname} B={B}: decisions differ "
+                  f"from the plain version's on {bad} rows")
+            check(torch.equal(lens, want.lengths),
+                  f"K1 logits out {wname} B={B}: lengths differ")
+            check(torch.equal(core_decisions(pitch, dur), decisions),
+                  f"K1 logits out {wname} B={B}: the logits' argmaxes "
+                  "differ from the kernel's decisions")
+            errs = []
+            for name, a, b in (("pitch", pitch, want.pitch_logits),
+                               ("dur", dur, want.dur_logits),
+                               ("summary", summ, want.summary)):
+                err = (a - b).abs().max().item()
+                tol = CORE_TOL * (1.0 + b.abs().max().item())
+                check(err <= tol, f"K1 logits out {wname} B={B} {name}: "
+                      f"max|err| {err} > {tol}")
+                errs.append(f"{name} {err:.3g} ({err / tol:.2f} of tol)")
+                k1l_err = max(k1l_err, err)
+            hist = torch.bincount(lens.long(), minlength=16).tolist()
+            print(f"  K1 logits out {wname} B={B}: decisions and lengths "
+                  f"equal the plain version's on every row, and the "
+                  f"logits' argmaxes; max|err| " + ", ".join(errs)
+                  + f"; lengths {hist}")
+    phase("K1 logits out vs plain", t0)
+
+    # 7c. K2 in logits-out mode (K2a + K2b) vs autograd of the plain version
+    t0 = time.perf_counter()
+    k2al_err = k2bl_err = 0.0
+    K, P = spec.max_simu_note, spec.pitch_range
+    for wname, (p, _) in weight_sets.items():
+        B = 128
+        cw, inp = frame_case(p, cfg, B, gen)
+        with torch.no_grad():
+            rows = k1_rows(cw, spec, inp)[0]
+        if not rows.all():
+            print(f"  K2 logits out {wname}: K1 and plain decisions differ "
+                  f"on {int((~rows).sum())} of {B} rows; held on the others")
+        inp = {k: (v if k == "coins" else v[rows]) for k, v in inp.items()}
+        n = int(rows.sum())
+        cots = (torch.randn(n, K - 1, P, device=dev, generator=gen),
+                torch.randn(n, K - 1, spec.dur_width, 2, device=dev,
+                            generator=gen),
+                torch.randn(n, 2 * cfg.dec_emb_hidden, device=dev,
+                            generator=gen))
+        got = core_grads(cw, spec, inp, cots, plain=False)
+        want = core_grads(cw, spec, inp, cots, plain=True)
+        torch.cuda.synchronize()
+        names = list(tf.CoreWeights._fields) + ["d_frame_h", "d_x_emb"]
+        worst = []
+        for name, a, b in zip(names, got, want):
+            err = (a - b).abs().max().item()
+            tol = GRAD_TOL * (1.0 + b.abs().max().item())
+            check(err <= tol, f"K2 logits out {wname} {name}: max|err| "
+                  f"{err} > {tol}")
+            worst.append((err / tol, name, err))
+            if name.startswith("d_"):
+                k2al_err = max(k2al_err, err)
+            else:
+                k2bl_err = max(k2bl_err, err)
+        top = sorted(worst, reverse=True)[:3]
+        print(f"  K2 logits out {wname} B={n}: all 26 gradients within "
+              f"tolerance; closest to it: "
+              + ", ".join(f"{n_} {e:.3g} ({r:.2f} of tol)"
+                          for r, n_, e in top))
+    phase("K2 logits out vs autograd of plain", t0)
+
     # 8. serving: the main path, counted
     t0 = time.perf_counter()
     sampler = Sampler(params, cfg, fixed_batch=128, device=dev)
@@ -654,6 +786,90 @@ def main() -> int:
           f"ms, {TRAIN_B / step_ms * 1e3:.1f} segments/s")
     phase("training", t0)
 
+    # 9b. training with logits out (fused_loss=False): the main path of the
+    # frame kernels' logits-out mode, counted
+    t0 = time.perf_counter()
+    cfg_lo = dataclasses.replace(cfg, fused_loss=False)
+    lo_train_b, lo_val_b = make_loaders(*corpora, TRAIN_B, seed=args.seed)
+    lo_trainer = tr.Trainer(cfg_lo, tcfg, lo_train_b, lo_val_b, device=dev)
+    step_gen = lambda: torch.Generator(device=dev).manual_seed(tcfg.seed)
+    k1_before = tf.frame_core_fwd.launches
+    with plain_frames():
+        lo_ref_m, lo_ref_g = tr.loss_and_grads(
+            lo_trainer.params, cfg_lo, tcfg, 0, step_gen(), x, c, pr_mat)
+    check(tf.frame_core_fwd.launches == k1_before,
+          "the plain reference step launched K1")
+    lo_ref_m = {k: v.item() for k, v in lo_ref_m.items()}
+    lo_ref_norm = global_norm(lo_ref_g).item()
+    del lo_ref_g
+    # the same batch, noise and weights with the CE fused in
+    fused_m = tr.eval_metrics(lo_trainer.params, cfg, tcfg, 0, step_gen(),
+                              *lo_trainer._to_device(first))
+    fused_m = {k: v.item() for k, v in fused_m.items()}
+    counted = (tf.frame_fwd, tf.frame_bwd, tf.frame_core_fwd,
+               tf.frame_core_bwd, tf.weight_grads,
+               full_decoder.decode_grid_full, ar_decoder.frame_decode)
+    for f in counted:
+        f.launches = 0
+    lo_trainer.train_steps(LOGITS_STEPS)
+    lo_val = lo_trainer.eval_epoch()
+    torch.cuda.synchronize()
+    lo_launches = {"K1": tf.frame_core_fwd.launches,
+                   "K2a": tf.frame_core_bwd.launches,
+                   "K2b": tf.weight_grads.launches}
+    others = {f.__name__: f.launches for f in counted
+              if f not in (tf.frame_core_fwd, tf.frame_core_bwd,
+                           tf.weight_grads)}
+    n_val = len(lo_val_b)
+    print(f"  launches in {LOGITS_STEPS} train steps + {n_val} eval "
+          f"batch(es) with logits out: {lo_launches}; loss-mode and decode "
+          f"kernels {others}")
+    check(lo_launches == {"K1": T * (LOGITS_STEPS + n_val),
+                          "K2a": T * LOGITS_STEPS,
+                          "K2b": T * LOGITS_STEPS},
+          f"logits-out train launches {lo_launches}")
+    check(not any(others.values()),
+          f"the logits-out path launched another kernel: {others}")
+    for i, m in enumerate(lo_trainer.history):
+        print(f"  step {i + 1}: loss {m['loss']:.6f} recon "
+              f"{m['recon_loss']:.6f} kl {m['kl_loss']:.6f} chord "
+              f"{m['chord_loss']:.6f} grad norm "
+              f"{lo_trainer.grad_norms[i]:.6f} "
+              f"({lo_trainer.step_seconds[i] * 1e3:.1f} ms)")
+        check(all(np.isfinite(v) for v in m.values()), f"step {i + 1} {m}")
+    print(f"  val: loss {lo_val['loss']:.6f}")
+    check(all(np.isfinite(v) for v in lo_val.values()), f"val {lo_val}")
+    lo1 = lo_trainer.history[0]
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+    lo_loss_err = max(rel(lo1[k], lo_ref_m[k]) for k in dv.METRIC_NAMES)
+    lo_norm_err = rel(lo_trainer.grad_norms[0], lo_ref_norm)
+    modes_err = max(rel(lo1[k], fused_m[k]) for k in dv.METRIC_NAMES)
+    print(f"  step 1 vs the plain path on the card: loss {lo1['loss']!r} vs "
+          f"{lo_ref_m['loss']!r}; 11 metrics max rel err {lo_loss_err:.3g}; "
+          f"grad norm {lo_trainer.grad_norms[0]!r} vs {lo_ref_norm!r} (rel "
+          f"err {lo_norm_err:.3g})")
+    print(f"  step 1 vs the fused mode on the same batch, noise and weights: "
+          f"loss {lo1['loss']!r} vs {fused_m['loss']!r}, recon "
+          f"{lo1['recon_loss']!r} vs {fused_m['recon_loss']!r}; 11 metrics "
+          f"max rel err {modes_err:.3g}")
+    check(lo_loss_err <= LOSS_RTOL, f"logits-out step 1 metrics rel err "
+          f"{lo_loss_err}")
+    check(lo_norm_err <= NORM_RTOL, f"logits-out step 1 grad norm rel err "
+          f"{lo_norm_err}")
+    check(modes_err <= MODES_RTOL, f"logits-out vs fused step 1 metrics "
+          f"rel err {modes_err}")
+    lo_step_ms = float(np.median(lo_trainer.step_seconds[1:])) * 1e3
+    training_lo = {"step_ms_median_2_to_n": lo_step_ms,
+                   "segments_per_s": TRAIN_B / lo_step_ms * 1e3,
+                   "steps": LOGITS_STEPS, "batch": TRAIN_B,
+                   "step1_metric_rel_err": lo_loss_err,
+                   "step1_grad_norm_rel_err": lo_norm_err,
+                   "step1_vs_fused_rel_err": modes_err}
+    print(f"  logits-out train step (median of steps 2..{LOGITS_STEPS}): "
+          f"{lo_step_ms:.2f} ms, {TRAIN_B / lo_step_ms * 1e3:.1f} "
+          f"segments/s")
+    phase("training (logits out)", t0)
+
     # 10. timing
     t0 = time.perf_counter()
     timing = {}
@@ -709,25 +925,62 @@ def main() -> int:
         check(k2b_vs <= GRAD_TOL, f"K2b vs its plain version {k2b_vs}")
         with torch.no_grad():
             k1p = cuda_ms(lambda: tf.frame_recon_plain(cw, spec, **inp), 2)
-        k2p = plain_backward_ms(cw, spec, inp, d_nums, d_summ, 2)
+        k2p = plain_backward_ms(cw, spec, inp, (d_nums, d_summ), 2)
         (f1, b1), (f2a, b2a) = train_frame_work(cw, spec, B)
+        # logits-out mode: K1 with its stash, K2a on random logit cotangents
+        fwd_lo = lambda: tf.frame_core_fwd(cw, spec, **core_inputs(inp),
+                                           stash=True)
+        pitch, dur, _, lens_lo, _, st_lo = fwd_lo()
+        cots_lo = (torch.randn(pitch.shape, device=dev, generator=gen),
+                   torch.randn(dur.shape, device=dev, generator=gen), d_summ)
+        bwd_lo = lambda: tf.frame_core_bwd(cw, spec, inp["frame_h"],
+                                           inp["coins"], lens_lo, st_lo,
+                                           *cots_lo)
+        k1l = cuda_ms(fwd_lo, 10)
+        k2al = cuda_ms(bwd_lo, 10)
+        with torch.no_grad():
+            k1lp = cuda_ms(lambda: tf.frame_core_plain(
+                cw, spec, **core_inputs(inp)), 2)
+        k2lp = plain_backward_ms(cw, spec, inp, cots_lo, 2, logits=True)
+        (f1l, b1l), (f2al, b2al) = train_frame_work(cw, spec, B, logits=True)
         timing[B].update({
             "K1": (k1, k1p, *bound_ms(f1, b1)),
             "K2a": (k2a, k2p, *bound_ms(f2a, b2a)),
-            "K2b": (k2b, k2b_plain, *bound_ms(*wgrad_work(tasks[0])))})
+            "K2b": (k2b, k2b_plain, *bound_ms(*wgrad_work(tasks[0]))),
+            "K1 logits": (k1l, k1lp, *bound_ms(f1l, b1l)),
+            "K2a logits": (k2al, k2lp, *bound_ms(f2al, b2al))})
         print(f"  B={B}: K1 {k1:.3f} ms (plain {k1p:.3f}), K2a {k2a:.3f} ms "
               f"+ K2b {k2b:.3f} ms (plain K2, autograd backward, "
               f"{k2p:.3f}; plain K2b {k2b_plain:.3f}); K2b vs its plain "
               f"version: max|err| / (1 + max|plain|) {k2b_vs:.3g}")
-        for name in ("K1", "K2a", "K2b"):
+        print(f"  B={B}: logits out: K1 {k1l:.3f} ms (plain {k1lp:.3f}), K2a "
+              f"{k2al:.3f} ms (plain K2, autograd backward, {k2lp:.3f})")
+        for name in ("K1", "K2a", "K2b", "K1 logits", "K2a logits"):
             ms, pms, bms, by = timing[B][name]
             print(f"  B={B} {name} bound {bms:.4f} ms ({by}), "
                   f"{bms / ms:.3%} of it")
-        del st, ct, tasks, out
+        del st, ct, tasks, out, st_lo
     opt_ms = optimizer_ms(trainer, 5)
     print(f"  optimizer step (clip + Adam, all parameters): {opt_ms:.3f} ms")
     profile = profile_step(trainer)
     training.update({"optimizer_ms": opt_ms, "profile": profile})
+    print("  with logits out:")
+    training_lo["profile"] = profile_step(lo_trainer)
+    # the two loss modes' train steps in turns (host clock, each step ends
+    # in a host read of its metrics)
+    turns = {"fused": (trainer, []), "logits_out": (lo_trainer, [])}
+    streams = {k: t_.batches() for k, (t_, _) in turns.items()}
+    for _ in range(TURNS):
+        for name, (t_, ms) in turns.items():
+            t_.train_step(next(streams[name]))
+            ms.append(t_.step_seconds[-1] * 1e3)
+    in_turns = {k: float(np.median(ms)) for k, (_, ms) in turns.items()}
+    print(f"  train step in turns, median of {TURNS} each: "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in in_turns.items())
+          + "; steps " + "; ".join(
+              f"{k} " + " ".join(f"{v:.1f}" for v in ms)
+              for k, (_, ms) in turns.items()))
+    training_lo["step_ms_in_turns"] = in_turns
     phase("timing", t0)
 
     # 11. kernels
@@ -763,19 +1016,33 @@ def main() -> int:
              f"d_frame_h, d_x_emb max|err| <= {GRAD_TOL} x (1 + max|plain|)"
              " vs autograd of the plain version"),
             ("K2b", "K2b wgrad_kernel",
-             "pctd_tpu/ops/pallas/train_frame.py:736", k2b_err,
+             "pctd_tpu/ops/pallas/train_frame.py:736", max(k2b_err, k2bl_err),
              f"24 weight grads max|err| <= {GRAD_TOL} x (1 + max|plain|) "
-             "vs autograd of the plain version")):
+             "vs autograd of the plain version, in both modes"),
+            ("K1 logits", "K1 train_fwd_kernel (logits out)",
+             "pctd_tpu/ops/pallas/train_frame.py:289", k1l_err,
+             "decisions and lengths equal the plain version's on every row "
+             "and the logits' argmaxes; logits and summary max|err| <= "
+             f"{CORE_TOL} x (1 + max|plain|)"),
+            ("K2a logits", "K2a train_bwd_kernel (logits out)",
+             "pctd_tpu/ops/pallas/train_frame.py:736", k2al_err,
+             f"d_frame_h, d_x_emb max|err| <= {GRAD_TOL} x (1 + max|plain|)"
+             " vs autograd of the plain version")):
         ms, pms, bms, by = timing[128][key]
+        logits = key.endswith("logits")
         rows.append({"name": name, "route": "cuda", "source": tsrc,
-                     "replaces": fn, "launches": train_launches[key],
+                     "replaces": fn,
+                     "launches": (lo_launches[key.split()[0]] if logits
+                                  else train_launches[key]),
                      "max_abs_err": err, "tolerance": tol, "ms": ms,
                      "plain_ms": pms, "bound_ms": bms, "bound_by": by,
                      "library_ms": None, "batch": 128,
                      "ms_b512": timing[512][key][0],
                      "plain_ms_b512": timing[512][key][1]})
+        if key == "K2b":      # one K2b serves both modes
+            rows[-1]["launches_logits_out"] = lo_launches["K2b"]
     print(json.dumps({"serving": serving, "training": training,
-                      "card": card}))
+                      "training_logits_out": training_lo, "card": card}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}))

@@ -51,11 +51,14 @@ class ModelConfig:
     ``ModelConfig`` is kept (so configs round-trip between the packages);
     the port reads the widths, ``txt_encoder``, ``compute_dtype`` and
     ``fused_loss``. The port's loss always decodes frame by frame through
-    the train-frame kernel pair with the reconstruction CE fused in (the JAX
-    ``train_frame_kernel=True, fused_loss=True`` configuration), whatever
-    ``train_frame_kernel`` says; ``fused_loss=False`` (logits out) raises
-    ``NotImplementedError``. ``remat_frames`` and ``unroll_*`` are XLA
-    switches with no counterpart here."""
+    the train-frame kernel pair (the JAX ``train_frame_kernel=True``
+    configuration), whatever ``train_frame_kernel`` says: with
+    ``fused_loss=True`` the pair runs in loss mode, the reconstruction CE
+    fused in (``pianotree_decoder.decode_recon``); with ``fused_loss=False``
+    in logits-out mode, through the teacher-forced ``pianotree_decoder.
+    decode`` and ``disentangle_vae.run``, and ``recon_loss`` scores the
+    logits. ``remat_frames`` and ``unroll_*`` are XLA switches with no
+    counterpart here."""
 
     chd_z_dim: int = 256
     txt_z_dim: int = 256

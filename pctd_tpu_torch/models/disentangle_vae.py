@@ -1,7 +1,7 @@
 """DisentangleVAE (``pctd_tpu/models/disentangle_vae.py``): chord + texture
 encoders -> latents -> argmax PianoTree decode and the latent-control API
-behind the four workflows; and the training loss (ELBO + auxiliary chord
-loss, the 11 ``METRIC_NAMES``).
+behind the four workflows; the teacher-forced forward (``run``) and the
+training loss (ELBO + auxiliary chord loss, the 11 ``METRIC_NAMES``).
 
 - ``swap``             decode with posterior means from mixed sources
 - ``posterior_sample`` sample around the posterior, optional sigma scaling
@@ -191,22 +191,41 @@ def chord_loss(c: torch.Tensor, recon_root, recon_chroma, recon_bass):
     return root_l + chroma_l + bass_l, root_l, chroma_l, bass_l
 
 
+def run(params: dict, cfg: ModelConfig, x, c, pr_mat, noise: Noise):
+    """Teacher-forced forward pass (the JAX package's ``run``): x (B, 32,
+    K, 6) int grid, c (B, 8, 36), pr_mat (B, 32, 128). Returns
+    (:class:`~pctd_tpu_torch.models.pianotree_decoder.DecoderOutput`,
+    dist_chd, dist_rhy, recon_root, recon_chroma, recon_bass); the decode
+    runs frame by frame through the K1/K2 kernel pair in logits-out mode on
+    the card."""
+    x_emb, lengths, dist_chd, dist_rhy, z, recon_chd = forward_parts(
+        params, cfg, x, c, pr_mat, noise)
+    out = pt_dec.decode(params["dec"], cfg, z, x_emb, lengths, noise.coins1,
+                        noise.coins2)
+    return (out, dist_chd, dist_rhy, *recon_chd)
+
+
 def loss(params: dict, cfg: ModelConfig, x, c, pr_mat, noise: Noise,
          beta=0.1, weights=(1.0, 0.5), weighted_dur: bool = False
          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """ELBO + auxiliary chord loss: (total, the 11 metrics by
     ``METRIC_NAMES``). x (B, 32, K, 6) int grid, c (B, 8, 36), pr_mat
     (B, 32, 128). The decode runs frame by frame through the K1/K2 kernel
-    pair on the card (:func:`~pctd_tpu_torch.models.pianotree_decoder.decode_recon`)."""
-    if not cfg.fused_loss:
-        raise NotImplementedError(
-            "fused_loss=False (the logits-out frame kernel mode) is not "
-            "ported; see ROADMAP.md, Queue 2")
-    x_emb, lengths, dist_chd, dist_rhy, z, recon_chd = forward_parts(
-        params, cfg, x, c, pr_mat, noise)
-    recon, pl, dl = pt_dec.decode_recon(
-        params["dec"], cfg, z, x_emb, lengths, noise.coins1, noise.coins2,
-        x, weights, weighted_dur)
+    pair on the card: with ``cfg.fused_loss`` in loss mode, the CE fused in
+    (:func:`~pctd_tpu_torch.models.pianotree_decoder.decode_recon`), else
+    in logits-out mode through :func:`run`, scored by
+    :func:`~pctd_tpu_torch.models.pianotree_decoder.recon_loss`."""
+    if cfg.fused_loss:
+        x_emb, lengths, dist_chd, dist_rhy, z, recon_chd = forward_parts(
+            params, cfg, x, c, pr_mat, noise)
+        recon, pl, dl = pt_dec.decode_recon(
+            params["dec"], cfg, z, x_emb, lengths, noise.coins1,
+            noise.coins2, x, weights, weighted_dur)
+    else:
+        out, dist_chd, dist_rhy, *recon_chd = run(params, cfg, x, c, pr_mat,
+                                                  noise)
+        recon, pl, dl = pt_dec.recon_loss(x, out, cfg.pianotree, weights,
+                                          weighted_dur)
     kl_chd = kl_std_normal(dist_chd)
     kl_rhy = kl_std_normal(dist_rhy)
     kl = kl_chd + kl_rhy
@@ -286,6 +305,9 @@ class DisentangleVAE:
 
     def encode(self, pr_mat, c):
         return encode(self.params, self.cfg, pr_mat, c)
+
+    def run(self, x, c, pr_mat, noise: Noise):
+        return run(self.params, self.cfg, x, c, pr_mat, noise)
 
     def decode_z(self, z_chd, z_rhy, frame_decoder: str = "full"):
         return decode_z(self.params, self.cfg, z_chd, z_rhy, frame_decoder)

@@ -9,18 +9,24 @@ teacher-forced decode fused with the reconstruction CE that trains it.
 - duration level: 5-step binary-digit GRU (hid 64) with argmax feedback;
 - frame summary: masked bi-GRU over the predicted note embeddings.
 
-:func:`decode` is the nested-loop decode in plain ops (the JAX package's
-``fold_heads=True`` XLA path); :func:`decode_grid` is the serving entry,
-which runs each frame through the K3 kernel (``frame_decoder="frame"``) or
-the whole decode through the K4 kernel (``"full"``, the default).
-:func:`decode_recon` is the training decode: the time GRU in tensor ops
-between frames and each frame through the K1/K2 kernel pair
+:func:`decode` without ground truth is the nested-loop argmax decode in
+plain ops (the JAX package's ``fold_heads=True`` XLA path); given the
+ground truth it is the teacher-forced decode with logits out: the time GRU
+in tensor ops between frames and each frame through the K1/K2 kernel pair
+in logits-out mode
+(:func:`~pctd_tpu_torch.ops.kernels.train_frame.frame_core`), whose
+logits :func:`recon_loss` scores (``fused_loss=False``).
+:func:`decode_grid` is the serving entry, which runs each frame through the
+K3 kernel (``frame_decoder="frame"``) or the whole decode through the K4
+kernel (``"full"``, the default). :func:`decode_recon` is the training
+decode with the loss fused in (``fused_loss=True``): the same time level,
+each frame through the K1/K2 pair in loss mode
 (:func:`~pctd_tpu_torch.ops.kernels.train_frame.frame_recon`), which emits
-the CE numerators; :func:`recon_loss` is the same loss from logits.
+the CE numerators.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -232,9 +238,20 @@ def decode_inputs(p: dict, cfg: ModelConfig, z: torch.Tensor
                         sos_emb.expand(B, -1).contiguous())
 
 
-def decode(p: dict, cfg: ModelConfig, z: torch.Tensor) -> DecoderOutput:
-    """Argmax-feedback decode in plain ops, returning the logits (the JAX
-    package's ``decode(..., fold_heads=True)`` in inference mode)."""
+def decode(p: dict, cfg: ModelConfig, z: torch.Tensor,
+           x_emb: Optional[torch.Tensor] = None,
+           lengths: Optional[torch.Tensor] = None,
+           coins1: Optional[torch.Tensor] = None,
+           coins2: Optional[torch.Tensor] = None) -> DecoderOutput:
+    """The decode of ``z`` (B, z_dim) to logits, as the JAX package's
+    ``decode``. Without ``x_emb``: argmax-feedback decode in plain ops (its
+    inference mode with ``fold_heads=True``). Teacher-forced: pass x_emb
+    (B, T, K, E) and lengths (B, T) from :func:`emb_x`, coins1 (T,) and
+    coins2 (T, K) bool (see :func:`decode_recon`); each frame runs
+    :func:`~pctd_tpu_torch.ops.kernels.train_frame.frame_core` (its
+    ``train_frame_kernel=True`` configuration)."""
+    if x_emb is not None:
+        return _decode_teacher(p, cfg, z, x_emb, lengths, coins1, coins2)
     spec = cfg.pianotree
     folds = fold_inference_heads(p, cfg)
     h, gi_z, token, sos_emb = decode_inputs(p, cfg, z)
@@ -309,6 +326,50 @@ def _weigh(pitch_loss, per_bit, dur_num_den, weights, weighted_dur):
             dur_loss)
 
 
+def _teacher_forced(p: dict, cfg: ModelConfig, z: torch.Tensor,
+                    x_emb: torch.Tensor, lengths: torch.Tensor,
+                    coins1: torch.Tensor, frame: Callable) -> List:
+    """The time level of the teacher-forced decode: the time GRU in tensor
+    ops, frame t decoded by ``frame(t, h)`` -> (predicted summary, out);
+    where coins1[t] the ground-truth frame summary is the next time token,
+    else the predicted one. Returns the T outs."""
+    spec = cfg.pianotree
+    B = z.shape[0]
+    T, K = spec.num_step, spec.max_simu_note
+    h = dense_apply(p["z2hid"], z)
+    z_in = dense_apply(p["z2in"], z)
+    x_summary = bigru_last_masked(
+        p["emb_fwd"], p["emb_bwd"], x_emb.reshape(B * T, K, -1),
+        lengths.reshape(B * T)).reshape(B, T, -1)
+    tg = p["time_gru"]
+    token = p["init_input"].expand(B, -1)
+    tok_dim = token.shape[-1]
+    w_tok = tg.w_ih[:tok_dim]
+    gi_z = z_in @ tg.w_ih[tok_dim:] + tg.b_ih
+    outs = []
+    for t in range(T):
+        h = gru_cell_pre(tg, gi_z + token @ w_tok, h)
+        summary, out = frame(t, h)
+        token = torch.where(coins1[t], x_summary[:, t], summary)
+        outs.append(out)
+    return outs
+
+
+def _decode_teacher(p: dict, cfg: ModelConfig, z, x_emb, lengths, coins1,
+                    coins2) -> DecoderOutput:
+    """Teacher-forced decode with logits out (see :func:`decode`)."""
+    spec = cfg.pianotree
+    cw = train_frame.core_weights(p, cfg)
+
+    def frame(t, h):
+        out = train_frame.frame_core(cw, spec, h, x_emb[:, t], coins2[t, 1:])
+        return out.summary, (out.pitch_logits, out.dur_logits)
+
+    outs = _teacher_forced(p, cfg, z, x_emb, lengths, coins1, frame)
+    return DecoderOutput(torch.stack([o[0] for o in outs], 1),
+                         torch.stack([o[1] for o in outs], 1))
+
+
 def decode_recon(p: dict, cfg: ModelConfig, z: torch.Tensor,
                  x_emb: torch.Tensor, lengths: torch.Tensor,
                  coins1: torch.Tensor, coins2: torch.Tensor,
@@ -324,29 +385,21 @@ def decode_recon(p: dict, cfg: ModelConfig, z: torch.Tensor,
     returns its CE numerators, summed over frames; the denominators are the
     targets' mask counts."""
     spec = cfg.pianotree
-    B = z.shape[0]
-    T, K, W = spec.num_step, spec.max_simu_note, spec.dur_width
-    h = dense_apply(p["z2hid"], z)
-    z_in = dense_apply(p["z2in"], z)
-    x_summary = bigru_last_masked(
-        p["emb_fwd"], p["emb_bwd"], x_emb.reshape(B * T, K, -1),
-        lengths.reshape(B * T)).reshape(B, T, -1)
-    tg = p["time_gru"]
-    token = p["init_input"].expand(B, -1)
-    tok_dim = token.shape[-1]
-    w_tok = tg.w_ih[:tok_dim]
-    gi_z = z_in @ tg.w_ih[tok_dim:] + tg.b_ih
+    W = spec.dur_width
     cw = train_frame.core_weights(p, cfg)
     gt_pitch = x[:, :, 1:, 0].to(torch.int32)
     gt_dur = x[:, :, 1:, 1:].to(torch.int32)
-    nums = None
-    for t in range(T):
-        h = gru_cell_pre(tg, gi_z + token @ w_tok, h)
+
+    def frame(t, h):
         nums_t, summary = train_frame.frame_recon(
             cw, spec, h, x_emb[:, t], coins2[t, 1:], gt_pitch[:, t],
             gt_dur[:, t])
-        token = torch.where(coins1[t], x_summary[:, t], summary)
-        nums = nums_t if nums is None else nums + nums_t
+        return summary, nums_t
+
+    outs = _teacher_forced(p, cfg, z, x_emb, lengths, coins1, frame)
+    nums = outs[0]
+    for nums_t in outs[1:]:
+        nums = nums + nums_t
     den_p = (gt_pitch != spec.pitch_pad).sum()
     den_d = (gt_dur != spec.dur_pad).sum(dim=(0, 1, 2))          # (W,)
     pitch_loss = nums[0] / den_p.clamp(min=1)
@@ -359,9 +412,9 @@ def recon_loss(x: torch.Tensor, out: DecoderOutput, spec: PianoTreeSpec,
                weights=(1.0, 0.5), weighted_dur: bool = False):
     """Pitch + duration reconstruction loss from logits: CE over grid slots
     1..K-1 with pad targets ignored. Returns (loss, pitch_loss,
-    dur_loss). The training path does not call it (:func:`decode_recon`
-    fuses the CE into the frame kernel); it is the plain oracle that the
-    tests hold the fused loss and the JAX ``recon_loss`` against."""
+    dur_loss). The loss with ``fused_loss=False`` scores the teacher-forced
+    :func:`decode`'s logits with it; with ``fused_loss=True``
+    :func:`decode_recon` fuses the same CE into the frame kernel."""
     gt_pitch = x[:, :, 1:, 0]
     gt_dur = x[:, :, 1:, 1:]
     pitch_loss = cross_entropy_ignore(out.pitch_logits, gt_pitch,

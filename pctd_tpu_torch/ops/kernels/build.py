@@ -153,11 +153,19 @@ def library() -> ctypes.CDLL:
         lib.pctd_train_fwd.argtypes = ([tw, i32, i32] + [ptr] * 9
                                        + [ctypes.POINTER(TrainStashC), ptr])
         lib.pctd_train_fwd.restype = i32
+        lib.pctd_train_fwd_logits.argtypes = (
+            [tw, i32, i32] + [ptr] * 8 + [ctypes.POINTER(TrainStashC), ptr])
+        lib.pctd_train_fwd_logits.restype = i32
         lib.pctd_train_bwd.argtypes = (
             [tw, i32, i32] + [ptr] * 8
             + [ctypes.POINTER(TrainStashC),
                ctypes.POINTER(TrainCotangentsC), ptr])
         lib.pctd_train_bwd.restype = i32
+        lib.pctd_train_bwd_logits.argtypes = (
+            [tw, i32, i32] + [ptr] * 7
+            + [ctypes.POINTER(TrainStashC),
+               ctypes.POINTER(TrainCotangentsC), ptr])
+        lib.pctd_train_bwd_logits.restype = i32
         lib.pctd_train_wgrad.argtypes = [ctypes.POINTER(WgradTaskC), i32, ptr]
         lib.pctd_train_wgrad.restype = i32
         lib.pctd_train_smem_bytes.argtypes = [tw, i32, i32]
@@ -251,21 +259,26 @@ def train_weights(cw, d) -> TrainWeightsC:
 
 
 def launch_train_fwd(cw, d, batch: int, tensors: Sequence[torch.Tensor],
-                     stash, rows: int = 0) -> None:
-    """Launch K1 (``pctd_train_fwd``); ``stash`` None skips the stash."""
+                     stash, rows: int = 0, logits: bool = False) -> None:
+    """Launch K1 in loss mode (``pctd_train_fwd``) or, with ``logits``, in
+    logits-out mode (``pctd_train_fwd_logits``); ``stash`` None skips the
+    stash."""
     device = tensors[0].device
     st = None if stash is None else ctypes.byref(
         TrainStashC(*(_ptr(t) for t in stash)))
-    _call("pctd_train_fwd", device, ctypes.byref(train_weights(cw, d)),
+    name = "pctd_train_fwd_logits" if logits else "pctd_train_fwd"
+    _call(name, device, ctypes.byref(train_weights(cw, d)),
           batch, rows or _train_rows(batch, device),
           *(_ptr(t) for t in tensors), st)
 
 
 def launch_train_bwd(cw, d, batch: int, tensors: Sequence[torch.Tensor],
-                     stash, cot, rows: int = 0) -> None:
-    """Launch K2a (``pctd_train_bwd``)."""
+                     stash, cot, rows: int = 0, logits: bool = False) -> None:
+    """Launch K2a in loss mode (``pctd_train_bwd``) or, with ``logits``, in
+    logits-out mode (``pctd_train_bwd_logits``)."""
     device = tensors[0].device
-    _call("pctd_train_bwd", device, ctypes.byref(train_weights(cw, d)),
+    name = "pctd_train_bwd_logits" if logits else "pctd_train_bwd"
+    _call(name, device, ctypes.byref(train_weights(cw, d)),
           batch, rows or _train_rows(batch, device),
           *(_ptr(t) for t in tensors),
           ctypes.byref(TrainStashC(*(_ptr(t) for t in stash))),

@@ -2,19 +2,25 @@
 // f32 on CUDA cores.
 //
 // train_fwd_kernel (K1) replaces pctd_tpu/ops/pallas/train_frame.py::
-//   _fwd_kernel in loss mode: one frame's 15 note-GRU slots (pitch head and
-//   argmax, 5-step duration GRU with argmax feedback, predicted-note
-//   embedding, teacher-coin token select), the masked bi-GRU summary of the
-//   predicted notes, and the masked-CE numerators. On the gradient path it
+//   _fwd_kernel: one frame's 15 note-GRU slots (pitch head and argmax,
+//   5-step duration GRU with argmax feedback, predicted-note embedding,
+//   teacher-coin token select) and the masked bi-GRU summary of the
+//   predicted notes. In loss mode it ends in the masked-CE numerators; in
+//   logits-out mode (the JAX package's frame_core) it writes the pitch and
+//   duration logits instead and reads no target. On the gradient path it
 //   writes every activation the backward reads (TrainStash).
 // train_bwd_kernel (K2a) and wgrad_kernel (K2b) replace _bwd_kernel, the
 //   hand-written VJP: K2a runs each row's reverse chain (summary bi-GRU,
-//   the CE cotangents in place, duration chain and heads, note-GRU reverse
+//   the logit cotangents, duration chain and heads, note-GRU reverse
 //   recurrence, embedding / token routes) and writes the per-sample gate
 //   cotangents; K2b reduces them against the stash into the 24 weight
-//   gradients, X^T dY over rows, slots and duration steps.
-// Plain PyTorch version: frame_recon_plain in train_frame.py beside this
-// file (autograd of it for K2).
+//   gradients, X^T dY over rows, slots and duration steps. In loss mode
+//   K2a computes the logit cotangents in place from the targets; in
+//   logits-out mode it reads them (d_pitch, d_dur), already masked by the
+//   caller's loss. K2b is the same in both modes.
+// Plain PyTorch versions: frame_recon_plain (loss mode) and
+// frame_core_plain (logits out) in train_frame.py beside this file
+// (autograd of them for K2).
 //
 // What bounds them on this card: like the serving kernels (decoder.cu),
 // K1 and K2a are chains of small dependent matrix-vector products, ~45
@@ -217,9 +223,14 @@ train_fwd_kernel(TrainWeights w, int B, const int* __restrict__ coins,
                  const float* __restrict__ x_emb,
                  const int* __restrict__ gt_pitch,
                  const int* __restrict__ gt_dur,
-                 float* __restrict__ nums_rows, float* __restrict__ summary,
+                 float* __restrict__ nums_rows,
+                 float* __restrict__ pitch_logits,
+                 float* __restrict__ dur_logits, float* __restrict__ summary,
                  int* __restrict__ lengths, int* __restrict__ decisions,
-                 TrainStash st, int stash) {
+                 TrainStash st, int stash, int logits) {
+  // loss mode (logits == 0): gt_pitch, gt_dur -> nums_rows (B, 1+W);
+  // logits out: pitch_logits (B, K-1, P) and dur_logits (B, K-1, W, 2),
+  // batch-major, and the targets are not read.
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const FwdLayout L = fwd_layout(w, R);
@@ -331,12 +342,12 @@ train_fwd_kernel(TrainWeights w, int B, const int* __restrict__ coins,
         if (ob > best || (ob == best && oi < bi)) { best = ob; bi = oi; }
       }
       bi = __shfl_sync(0xffffffffu, bi, 0);
-      const float lse = warp_lse(y, P, lane);
+      const float lse = logits ? 0.0f : warp_lse(y, P, lane);
       if (lane == 0) {
         if (bi >= P) bi = 0;
         pitch[warp * S + k - 1] = bi;
         if (bi == w.eos && len[warp] == 0) len[warp] = k;
-        if (warp < nrows) {
+        if (!logits && warp < nrows) {
           const int gt = gt_pitch[(size_t)(row0 + warp) * S + k - 1];
           if (gt != w.pitch_pad) nll[warp * 8] += lse - y[gt];
         }
@@ -346,6 +357,13 @@ train_fwd_kernel(TrainWeights w, int B, const int* __restrict__ coins,
       for (int idx = t; idx < nrows * P; idx += NT) {
         const int r = idx / P, j = idx - r * P;
         st.est[srow(k - 1, r) * P + j] = hx[r * L.lHX + NH + j];
+      }
+    }
+    if (logits) {
+      for (int idx = t; idx < nrows * P; idx += NT) {
+        const int r = idx / P, j = idx - r * P;
+        pitch_logits[((size_t)(row0 + r) * S + k - 1) * P + j] =
+            hx[r * L.lHX + NH + j];
       }
     }
     // dur-hidden init from [h | pitch logits], then its hidden gates
@@ -405,8 +423,17 @@ train_fwd_kernel(TrainWeights w, int B, const int* __restrict__ coins,
         const int bit = l1 > l0 ? 1 : 0;
         bits[(t * S + k - 1) * W + ws] = bit;
         if (t < nrows) {
-          const int gt = gt_dur[((size_t)(row0 + t) * S + k - 1) * W + ws];
-          if (gt != w.dur_pad) nll[t * 8 + 1 + ws] += lse2(l0, l1) - lg[t * 4 + gt];
+          if (logits) {
+            float* o = dur_logits +
+                       (((size_t)(row0 + t) * S + k - 1) * W + ws) * 2;
+            o[0] = l0;
+            o[1] = l1;
+          } else {
+            const int gt =
+                gt_dur[((size_t)(row0 + t) * S + k - 1) * W + ws];
+            if (gt != w.dur_pad)
+              nll[t * 8 + 1 + ws] += lse2(l0, l1) - lg[t * 4 + gt];
+          }
           if (stash) {
             float* dl = st.dlog + (srow(k - 1, t) * W + ws) * 2;
             dl[0] = l0;
@@ -492,7 +519,7 @@ train_fwd_kernel(TrainWeights w, int B, const int* __restrict__ coins,
     const int r = idx / (2 * EH), j = idx - r * 2 * EH;
     summary[(size_t)(row0 + r) * 2 * EH + j] = hs[r * L.lHS + j];
   }
-  for (int idx = t; idx < nrows * (1 + W); idx += NT) {
+  for (int idx = t; !logits && idx < nrows * (1 + W); idx += NT) {
     const int r = idx / (1 + W), q = idx - r * (1 + W);
     nums_rows[(size_t)(row0 + r) * (1 + W) + q] = nll[r * 8 + q];
   }
@@ -565,9 +592,15 @@ train_bwd_kernel(TrainWeights w, int B, const int* __restrict__ coins,
                  const int* __restrict__ gt_dur,
                  const int* __restrict__ lengths,
                  const float* __restrict__ d_nums,
+                 const float* __restrict__ d_pitch,
+                 const float* __restrict__ d_dur,
                  const float* __restrict__ d_summ,
                  float* __restrict__ d_frame_h, float* __restrict__ d_x_emb,
-                 TrainStash st, TrainCotangents ct) {
+                 TrainStash st, TrainCotangents ct, int logits) {
+  // loss mode (logits == 0): the logit cotangents are g * mask * (softmax -
+  // onehot) from gt_pitch, gt_dur and d_nums; logits out: they are read
+  // from d_pitch (B, K-1, P) and d_dur (B, K-1, W, 2), and the targets and
+  // d_nums are not read.
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const BwdLayout L = bwd_layout(w, R);
@@ -590,7 +623,7 @@ train_bwd_kernel(TrainWeights w, int B, const int* __restrict__ coins,
 
   if (t < R) len[t] = t < nrows ? lengths[row0 + t] : 0;
   if (t >= 1 && t < K) coin[t] = coins[t - 1];
-  if (t < 1 + W) g[t] = d_nums[t];
+  if (t < 1 + W) g[t] = logits ? 0.0f : d_nums[t];
   for (int idx = t; idx < R * 2 * EH; idx += NT) {
     const int r = idx / (2 * EH), j = idx - r * 2 * EH;
     dsum[r * L.lHS + j] =
@@ -662,8 +695,16 @@ train_bwd_kernel(TrainWeights w, int B, const int* __restrict__ coins,
   }
   __syncthreads();
   for (int k = K - 1; k >= 1; --k) {
-    // pitch CE cotangent g0 * mask * (softmax - onehot), warp r
-    if (warp < R) {
+    // pitch-logit cotangent: given (logits out), or the CE's
+    // g0 * mask * (softmax - onehot), warp r (loss mode)
+    if (logits) {
+      for (int idx = t; idx < R * P; idx += NT) {
+        const int r = idx / P, j = idx - r * P;
+        dest[r * L.lP + j] =
+            r < nrows ? d_pitch[((size_t)(row0 + r) * S + k - 1) * P + j]
+                      : 0.0f;
+      }
+    } else if (warp < R) {
       const int r = warp, rr = r < nrows ? r : 0;
       const float* est = st.est + srow(k - 1, rr) * P;
       const int gt = r < nrows ? gt_pitch[(size_t)(row0 + r) * S + k - 1]
@@ -683,14 +724,24 @@ train_bwd_kernel(TrainWeights w, int B, const int* __restrict__ coins,
     for (int ws = W - 1; ws >= 0; --ws) {
       if (t < R) {
         const int r = t, rr = r < nrows ? r : 0;
-        const float* lg = st.dlog + (srow(k - 1, rr) * W + ws) * 2;
-        const int gt = r < nrows
-                           ? gt_dur[((size_t)(row0 + r) * S + k - 1) * W + ws]
-                           : w.dur_pad;
-        const float lse = lse2(lg[0], lg[1]);
-        const float gm = gt != w.dur_pad ? g[1 + ws] : 0.0f;
-        const float d0 = gm * (expf(lg[0] - lse) - (gt == 0 ? 1.0f : 0.0f));
-        const float d1 = gm * (expf(lg[1] - lse) - (gt == 1 ? 1.0f : 0.0f));
+        float d0 = 0.0f, d1 = 0.0f;
+        if (logits) {
+          const float* dd =
+              d_dur + (((size_t)(row0 + rr) * S + k - 1) * W + ws) * 2;
+          if (r < nrows) {
+            d0 = dd[0];
+            d1 = dd[1];
+          }
+        } else {
+          const float* lg = st.dlog + (srow(k - 1, rr) * W + ws) * 2;
+          const int gt =
+              r < nrows ? gt_dur[((size_t)(row0 + r) * S + k - 1) * W + ws]
+                        : w.dur_pad;
+          const float lse = lse2(lg[0], lg[1]);
+          const float gm = gt != w.dur_pad ? g[1 + ws] : 0.0f;
+          d0 = gm * (expf(lg[0] - lse) - (gt == 0 ? 1.0f : 0.0f));
+          d1 = gm * (expf(lg[1] - lse) - (gt == 1 ? 1.0f : 0.0f));
+        }
         dl[r * 4] = d0;
         dl[r * 4 + 1] = d1;
         if (r < nrows) {
@@ -881,22 +932,14 @@ cudaError_t prepare_train(Kern kern, size_t bytes) {
                               (int)bytes);
 }
 
-}  // namespace
-
-extern "C" {
-
-int pctd_train_smem_bytes(const TrainWeights* w, int rows_per_block,
-                          int backward) {
-  return (int)(backward ? bwd_smem_bytes(*w, rows_per_block)
-                        : fwd_smem_bytes(*w, rows_per_block));
-}
-
-int pctd_train_fwd(const TrainWeights* w, int B, int rows_per_block,
-                   const int* coins, const float* frame_h, const float* x_emb,
-                   const int* gt_pitch, const int* gt_dur, float* nums_rows,
-                   float* summary, int* lengths, int* decisions,
-                   const TrainStash* stash, void* stream) {
-  const int R = rows_per_block;
+// K1 in either mode (see train_fwd_kernel).
+cudaError_t train_fwd(const TrainWeights* w, int B, int R, const int* coins,
+                      const float* frame_h, const float* x_emb,
+                      const int* gt_pitch, const int* gt_dur,
+                      float* nums_rows, float* pitch_logits,
+                      float* dur_logits, float* summary, int* lengths,
+                      int* decisions, const TrainStash* stash, int logits,
+                      void* stream) {
   if (B <= 0 || !(R == 1 || R == 2 || R == 4)) return cudaErrorInvalidValue;
   const size_t bytes = fwd_smem_bytes(*w, R);
   const dim3 grid((B + R - 1) / R);
@@ -909,8 +952,9 @@ int pctd_train_fwd(const TrainWeights* w, int B, int rows_per_block,
   e = prepare_train(train_fwd_kernel<RR>, bytes);                            \
   if (e == cudaSuccess)                                                      \
     train_fwd_kernel<RR><<<grid, NT, bytes, s>>>(                            \
-        *w, B, coins, frame_h, x_emb, gt_pitch, gt_dur, nums_rows, summary,  \
-        lengths, decisions, st, on);
+        *w, B, coins, frame_h, x_emb, gt_pitch, gt_dur, nums_rows,           \
+        pitch_logits, dur_logits, summary, lengths, decisions, st, on,       \
+        logits);
   switch (R) {
     case 1: PCTD_FWD(1) break;
     case 2: PCTD_FWD(2) break;
@@ -921,13 +965,14 @@ int pctd_train_fwd(const TrainWeights* w, int B, int rows_per_block,
   return cudaGetLastError();
 }
 
-int pctd_train_bwd(const TrainWeights* w, int B, int rows_per_block,
-                   const int* coins, const int* gt_pitch, const int* gt_dur,
-                   const int* lengths, const float* d_nums,
-                   const float* d_summ, float* d_frame_h, float* d_x_emb,
-                   const TrainStash* stash, const TrainCotangents* cot,
-                   void* stream) {
-  const int R = rows_per_block;
+// K2a in either mode (see train_bwd_kernel).
+cudaError_t train_bwd(const TrainWeights* w, int B, int R, const int* coins,
+                      const int* gt_pitch, const int* gt_dur,
+                      const int* lengths, const float* d_nums,
+                      const float* d_pitch, const float* d_dur,
+                      const float* d_summ, float* d_frame_h, float* d_x_emb,
+                      const TrainStash* stash, const TrainCotangents* cot,
+                      int logits, void* stream) {
   if (B <= 0 || !(R == 1 || R == 2 || R == 4) || !stash || !cot)
     return cudaErrorInvalidValue;
   const size_t bytes = bwd_smem_bytes(*w, R);
@@ -938,8 +983,8 @@ int pctd_train_bwd(const TrainWeights* w, int B, int rows_per_block,
   e = prepare_train(train_bwd_kernel<RR>, bytes);                            \
   if (e == cudaSuccess)                                                      \
     train_bwd_kernel<RR><<<grid, NT, bytes, s>>>(                            \
-        *w, B, coins, gt_pitch, gt_dur, lengths, d_nums, d_summ, d_frame_h,  \
-        d_x_emb, *stash, *cot);
+        *w, B, coins, gt_pitch, gt_dur, lengths, d_nums, d_pitch, d_dur,     \
+        d_summ, d_frame_h, d_x_emb, *stash, *cot, logits);
   switch (R) {
     case 1: PCTD_BWD(1) break;
     case 2: PCTD_BWD(2) break;
@@ -948,6 +993,63 @@ int pctd_train_bwd(const TrainWeights* w, int B, int rows_per_block,
 #undef PCTD_BWD
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+int pctd_train_smem_bytes(const TrainWeights* w, int rows_per_block,
+                          int backward) {
+  return (int)(backward ? bwd_smem_bytes(*w, rows_per_block)
+                        : fwd_smem_bytes(*w, rows_per_block));
+}
+
+// K1, loss mode: CE numerators per row.
+int pctd_train_fwd(const TrainWeights* w, int B, int rows_per_block,
+                   const int* coins, const float* frame_h, const float* x_emb,
+                   const int* gt_pitch, const int* gt_dur, float* nums_rows,
+                   float* summary, int* lengths, int* decisions,
+                   const TrainStash* stash, void* stream) {
+  return train_fwd(w, B, rows_per_block, coins, frame_h, x_emb, gt_pitch,
+                   gt_dur, nums_rows, nullptr, nullptr, summary, lengths,
+                   decisions, stash, 0, stream);
+}
+
+// K1, logits out.
+int pctd_train_fwd_logits(const TrainWeights* w, int B, int rows_per_block,
+                          const int* coins, const float* frame_h,
+                          const float* x_emb, float* pitch_logits,
+                          float* dur_logits, float* summary, int* lengths,
+                          int* decisions, const TrainStash* stash,
+                          void* stream) {
+  return train_fwd(w, B, rows_per_block, coins, frame_h, x_emb, nullptr,
+                   nullptr, nullptr, pitch_logits, dur_logits, summary,
+                   lengths, decisions, stash, 1, stream);
+}
+
+// K2a, loss mode: the CE cotangents from the targets and d_nums.
+int pctd_train_bwd(const TrainWeights* w, int B, int rows_per_block,
+                   const int* coins, const int* gt_pitch, const int* gt_dur,
+                   const int* lengths, const float* d_nums,
+                   const float* d_summ, float* d_frame_h, float* d_x_emb,
+                   const TrainStash* stash, const TrainCotangents* cot,
+                   void* stream) {
+  return train_bwd(w, B, rows_per_block, coins, gt_pitch, gt_dur, lengths,
+                   d_nums, nullptr, nullptr, d_summ, d_frame_h, d_x_emb,
+                   stash, cot, 0, stream);
+}
+
+// K2a, logits out: the logit cotangents d_pitch and d_dur given.
+int pctd_train_bwd_logits(const TrainWeights* w, int B, int rows_per_block,
+                          const int* coins, const int* lengths,
+                          const float* d_pitch, const float* d_dur,
+                          const float* d_summ, float* d_frame_h,
+                          float* d_x_emb, const TrainStash* stash,
+                          const TrainCotangents* cot, void* stream) {
+  return train_bwd(w, B, rows_per_block, coins, nullptr, nullptr, lengths,
+                   nullptr, d_pitch, d_dur, d_summ, d_frame_h, d_x_emb,
+                   stash, cot, 1, stream);
 }
 
 int pctd_train_wgrad(const WgradTask* tasks, int n_tasks, void* stream) {

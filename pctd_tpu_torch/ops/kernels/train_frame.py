@@ -1,30 +1,37 @@
-"""K1 + K2: one frame's teacher-forced PianoTree decode fused with the
-reconstruction cross-entropy (K1), and its hand-written backward (K2).
+"""K1 + K2: one frame's teacher-forced PianoTree decode (K1), and its
+hand-written backward (K2), in two modes.
 
 Replaces the Pallas kernels ``pctd_tpu/ops/pallas/train_frame.py``:
-``_fwd_kernel`` (K1, launched by ``_fwd_call`` in loss mode) and
-``_bwd_kernel`` (K2, ``_bwd_call``), the pair behind the JAX package's
-``frame_recon_partials``. The CUDA source is ``csrc/train_frame.cu``:
+``_fwd_kernel`` (K1, launched by ``_fwd_call``) and ``_bwd_kernel`` (K2,
+``_bwd_call``). In loss mode (the JAX package's ``frame_recon_partials``)
+the reconstruction cross-entropy is fused in and the frame emits its
+masked-CE numerators; in logits-out mode (the JAX package's ``frame_core``)
+it emits the pitch and duration logits, and the backward takes their
+cotangents from the caller's loss. The CUDA source is
+``csrc/train_frame.cu``:
 
 - ``train_fwd_kernel`` (K1): per batch row, the 15 note-GRU slots with the
   pitch head and argmax, the 5-step duration GRU with argmax feedback, the
   predicted-note embedding and the teacher-coin token select, the masked
-  bi-GRU summary of the predicted notes, and the masked-CE numerators.
-  On the gradient path it also writes every activation the backward needs
-  (the stash, :class:`Stash`), so K2 recomputes nothing and replays no
-  argmax.
+  bi-GRU summary of the predicted notes, and the masked-CE numerators
+  (loss mode) or the logits (logits out). On the gradient path it also
+  writes every activation the backward needs (the stash, :class:`Stash`),
+  so K2 recomputes nothing and replays no argmax.
 - ``train_bwd_kernel`` (K2a): per batch row, the reverse chain: summary
-  bi-GRU backward, each slot's CE cotangents and duration-chain + head
+  bi-GRU backward, each slot's logit cotangents (computed from the targets
+  in loss mode, given in logits-out mode) and duration-chain + head
   backward, the note-GRU reverse recurrence, the embedding and token
   routes. It writes the per-sample gate cotangents (:class:`Cotangents`),
   ``d_frame_h`` and ``d_x_emb``.
 - ``wgrad_kernel`` (K2b): the 24 weight gradients as ``X^T . dY``
   reductions of stash against cotangents over rows, slots and duration
   steps, tiled in shared memory and summed in a fixed order (no atomics).
+  The same in both modes.
 
-:func:`frame_recon_plain` is the plain PyTorch version of K1 in the
-kernel's grouping; autograd of it is K2's plain version. The argmax
-decisions and the teacher coins carry no gradient.
+:func:`frame_recon_plain` (loss mode) and :func:`frame_core_plain` (logits
+out) are the plain PyTorch versions of K1 in the kernel's grouping;
+autograd of them is K2's plain version. The argmax decisions and the
+teacher coins carry no gradient.
 """
 from __future__ import annotations
 
@@ -97,18 +104,20 @@ class FrameOut(NamedTuple):
     bits: torch.Tensor      # (B, K-1, W) int32 duration bits
 
 
-def frame_recon_plain(cw: CoreWeights, spec: PianoTreeSpec,
-                      frame_h: torch.Tensor, x_emb: torch.Tensor,
-                      coins: torch.Tensor, gt_pitch: torch.Tensor,
-                      gt_dur: torch.Tensor) -> FrameOut:
-    """Plain PyTorch version of K1, in the kernel's grouping
-    (``_run_forward``, ``_summary_fwd`` and ``_ce_nll_sum`` of the JAX
-    kernel): one frame's teacher-forced decode and its CE numerators.
+class CoreOut(NamedTuple):
+    pitch_logits: torch.Tensor  # (B, K-1, P)
+    dur_logits: torch.Tensor    # (B, K-1, W, 2)
+    summary: torch.Tensor       # (B, 2EH) predicted-frame summary
+    lengths: torch.Tensor       # (B,) int32 eos lengths
 
-    frame_h (B, TH) time hidden; x_emb (B, K, E) ground-truth note
-    embeddings (x_emb[:, 0] is the sos token); coins (K-1,) teacher flags of
-    slots 1..K-1; gt_pitch (B, K-1) and gt_dur (B, K-1, W) integer targets.
-    """
+
+def _frame_plain(cw: CoreWeights, spec: PianoTreeSpec,
+                 frame_h: torch.Tensor, x_emb: torch.Tensor,
+                 coins: torch.Tensor):
+    """One frame's teacher-forced decode in K1's grouping (``_run_forward``
+    and ``_summary_fwd`` of the JAX kernel). Returns (pitch logits
+    (B, K-1, P), dur logits (B, K-1, W, 2), summary, lengths, hs, pitch
+    argmaxes (B, K-1), dur bits (B, K-1, W))."""
     K, W, P = spec.max_simu_note, spec.dur_width, spec.pitch_range
     B = frame_h.shape[0]
     gi_d_sos = cw.dur_sos @ cw.w_dih + cw.b_dih
@@ -157,13 +166,39 @@ def frame_recon_plain(cw: CoreWeights, spec: PianoTreeSpec,
     fwd = GRUParams(cw.we_ih[0], cw.we_hh[0], cw.be_ih[0], cw.be_hh[0])
     bwd = GRUParams(cw.we_ih[1], cw.we_hh[1], cw.be_ih[1], cw.be_hh[1])
     summary = bigru_last_masked(fwd, bwd, torch.stack(pred, 1), lengths)
-    est_all = torch.stack(ests, 1)                       # (B, K-1, P)
-    dur_all = torch.stack(dur_logits, 1)                 # (B, K-1, W, 2)
+    return (torch.stack(ests, 1), torch.stack(dur_logits, 1), summary,
+            lengths, torch.stack(hs), torch.stack(pitches, 1),
+            torch.stack(all_bits, 1))
+
+
+def frame_recon_plain(cw: CoreWeights, spec: PianoTreeSpec,
+                      frame_h: torch.Tensor, x_emb: torch.Tensor,
+                      coins: torch.Tensor, gt_pitch: torch.Tensor,
+                      gt_dur: torch.Tensor) -> FrameOut:
+    """Plain PyTorch version of K1 in loss mode, in the kernel's grouping
+    (``_run_forward``, ``_summary_fwd`` and ``_ce_nll_sum`` of the JAX
+    kernel): one frame's teacher-forced decode and its CE numerators.
+
+    frame_h (B, TH) time hidden; x_emb (B, K, E) ground-truth note
+    embeddings (x_emb[:, 0] is the sos token); coins (K-1,) teacher flags of
+    slots 1..K-1; gt_pitch (B, K-1) and gt_dur (B, K-1, W) integer targets.
+    """
+    est_all, dur_all, summary, lengths, hs, pitch, bits = _frame_plain(
+        cw, spec, frame_h, x_emb, coins)
     nums = [masked_ce_parts(est_all, gt_pitch, spec.pitch_pad)[0]]
     nums += [masked_ce_parts(dur_all[:, :, w], gt_dur[..., w],
-                             spec.dur_pad)[0] for w in range(W)]
-    return FrameOut(torch.stack(nums), summary, lengths, torch.stack(hs),
-                    torch.stack(pitches, 1), torch.stack(all_bits, 1))
+                             spec.dur_pad)[0] for w in range(spec.dur_width)]
+    return FrameOut(torch.stack(nums), summary, lengths, hs, pitch, bits)
+
+
+def frame_core_plain(cw: CoreWeights, spec: PianoTreeSpec,
+                     frame_h: torch.Tensor, x_emb: torch.Tensor,
+                     coins: torch.Tensor) -> CoreOut:
+    """Plain PyTorch version of K1 in logits-out mode (the JAX package's
+    ``frame_core``): one frame's teacher-forced decode, returning the pitch
+    and duration logits, the predicted-frame summary and the lengths.
+    Arguments as in :func:`frame_recon_plain`."""
+    return CoreOut(*_frame_plain(cw, spec, frame_h, x_emb, coins)[:4])
 
 
 class Stash(NamedTuple):
@@ -480,3 +515,110 @@ def frame_recon(cw: CoreWeights, spec: PianoTreeSpec, frame_h: torch.Tensor,
         coins.to(i32).contiguous(), gt_pitch.to(i32).contiguous(),
         gt_dur.to(i32).contiguous(), *(w.contiguous() for w in cw))
     return nums, summary
+
+
+def frame_core_fwd(cw: CoreWeights, spec: PianoTreeSpec, frame_h, x_emb,
+                   coins, stash: bool):
+    """K1 wrapper in logits-out mode (CUDA tensors only): launches
+    ``train_fwd_kernel`` with no targets. Returns (pitch logits (B, K-1, P),
+    dur logits (B, K-1, W, 2), summary (B, 2EH), lengths (B,) i32, decisions
+    (B, K-1, 1+W) i32 [pitch | bits], the :class:`Stash` or None). Counts its
+    launches in ``frame_core_fwd.launches``."""
+    from pctd_tpu_torch.ops.kernels import build
+
+    d = dims_of(cw, spec)
+    B, dev, i32 = frame_h.shape[0], frame_h.device, torch.int32
+    S = d.K - 1
+    _check(cw, d, dev, B, [
+        ("frame_h", frame_h, (B, d.TH), torch.float32),
+        ("x_emb", x_emb, (B, d.K, d.E), torch.float32),
+        ("coins", coins, (S,), i32)])
+    pitch = _empty(dev, B, S, d.P)
+    dur = _empty(dev, B, S, d.W, 2)
+    summary = _empty(dev, B, 2 * d.EH)
+    lengths = torch.empty(B, dtype=i32, device=dev)
+    decisions = torch.empty((B, S, 1 + d.W), dtype=i32, device=dev)
+    st = new_stash(d, B, dev) if stash else None
+    build.launch_train_fwd(cw, d, B, [coins, frame_h, x_emb, pitch, dur,
+                                      summary, lengths, decisions], st,
+                           logits=True)
+    frame_core_fwd.launches += 1
+    return pitch, dur, summary, lengths, decisions, st
+
+
+frame_core_fwd.launches = 0
+
+
+def frame_core_bwd(cw: CoreWeights, spec: PianoTreeSpec, frame_h, coins,
+                   lengths, st: Stash, d_pitch, d_dur, d_summ):
+    """K2a wrapper in logits-out mode: launches ``train_bwd_kernel`` on the
+    logit cotangents d_pitch (B, K-1, P) and d_dur (B, K-1, W, 2). Returns
+    (d_frame_h, d_x_emb, :class:`Cotangents`). Counts launches in
+    ``frame_core_bwd.launches``."""
+    from pctd_tpu_torch.ops.kernels import build
+
+    d = dims_of(cw, spec)
+    B, dev = frame_h.shape[0], frame_h.device
+    S = d.K - 1
+    _check(cw, d, dev, B, [
+        ("d_pitch", d_pitch, (B, S, d.P), torch.float32),
+        ("d_dur", d_dur, (B, S, d.W, 2), torch.float32),
+        ("d_summ", d_summ, (B, 2 * d.EH), torch.float32)])
+    ct = new_cotangents(d, B, dev)
+    d_frame_h = _empty(dev, B, d.TH)
+    d_x_emb = _empty(dev, B, d.K, d.E)
+    build.launch_train_bwd(cw, d, B, [coins, lengths, d_pitch, d_dur, d_summ,
+                                      d_frame_h, d_x_emb], st, ct,
+                           logits=True)
+    frame_core_bwd.launches += 1
+    return d_frame_h, d_x_emb, ct
+
+
+frame_core_bwd.launches = 0
+
+
+class FrameCore(torch.autograd.Function):
+    """K1 forward and K2 (K2a + K2b) backward in logits-out mode, on CUDA
+    tensors."""
+
+    @staticmethod
+    def forward(ctx, spec, stash, frame_h, x_emb, coins, *weights):
+        cw = CoreWeights(*weights)
+        pitch, dur, summary, lengths, _, st = frame_core_fwd(
+            cw, spec, frame_h, x_emb, coins, stash)
+        ctx.spec = spec
+        ctx.mark_non_differentiable(lengths)
+        if stash:
+            ctx.save_for_backward(frame_h, coins, lengths, *st, *weights)
+        return pitch, dur, summary, lengths
+
+    @staticmethod
+    def backward(ctx, d_pitch, d_dur, d_summ, _d_lengths):
+        saved = ctx.saved_tensors
+        if not saved:
+            raise RuntimeError("FrameCore ran without its stash; call "
+                               "frame_core with gradients enabled")
+        frame_h, coins, lengths = saved[:3]
+        n = len(Stash._fields)
+        st = Stash(*saved[3:3 + n])
+        cw = CoreWeights(*saved[3 + n:])
+        d_frame_h, d_x_emb, ct = frame_core_bwd(
+            cw, ctx.spec, frame_h, coins, lengths, st, d_pitch.contiguous(),
+            d_dur.contiguous(), d_summ.contiguous())
+        grads = weight_grads(cw, ctx.spec, frame_h, st, ct)
+        return (None, None, d_frame_h, d_x_emb, None, *grads)
+
+
+def frame_core(cw: CoreWeights, spec: PianoTreeSpec, frame_h: torch.Tensor,
+               x_emb: torch.Tensor, coins: torch.Tensor) -> CoreOut:
+    """One frame's teacher-forced decode with logits out: :class:`CoreOut`.
+    CUDA tensors go through K1 (and K2 for gradients); CPU tensors take
+    :func:`frame_core_plain` under autograd. Arguments as in
+    :func:`frame_recon_plain`."""
+    if frame_h.device.type == "cpu":
+        return frame_core_plain(cw, spec, frame_h, x_emb, coins)
+    stash = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (frame_h, x_emb, *cw))
+    return CoreOut(*FrameCore.apply(
+        spec, stash, frame_h.contiguous(), x_emb.contiguous(),
+        coins.to(torch.int32).contiguous(), *(w.contiguous() for w in cw)))

@@ -2,11 +2,13 @@
 (``pctd_tpu/train/trainer.py``).
 
 A train step is: raw uint8 segments -> on-device tensorize -> the
-DisentangleVAE loss (its decode through the K1/K2 kernel pair on the card)
--> backward -> global-norm clip + Adam at the scheduled learning rate. The
-schedules are evaluated at the step count; the latent noise and the teacher
-coins come from one ``torch.Generator`` seeded from ``TrainConfig.seed``.
-Checkpoints, metric writers and the training CLI are not ported yet.
+DisentangleVAE loss (its decode through the K1/K2 kernel pair on the card,
+in the loss mode that ``ModelConfig.fused_loss`` names) -> backward ->
+global-norm clip + Adam at the scheduled learning rate. The schedules are
+evaluated at the step count; the latent noise and the teacher coins come
+from one ``torch.Generator`` seeded from ``TrainConfig.seed``. Eval draws
+from a generator of its own (:data:`EVAL_SEED`). Checkpoints, metric
+writers and the training CLI are not ported yet.
 """
 from __future__ import annotations
 
@@ -22,6 +24,10 @@ from pctd_tpu_torch.models import disentangle_vae as dv
 from pctd_tpu_torch.train import schedules
 from pctd_tpu_torch.train.optim import Adam
 from pctd_tpu_torch.utils.device import resolve_device
+
+#: the constant that keeps eval noise apart from the train stream (the JAX
+#: trainer's ``fold_in(key, 0x5EED)``)
+EVAL_SEED = 0x5EED
 
 
 def batch_features(pr, chord, shift, mcfg: ModelConfig):
@@ -156,15 +162,24 @@ class Trainer:
         return [self.train_step(next(it)) for _ in range(n)]
 
     def train_epoch(self) -> Dict[str, float]:
-        """One pass over the train batches; the mean of its metrics."""
+        """One pass over the train batches; the mean of its metrics (0.0
+        each when the loader yields no batch, as in the JAX trainer)."""
         rows = [self.train_step(b) for b in self.train_batches.epoch()]
+        if not rows:
+            return {k: 0.0 for k in dv.METRIC_NAMES}
         return _mean(rows)
+
+    def eval_generator(self) -> torch.Generator:
+        """The generator of an eval at the current step: seeded from the run
+        seed, :data:`EVAL_SEED` and the step count, so it never repeats the
+        train stream (seeded with the run seed alone)."""
+        return torch.Generator(device=self.device).manual_seed(
+            self.tcfg.seed + EVAL_SEED * (1 + self.step_count))
 
     def eval_epoch(self) -> Dict[str, float]:
         """Mean metrics over the val batches (inf when there are none, so an
         empty split never looks best)."""
-        gen = torch.Generator(device=self.device).manual_seed(
-            self.tcfg.seed + self.step_count)
+        gen = self.eval_generator()
         rows = []
         for batch in self.val_batches.epoch():
             m = eval_metrics(self.params, self.mcfg, self.tcfg,

@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions on a CUDA card: the
 decode kernels K3/K4, and the train-frame pair K1 (forward) and K2
-(backward, against autograd of the plain forward).
+(backward, against autograd of the plain forward) in loss mode and in
+logits-out mode.
 
 Skipped without a card. The card's machine has no JAX, so this file imports
 only torch and pctd_tpu_torch, and runs there without the JAX test conftest:
@@ -197,3 +198,93 @@ def test_train_bwd_kernel_matches_autograd(cuda, width, B):
     for name, a, b in zip(names, got, want):
         tol = 1e-4 * (1.0 + b.abs().max().item())
         assert (a - b).abs().max().item() <= tol, name
+
+
+# --- logits-out mode: K1 (logits out) and K2 (given logit cotangents) ------
+
+def _core_inputs(inp):
+    return {k: inp[k] for k in ("frame_h", "x_emb", "coins")}
+
+
+@pytest.mark.parametrize("width", ["tiny", "canonical"])
+@pytest.mark.parametrize("B", [37, 128])
+@pytest.mark.parametrize("eos_bias", [None, 0.1])
+def test_train_fwd_kernel_logits_out_matches_plain(cuda, width, B, eos_bias):
+    cfg = tiny_model_config() if width == "tiny" else ModelConfig()
+    spec = cfg.pianotree
+    dec, inp = _frame_case(cfg, cuda, B, seed=B + 1, eos_bias=eos_bias)
+    cw = train_frame.core_weights(dec, cfg)
+    before = train_frame.frame_core_fwd.launches
+    with torch.no_grad():
+        pitch, dur, summ, lens, decisions, st = train_frame.frame_core_fwd(
+            cw, spec, **_core_inputs(inp), stash=False)
+        want = train_frame.frame_core_plain(cw, spec, **_core_inputs(inp))
+    assert train_frame.frame_core_fwd.launches == before + 1
+    assert st is None
+    plain_dec = torch.cat([
+        want.pitch_logits.argmax(-1, keepdim=True).to(torch.int32),
+        (want.dur_logits[..., 1] > want.dur_logits[..., 0]).to(torch.int32)],
+        -1)
+    assert torch.equal(decisions, plain_dec)
+    assert torch.equal(lens, want.lengths)
+    assert torch.equal(pitch.argmax(-1).to(torch.int32), decisions[..., 0])
+    assert torch.equal((dur[..., 1] > dur[..., 0]).to(torch.int32),
+                       decisions[..., 1:])
+    for a, b in ((pitch, want.pitch_logits), (dur, want.dur_logits),
+                 (summ, want.summary)):
+        assert (a - b).abs().max().item() <= 1e-4 * (
+            1.0 + b.abs().max().item())
+
+
+@pytest.mark.parametrize("width", ["tiny", "canonical"])
+@pytest.mark.parametrize("B", [5, 128])
+def test_train_bwd_kernel_logits_out_matches_autograd(cuda, width, B):
+    cfg = tiny_model_config() if width == "tiny" else ModelConfig()
+    spec = cfg.pianotree
+    K, W, P = spec.max_simu_note, spec.dur_width, spec.pitch_range
+    dec, inp = _frame_case(cfg, cuda, B, seed=11 + B, eos_bias=0.1)
+    with torch.no_grad():
+        rows, _, _ = _agreeing_rows(train_frame.core_weights(dec, cfg), spec,
+                                    inp)
+    assert rows.any()
+    inp = {k: (v[rows] if k != "coins" else v) for k, v in inp.items()}
+    B = int(rows.sum())
+    g = torch.Generator(device=cuda).manual_seed(5)
+    g_pitch = torch.randn(B, K - 1, P, device=cuda, generator=g)
+    g_dur = torch.randn(B, K - 1, W, 2, device=cuda, generator=g)
+    g_summ = torch.randn(B, 2 * cfg.dec_emb_hidden, device=cuda, generator=g)
+
+    def grads(plain):
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in train_frame.core_weights(dec, cfg)]
+        cw = train_frame.CoreWeights(*leaves)
+        fh = inp["frame_h"].clone().requires_grad_(True)
+        xe = inp["x_emb"].clone().requires_grad_(True)
+        fn = (train_frame.frame_core_plain if plain
+              else train_frame.frame_core)
+        out = fn(cw, spec, fh, xe, inp["coins"])
+        ((out.pitch_logits * g_pitch).sum() + (out.dur_logits * g_dur).sum()
+         + (out.summary * g_summ).sum()).backward()
+        return [t.grad for t in leaves] + [fh.grad, xe.grad]
+
+    k2a, k2b = train_frame.frame_core_bwd.launches, \
+        train_frame.weight_grads.launches
+    got = grads(plain=False)
+    assert train_frame.frame_core_bwd.launches == k2a + 1
+    assert train_frame.weight_grads.launches == k2b + 1
+    want = grads(plain=True)
+    names = list(train_frame.CoreWeights._fields) + ["frame_h", "x_emb"]
+    for name, a, b in zip(names, got, want):
+        tol = 1e-4 * (1.0 + b.abs().max().item())
+        assert (a - b).abs().max().item() <= tol, name
+
+
+def test_frame_core_backward_needs_its_stash(cuda):
+    cfg = tiny_model_config()
+    dec, inp = _frame_case(cfg, cuda, 4, seed=1)
+    leaves = [w.detach().clone().requires_grad_(True)
+              for w in train_frame.core_weights(dec, cfg)]
+    out = train_frame.FrameCore.apply(cfg.pianotree, False, inp["frame_h"],
+                                      inp["x_emb"], inp["coins"], *leaves)
+    with pytest.raises(RuntimeError, match="stash"):
+        out[2].sum().backward()

@@ -24,6 +24,7 @@ names = [m.name for m in pkgutil.walk_packages(pctd_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 for name in ("data.loaders", "data.tensorize", "models.chord_decoder",
+             "models.disentangle_vae", "models.pianotree_decoder",
              "ops.kernels.train_frame", "ops.losses", "train.optim",
              "train.schedules", "train.trainer"):
     assert "pctd_tpu_torch." + name in names, name
@@ -49,6 +50,17 @@ for call in (lambda: Sampler(params, tiny_model_config()),
         assert "CUDA" in str(e), e
     else:
         raise AssertionError("ran without a card and without device='cpu'")
+# the logits-out training path runs on the CPU with jax refused
+import numpy as np
+from pctd_tpu_torch.data.loaders import SegmentCorpus, make_loaders
+pr = np.zeros((2, 32, 128), np.uint8)
+pr[:, ::4, 60:64] = 2
+chord = np.zeros((2, 8, 14), np.float32)
+train_b, _ = make_loaders(SegmentCorpus(pr, chord), SegmentCorpus(pr, chord),
+                          batch_size=2)
+run = Trainer(tiny_model_config(fused_loss=False), TrainConfig(batch_size=2),
+              train_b, device="cpu", params=params)
+assert np.isfinite(run.train_steps(1)[0]["loss"])
 print("modules", len(names))
 """
 

@@ -1,11 +1,13 @@
 """The port's Trainer on the CPU at tiny width: a step runs and moves every
 parameter, the updated tree carries back to the JAX layouts bit-exactly,
-and gradient accumulation averages its microbatches."""
+gradient accumulation averages its microbatches, an empty epoch reports
+zeros and eval draws its noise apart from the train stream."""
 import numpy as np
 import torch
 
 from pctd_tpu_torch import config as tcfg
-from pctd_tpu_torch.data.loaders import SegmentCorpus, make_loaders
+from pctd_tpu_torch.data.loaders import SegmentBatches, SegmentCorpus, \
+    make_loaders
 from pctd_tpu_torch.models import disentangle_vae as tdv
 from pctd_tpu_torch.train import trainer
 from pctd_tpu_torch.utils.weights import export_params, params_from_jax
@@ -69,3 +71,35 @@ def test_accumulation_averages_microbatches():
             / 2, rtol=1e-6)
     for a, b, c_ in zip(g2, parts[0][1], parts[1][1]):
         torch.testing.assert_close(a, (b + c_) / 2, rtol=1e-5, atol=1e-7)
+
+
+def test_empty_train_epoch_reports_zeros():
+    """A loader that yields no batch gives 0.0 for every metric, as the JAX
+    trainer's train_epoch does, and takes no step."""
+    empty = SegmentBatches(SegmentCorpus(*raw_segments(1, seed=5)),
+                           batch_size=16)
+    assert len(empty) == 0
+    run = trainer.Trainer(TINY, tcfg.TrainConfig(batch_size=16), empty,
+                          device="cpu", params=params_from_jax(
+                              jax_params(seed=2), "cpu"))
+    assert run.train_epoch() == {k: 0.0 for k in tdv.METRIC_NAMES}
+    assert run.step_count == 0 and run.history == []
+
+
+def test_eval_noise_is_apart_from_the_train_stream():
+    """At step 0 the eval generator draws other latent noise and coins than
+    the train step would; and an eval at a later step draws others again."""
+    run = trainer.Trainer(TINY, tcfg.TrainConfig(batch_size=2), None,
+                          device="cpu", params=tdv.init_params(
+                              TINY, seed=4, device="cpu"))
+    draw = lambda gen: tdv.draw_noise(gen, TINY, 2, 0.5, 0.5, 0.5)
+    train = draw(torch.Generator().set_state(run.gen.get_state()))
+    eval0 = draw(run.eval_generator())
+    assert torch.equal(draw(run.eval_generator()).eps_chd, eval0.eps_chd)
+    for a, b in ((train.eps_chd, eval0.eps_chd),
+                 (train.eps_rhy, eval0.eps_rhy)):
+        assert not torch.equal(a, b)
+    coins = lambda n: torch.cat([n.coins1, n.coins2.flatten(), n.coins3])
+    assert not torch.equal(coins(train), coins(eval0))
+    run.step_count = 1
+    assert not torch.equal(draw(run.eval_generator()).eps_chd, eval0.eps_chd)

@@ -1,7 +1,7 @@
 """The port's training path against the JAX package at tiny width on the
 CPU: the whole-VAE loss and its 11 metrics (against the JAX loss through the
-Pallas frame kernels in interpret mode and through the XLA path), the
-eval step (the parameter gradients are in
+Pallas frame kernels in interpret mode and through the XLA path, in both
+loss modes), the eval step (the parameter gradients are in
 ``test_torch_port_training_grads.py``, the Trainer in
 ``test_torch_port_trainer.py``). The noise and teacher coins are
 the JAX key splits' draws, handed to the port as inputs."""
@@ -74,13 +74,25 @@ def _named(tree, prefix=""):
     return {prefix: tree}
 
 
-def test_fused_loss_off_is_refused():
-    params = port_params(jax_params())
-    x, c, pr_mat = (torch.from_numpy(a) for a in _case())
-    noise = tdv.draw_noise(torch.Generator().manual_seed(0), TINY, B, *TFR)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdv.loss(params, dataclasses.replace(TINY, fused_loss=False), x, c,
-                 pr_mat, noise)
+@pytest.mark.parametrize("fused_loss", [True, False])
+def test_loss_matches_jax_in_both_modes(case, fused_loss):
+    """Loss mode (CE fused into the frame kernels) and logits out (the
+    frame kernels' logits scored by recon_loss) each equal the JAX loss in
+    the same mode, through its Pallas frame kernels in interpret mode."""
+    jp, x, c, pr_mat, key, noise, _, _ = case
+    total, metrics = tdv.loss(
+        port_params(jp), dataclasses.replace(TINY, fused_loss=fused_loss),
+        torch.from_numpy(x), torch.from_numpy(c), torch.from_numpy(pr_mat),
+        tdv.Noise(*(torch.from_numpy(a) for a in noise)), beta=BETA)
+    cfg = dataclasses.replace(JAX_TINY, train_frame_kernel=True,
+                              fused_loss=fused_loss)
+    jtotal, jmetrics = jdv.loss(jp, cfg, key, x, c, pr_mat, None, *TFR,
+                                beta=BETA)
+    np.testing.assert_allclose(total.item(), float(jtotal), rtol=1e-5)
+    for name in tdv.METRIC_NAMES:
+        np.testing.assert_allclose(metrics[name].item(),
+                                   float(jmetrics[name]), rtol=1e-5,
+                                   err_msg=name)
 
 
 @pytest.mark.parametrize("fixed", [False, True])
