@@ -7,12 +7,14 @@ Builds the CUDA kernels from the sources in this checkout and holds each
 against its plain PyTorch version on the card: the decode kernels K3 and
 K4, the train-frame forward K1 and its backward K2 (K2a, the per-row chain,
 and K2b, the weight-gradient reduction), K1 and K2a in both their modes
-(CE fused in, and logits out). Then it serves the four latent-control
-workflows through ``Sampler(fixed_batch=128)`` and trains the model for a
-few steps through ``Trainer`` at B=128 in each loss mode
-(``ModelConfig.fused_loss`` True, then False), all at the canonical model
-width (random weights from ``--seed``), and shows that each path went
-through its kernels. Prints one line per phase with its seconds,
+(CE fused in, and logits out), and K1, K2a and K2b in both storage types
+(float32 and bfloat16). Then it serves the four latent-control workflows
+through ``Sampler(fixed_batch=128)`` and trains the model for a few steps
+through ``Trainer`` at B=128 in each loss mode (``ModelConfig.fused_loss``
+True, then False), in float32 and then with ``compute_dtype="bfloat16"``,
+all at the canonical model width (random weights from ``--seed``), and
+shows that each path went through its kernels (in bf16, with bf16 tensors
+at every launch). Prints one line per phase with its seconds,
 a ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``. Exits nonzero, printing no result,
 without a CUDA card or when any phase fails. Imports nothing of JAX.
@@ -20,6 +22,7 @@ without a CUDA card or when any phase fails. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import copy
 import ctypes
@@ -43,8 +46,10 @@ from pctd_tpu_torch.ops.kernels import train_frame as tf
 from pctd_tpu_torch.train import trainer as tr
 from pctd_tpu_torch.train.optim import global_norm
 
-#: H100 SXM peaks (NVIDIA data sheet): f32 on CUDA cores, HBM3 bandwidth
+#: H100 SXM peaks (NVIDIA data sheet): f32 on CUDA cores, dense bf16 on the
+#: tensor cores, HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 AGREE = 0.999          # discrete outputs, kernel vs plain
 SUMMARY_ATOL = 1e-4    # K3 summary on rows whose discrete outputs agree
@@ -56,8 +61,28 @@ LOSS_RTOL = 1e-5       # train step 1, kernels vs plain path on the card
 NORM_RTOL = 1e-4       # its gradient global norm
 MODES_RTOL = 1e-5      # step 1's metrics, logits out vs CE fused in
 CORE_TOL = 1e-4        # K1 logits out: logits, summary x (1 + max|plain|)
+BF16 = torch.bfloat16
+# bf16 K1 vs plain. An f32 sum in another order rounds ~2e-4 of the bf16
+# hiddens to the other neighbour, and an argmax over bf16 logits meets
+# near-ties, so a few decisions differ (0.16% of the slots, 2.1% of the rows,
+# at B=512 on the card): every first difference of a row must be a near-tie
+# of the plain version's logits, and the agreement must stay above floors:
+# 0.999 over the phase (read: slots 0.999596, lengths 1.0); a case of B=37
+# has 555 slots, so one flip there reads 0.998.
+BF16_SLOT_AGREE = 0.99   # decided slots [pitch | 5 bits], each case
+BF16_POOL_AGREE = 0.999  # decided slots, all cases of the phase
+BF16_LEN_AGREE = 0.999   # lengths by row, all cases of the phase
+BF16_TIE = 1e-2        # a first difference: plain logit gap / (1 + |max|)
+BF16_TOL = 1e-2        # bf16 K1 logits, summary, nums: x (1 + max|plain|)
+BF16_GRAD_TOL = 1e-2   # bf16 K2 grads vs autograd of plain: x (1 + max|plain|)
+# bf16 train step 1, kernels vs the plain path on the card (read: metrics
+# 2.95e-7, norm 7.8e-6); the bf16 vs f32 gap (read 9.6e-4) must exceed it
+BF16_LOSS_RTOL = 1e-5
+BF16_NORM_RTOL = 1e-4  # its gradient global norm
+BF16_VS_F32_RTOL = 0.05  # bf16 vs f32 step 1 (the JAX package's own bar)
 TRAIN_STEPS = 6
 LOGITS_STEPS = 3       # train steps with logits out
+BF16_STEPS = 3         # train steps in bf16, in each loss mode
 TURNS = 4              # timed train steps of each loss mode, in turns
 HOST_OPS = 8           # host ops listed by self time in a profiled step
 TRAIN_B = 128
@@ -129,8 +154,11 @@ def full_work(fw, spec, B: int):
     return d.T * (f_flops + t_flops), 4.0 * (weights + io * B)
 
 
-def bound_ms(flops: float, nbytes: float):
-    f, b = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
+    """The least time for the work: operations over ``peak`` (f32 on CUDA
+    cores by default; the dense bf16 tensor peak for the bf16 rows) or
+    bytes over the HBM rate, whichever is larger."""
+    f, b = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (f, "operations") if f >= b else (b, "bytes")
 
 
@@ -220,6 +248,83 @@ def core_grads(cw, spec, inp, cots, plain: bool):
     return [w.grad for w in leaves] + [fh.grad, xe.grad]
 
 
+def to_bf16(cw, inp):
+    """A frame case in bf16: the weights, frame_h and x_emb rounded."""
+    return (tf.CoreWeights(*(w.to(BF16) for w in cw)),
+            {k: (v.to(BF16) if v.is_floating_point() else v)
+             for k, v in inp.items()})
+
+
+@contextlib.contextmanager
+def launch_dtypes():
+    """Records, for every train-frame kernel launch in the context, the set
+    of dtypes of the weights and the inputs in the storage type that the
+    wrapper hands to the C entry point: K1 the weights, frame_h and x_emb;
+    K2a the weights, the stash values and the output cotangents it reads;
+    K2b the stash rows and the gradients. Yields a Counter of (kernel,
+    dtypes)."""
+    seen = collections.Counter()
+    names = ("launch_train_fwd", "launch_train_bwd", "launch_wgrad")
+    kernel_routes = tuple(getattr(build, n) for n in names)
+    f32 = set(tf.F32_STASH)
+    stored = lambda st: [t for n, t in zip(tf.Stash._fields, st)
+                         if n not in f32]
+
+    def fwd(cw, d, batch, tensors, stash, rows=0, logits=False):
+        seen[("K1", frozenset(str(t.dtype) for t in [*cw, *tensors[1:3]]))] \
+            += 1
+        return kernel_routes[0](cw, d, batch, tensors, stash, rows, logits)
+
+    def bwd(cw, d, batch, tensors, stash, cot, rows=0, logits=False):
+        cots = tensors[2:5] if logits else tensors[5:6]
+        seen[("K2a", frozenset(str(t.dtype) for t in
+                               [*cw, *stored(stash), *cots]))] += 1
+        return kernel_routes[1](cw, d, batch, tensors, stash, cot, rows,
+                                logits)
+
+    def wgrad(tasks):
+        seen[("K2b", frozenset(str(x.dtype) for t in tasks
+                               for x in (t.X, t.gW, t.gb) if x.numel()))] \
+            += 1
+        return kernel_routes[2](tasks)
+
+    for n, fn in zip(names, (fwd, bwd, wgrad)):
+        setattr(build, n, fn)
+    try:
+        yield seen
+    finally:
+        for n, fn in zip(names, kernel_routes):
+            setattr(build, n, fn)
+
+
+def root_margins(got_dec, want_dec, pitch_logits, dur_logits):
+    """For each row whose kernel decisions differ from the plain version's,
+    the plain version's margin at the first differing decision (slot-major,
+    [pitch | bit 0..W-1] within a slot): for a pitch, its max logit minus
+    the logit of the kernel's pitch; for a bit, |logit1 - logit0|; both over
+    1 + |max logit| (pitch) or 1 + max|logit| (bit), on the plain version's
+    bf16 logits. A margin near 0 is a near-tie."""
+    B, S, C = got_dec.shape
+    diff = (got_dec != want_dec).reshape(B, S * C)
+    rows = diff.any(1).nonzero()[:, 0]
+    if not len(rows):
+        return torch.zeros(0, device=got_dec.device)
+    first = diff[rows].int().argmax(1)
+    k, c = first // C, first % C
+    pl = pitch_logits.float()[rows, k]                 # (n, P)
+    mx = pl.max(-1).values
+    pick = pl.gather(-1, got_dec[rows, k, 0].long()[:, None])[:, 0]
+    m_pitch = (mx - pick) / (1 + mx.abs())
+    dl = dur_logits.float()[rows, k, (c - 1).clamp(min=0)]   # (n, 2)
+    m_bit = (dl[:, 1] - dl[:, 0]).abs() / (1 + dl.abs().amax(-1))
+    return torch.where(c == 0, m_pitch, m_bit)
+
+
+def launch_summary(seen) -> dict:
+    """A :func:`launch_dtypes` record as {"kernel [dtypes]": launches}."""
+    return {f"{k} {sorted(v)}": n for (k, v), n in sorted(seen.items())}
+
+
 @contextlib.contextmanager
 def plain_frames():
     """Inside this context the decoder's teacher-forced frames run
@@ -244,38 +349,47 @@ def plain_frames():
 def train_frame_work(cw, spec, B: int, logits: bool = False):
     """(FLOPs, bytes) of K1 (with its stash) and K2a for B rows of one frame,
     in loss mode or with ``logits`` out: their products (gates and selects
-    are a few % more, not counted), each weight read once, each input and
-    output (stash, cotangents; targets or logits and their cotangents)
-    once."""
+    are a few % more, not counted), and the bytes the replaced Pallas pair
+    (``_fwd_call`` with its stash, ``_bwd_call``) must move: each weight
+    read once, each input and output once (frame_h, x_emb, the summary, the
+    logits, their cotangents, d_frame_h and d_x_emb at the storage type's
+    size; the int32 targets and lengths; the CE numerators once a frame),
+    and the stash that pair passes, the K note hiddens (B, NH) of the
+    storage type. The port's further stash (the f32 gates and the other
+    activations) and the cotangents K2a hands to K2b are its own design,
+    not the function's, and are left out."""
     d = tf.dims_of(cw, spec)
     S, W = d.K - 1, d.W
+    es = cw.w_hh.element_size()
     slot = (d.E * 3 * d.NH + d.NH * 3 * d.NH + d.NH * d.P
             + (d.NH + d.P) * d.DH + W * d.DH * 3 * d.DH + W * d.DH * 2)
     summ = d.K * 2 * (d.E + d.EH) * 3 * d.EH
     frame = d.TH * 4 * d.NH
     k1_macs = frame + S * slot + summ       # S hidden-gate products: h0..h14
     k2_macs = frame + S * (slot + W * 3 * d.DH) + summ
-    weights = sum(w.numel() for w in cw)
-    stash = sum(t.numel() for t in tf.new_stash(d, 1, "meta"))
-    cots = sum(t.numel() for t in tf.new_cotangents(d, 1, "meta"))
-    k1_io = (d.TH + d.K * d.E + S * (1 + W)                  # inputs
-             + (1 + W) + 2 * d.EH + 1 + S * (1 + W))          # outputs
-    k2_io = stash + cots + d.TH + d.K * d.E + 2 * d.EH + S * (1 + W) + 1
-    if logits:      # no targets or numerators: logits out, their cotangents
-        k1_io = (d.TH + d.K * d.E
-                 + S * (d.P + 2 * W) + 2 * d.EH + 1 + S * (1 + W))
-        k2_io = (stash + cots + d.TH + d.K * d.E + 2 * d.EH
-                 + S * (d.P + 2 * W) + 1)
-    return ((2.0 * k1_macs * B, 4.0 * (weights + (k1_io + stash) * B)),
-            (2.0 * k2_macs * B, 4.0 * (weights + k2_io * B)))
+    weights = es * sum(w.numel() for w in cw)
+    hs = es * d.K * d.NH                    # the stash, a row
+    ins = es * (d.TH + d.K * d.E)           # frame_h, x_emb (or d_ of them)
+    summary = es * 2 * d.EH                 # the summary (or d_summ)
+    # loss mode: int32 targets in, the numerators out once a frame; logits
+    # out: the logits out of K1, their cotangents into K2a
+    per_row = es * S * (d.P + 2 * W) if logits else 4 * S * (1 + W)
+    nums = 0 if logits else 4 * (1 + W)
+    k1_io = ins + per_row + summary + 4 + hs
+    k2_io = ins + hs + per_row + summary + ins
+    return ((2.0 * k1_macs * B, weights + nums + k1_io * B),
+            (2.0 * k2_macs * B, weights + nums + k2_io * B))
 
 
 def wgrad_work(tasks):
-    """(FLOPs, bytes) of K2b: 2 N I O (+ N O adds for a bias) a task, each
-    operand read and each gradient written once."""
+    """(FLOPs, bytes) of K2b: 2 N I O (+ N O adds for a bias) a task, and
+    each weight gradient written once at its size. Its operands (stash rows
+    and cotangents) are the port's traffic between K1, K2a and K2b; the
+    replaced Pallas backward keeps them on chip, so they are left out."""
     flops = sum((2.0 * t.I + (1 if t.gb.numel() else 0)) * t.N * t.O
                 for t in tasks)
-    nbytes = sum(4.0 * (t.N * (t.I + t.O) + (t.I + 1) * t.O) for t in tasks)
+    nbytes = sum(t.gW.numel() * t.gW.element_size()
+                 + t.gb.numel() * t.gb.element_size() for t in tasks)
     return flops, nbytes
 
 
@@ -653,6 +767,155 @@ def main() -> int:
                           for r, n_, e in top))
     phase("K2 logits out vs autograd of plain", t0)
 
+    # 7d. K1 in bf16, both modes, vs its plain version
+    t0 = time.perf_counter()
+    k1b_err, k1bl_err = 0.0, 0.0
+    pooled = collections.Counter()
+    with launch_dtypes() as seen:
+        for wname, (p, _) in weight_sets.items():
+            for B in (128, 37):
+                cw, inp = to_bf16(*frame_case(p, cfg, B, gen))
+                with torch.no_grad():
+                    # loss mode
+                    got = tf.frame_fwd(cw, spec, **inp, stash=True)
+                    want = tf.frame_recon_plain(cw, spec, **inp)
+                    # logits out (the same forward: its logits also give
+                    # the loss mode's margins)
+                    pitch, dur, summ_l, lens_l, dec_l, _ = tf.frame_core_fwd(
+                        cw, spec, **core_inputs(inp), stash=False)
+                    want_l = tf.frame_core_plain(cw, spec,
+                                                 **core_inputs(inp))
+                torch.cuda.synchronize()
+                check(got[1].dtype == BF16 and pitch.dtype == BF16
+                      and dur.dtype == BF16 and summ_l.dtype == BF16,
+                      "K1 bf16 outputs are not bf16")
+                check(torch.equal(core_decisions(pitch, dur), dec_l),
+                      f"K1 bf16 logits out {wname} B={B}: the logits' "
+                      "argmaxes differ from the kernel's decisions")
+                dec_p = torch.cat([want.pitch[..., None], want.bits], -1)
+                stats, rows_of = [], {}
+                for mode, dec_k, lens_k in (("loss", got[3], got[2]),
+                                            ("logits out", dec_l, lens_l)):
+                    slots = (dec_k == dec_p).all(-1)
+                    rows_of[mode] = slots.all(1) & (lens_k == want.lengths)
+                    margins = root_margins(dec_k, dec_p,
+                                           want_l.pitch_logits,
+                                           want_l.dur_logits)
+                    worst = margins.max().item() if len(margins) else 0.0
+                    check(worst <= BF16_TIE,
+                          f"K1 bf16 {mode} {wname} B={B}: a row's first "
+                          f"differing decision is no near-tie of the plain "
+                          f"version's logits (margin {worst:.3g})")
+                    slot_ag = slots.float().mean().item()
+                    check(slot_ag >= BF16_SLOT_AGREE,
+                          f"K1 bf16 {mode} {wname} B={B}: decided slots "
+                          f"agree on {slot_ag}")
+                    pooled["slots"] += slots.numel()
+                    pooled["slots_agree"] += int(slots.sum())
+                    pooled["rows"] += B
+                    pooled["len_agree"] += int((lens_k == want.lengths)
+                                               .sum())
+                    stats.append(f"{mode}: slots {slot_ag:.6f}, lengths "
+                                 f"{agreement(lens_k, want.lengths):.6f}, "
+                                 f"{len(margins)} differing rows, worst "
+                                 f"first-difference margin {worst:.3g}")
+                rows, rows_l = rows_of["loss"], rows_of["logits out"]
+                sub_ = {k: (v if k == "coins" else v[rows])
+                        for k, v in inp.items()}
+                with torch.no_grad():
+                    nums_k = tf.frame_fwd(cw, spec, **sub_, stash=False)[0]
+                    nums_p = tf.frame_recon_plain(cw, spec, **sub_).nums
+                errs = []
+                for name, a, b in (
+                        ("nums", nums_k, nums_p),
+                        ("summary", got[1][rows], want.summary[rows]),
+                        ("hs", got[4].hs[:, rows], want.hs[:, rows]),
+                        ("pitch logits", pitch[rows_l],
+                         want_l.pitch_logits[rows_l]),
+                        ("dur logits", dur[rows_l], want_l.dur_logits[rows_l]),
+                        ("summary, logits out", summ_l[rows_l],
+                         want_l.summary[rows_l])):
+                    a, b = a.float(), b.float()
+                    err = (a - b).abs().max().item()
+                    tol = BF16_TOL * (1.0 + b.abs().max().item())
+                    check(err <= tol, f"K1 bf16 {wname} B={B} {name}: "
+                          f"max|err| {err} > {tol}")
+                    errs.append(f"{name} {err:.3g} ({err / tol:.2f} of tol)")
+                    if "logits" in name:
+                        k1bl_err = max(k1bl_err, err)
+                    else:
+                        k1b_err = max(k1b_err, err)
+                hist = torch.bincount(got[2].long(), minlength=16).tolist()
+                print(f"  K1 bf16 {wname} B={B}: " + "; ".join(stats)
+                      + "; on agreeing rows max|err| " + ", ".join(errs)
+                      + f"; lengths {hist}")
+    pool_slots = pooled["slots_agree"] / pooled["slots"]
+    pool_lens = pooled["len_agree"] / pooled["rows"]
+    print(f"  K1 bf16, all cases: decided slots agree {pool_slots:.6f} of "
+          f"{pooled['slots']}, lengths {pool_lens:.6f} of {pooled['rows']} "
+          f"rows; launches by (kernel, dtypes at the call): "
+          f"{launch_summary(seen)}")
+    check(pool_slots >= BF16_POOL_AGREE and pool_lens >= BF16_LEN_AGREE,
+          f"K1 bf16: pooled agreement slots {pool_slots}, lengths "
+          f"{pool_lens}")
+    check(all(v == {"torch.bfloat16"} for (_, v) in seen),
+          f"a bf16 launch received another dtype: {launch_summary(seen)}")
+    phase("K1 bf16 vs plain", t0)
+
+    # 7e. K2 in bf16 (K2a + K2b), both modes, vs autograd of the plain
+    # version
+    t0 = time.perf_counter()
+    k2ab_err = k2bb_err = 0.0
+    with launch_dtypes() as seen:
+        for wname, (p, _) in weight_sets.items():
+            B = 128
+            cw, inp = to_bf16(*frame_case(p, cfg, B, gen))
+            with torch.no_grad():
+                rows = k1_rows(cw, spec, inp)[0]
+            inp = {k: (v if k == "coins" else v[rows])
+                   for k, v in inp.items()}
+            n = int(rows.sum())
+            g_nums = torch.rand(1 + spec.dur_width, device=dev,
+                                generator=gen)
+            g_summ = torch.randn(n, 2 * cfg.dec_emb_hidden, device=dev,
+                                 generator=gen).to(BF16)
+            cots = (torch.randn(n, K - 1, P, device=dev,
+                                generator=gen).to(BF16),
+                    torch.randn(n, K - 1, spec.dur_width, 2, device=dev,
+                                generator=gen).to(BF16), g_summ)
+            for mode, got, want in (
+                    ("loss", k2_grads(cw, spec, inp, g_nums, g_summ, False),
+                     k2_grads(cw, spec, inp, g_nums, g_summ, True)),
+                    ("logits out", core_grads(cw, spec, inp, cots, False),
+                     core_grads(cw, spec, inp, cots, True))):
+                torch.cuda.synchronize()
+                names = list(tf.CoreWeights._fields) + ["d_frame_h",
+                                                        "d_x_emb"]
+                worst = []
+                for name, a, b in zip(names, got, want):
+                    check(a.dtype == BF16 and b.dtype == BF16,
+                          f"K2 bf16 {name}: gradient dtype {a.dtype}")
+                    a, b = a.float(), b.float()
+                    err = (a - b).abs().max().item()
+                    tol = BF16_GRAD_TOL * (1.0 + b.abs().max().item())
+                    check(err <= tol, f"K2 bf16 {mode} {wname} {name}: "
+                          f"max|err| {err} > {tol}")
+                    worst.append((err / tol, name, err))
+                    if name.startswith("d_"):
+                        k2ab_err = max(k2ab_err, err)
+                    else:
+                        k2bb_err = max(k2bb_err, err)
+                top = sorted(worst, reverse=True)[:3]
+                print(f"  K2 bf16 {mode} {wname} B={n}: all 26 gradients "
+                      f"within tolerance; closest to it: "
+                      + ", ".join(f"{n_} {e:.3g} ({r:.2f} of tol)"
+                                  for r, n_, e in top))
+    print(f"  launches by (kernel, dtypes at the call): "
+          f"{launch_summary(seen)}")
+    check(all(v == {"torch.bfloat16"} for (_, v) in seen),
+          f"a bf16 launch received another dtype: {launch_summary(seen)}")
+    phase("K2 bf16 vs autograd of plain", t0)
+
     # 8. serving: the main path, counted
     t0 = time.perf_counter()
     sampler = Sampler(params, cfg, fixed_batch=128, device=dev)
@@ -870,6 +1133,117 @@ def main() -> int:
           f"segments/s")
     phase("training (logits out)", t0)
 
+    # 9c. training in bf16 (compute_dtype="bfloat16") in each loss mode: the
+    # main path of the bf16 mode of K1, K2a and K2b, counted, with the
+    # dtypes at every launch recorded
+    bf16_runs = {}
+    for mode, fused in (("fused", True), ("logits out", False)):
+        t0 = time.perf_counter()
+        cfg_b = dataclasses.replace(cfg, compute_dtype="bfloat16",
+                                    fused_loss=fused)
+        b_train, b_val = make_loaders(*corpora, TRAIN_B, seed=args.seed)
+        b_trainer = tr.Trainer(cfg_b, tcfg, b_train, b_val, device=dev)
+        fwd_k, bwd_k = ((tf.frame_fwd, tf.frame_bwd) if fused else
+                        (tf.frame_core_fwd, tf.frame_core_bwd))
+        k1_before = fwd_k.launches
+        with plain_frames():
+            b_ref_m, b_ref_g = tr.loss_and_grads(
+                b_trainer.params, cfg_b, tcfg, 0, step_gen(), x, c, pr_mat)
+        check(fwd_k.launches == k1_before,
+              "the plain reference step launched K1")
+        # building the bf16 Trainer pins cuBLAS to f32 partial sums;
+        # PyTorch's default allows bf16 ones
+        check(not torch.backends.cuda.matmul
+              .allow_bf16_reduced_precision_reduction,
+              "the bf16 train path must keep cuBLAS partial sums in f32")
+        b_ref_m = {k: v.item() for k, v in b_ref_m.items()}
+        b_ref_norm = global_norm(b_ref_g).item()
+        del b_ref_g
+        for f in counted:
+            f.launches = 0
+        with launch_dtypes() as seen:
+            b_trainer.train_steps(BF16_STEPS)
+            b_val_m = b_trainer.eval_epoch()
+            torch.cuda.synchronize()
+        b_launches = {"K1": fwd_k.launches, "K2a": bwd_k.launches,
+                      "K2b": tf.weight_grads.launches}
+        others = {f.__name__: f.launches for f in counted
+                  if f not in (fwd_k, bwd_k, tf.weight_grads)}
+        n_val = len(b_val)
+        print(f"  launches in {BF16_STEPS} bf16 train steps + {n_val} eval "
+              f"batch(es), {mode}: {b_launches}; other frame and decode "
+              f"kernels {others}; by (kernel, dtypes at the call) "
+              f"{launch_summary(seen)}")
+        check(b_launches == {"K1": T * (BF16_STEPS + n_val),
+                             "K2a": T * BF16_STEPS, "K2b": T * BF16_STEPS},
+              f"bf16 {mode} train launches {b_launches}")
+        check(not any(others.values()),
+              f"the bf16 {mode} path launched another kernel: {others}")
+        check(all(v == {"torch.bfloat16"} for (_, v) in seen)
+              and sum(seen.values()) == sum(b_launches.values()),
+              f"bf16 {mode}: a launch received another dtype: "
+              f"{launch_summary(seen)}")
+        check(all(t.dtype == torch.float32 for t in b_trainer.leaves)
+              and all(m.dtype == torch.float32
+                      for m in b_trainer.opt.mu + b_trainer.opt.nu),
+              "bf16 training: master params and Adam moments must be f32")
+        for i, m in enumerate(b_trainer.history):
+            print(f"  step {i + 1}: loss {m['loss']:.6f} recon "
+                  f"{m['recon_loss']:.6f} kl {m['kl_loss']:.6f} chord "
+                  f"{m['chord_loss']:.6f} grad norm "
+                  f"{b_trainer.grad_norms[i]:.6f} "
+                  f"({b_trainer.step_seconds[i] * 1e3:.1f} ms)")
+            check(all(np.isfinite(v) for v in m.values()),
+                  f"bf16 step {i + 1} {m}")
+        print(f"  val: loss {b_val_m['loss']:.6f}")
+        check(all(np.isfinite(v) for v in b_val_m.values()),
+              f"bf16 val {b_val_m}")
+        b1 = b_trainer.history[0]
+        f32_1 = (trainer if fused else lo_trainer).history[0]
+        b_loss_err = max(rel(b1[k], b_ref_m[k]) for k in dv.METRIC_NAMES)
+        b_norm_err = rel(b_trainer.grad_norms[0], b_ref_norm)
+        vs_f32 = {k: rel(b1[k], f32_1[k]) for k in dv.METRIC_NAMES}
+        print(f"  step 1 vs the plain path on the card (bf16): loss "
+              f"{b1['loss']!r} vs {b_ref_m['loss']!r}; 11 metrics max rel "
+              f"err {b_loss_err:.3g}; grad norm {b_trainer.grad_norms[0]!r} "
+              f"vs {b_ref_norm!r} (rel err {b_norm_err:.3g})")
+        print(f"  step 1 vs the f32 step on the same batch, noise and "
+              f"weights: loss {b1['loss']!r} vs {f32_1['loss']!r}; rel err "
+              "by metric " + ", ".join(f"{k} {v:.3g}"
+                                       for k, v in vs_f32.items()))
+        check(b_loss_err <= BF16_LOSS_RTOL,
+              f"bf16 {mode} step 1 metrics rel err {b_loss_err}")
+        check(b_norm_err <= BF16_NORM_RTOL,
+              f"bf16 {mode} step 1 grad norm rel err {b_norm_err}")
+        check(max(vs_f32.values()) <= BF16_VS_F32_RTOL,
+              f"bf16 {mode} step 1 vs f32 {vs_f32}")
+        # the control: the step-1 gate tells a bf16 step from an f32 one
+        check(max(vs_f32.values()) > BF16_LOSS_RTOL,
+              f"bf16 {mode} step 1 is within {BF16_LOSS_RTOL} of the f32 "
+              f"step: {vs_f32}")
+        b_step_ms = float(np.median(b_trainer.step_seconds[1:])) * 1e3
+        bf16_runs[mode] = {
+            "trainer": b_trainer, "launches": b_launches,
+            "step_ms_median_2_to_n": b_step_ms,
+            "segments_per_s": TRAIN_B / b_step_ms * 1e3,
+            "steps": BF16_STEPS, "batch": TRAIN_B,
+            "step1_metric_rel_err": b_loss_err,
+            "step1_grad_norm_rel_err": b_norm_err,
+            "step1_vs_f32_max_rel": max(vs_f32.values())}
+        print(f"  bf16 {mode} train step (median of steps 2..{BF16_STEPS}): "
+              f"{b_step_ms:.2f} ms, {TRAIN_B / b_step_ms * 1e3:.1f} "
+              f"segments/s")
+        phase(f"training (bf16, {mode})", t0)
+    bf_fused = bf16_runs["fused"]["trainer"]
+    bf_lo = bf16_runs["logits out"]["trainer"]
+    b_modes_err = max(rel(bf_lo.history[0][k], bf_fused.history[0][k])
+                      for k in dv.METRIC_NAMES)
+    print(f"  bf16 step 1, logits out vs fused on the same batch, noise and "
+          f"weights: 11 metrics max rel err {b_modes_err:.3g}")
+    check(b_modes_err <= MODES_RTOL,
+          f"bf16 logits-out vs fused step 1 metrics rel err {b_modes_err}")
+    bf16_runs["logits out"]["step1_vs_fused_rel_err"] = b_modes_err
+
     # 10. timing
     t0 = time.perf_counter()
     timing = {}
@@ -955,20 +1329,86 @@ def main() -> int:
               f"version: max|err| / (1 + max|plain|) {k2b_vs:.3g}")
         print(f"  B={B}: logits out: K1 {k1l:.3f} ms (plain {k1lp:.3f}), K2a "
               f"{k2al:.3f} ms (plain K2, autograd backward, {k2lp:.3f})")
-        for name in ("K1", "K2a", "K2b", "K1 logits", "K2a logits"):
+        # the same work in bf16 (weights, frame_h, x_emb rounded)
+        cwb, inpb = to_bf16(cw, inp)
+        d_summ_b = d_summ.to(BF16)
+        fwd_b = lambda: tf.frame_fwd(cwb, spec, **inpb, stash=True)
+        _, _, lens_b, _, st_b = fwd_b()
+        bwd_b = lambda: tf.frame_bwd(cwb, spec, inpb["frame_h"],
+                                     inpb["coins"], inpb["gt_pitch"],
+                                     inpb["gt_dur"], lens_b, st_b, d_nums,
+                                     d_summ_b)
+        ct_b = bwd_b()[2]
+        out_b = [tf.CoreWeights(*(torch.empty_like(w) for w in cwb))
+                 for _ in range(2)]
+        tasks_b = [tf.wgrad_tasks(d, B, inpb["frame_h"], st_b, ct_b, g)
+                   for g in out_b]
+        k1b = cuda_ms(fwd_b, 10)
+        k2ab = cuda_ms(bwd_b, 10)
+        k2bb = cuda_ms(lambda: build.launch_wgrad(tasks_b[0]), 10)
+        k2bb_plain = cuda_ms(lambda: tf.wgrad_plain(tasks_b[1]), 3)
+        k2bb_vs = max((a.float() - b.float()).abs().max().item()
+                      / (1 + b.float().abs().max().item())
+                      for a, b in zip(*out_b))
+        check(k2bb_vs <= BF16_GRAD_TOL,
+              f"K2b bf16 vs its plain version {k2bb_vs}")
+        with torch.no_grad():
+            k1bp = cuda_ms(lambda: tf.frame_recon_plain(cwb, spec, **inpb), 2)
+        k2bp = plain_backward_ms(cwb, spec, inpb, (d_nums, d_summ_b), 2)
+        fwd_lb = lambda: tf.frame_core_fwd(cwb, spec, **core_inputs(inpb),
+                                           stash=True)
+        pitch_b, dur_b, _, lens_lb, _, st_lb = fwd_lb()
+        cots_lb = (torch.randn(pitch_b.shape, device=dev,
+                               generator=gen).to(BF16),
+                   torch.randn(dur_b.shape, device=dev,
+                               generator=gen).to(BF16), d_summ_b)
+        bwd_lb = lambda: tf.frame_core_bwd(cwb, spec, inpb["frame_h"],
+                                           inpb["coins"], lens_lb, st_lb,
+                                           *cots_lb)
+        k1blo = cuda_ms(fwd_lb, 10)
+        k2ablo = cuda_ms(bwd_lb, 10)
+        with torch.no_grad():
+            k1blp = cuda_ms(lambda: tf.frame_core_plain(
+                cwb, spec, **core_inputs(inpb)), 2)
+        k2blp = plain_backward_ms(cwb, spec, inpb, cots_lb, 2, logits=True)
+        (f1b, b1b), (f2ab, b2ab) = train_frame_work(cwb, spec, B)
+        (f1lb, b1lb), (f2alb, b2alb) = train_frame_work(cwb, spec, B,
+                                                        logits=True)
+        peak = PEAK_BF16_FLOPS
+        timing[B].update({
+            "K1 bf16": (k1b, k1bp, *bound_ms(f1b, b1b, peak)),
+            "K2a bf16": (k2ab, k2bp, *bound_ms(f2ab, b2ab, peak)),
+            "K2b bf16": (k2bb, k2bb_plain,
+                         *bound_ms(*wgrad_work(tasks_b[0]), peak)),
+            "K1 bf16 logits": (k1blo, k1blp, *bound_ms(f1lb, b1lb, peak)),
+            "K2a bf16 logits": (k2ablo, k2blp,
+                                *bound_ms(f2alb, b2alb, peak))})
+        print(f"  B={B} bf16: K1 {k1b:.3f} ms (plain {k1bp:.3f}), K2a "
+              f"{k2ab:.3f} ms + K2b {k2bb:.3f} ms (plain K2, autograd "
+              f"backward, {k2bp:.3f}; plain K2b {k2bb_plain:.3f}); K2b vs "
+              f"its plain version: max|err| / (1 + max|plain|) "
+              f"{k2bb_vs:.3g}; logits out: K1 {k1blo:.3f} ms (plain "
+              f"{k1blp:.3f}), K2a {k2ablo:.3f} ms (plain K2 {k2blp:.3f})")
+        for name in ("K1", "K2a", "K2b", "K1 logits", "K2a logits",
+                     "K1 bf16", "K2a bf16", "K2b bf16", "K1 bf16 logits",
+                     "K2a bf16 logits"):
             ms, pms, bms, by = timing[B][name]
-            print(f"  B={B} {name} bound {bms:.4f} ms ({by}), "
-                  f"{bms / ms:.3%} of it")
-        del st, ct, tasks, out, st_lo
+            print(f"  B={B} {name} bound {bms:.4f} ms ({by}"
+                  + (", bf16 tensor peak" if "bf16" in name else "")
+                  + f"), {bms / ms:.3%} of it")
+        del st, ct, tasks, out, st_lo, st_b, ct_b, tasks_b, out_b, st_lb
     opt_ms = optimizer_ms(trainer, 5)
     print(f"  optimizer step (clip + Adam, all parameters): {opt_ms:.3f} ms")
     profile = profile_step(trainer)
     training.update({"optimizer_ms": opt_ms, "profile": profile})
     print("  with logits out:")
     training_lo["profile"] = profile_step(lo_trainer)
-    # the two loss modes' train steps in turns (host clock, each step ends
-    # in a host read of its metrics)
-    turns = {"fused": (trainer, []), "logits_out": (lo_trainer, [])}
+    print("  bf16, fused:")
+    bf16_runs["fused"]["profile"] = profile_step(bf_fused)
+    # the loss modes' and dtypes' train steps in turns (host clock, each
+    # step ends in a host read of its metrics)
+    turns = {"fused": (trainer, []), "logits_out": (lo_trainer, []),
+             "bf16_fused": (bf_fused, []), "bf16_logits_out": (bf_lo, [])}
     streams = {k: t_.batches() for k, (t_, _) in turns.items()}
     for _ in range(TURNS):
         for name, (t_, ms) in turns.items():
@@ -981,6 +1421,9 @@ def main() -> int:
               f"{k} " + " ".join(f"{v:.1f}" for v in ms)
               for k, (_, ms) in turns.items()))
     training_lo["step_ms_in_turns"] = in_turns
+    training_bf16 = {k.replace(" ", "_"): {n: v for n, v in r.items()
+                                           if n != "trainer"}
+                     for k, r in bf16_runs.items()}
     phase("timing", t0)
 
     # 11. kernels
@@ -1041,8 +1484,50 @@ def main() -> int:
                      "plain_ms_b512": timing[512][key][1]})
         if key == "K2b":      # one K2b serves both modes
             rows[-1]["launches_logits_out"] = lo_launches["K2b"]
+    b_fused_l = bf16_runs["fused"]["launches"]
+    b_lo_l = bf16_runs["logits out"]["launches"]
+    for key, name, fn, err, launches_, tol in (
+            ("K1 bf16", "K1 train_fwd_kernel (bf16)",
+             "pctd_tpu/ops/pallas/train_frame.py:289", k1b_err,
+             b_fused_l["K1"],
+             f"every row's first differing decision a near-tie (margin <= "
+             f"{BF16_TIE}); decided slots agree >= {BF16_SLOT_AGREE} a "
+             f"case, >= {BF16_POOL_AGREE} pooled, lengths >= "
+             f"{BF16_LEN_AGREE} pooled; on agreeing rows nums, summary, hs "
+             f"max|err| <= {BF16_TOL} x (1 + max|plain|)"),
+            ("K2a bf16", "K2a train_bwd_kernel (bf16)",
+             "pctd_tpu/ops/pallas/train_frame.py:736", k2ab_err,
+             b_fused_l["K2a"],
+             f"d_frame_h, d_x_emb max|err| <= {BF16_GRAD_TOL} x (1 + "
+             "max|plain|) vs autograd of the plain version, both modes"),
+            ("K2b bf16", "K2b wgrad_kernel (bf16)",
+             "pctd_tpu/ops/pallas/train_frame.py:736", k2bb_err,
+             b_fused_l["K2b"] + b_lo_l["K2b"],
+             f"24 weight grads max|err| <= {BF16_GRAD_TOL} x (1 + "
+             "max|plain|) vs autograd of the plain version, both modes"),
+            ("K1 bf16 logits", "K1 train_fwd_kernel (bf16, logits out)",
+             "pctd_tpu/ops/pallas/train_frame.py:289", k1bl_err,
+             b_lo_l["K1"],
+             f"as K1 bf16; the logits' argmaxes equal the decisions; on "
+             f"agreeing rows logits and summary max|err| <= {BF16_TOL} x "
+             "(1 + max|plain|)"),
+            ("K2a bf16 logits", "K2a train_bwd_kernel (bf16, logits out)",
+             "pctd_tpu/ops/pallas/train_frame.py:736", k2ab_err,
+             b_lo_l["K2a"],
+             f"d_frame_h, d_x_emb max|err| <= {BF16_GRAD_TOL} x (1 + "
+             "max|plain|) vs autograd of the plain version, both modes")):
+        ms, pms, bms, by = timing[128][key]
+        rows.append({"name": name, "route": "cuda", "source": tsrc,
+                     "replaces": fn, "launches": launches_,
+                     "max_abs_err": err, "tolerance": tol, "ms": ms,
+                     "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                     "bound_peak": "bf16 dense tensor 989 TFLOP/s",
+                     "library_ms": None, "batch": 128,
+                     "ms_b512": timing[512][key][0],
+                     "plain_ms_b512": timing[512][key][1]})
     print(json.dumps({"serving": serving, "training": training,
-                      "training_logits_out": training_lo, "card": card}))
+                      "training_logits_out": training_lo,
+                      "training_bf16": training_bf16, "card": card}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}))

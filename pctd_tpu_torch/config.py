@@ -58,7 +58,15 @@ class ModelConfig:
     in logits-out mode, through the teacher-forced ``pianotree_decoder.
     decode`` and ``disentangle_vae.run``, and ``recon_loss`` scores the
     logits. ``remat_frames`` and ``unroll_*`` are XLA switches with no
-    counterpart here."""
+    counterpart here.
+
+    ``compute_dtype`` is "float32" or "bfloat16". bf16 (the JAX package's
+    mixed-precision policy, ``pctd_tpu_torch.utils.precision``) is taken by
+    the training entry points (``disentangle_vae.loss`` and ``run``,
+    ``train.trainer.Trainer``, with the train-frame kernels K1/K2 in their
+    bf16 mode on the card) and by ``disentangle_vae.encode``; the serving
+    entry points (``decode_z``, ``decode_grid``, ``Sampler``) take float32
+    only."""
 
     chd_z_dim: int = 256
     txt_z_dim: int = 256
@@ -100,6 +108,23 @@ class ModelConfig:
     @property
     def ptenc_note_size(self) -> int:
         return self.ptenc_pitch_range + self.pianotree.dur_width
+
+
+def check_config(cfg: ModelConfig, served: bool = False) -> None:
+    """Raise unless the port runs ``cfg``: the conv texture encoder and a
+    ``compute_dtype`` of float32 or bfloat16; with ``served`` (the decode
+    entry points built on the K3/K4 kernels) float32 only."""
+    if cfg.txt_encoder != "conv":
+        raise NotImplementedError(
+            f"texture encoder {cfg.txt_encoder!r}: the port runs 'conv'")
+    if cfg.compute_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: the port "
+                         "runs 'bfloat16' and 'float32'")
+    if served and cfg.compute_dtype != "float32":
+        raise NotImplementedError(
+            f"compute_dtype {cfg.compute_dtype!r}: the port serves float32; "
+            "the bf16 mode of the decode kernels K3/K4 is still to be "
+            "ported (ROADMAP.md, Queue 2: the bf16 mode of K3/K4)")
 
 
 def tiny_model_config(**overrides) -> ModelConfig:

@@ -7,6 +7,7 @@ import torch
 from pctd_tpu_torch.config import ModelConfig
 from pctd_tpu_torch.ops import DiagNormal, bigru_last, gru_init
 from pctd_tpu_torch.utils.init import dense_apply, dense_params
+from pctd_tpu_torch.utils.precision import head_input
 
 
 def init(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -22,5 +23,7 @@ def init(gen: torch.Generator, cfg: ModelConfig) -> dict:
 def apply(p: dict, c: torch.Tensor) -> DiagNormal:
     """c: (B, 8, 36) expanded chord -> DiagNormal over (B, z_chd)."""
     h = bigru_last(p["gru_fwd"], p["gru_bwd"], c)
-    return DiagNormal(dense_apply(p["mu"], h),
-                      torch.exp(dense_apply(p["std"], h)))
+    # the Gaussian heads run in f32 (bf16 h promotes in JAX; cast here)
+    return DiagNormal(dense_apply(p["mu"], head_input(p["mu"], h)),
+                      torch.exp(dense_apply(p["std"],
+                                            head_input(p["std"], h))))

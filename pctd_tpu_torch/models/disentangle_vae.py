@@ -12,7 +12,11 @@ Pure functions over a params tree (JAX names and layouts), with noise from
 an explicit ``torch.Generator``. The loss takes its latent noise and teacher
 coins as inputs (:class:`Noise`, drawn by :func:`draw_noise`), since the
 JAX package's key splits cannot be reproduced in torch. The pianotree
-texture encoder is not ported yet; only ``compute_dtype="float32"`` runs.
+texture encoder is not ported yet. ``compute_dtype="bfloat16"`` runs
+training and ``encode`` under the mixed-precision policy
+(:mod:`pctd_tpu_torch.utils.precision`: f32 master params cast inside,
+f32 Gaussian heads and losses); the decode entry points (``decode_z`` and
+the workflows built on it) serve float32 only.
 """
 from __future__ import annotations
 
@@ -21,24 +25,26 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from pctd_tpu_torch.config import ModelConfig
+from pctd_tpu_torch.config import ModelConfig, check_config
 from pctd_tpu_torch.models import chord_decoder as chd_dec
 from pctd_tpu_torch.models import chord_encoder as chd_enc
 from pctd_tpu_torch.models import pianotree_decoder as pt_dec
 from pctd_tpu_torch.models import texture_encoder as txt_enc
 from pctd_tpu_torch.ops import DiagNormal, kl_std_normal
 from pctd_tpu_torch.ops.losses import cross_entropy_mean
+from pctd_tpu_torch.utils import precision
 from pctd_tpu_torch.utils.device import resolve_device
 from pctd_tpu_torch.utils.weights import params_to
 
 
-def _check_served(cfg: ModelConfig) -> None:
-    if cfg.txt_encoder != "conv":
-        raise NotImplementedError(
-            f"texture encoder {cfg.txt_encoder!r}: the port serves 'conv'")
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype {cfg.compute_dtype!r}: the port serves float32")
+def _apply_precision(params: dict, cfg: ModelConfig, *floats):
+    """Params (Gaussian heads excluded) and float inputs cast to the compute
+    dtype, differentiably; float32 returns them as they are."""
+    dtype = precision.compute_dtype(cfg)
+    if dtype == torch.float32:
+        return (params,) + floats
+    return (precision.cast_params(params, dtype),) + tuple(
+        f.to(dtype) for f in floats)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
@@ -47,8 +53,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     moved to ``device`` (default ``cuda``). Holds the whole model:
     ``chd_enc``, ``txt_enc``, ``dec`` and the training-only ``chd_dec``
     (drawn last, so a seed gives the served modules the same weights as
-    before it was added)."""
-    _check_served(cfg)
+    before it was added). The params are float32 whatever
+    ``cfg.compute_dtype`` says (the master params of mixed precision)."""
+    check_config(cfg)
     device = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     params = {"chd_enc": chd_enc.init(gen, cfg),
@@ -58,18 +65,26 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     return params_to(params, device)
 
 
-def encode(params: dict, cfg: ModelConfig, pr_mat: torch.Tensor,
-           c: torch.Tensor) -> Tuple[DiagNormal, DiagNormal]:
-    """Posterior distributions (chord, texture)."""
-    _check_served(cfg)
+def _encode(params: dict, pr_mat: torch.Tensor, c: torch.Tensor
+            ) -> Tuple[DiagNormal, DiagNormal]:
     return (chd_enc.apply(params["chd_enc"], c),
             txt_enc.apply_conv(params["txt_enc"], pr_mat))
+
+
+def encode(params: dict, cfg: ModelConfig, pr_mat: torch.Tensor,
+           c: torch.Tensor) -> Tuple[DiagNormal, DiagNormal]:
+    """Posterior distributions (chord, texture), f32 in either compute
+    dtype (the Gaussian heads run in f32)."""
+    check_config(cfg)
+    params, c, pr_mat = _apply_precision(params, cfg, c, pr_mat)
+    return _encode(params, pr_mat, c)
 
 
 def encode_chord(params: dict, cfg: ModelConfig, c: torch.Tensor
                  ) -> DiagNormal:
     """Chord latent alone from an expanded (B, 8, 36) chord tensor."""
-    _check_served(cfg)
+    check_config(cfg)
+    params, c = _apply_precision(params, cfg, c)
     return chd_enc.apply(params["chd_enc"], c)
 
 
@@ -78,8 +93,9 @@ def decode_z(params: dict, cfg: ModelConfig, z_chd: torch.Tensor,
              ) -> torch.Tensor:
     """Argmax decode of latents -> estimated grid (B, 32, K-1, 6) int32;
     ``frame_decoder`` and ``fw`` as in
-    :func:`~pctd_tpu_torch.models.pianotree_decoder.decode_grid`."""
-    _check_served(cfg)
+    :func:`~pctd_tpu_torch.models.pianotree_decoder.decode_grid`. Serves
+    float32 only (``compute_dtype="bfloat16"`` raises)."""
+    check_config(cfg, served=True)
     z = torch.cat([z_chd, z_rhy], dim=-1)
     return pt_dec.decode_grid(params["dec"], cfg, z,
                               frame_decoder=frame_decoder, fw=fw)
@@ -169,15 +185,21 @@ def draw_noise(gen: torch.Generator, cfg: ModelConfig, batch: int, tfr1,
 def forward_parts(params: dict, cfg: ModelConfig, x, c, pr_mat,
                   noise: Noise):
     """Everything of the teacher-forced forward except the PianoTree decode:
-    note embeddings, encoders, z and the chord-decoder logits. Returns
-    (x_emb, lengths, dist_chd, dist_rhy, z, recon_chd)."""
+    the precision cast, note embeddings, encoders, z and the chord-decoder
+    logits. Returns (the params in the compute dtype, x_emb, lengths,
+    dist_chd, dist_rhy, z, recon_chd); z and x_emb are in the compute
+    dtype, the distributions f32."""
+    check_config(cfg)
+    params, c, pr_mat = _apply_precision(params, cfg, c, pr_mat)
+    dtype = precision.compute_dtype(cfg)
     x_emb, lengths = pt_dec.emb_x(params["dec"], x, cfg.pianotree)
-    dist_chd, dist_rhy = encode(params, cfg, pr_mat, c)
+    dist_chd, dist_rhy = _encode(params, pr_mat, c)
     z_chd = dist_chd.rsample_eps(noise.eps_chd)
-    z = torch.cat([z_chd, dist_rhy.rsample_eps(noise.eps_rhy)], dim=-1)
-    recon_chd = chd_dec.apply(params["chd_dec"], z_chd, c, noise.coins3,
-                              cfg.chord.num_step)
-    return x_emb, lengths, dist_chd, dist_rhy, z, recon_chd
+    z = torch.cat([z_chd, dist_rhy.rsample_eps(noise.eps_rhy)],
+                  dim=-1).to(dtype)
+    recon_chd = chd_dec.apply(params["chd_dec"], z_chd.to(dtype), c,
+                              noise.coins3, cfg.chord.num_step)
+    return params, x_emb, lengths, dist_chd, dist_rhy, z, recon_chd
 
 
 def chord_loss(c: torch.Tensor, recon_root, recon_chroma, recon_bass):
@@ -197,9 +219,9 @@ def run(params: dict, cfg: ModelConfig, x, c, pr_mat, noise: Noise):
     (:class:`~pctd_tpu_torch.models.pianotree_decoder.DecoderOutput`,
     dist_chd, dist_rhy, recon_root, recon_chroma, recon_bass); the decode
     runs frame by frame through the K1/K2 kernel pair in logits-out mode on
-    the card."""
-    x_emb, lengths, dist_chd, dist_rhy, z, recon_chd = forward_parts(
-        params, cfg, x, c, pr_mat, noise)
+    the card. With ``compute_dtype="bfloat16"`` the logits are bf16."""
+    params, x_emb, lengths, dist_chd, dist_rhy, z, recon_chd = \
+        forward_parts(params, cfg, x, c, pr_mat, noise)
     out = pt_dec.decode(params["dec"], cfg, z, x_emb, lengths, noise.coins1,
                         noise.coins2)
     return (out, dist_chd, dist_rhy, *recon_chd)
@@ -214,12 +236,15 @@ def loss(params: dict, cfg: ModelConfig, x, c, pr_mat, noise: Noise,
     pair on the card: with ``cfg.fused_loss`` in loss mode, the CE fused in
     (:func:`~pctd_tpu_torch.models.pianotree_decoder.decode_recon`), else
     in logits-out mode through :func:`run`, scored by
-    :func:`~pctd_tpu_torch.models.pianotree_decoder.recon_loss`."""
+    :func:`~pctd_tpu_torch.models.pianotree_decoder.recon_loss`. With
+    ``compute_dtype="bfloat16"`` the params are cast inside (gradients
+    reach the f32 ``params`` through the cast) and the losses run in f32.
+    """
     if cfg.fused_loss:
-        x_emb, lengths, dist_chd, dist_rhy, z, recon_chd = forward_parts(
-            params, cfg, x, c, pr_mat, noise)
+        p_cast, x_emb, lengths, dist_chd, dist_rhy, z, recon_chd = \
+            forward_parts(params, cfg, x, c, pr_mat, noise)
         recon, pl, dl = pt_dec.decode_recon(
-            params["dec"], cfg, z, x_emb, lengths, noise.coins1,
+            p_cast["dec"], cfg, z, x_emb, lengths, noise.coins1,
             noise.coins2, x, weights, weighted_dur)
     else:
         out, dist_chd, dist_rhy, *recon_chd = run(params, cfg, x, c, pr_mat,
@@ -293,7 +318,7 @@ class DisentangleVAE:
     """cfg + params + the latent-control entry points."""
 
     def __init__(self, cfg: ModelConfig, params: dict):
-        _check_served(cfg)
+        check_config(cfg)
         self.cfg = cfg
         self.params = params
 

@@ -30,7 +30,7 @@ from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from pctd_tpu_torch.config import ModelConfig, PianoTreeSpec
+from pctd_tpu_torch.config import ModelConfig, PianoTreeSpec, check_config
 from pctd_tpu_torch.ops import bigru_last_masked, gru_cell_pre, \
     gru_gates_pre, gru_init
 from pctd_tpu_torch.ops.kernels import ar_decoder, full_decoder, train_frame
@@ -287,8 +287,10 @@ def decode_grid(p: dict, cfg: ModelConfig, z: torch.Tensor,
     ``"frame"`` runs the time GRU here and each frame in the K3 kernel.
     On CPU tensors both take their kernels' plain PyTorch versions.
     ``fw`` is :func:`~pctd_tpu_torch.ops.kernels.ar_decoder.folded_frame_weights`
-    of ``p``, computed here when not given (a server folds once).
+    of ``p``, computed here when not given (a server folds once). Serves
+    float32 only: ``compute_dtype="bfloat16"`` raises.
     """
+    check_config(cfg, served=True)
     if fw is None:
         fw = ar_decoder.folded_frame_weights(p, cfg)
     spec = cfg.pianotree

@@ -16,7 +16,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from pctd_tpu_torch.config import ModelConfig
+from pctd_tpu_torch.config import ModelConfig, check_config
 from pctd_tpu_torch.models import disentangle_vae as dv
 from pctd_tpu_torch.ops import DiagNormal
 from pctd_tpu_torch.ops.kernels.ar_decoder import folded_frame_weights
@@ -35,6 +35,7 @@ class Sampler:
     def __init__(self, params: dict, cfg: ModelConfig,
                  frame_decoder: str = "full",
                  fixed_batch: Optional[int] = None, device=None):
+        check_config(cfg, served=True)
         if frame_decoder not in ("full", "frame"):
             raise ValueError(f"frame_decoder must be 'full' or 'frame', "
                              f"got {frame_decoder!r}")

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from pctd_tpu_torch.config import ModelConfig
 from pctd_tpu_torch.ops import DiagNormal, bigru_last, gru_init
 from pctd_tpu_torch.utils.init import conv2d_params, dense_apply, dense_params
+from pctd_tpu_torch.utils.precision import head_input
 
 
 def _conv_dims(cfg: ModelConfig):
@@ -52,9 +53,13 @@ def apply_conv(p: dict, pr_mat: torch.Tensor) -> DiagNormal:
     x = cols.transpose(1, 2) @ p["conv"]["w"].reshape(kh * kw, C)
     x = torch.relu(x + p["conv"]["b"]).reshape(B, Ho, Wo, C)
     Wp = Wo // 4
-    x = x[:, :, :Wp * 4].reshape(B, Ho, Wp, 4, C).amax(dim=3)  # (B,H,29,C)
+    # max pool; the gradient goes to the first maximum of a window, as the
+    # JAX reduce_window's does (ties are common in bf16)
+    x = x[:, :, :Wp * 4].reshape(B, Ho, Wp, 4, C).max(dim=3).values
     x = x.permute(0, 3, 1, 2).reshape(B, 8, -1)  # channel-major ravel
     x = dense_apply(p["fc2"], dense_apply(p["fc1"], x))
     h = bigru_last(p["gru_fwd"], p["gru_bwd"], x)
-    return DiagNormal(dense_apply(p["mu"], h),
-                      torch.exp(dense_apply(p["std"], h)))
+    # the Gaussian heads run in f32 (bf16 h promotes in JAX; cast here)
+    return DiagNormal(dense_apply(p["mu"], head_input(p["mu"], h)),
+                      torch.exp(dense_apply(p["std"],
+                                            head_input(p["std"], h))))

@@ -51,14 +51,65 @@ def input_proj(p: GRUParams, x: torch.Tensor) -> torch.Tensor:
     return x @ p.w_ih + p.b_ih
 
 
+class _XlaLogistic(torch.autograd.Function):
+    """The logistic as XLA expands it, ``1 / (1 + exp(-x))``, with JAX's
+    VJP ``g * (y * (1 - y))``; every op rounds to the tensors' dtype."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = 1.0 / (1.0 + torch.exp(-x))
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        y, = ctx.saved_tensors
+        return g * (y * (1.0 - y))
+
+
+class _XlaTanh(torch.autograd.Function):
+    """``tanh`` with JAX's VJP ``(g + g * y) * (1 - y)``, every op rounding
+    to the tensors' dtype."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.tanh(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        y, = ctx.saved_tensors
+        return (g + g * y) * (1.0 - y)
+
+
+def _sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``torch.sigmoid`` in float32. In bf16 the JAX package's bf16 GRUs'
+    logistic, op by op (:class:`_XlaLogistic`): with ``torch.sigmoid`` and
+    ``torch.tanh`` the bf16 loss's ``kl_chd`` sits 3.4e-4 (relative) from
+    the JAX package's at tiny width, against 1.26e-4 with them."""
+    if x.dtype == torch.float32:
+        return torch.sigmoid(x)
+    return _XlaLogistic.apply(x)
+
+
+def _tanh(x: torch.Tensor) -> torch.Tensor:
+    """``torch.tanh``; in bf16 with JAX's VJP (:class:`_XlaTanh`)."""
+    if x.dtype == torch.float32:
+        return torch.tanh(x)
+    return _XlaTanh.apply(x)
+
+
 def gru_gates_pre(gi: torch.Tensor, gh: torch.Tensor, h: torch.Tensor
                   ) -> torch.Tensor:
-    """Gate math from precomputed input and hidden projections (B, 3H)."""
+    """Gate math from precomputed input and hidden projections (B, 3H), in
+    their dtype. In bf16 every op rounds, forward and backward, in the
+    order of the JAX package's bf16 GRUs under XLA."""
     i_r, i_z, i_n = gi.chunk(3, dim=-1)
     h_r, h_z, h_n = gh.chunk(3, dim=-1)
-    r = torch.sigmoid(i_r + h_r)
-    z = torch.sigmoid(i_z + h_z)
-    n = torch.tanh(i_n + r * h_n)
+    r = _sigmoid(i_r + h_r)
+    z = _sigmoid(i_z + h_z)
+    n = _tanh(i_n + r * h_n)
     return (1.0 - z) * n + z * h
 
 

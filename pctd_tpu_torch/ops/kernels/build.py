@@ -150,28 +150,40 @@ def library() -> ctypes.CDLL:
         lib.pctd_error_string.argtypes = [i32]
         lib.pctd_error_string.restype = ctypes.c_char_p
         tw = ctypes.POINTER(TrainWeightsC)
-        lib.pctd_train_fwd.argtypes = ([tw, i32, i32] + [ptr] * 9
-                                       + [ctypes.POINTER(TrainStashC), ptr])
-        lib.pctd_train_fwd.restype = i32
-        lib.pctd_train_fwd_logits.argtypes = (
-            [tw, i32, i32] + [ptr] * 8 + [ctypes.POINTER(TrainStashC), ptr])
-        lib.pctd_train_fwd_logits.restype = i32
-        lib.pctd_train_bwd.argtypes = (
-            [tw, i32, i32] + [ptr] * 8
-            + [ctypes.POINTER(TrainStashC),
-               ctypes.POINTER(TrainCotangentsC), ptr])
-        lib.pctd_train_bwd.restype = i32
-        lib.pctd_train_bwd_logits.argtypes = (
-            [tw, i32, i32] + [ptr] * 7
-            + [ctypes.POINTER(TrainStashC),
-               ctypes.POINTER(TrainCotangentsC), ptr])
-        lib.pctd_train_bwd_logits.restype = i32
-        lib.pctd_train_wgrad.argtypes = [ctypes.POINTER(WgradTaskC), i32, ptr]
-        lib.pctd_train_wgrad.restype = i32
+        stash = ctypes.POINTER(TrainStashC)
+        cot = ctypes.POINTER(TrainCotangentsC)
+        for sfx in TRAIN_SUFFIX.values():     # the same C signature per dtype
+            for name, argtypes in (
+                    ("pctd_train_fwd", [tw, i32, i32] + [ptr] * 9
+                     + [stash, ptr]),
+                    ("pctd_train_fwd_logits", [tw, i32, i32] + [ptr] * 8
+                     + [stash, ptr]),
+                    ("pctd_train_bwd", [tw, i32, i32] + [ptr] * 8
+                     + [stash, cot, ptr]),
+                    ("pctd_train_bwd_logits", [tw, i32, i32] + [ptr] * 7
+                     + [stash, cot, ptr]),
+                    ("pctd_train_wgrad", [ctypes.POINTER(WgradTaskC), i32,
+                                          ptr])):
+                fn = getattr(lib, name + sfx)
+                fn.argtypes, fn.restype = argtypes, i32
         lib.pctd_train_smem_bytes.argtypes = [tw, i32, i32]
         lib.pctd_train_smem_bytes.restype = i32
         _LIB.append(lib)
     return _LIB[0]
+
+
+#: the C entry points' suffix for each storage dtype of the train-frame
+#: kernels (``PCTD_TRAIN_ENTRIES`` in ``csrc/train_frame.cu``; the bf16 ones
+#: compiled in ``csrc/train_frame_bf16.cu``)
+TRAIN_SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}
+
+
+def train_entry(name: str, dtype: torch.dtype) -> str:
+    """The C entry point of train-frame kernel ``name`` for ``dtype``."""
+    if dtype not in TRAIN_SUFFIX:
+        raise TypeError(f"train-frame kernels take float32 or bfloat16, "
+                        f"got {dtype}")
+    return name + TRAIN_SUFFIX[dtype]
 
 
 def check_inputs(fw: FoldedWeights, device: torch.device,
@@ -261,12 +273,14 @@ def train_weights(cw, d) -> TrainWeightsC:
 def launch_train_fwd(cw, d, batch: int, tensors: Sequence[torch.Tensor],
                      stash, rows: int = 0, logits: bool = False) -> None:
     """Launch K1 in loss mode (``pctd_train_fwd``) or, with ``logits``, in
-    logits-out mode (``pctd_train_fwd_logits``); ``stash`` None skips the
+    logits-out mode (``pctd_train_fwd_logits``), in the weights' dtype
+    (``_bf16`` entry points for bfloat16); ``stash`` None skips the
     stash."""
     device = tensors[0].device
     st = None if stash is None else ctypes.byref(
         TrainStashC(*(_ptr(t) for t in stash)))
-    name = "pctd_train_fwd_logits" if logits else "pctd_train_fwd"
+    name = train_entry("pctd_train_fwd_logits" if logits else
+                       "pctd_train_fwd", cw.w_hh.dtype)
     _call(name, device, ctypes.byref(train_weights(cw, d)),
           batch, rows or _train_rows(batch, device),
           *(_ptr(t) for t in tensors), st)
@@ -275,9 +289,10 @@ def launch_train_fwd(cw, d, batch: int, tensors: Sequence[torch.Tensor],
 def launch_train_bwd(cw, d, batch: int, tensors: Sequence[torch.Tensor],
                      stash, cot, rows: int = 0, logits: bool = False) -> None:
     """Launch K2a in loss mode (``pctd_train_bwd``) or, with ``logits``, in
-    logits-out mode (``pctd_train_bwd_logits``)."""
+    logits-out mode (``pctd_train_bwd_logits``), in the weights' dtype."""
     device = tensors[0].device
-    name = "pctd_train_bwd_logits" if logits else "pctd_train_bwd"
+    name = train_entry("pctd_train_bwd_logits" if logits else
+                       "pctd_train_bwd", cw.w_hh.dtype)
     _call(name, device, ctypes.byref(train_weights(cw, d)),
           batch, rows or _train_rows(batch, device),
           *(_ptr(t) for t in tensors),
@@ -286,9 +301,19 @@ def launch_train_bwd(cw, d, batch: int, tensors: Sequence[torch.Tensor],
 
 
 def launch_wgrad(tasks) -> None:
-    """Launch K2b (``pctd_train_wgrad``) over ``WgradTask`` reductions."""
+    """Launch K2b (``pctd_train_wgrad``) over ``WgradTask`` reductions: the
+    stash rows ``X`` and the gradients in one storage dtype (the ``_bf16``
+    entry point for bfloat16), the cotangents ``DY`` f32."""
+    dtype = tasks[0].gb.dtype
+    for t in tasks:
+        for name, x, want in (("X", t.X, dtype), ("DY", t.DY, torch.float32),
+                              ("gW", t.gW, dtype), ("gb", t.gb, dtype)):
+            if x.numel() and x.dtype != want:
+                raise TypeError(f"K2b task {name} has dtype {x.dtype}, "
+                                f"expected {want}")
     arr = (WgradTaskC * len(tasks))(*(
         WgradTaskC(_ptr(t.X), _ptr(t.DY), _ptr(t.gW), _ptr(t.gb), t.N, t.I,
                    t.O, t.n_in, t.x_o, t.x_i, t.y_o, t.y_i, 0, 0)
         for t in tasks))
-    _call("pctd_train_wgrad", tasks[0].DY.device, arr, len(tasks))
+    _call(train_entry("pctd_train_wgrad", dtype), tasks[0].DY.device, arr,
+          len(tasks))

@@ -1,5 +1,5 @@
 // Teacher-forced frame kernels of the training step for Hopper (sm_90a),
-// f32 on CUDA cores.
+// f32 arithmetic on CUDA cores, in two storage types (float and bf16).
 //
 // train_fwd_kernel (K1) replaces pctd_tpu/ops/pallas/train_frame.py::
 //   _fwd_kernel: one frame's 15 note-GRU slots (pitch head and argmax,
@@ -43,11 +43,30 @@
 // Arithmetic is plain f32 FMA (no TF32). Ties of the pitch argmax go to the
 // lowest index; a dur bit is logit[1] > logit[0] strictly. The argmax
 // decisions and the teacher coins carry no gradient.
+//
+// The bf16 mode (the JAX kernels' compute dtype bfloat16): every kernel is
+// a template on the storage type T of the weights, the inputs, the stashed
+// values and the outputs; one source serves both types. The arithmetic
+// stays f32 (a bf16 load converts exactly, a product of two bf16 values is
+// exact in f32, sums are f32 FMA), and a value is rounded to bf16 exactly
+// where the Pallas kernel writes .astype(dtype): the note and duration
+// hiddens, the pitch and duration logits (the argmaxes and the CE read the
+// rounded values), the predicted-note embedding, the summary hiddens, and
+// the duration GRU's feedback rows w_dih[b] + b_dih (a bf16 + bf16 sum).
+// The sos projection dur_sos @ w_dih + b_dih, the gate pre-activations and
+// the gates stay f32. The stash holds the rounded values in bf16 and the
+// f32 gates (ng, dg, sg) in f32; the per-sample cotangents and the CE
+// numerators are f32; d_frame_h and d_x_emb are rounded once when stored;
+// K2b sums each weight gradient in f32 and rounds it once to bf16. Bounds:
+// the bf16 mode reads half the weight bytes from L2 and does the same f32
+// FMAs; the card's bf16 tensor-core peak is not used by these CUDA-core
+// kernels.
 #include "common.cuh"
 
 // Field order matches CoreWeights and Dims (train_frame.py).
-struct TrainWeights {
-  const float *w_t2n, *b_t2n, *w_ih_frame, *w_ih_tok, *b_ih, *w_hh, *b_hh,
+template <typename T>
+struct TrainWeightsT {
+  const T *w_t2n, *b_t2n, *w_ih_frame, *w_ih_tok, *b_ih, *w_hh, *b_hh,
       *w_pitch, *b_pitch, *w_dhid, *b_dhid, *w_dih, *b_dih, *w_dhh, *b_dhh,
       *w_dout, *b_dout, *w_emb, *b_emb, *dur_sos, *we_ih, *we_hh, *be_ih,
       *be_hh;
@@ -55,9 +74,15 @@ struct TrainWeights {
 };
 
 // Field order matches Stash (train_frame.py); S = K-1 slots, shapes there.
-struct TrainStash {
-  float *hs, *ng, *tok, *est, *hd, *dg, *dlog, *dtok, *emb_in, *pred, *sh,
-      *sg;
+// The gates (ng, dg, sg) are f32 in either storage type.
+template <typename T>
+struct TrainStashT {
+  T* hs;
+  float* ng;
+  T *tok, *est, *hd;
+  float* dg;
+  T *dlog, *dtok, *emb_in, *pred, *sh;
+  float* sg;
 };
 
 // Field order matches Cotangents (train_frame.py).
@@ -67,13 +92,19 @@ struct TrainCotangents {
 };
 
 // Field order matches WgradTask (train_frame.py) plus the tile bookkeeping.
-struct WgradTask {
-  const float *X, *DY;
-  float *gW, *gb;
+// X (stash rows) and the gradients gW, gb are of the storage type T, the
+// cotangents DY f32.
+template <typename T>
+struct WgradTaskT {
+  const T* X;
+  const float* DY;
+  T *gW, *gb;
   int N, I, O, n_in;
   long long x_o, x_i, y_o, y_i;
   int tiles_o, tile0;
 };
+
+using bf16 = __nv_bfloat16;
 
 namespace {
 
@@ -82,8 +113,9 @@ constexpr int WG_TILE = 64;   // wgrad output tile (rows of gW x columns)
 constexpr int WG_CHUNK = 16;  // samples a tile step reads
 constexpr int WG_THREADS = 256;
 
+template <typename T>
 struct WgradTable {
-  WgradTask t[MAX_TASKS];
+  WgradTaskT<T> t[MAX_TASKS];
   int n;
 };
 
@@ -96,8 +128,8 @@ struct WgradTable {
 // (coalesced reads of W's row i) and meet in a shuffle reduction. Rows
 // r >= nrows are computed but not written. Every thread of the block calls
 // it; the caller synchronizes before reading y.
-template <int R>
-__device__ void matvec_t(const float* __restrict__ W, int ldw, int I, int O,
+template <int R, typename T>
+__device__ void matvec_t(const T* __restrict__ W, int ldw, int I, int O,
                          const float* d, int ldd, float* y, int ldy,
                          bool accumulate, int nrows) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -105,9 +137,9 @@ __device__ void matvec_t(const float* __restrict__ W, int ldw, int I, int O,
     float acc[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) acc[r] = 0.0f;
-    const float* wr = W + (size_t)i * ldw;
+    const T* wr = W + (size_t)i * ldw;
     for (int o = lane; o < O; o += 32) {
-      const float wv = __ldg(wr + o);
+      const float wv = ldg_f(wr + o);
 #pragma unroll
       for (int r = 0; r < R; ++r) acc[r] = fmaf(d[r * ldd + o], wv, acc[r]);
     }
@@ -149,14 +181,15 @@ __device__ __forceinline__ float gru_bwd(float dh, float h_prev,
 }
 
 // logsumexp of a row of n logits, reduced over one warp.
-__device__ __forceinline__ float warp_lse(const float* x, int n, int lane) {
+template <typename T>
+__device__ __forceinline__ float warp_lse(const T* x, int n, int lane) {
   float m = -INFINITY;
-  for (int j = lane; j < n; j += 32) m = fmaxf(m, x[j]);
+  for (int j = lane; j < n; j += 32) m = fmaxf(m, to_f(x[j]));
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
   float s = 0.0f;
-  for (int j = lane; j < n; j += 32) s += expf(x[j] - m);
+  for (int j = lane; j < n; j += 32) s += expf(to_f(x[j]) - m);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     s += __shfl_xor_sync(0xffffffffu, s, off);
@@ -178,7 +211,8 @@ struct FwdLayout {
       o_sg, o_nll, o_gsos, o_red, n_floats, n_ints;
 };
 
-__host__ __device__ inline FwdLayout fwd_layout(const TrainWeights& w,
+template <typename T>
+__host__ __device__ inline FwdLayout fwd_layout(const TrainWeightsT<T>& w,
                                                 int R) {
   FwdLayout L;
   L.lTH = pad4(w.TH);
@@ -211,23 +245,22 @@ __host__ __device__ inline FwdLayout fwd_layout(const TrainWeights& w,
   return L;
 }
 
-__host__ inline size_t fwd_smem_bytes(const TrainWeights& w, int R) {
+template <typename T>
+__host__ inline size_t fwd_smem_bytes(const TrainWeightsT<T>& w, int R) {
   FwdLayout L = fwd_layout(w, R);
   return sizeof(float) * (size_t)L.n_floats + sizeof(int) * (size_t)L.n_ints;
 }
 
-template <int R>
+template <int R, typename T>
 __global__ void __launch_bounds__(NT, 1)
-train_fwd_kernel(TrainWeights w, int B, const int* __restrict__ coins,
-                 const float* __restrict__ frame_h,
-                 const float* __restrict__ x_emb,
+train_fwd_kernel(TrainWeightsT<T> w, int B, const int* __restrict__ coins,
+                 const T* __restrict__ frame_h, const T* __restrict__ x_emb,
                  const int* __restrict__ gt_pitch,
                  const int* __restrict__ gt_dur,
-                 float* __restrict__ nums_rows,
-                 float* __restrict__ pitch_logits,
-                 float* __restrict__ dur_logits, float* __restrict__ summary,
+                 float* __restrict__ nums_rows, T* __restrict__ pitch_logits,
+                 T* __restrict__ dur_logits, T* __restrict__ summary,
                  int* __restrict__ lengths, int* __restrict__ decisions,
-                 TrainStash st, int stash, int logits) {
+                 TrainStashT<T> st, int stash, int logits) {
   // loss mode (logits == 0): gt_pitch, gt_dur -> nums_rows (B, 1+W);
   // logits out: pitch_logits (B, K-1, P) and dur_logits (B, K-1, W, 2),
   // batch-major, and the targets are not read.
@@ -256,11 +289,12 @@ train_fwd_kernel(TrainWeights w, int B, const int* __restrict__ coins,
   for (int idx = t; idx < R * TH; idx += NT) {
     const int r = idx / TH, j = idx - r * TH;
     fh[r * L.lTH + j] =
-        r < nrows ? frame_h[(size_t)(row0 + r) * TH + j] : 0.0f;
+        r < nrows ? to_f(frame_h[(size_t)(row0 + r) * TH + j]) : 0.0f;
   }
   for (int idx = t; idx < R * E; idx += NT) {
     const int r = idx / E, e = idx - r * E;
-    const float v = r < nrows ? x_emb[(size_t)(row0 + r) * K * E + e] : 0.0f;
+    const float v =
+        r < nrows ? to_f(x_emb[(size_t)(row0 + r) * K * E + e]) : 0.0f;
     tok[r * L.lE + e] = v;
     pred[r * L.lPR + e] = v;
   }
@@ -270,19 +304,19 @@ train_fwd_kernel(TrainWeights w, int B, const int* __restrict__ coins,
   // gi of the dur GRU's sos token: dur_sos @ w_dih + b_dih
   for (int j = t; j < DH3; j += NT) {
     float v = 0.0f;
-    for (int q = 0; q < W; ++q) v = fmaf(__ldg(w.dur_sos + q),
-                                         __ldg(w.w_dih + q * DH3 + j), v);
-    gsos[j] = v + __ldg(w.b_dih + j);
+    for (int q = 0; q < W; ++q) v = fmaf(ldg_f(w.dur_sos + q),
+                                         ldg_f(w.w_dih + q * DH3 + j), v);
+    gsos[j] = v + ldg_f(w.b_dih + j);
   }
   __syncthreads();
-  matvec<R>(w.w_t2n, w.b_t2n, TH, NH, fh, L.lTH, hx, L.lHX, red);
+  matvec<R, T>(w.w_t2n, w.b_t2n, TH, NH, fh, L.lTH, hx, L.lHX, red);
   matvec<R>(w.w_ih_frame, w.b_ih, TH, NH3, fh, L.lTH, gif, L.l3NH, red);
   __syncthreads();
   matvec<R>(w.w_hh, w.b_hh, NH, NH3, hx, L.lHX, gh, L.l3NH, red);
   if (stash) {
     for (int idx = t; idx < nrows * NH; idx += NT) {
       const int r = idx / NH, j = idx - r * NH;
-      st.hs[srow(0, r) * NH + j] = hx[r * L.lHX + j];
+      st.hs[srow(0, r) * NH + j] = from_f<T>(hx[r * L.lHX + j]);
     }
   }
   __syncthreads();
@@ -293,7 +327,7 @@ train_fwd_kernel(TrainWeights w, int B, const int* __restrict__ coins,
     if (stash) {
       for (int idx = t; idx < nrows * E; idx += NT) {
         const int r = idx / E, e = idx - r * E;
-        st.tok[srow(k - 1, r) * E + e] = tok[r * L.lE + e];
+        st.tok[srow(k - 1, r) * E + e] = from_f<T>(tok[r * L.lE + e]);
       }
     }
     __syncthreads();
@@ -308,7 +342,7 @@ train_fwd_kernel(TrainWeights w, int B, const int* __restrict__ coins,
       const float zz = sigmoid_(iz + g[NH + j]);
       const float nn = tanhf(in_ + rr * g[2 * NH + j]);
       const float hv = hx[r * L.lHX + j];
-      const float hnew = (1.0f - zz) * nn + zz * hv;
+      const float hnew = round_to<T>((1.0f - zz) * nn + zz * hv);
       hx[r * L.lHX + j] = hnew;
       if (stash && r < nrows) {
         float* ngp = st.ng + srow(k - 1, r) * 4 * NH;
@@ -316,7 +350,7 @@ train_fwd_kernel(TrainWeights w, int B, const int* __restrict__ coins,
         ngp[NH + j] = zz;
         ngp[2 * NH + j] = nn;
         ngp[3 * NH + j] = g[2 * NH + j];
-        st.hs[srow(k, r) * NH + j] = hnew;
+        st.hs[srow(k, r) * NH + j] = from_f<T>(hnew);
       }
     }
     __syncthreads();
@@ -324,7 +358,8 @@ train_fwd_kernel(TrainWeights w, int B, const int* __restrict__ coins,
     // pitch logits (after h)
     if (k < K - 1)
       matvec<R>(w.w_hh, w.b_hh, NH, NH3, hx, L.lHX, gh, L.l3NH, red);
-    matvec<R>(w.w_pitch, w.b_pitch, NH, P, hx, L.lHX, hx + NH, L.lHX, red);
+    matvec<R, T>(w.w_pitch, w.b_pitch, NH, P, hx, L.lHX, hx + NH, L.lHX,
+                 red);
     __syncthreads();
     // pitch argmax (ties to the lowest index) and its CE term, warp r
     if (warp < R) {
@@ -356,24 +391,25 @@ train_fwd_kernel(TrainWeights w, int B, const int* __restrict__ coins,
     if (stash) {
       for (int idx = t; idx < nrows * P; idx += NT) {
         const int r = idx / P, j = idx - r * P;
-        st.est[srow(k - 1, r) * P + j] = hx[r * L.lHX + NH + j];
+        st.est[srow(k - 1, r) * P + j] = from_f<T>(hx[r * L.lHX + NH + j]);
       }
     }
     if (logits) {
       for (int idx = t; idx < nrows * P; idx += NT) {
         const int r = idx / P, j = idx - r * P;
         pitch_logits[((size_t)(row0 + r) * S + k - 1) * P + j] =
-            hx[r * L.lHX + NH + j];
+            from_f<T>(hx[r * L.lHX + NH + j]);
       }
     }
     // dur-hidden init from [h | pitch logits], then its hidden gates
-    matvec<R>(w.w_dhid, w.b_dhid, NH + P, DH, hx, L.lHX, hd, L.lDH, red);
+    matvec<R, T>(w.w_dhid, w.b_dhid, NH + P, DH, hx, L.lHX, hd, L.lDH, red);
     __syncthreads();
     matvec<R>(w.w_dhh, w.b_dhh, DH, DH3, hd, L.lDH, ghd, L.l3DH, red);
     if (stash) {
       for (int idx = t; idx < nrows * DH; idx += NT) {
         const int r = idx / DH, j = idx - r * DH;
-        st.hd[(srow(k - 1, r) * (W + 1)) * DH + j] = hd[r * L.lDH + j];
+        st.hd[(srow(k - 1, r) * (W + 1)) * DH + j] =
+            from_f<T>(hd[r * L.lDH + j]);
       }
     }
     __syncthreads();
@@ -385,17 +421,19 @@ train_fwd_kernel(TrainWeights w, int B, const int* __restrict__ coins,
         if (ws == 0) {
           gi3[0] = gsos[j]; gi3[1] = gsos[DH + j]; gi3[2] = gsos[2 * DH + j];
         } else {
+          // the feedback row w_dih[b] + b_dih, a sum of two values of T
           const int b = bits[(r * S + k - 1) * W + ws - 1];
-          const float* row = w.w_dih + b * DH3;
-          gi3[0] = __ldg(row + j) + __ldg(w.b_dih + j);
-          gi3[1] = __ldg(row + DH + j) + __ldg(w.b_dih + DH + j);
-          gi3[2] = __ldg(row + 2 * DH + j) + __ldg(w.b_dih + 2 * DH + j);
+          const T* row = w.w_dih + b * DH3;
+#pragma unroll
+          for (int c = 0; c < 3; ++c)
+            gi3[c] = round_to<T>(ldg_f(row + c * DH + j) +
+                                 ldg_f(w.b_dih + c * DH + j));
         }
         const float rr = sigmoid_(gi3[0] + g[j]);
         const float zz = sigmoid_(gi3[1] + g[DH + j]);
         const float nn = tanhf(gi3[2] + rr * g[2 * DH + j]);
         const float hv = hd[r * L.lDH + j];
-        const float hnew = (1.0f - zz) * nn + zz * hv;
+        const float hnew = round_to<T>((1.0f - zz) * nn + zz * hv);
         hd[r * L.lDH + j] = hnew;
         if (stash && r < nrows) {
           const size_t q = srow(k - 1, r) * W + ws;
@@ -404,17 +442,19 @@ train_fwd_kernel(TrainWeights w, int B, const int* __restrict__ coins,
           dgp[DH + j] = zz;
           dgp[2 * DH + j] = nn;
           dgp[3 * DH + j] = g[2 * DH + j];
-          st.hd[(srow(k - 1, r) * (W + 1) + ws + 1) * DH + j] = hnew;
+          st.hd[(srow(k - 1, r) * (W + 1) + ws + 1) * DH + j] =
+              from_f<T>(hnew);
           if (j < W) {
             st.dtok[q * W + j] =
                 ws == 0 ? __ldg(w.dur_sos + j)
-                        : (j == bits[(r * S + k - 1) * W + ws - 1] ? 1.0f
-                                                                   : 0.0f);
+                        : from_f<T>(j == bits[(r * S + k - 1) * W + ws - 1]
+                                        ? 1.0f
+                                        : 0.0f);
           }
         }
       }
       __syncthreads();
-      matvec<R>(w.w_dout, w.b_dout, DH, 2, hd, L.lDH, lg, 4, red);
+      matvec<R, T>(w.w_dout, w.b_dout, DH, 2, hd, L.lDH, lg, 4, red);
       if (ws + 1 < W)
         matvec<R>(w.w_dhh, w.b_dhh, DH, DH3, hd, L.lDH, ghd, L.l3DH, red);
       __syncthreads();
@@ -424,10 +464,10 @@ train_fwd_kernel(TrainWeights w, int B, const int* __restrict__ coins,
         bits[(t * S + k - 1) * W + ws] = bit;
         if (t < nrows) {
           if (logits) {
-            float* o = dur_logits +
-                       (((size_t)(row0 + t) * S + k - 1) * W + ws) * 2;
-            o[0] = l0;
-            o[1] = l1;
+            T* o = dur_logits +
+                   (((size_t)(row0 + t) * S + k - 1) * W + ws) * 2;
+            o[0] = from_f<T>(l0);
+            o[1] = from_f<T>(l1);
           } else {
             const int gt =
                 gt_dur[((size_t)(row0 + t) * S + k - 1) * W + ws];
@@ -435,9 +475,9 @@ train_fwd_kernel(TrainWeights w, int B, const int* __restrict__ coins,
               nll[t * 8 + 1 + ws] += lse2(l0, l1) - lg[t * 4 + gt];
           }
           if (stash) {
-            float* dl = st.dlog + (srow(k - 1, t) * W + ws) * 2;
-            dl[0] = l0;
-            dl[1] = l1;
+            T* dl = st.dlog + (srow(k - 1, t) * W + ws) * 2;
+            dl[0] = from_f<T>(l0);
+            dl[1] = from_f<T>(l1);
           }
         }
       }
@@ -448,22 +488,22 @@ train_fwd_kernel(TrainWeights w, int B, const int* __restrict__ coins,
     for (int idx = t; idx < R * E; idx += NT) {
       const int r = idx / E, e = idx - r * E;
       const int q = r * S + k - 1;
-      float v = __ldg(w.w_emb + (size_t)pitch[q] * E + e);
+      float v = ldg_f(w.w_emb + (size_t)pitch[q] * E + e);
       for (int ws = 0; ws < W; ++ws)
-        if (bits[q * W + ws]) v += __ldg(w.w_emb + (size_t)(P + ws) * E + e);
-      v += __ldg(w.b_emb + e);
+        if (bits[q * W + ws]) v += ldg_f(w.w_emb + (size_t)(P + ws) * E + e);
+      v = round_to<T>(v + ldg_f(w.b_emb + e));
       pred[r * L.lPR + k * L.lE + e] = v;
       tok[r * L.lE + e] =
           coin[k] != 0 && r < nrows
-              ? x_emb[((size_t)(row0 + r) * K + k) * E + e] : v;
-      if (stash && r < nrows) st.pred[srow(k, r) * E + e] = v;
+              ? to_f(x_emb[((size_t)(row0 + r) * K + k) * E + e]) : v;
+      if (stash && r < nrows) st.pred[srow(k, r) * E + e] = from_f<T>(v);
     }
     if (stash) {
       for (int idx = t; idx < nrows * (P + W); idx += NT) {
         const int r = idx / (P + W), j = idx - r * (P + W);
         const int q = r * S + k - 1;
-        st.emb_in[srow(k - 1, r) * (P + W) + j] =
-            j < P ? (j == pitch[q] ? 1.0f : 0.0f) : (float)bits[q * W + j - P];
+        st.emb_in[srow(k - 1, r) * (P + W) + j] = from_f<T>(
+            j < P ? (j == pitch[q] ? 1.0f : 0.0f) : (float)bits[q * W + j - P]);
       }
     }
     __syncthreads();
@@ -472,7 +512,7 @@ train_fwd_kernel(TrainWeights w, int B, const int* __restrict__ coins,
   if (stash) {
     for (int idx = t; idx < nrows * E; idx += NT) {
       const int r = idx / E, e = idx - r * E;
-      st.pred[srow(0, r) * E + e] = pred[r * L.lPR + e];
+      st.pred[srow(0, r) * E + e] = from_f<T>(pred[r * L.lPR + e]);
     }
   }
   for (int idx = t; idx < R * 2 * EH; idx += NT) {
@@ -502,10 +542,10 @@ train_fwd_kernel(TrainWeights w, int B, const int* __restrict__ coins,
       const float rr = sigmoid_(gi_[j] + gh_[j]);
       const float zz = sigmoid_(gi_[EH + j] + gh_[EH + j]);
       const float nn = tanhf(gi_[2 * EH + j] + rr * gh_[2 * EH + j]);
-      if (slot < len[r]) *hv = (1.0f - zz) * nn + zz * hp;
+      if (slot < len[r]) *hv = round_to<T>((1.0f - zz) * nn + zz * hp);
       if (stash && r < nrows) {
         const size_t q = (size_t)d * K + k;
-        st.sh[(q * B + row0 + r) * EH + j] = hp;
+        st.sh[(q * B + row0 + r) * EH + j] = from_f<T>(hp);
         float* sgp = st.sg + (q * B + row0 + r) * 4 * EH;
         sgp[j] = rr;
         sgp[EH + j] = zz;
@@ -517,7 +557,7 @@ train_fwd_kernel(TrainWeights w, int B, const int* __restrict__ coins,
   }
   for (int idx = t; idx < nrows * 2 * EH; idx += NT) {
     const int r = idx / (2 * EH), j = idx - r * 2 * EH;
-    summary[(size_t)(row0 + r) * 2 * EH + j] = hs[r * L.lHS + j];
+    summary[(size_t)(row0 + r) * 2 * EH + j] = from_f<T>(hs[r * L.lHS + j]);
   }
   for (int idx = t; !logits && idx < nrows * (1 + W); idx += NT) {
     const int r = idx / (1 + W), q = idx - r * (1 + W);
@@ -537,15 +577,17 @@ train_fwd_kernel(TrainWeights w, int B, const int* __restrict__ coins,
 // ---------------------------------------------------------------------------
 
 struct BwdLayout {
-  int lNH, l3NH, lP, lHX, lE, lDH, l3DH, lHS, l3EH, lPR;
+  int lTH, lNH, l3NH, lP, lHX, lE, lDH, l3DH, lHS, l3EH, lPR;
   int o_dpred, o_dh, o_dgi, o_dgh, o_dgif, o_dest, o_dhin, o_dhd, o_dhd2,
-      o_dgid, o_dghd, o_dtok, o_dtokn, o_dsum, o_dsh, o_dsg, o_dl, o_g,
+      o_dgid, o_dghd, o_dtok, o_dtokn, o_dsum, o_dsh, o_dsg, o_dl, o_dfh, o_g,
       n_floats, n_ints;
 };
 
-__host__ __device__ inline BwdLayout bwd_layout(const TrainWeights& w,
+template <typename T>
+__host__ __device__ inline BwdLayout bwd_layout(const TrainWeightsT<T>& w,
                                                 int R) {
   BwdLayout L;
+  L.lTH = pad4(w.TH);
   L.lNH = pad4(w.NH);
   L.l3NH = pad4(3 * w.NH);
   L.lP = pad4(w.P);
@@ -574,29 +616,30 @@ __host__ __device__ inline BwdLayout bwd_layout(const TrainWeights& w,
   L.o_dsh = o;   o += R * L.lHS;
   L.o_dsg = o;   o += R * 4 * L.l3EH;  // [d_gi_f | d_gh_f | d_gi_b | d_gh_b]
   L.o_dl = o;    o += R * 4;           // d dur logit
+  L.o_dfh = o;   o += R * L.lTH;       // d frame_h, summed in f32
   L.o_g = o;     o += 8;               // d nums
   L.n_floats = o;
   L.n_ints = R + w.K;
   return L;
 }
 
-__host__ inline size_t bwd_smem_bytes(const TrainWeights& w, int R) {
+template <typename T>
+__host__ inline size_t bwd_smem_bytes(const TrainWeightsT<T>& w, int R) {
   BwdLayout L = bwd_layout(w, R);
   return sizeof(float) * (size_t)L.n_floats + sizeof(int) * (size_t)L.n_ints;
 }
 
-template <int R>
+template <int R, typename T>
 __global__ void __launch_bounds__(NT, 1)
-train_bwd_kernel(TrainWeights w, int B, const int* __restrict__ coins,
+train_bwd_kernel(TrainWeightsT<T> w, int B, const int* __restrict__ coins,
                  const int* __restrict__ gt_pitch,
                  const int* __restrict__ gt_dur,
                  const int* __restrict__ lengths,
                  const float* __restrict__ d_nums,
-                 const float* __restrict__ d_pitch,
-                 const float* __restrict__ d_dur,
-                 const float* __restrict__ d_summ,
-                 float* __restrict__ d_frame_h, float* __restrict__ d_x_emb,
-                 TrainStash st, TrainCotangents ct, int logits) {
+                 const T* __restrict__ d_pitch, const T* __restrict__ d_dur,
+                 const T* __restrict__ d_summ, T* __restrict__ d_frame_h,
+                 T* __restrict__ d_x_emb, TrainStashT<T> st,
+                 TrainCotangents ct, int logits) {
   // loss mode (logits == 0): the logit cotangents are g * mask * (softmax -
   // onehot) from gt_pitch, gt_dur and d_nums; logits out: they are read
   // from d_pitch (B, K-1, P) and d_dur (B, K-1, W, 2), and the targets and
@@ -615,7 +658,8 @@ train_bwd_kernel(TrainWeights w, int B, const int* __restrict__ coins,
         *dhin = sm + L.o_dhin, *dhd = sm + L.o_dhd, *dhd2 = sm + L.o_dhd2,
         *dgid = sm + L.o_dgid, *dghd = sm + L.o_dghd, *dtok = sm + L.o_dtok,
         *dtokn = sm + L.o_dtokn, *dsum = sm + L.o_dsum, *dsh = sm + L.o_dsh,
-        *dsg = sm + L.o_dsg, *dl = sm + L.o_dl, *g = sm + L.o_g;
+        *dsg = sm + L.o_dsg, *dl = sm + L.o_dl, *dfh = sm + L.o_dfh,
+        *g = sm + L.o_g;
   int* len = reinterpret_cast<int*>(sm + L.n_floats);  // [R]
   int* coin = len + R;                                 // [K]
   auto srow = [&](int k, int r) { return (size_t)k * B + row0 + r; };
@@ -627,7 +671,7 @@ train_bwd_kernel(TrainWeights w, int B, const int* __restrict__ coins,
   for (int idx = t; idx < R * 2 * EH; idx += NT) {
     const int r = idx / (2 * EH), j = idx - r * 2 * EH;
     dsum[r * L.lHS + j] =
-        r < nrows ? d_summ[(size_t)(row0 + r) * 2 * EH + j] : 0.0f;
+        r < nrows ? to_f(d_summ[(size_t)(row0 + r) * 2 * EH + j]) : 0.0f;
   }
   for (int idx = t; idx < R * L.lPR; idx += NT) dpred[idx] = 0.0f;
   __syncthreads();
@@ -642,7 +686,7 @@ train_bwd_kernel(TrainWeights w, int B, const int* __restrict__ coins,
       const int rr = r < nrows ? r : 0;
       const size_t q = ((size_t)d * K + k) * B + row0 + rr;
       const float* gates = st.sg + q * 4 * EH;
-      const float hp = st.sh[q * EH + j];
+      const float hp = to_f(st.sh[q * EH + j]);
       float* dgi_ = dsg + r * ldg + 2 * d * L.l3EH;
       float* dgh_ = dgi_ + L.l3EH;
       dsh[r * L.lHS + d * EH + j] =
@@ -701,19 +745,20 @@ train_bwd_kernel(TrainWeights w, int B, const int* __restrict__ coins,
       for (int idx = t; idx < R * P; idx += NT) {
         const int r = idx / P, j = idx - r * P;
         dest[r * L.lP + j] =
-            r < nrows ? d_pitch[((size_t)(row0 + r) * S + k - 1) * P + j]
-                      : 0.0f;
+            r < nrows
+                ? to_f(d_pitch[((size_t)(row0 + r) * S + k - 1) * P + j])
+                : 0.0f;
       }
     } else if (warp < R) {
       const int r = warp, rr = r < nrows ? r : 0;
-      const float* est = st.est + srow(k - 1, rr) * P;
+      const T* est = st.est + srow(k - 1, rr) * P;
       const int gt = r < nrows ? gt_pitch[(size_t)(row0 + r) * S + k - 1]
                                : w.pitch_pad;
       const float lse = warp_lse(est, P, lane);
       const float gm = gt != w.pitch_pad ? g[0] : 0.0f;
       for (int j = lane; j < P; j += 32)
         dest[r * L.lP + j] =
-            gm * (expf(est[j] - lse) - (j == gt ? 1.0f : 0.0f));
+            gm * (expf(to_f(est[j]) - lse) - (j == gt ? 1.0f : 0.0f));
     }
     for (int idx = t; idx < R * DH; idx += NT) {
       const int r = idx / DH, j = idx - r * DH;
@@ -726,14 +771,15 @@ train_bwd_kernel(TrainWeights w, int B, const int* __restrict__ coins,
         const int r = t, rr = r < nrows ? r : 0;
         float d0 = 0.0f, d1 = 0.0f;
         if (logits) {
-          const float* dd =
+          const T* dd =
               d_dur + (((size_t)(row0 + rr) * S + k - 1) * W + ws) * 2;
           if (r < nrows) {
-            d0 = dd[0];
-            d1 = dd[1];
+            d0 = to_f(dd[0]);
+            d1 = to_f(dd[1]);
           }
         } else {
-          const float* lg = st.dlog + (srow(k - 1, rr) * W + ws) * 2;
+          const T* lgt = st.dlog + (srow(k - 1, rr) * W + ws) * 2;
+          const float lg[2] = {to_f(lgt[0]), to_f(lgt[1])};
           const int gt =
               r < nrows ? gt_dur[((size_t)(row0 + r) * S + k - 1) * W + ws]
                         : w.dur_pad;
@@ -753,11 +799,12 @@ train_bwd_kernel(TrainWeights w, int B, const int* __restrict__ coins,
       __syncthreads();
       for (int idx = t; idx < R * DH; idx += NT) {
         const int r = idx / DH, j = idx - r * DH, rr = r < nrows ? r : 0;
-        const float dlogit = dl[r * 4] * __ldg(w.w_dout + j * 2) +
-                             dl[r * 4 + 1] * __ldg(w.w_dout + j * 2 + 1);
+        const float dlogit = dl[r * 4] * ldg_f(w.w_dout + j * 2) +
+                             dl[r * 4 + 1] * ldg_f(w.w_dout + j * 2 + 1);
         const float dhv = dhd[r * L.lDH + j] + dlogit;
         const size_t q = srow(k - 1, rr) * W + ws;
-        const float hp = st.hd[(srow(k - 1, rr) * (W + 1) + ws) * DH + j];
+        const float hp =
+            to_f(st.hd[(srow(k - 1, rr) * (W + 1) + ws) * DH + j]);
         dhd2[r * L.lDH + j] =
             gru_bwd(dhv, hp, st.dg + q * 4 * DH, DH, j, dgid + r * L.l3DH,
                     dghd + r * L.l3DH);
@@ -801,7 +848,7 @@ train_bwd_kernel(TrainWeights w, int B, const int* __restrict__ coins,
     for (int idx = t; idx < R * NH; idx += NT) {
       const int r = idx / NH, j = idx - r * NH, rr = r < nrows ? r : 0;
       const float dhk = dh[r * L.lNH + j] + dhin[r * L.lHX + j];
-      const float hp = st.hs[srow(k - 1, rr) * NH + j];
+      const float hp = to_f(st.hs[srow(k - 1, rr) * NH + j]);
       float* dgi_ = dgi + r * L.l3NH;
       float* dgh_ = dgh + r * L.l3NH;
       dh[r * L.lNH + j] = gru_bwd(dhk, hp, st.ng + srow(k - 1, rr) * 4 * NH,
@@ -826,7 +873,7 @@ train_bwd_kernel(TrainWeights w, int B, const int* __restrict__ coins,
       ct.d_emb[srow(k - 1, r) * E + e] =
           dpred[r * L.lPR + k * L.lE + e] + (coin[k] != 0 ? 0.0f : dn);
       d_x_emb[((size_t)(row0 + r) * K + k) * E + e] =
-          coin[k] != 0 ? dn : 0.0f;
+          from_f<T>(coin[k] != 0 ? dn : 0.0f);
     }
     __syncthreads();
     for (int idx = t; idx < R * E; idx += NT) {
@@ -838,7 +885,7 @@ train_bwd_kernel(TrainWeights w, int B, const int* __restrict__ coins,
   for (int idx = t; idx < nrows * E; idx += NT) {
     const int r = idx / E, e = idx - r * E;
     d_x_emb[(size_t)(row0 + r) * K * E + e] =
-        dtokn[r * L.lE + e] + dpred[r * L.lPR + e];
+        from_f<T>(dtokn[r * L.lE + e] + dpred[r * L.lPR + e]);
   }
   for (int idx = t; idx < nrows * NH; idx += NT) {
     const int r = idx / NH, j = idx - r * NH;
@@ -848,12 +895,16 @@ train_bwd_kernel(TrainWeights w, int B, const int* __restrict__ coins,
     const int r = idx / NH3, j = idx - r * NH3;
     ct.d_gif[(size_t)(row0 + r) * NH3 + j] = dgif[r * L.l3NH + j];
   }
-  // d frame_h = dh0 @ w_t2n^T + d_gi_frame @ w_ih_frame^T
-  matvec_t<R>(w.w_t2n, NH, TH, NH, dh, L.lNH,
-              d_frame_h + (size_t)row0 * TH, TH, false, nrows);
+  // d frame_h = dh0 @ w_t2n^T + d_gi_frame @ w_ih_frame^T, summed in f32
+  // and rounded once to T
+  matvec_t<R>(w.w_t2n, NH, TH, NH, dh, L.lNH, dfh, L.lTH, false, R);
   __syncthreads();
-  matvec_t<R>(w.w_ih_frame, NH3, TH, NH3, dgif, L.l3NH,
-              d_frame_h + (size_t)row0 * TH, TH, true, nrows);
+  matvec_t<R>(w.w_ih_frame, NH3, TH, NH3, dgif, L.l3NH, dfh, L.lTH, true, R);
+  __syncthreads();
+  for (int idx = t; idx < nrows * TH; idx += NT) {
+    const int r = idx / TH, j = idx - r * TH;
+    d_frame_h[(size_t)(row0 + r) * TH + j] = from_f<T>(dfh[r * L.lTH + j]);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -865,13 +916,14 @@ __device__ __forceinline__ size_t sample_row(int n, int n_in, long long o,
   return (size_t)((n / n_in) * o + (n % n_in) * i);
 }
 
+template <typename Ts>
 __global__ void __launch_bounds__(WG_THREADS)
-wgrad_kernel(const __grid_constant__ WgradTable tab) {
+wgrad_kernel(const __grid_constant__ WgradTable<Ts> tab) {
   __shared__ __align__(16) float Xs[WG_CHUNK][WG_TILE];
   __shared__ __align__(16) float Ds[WG_CHUNK][WG_TILE];
   int ti = 0;
   while (ti + 1 < tab.n && (int)blockIdx.x >= tab.t[ti + 1].tile0) ++ti;
-  const WgradTask& T = tab.t[ti];
+  const WgradTaskT<Ts>& T = tab.t[ti];
   const int local = blockIdx.x - T.tile0;
   const int i0 = (local / T.tiles_o) * WG_TILE;
   const int o0 = (local % T.tiles_o) * WG_TILE;
@@ -889,7 +941,7 @@ wgrad_kernel(const __grid_constant__ WgradTable tab) {
       float xv = 0.0f, dv = 0.0f;
       if (n < T.N) {
         if (i < T.I)
-          xv = T.X[sample_row(n, T.n_in, T.x_o, T.x_i) + i];
+          xv = to_f(T.X[sample_row(n, T.n_in, T.x_o, T.x_i) + i]);
         else if (i == T.I && bias)
           xv = 1.0f;
         if (o < T.O) dv = T.DY[sample_row(n, T.n_in, T.y_o, T.y_i) + o];
@@ -919,9 +971,9 @@ wgrad_kernel(const __grid_constant__ WgradTable tab) {
       const int o = o0 + tx * 4 + q;
       if (o >= T.O) continue;
       if (i < T.I)
-        T.gW[(size_t)i * T.O + o] = acc[p][q];
+        T.gW[(size_t)i * T.O + o] = from_f<Ts>(acc[p][q]);
       else if (i == T.I && bias)
-        T.gb[o] = acc[p][q];
+        T.gb[o] = from_f<Ts>(acc[p][q]);
     }
   }
 }
@@ -933,25 +985,25 @@ cudaError_t prepare_train(Kern kern, size_t bytes) {
 }
 
 // K1 in either mode (see train_fwd_kernel).
-cudaError_t train_fwd(const TrainWeights* w, int B, int R, const int* coins,
-                      const float* frame_h, const float* x_emb,
+template <typename T>
+cudaError_t train_fwd(const TrainWeightsT<T>* w, int B, int R,
+                      const int* coins, const T* frame_h, const T* x_emb,
                       const int* gt_pitch, const int* gt_dur,
-                      float* nums_rows, float* pitch_logits,
-                      float* dur_logits, float* summary, int* lengths,
-                      int* decisions, const TrainStash* stash, int logits,
-                      void* stream) {
+                      float* nums_rows, T* pitch_logits, T* dur_logits,
+                      T* summary, int* lengths, int* decisions,
+                      const TrainStashT<T>* stash, int logits, void* stream) {
   if (B <= 0 || !(R == 1 || R == 2 || R == 4)) return cudaErrorInvalidValue;
   const size_t bytes = fwd_smem_bytes(*w, R);
   const dim3 grid((B + R - 1) / R);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  TrainStash st = {};
+  TrainStashT<T> st = {};
   if (stash) st = *stash;
   const int on = stash != nullptr;
   cudaError_t e = cudaSuccess;
 #define PCTD_FWD(RR)                                                         \
-  e = prepare_train(train_fwd_kernel<RR>, bytes);                            \
+  e = prepare_train(train_fwd_kernel<RR, T>, bytes);                         \
   if (e == cudaSuccess)                                                      \
-    train_fwd_kernel<RR><<<grid, NT, bytes, s>>>(                            \
+    train_fwd_kernel<RR, T><<<grid, NT, bytes, s>>>(                         \
         *w, B, coins, frame_h, x_emb, gt_pitch, gt_dur, nums_rows,           \
         pitch_logits, dur_logits, summary, lengths, decisions, st, on,       \
         logits);
@@ -966,13 +1018,14 @@ cudaError_t train_fwd(const TrainWeights* w, int B, int R, const int* coins,
 }
 
 // K2a in either mode (see train_bwd_kernel).
-cudaError_t train_bwd(const TrainWeights* w, int B, int R, const int* coins,
-                      const int* gt_pitch, const int* gt_dur,
-                      const int* lengths, const float* d_nums,
-                      const float* d_pitch, const float* d_dur,
-                      const float* d_summ, float* d_frame_h, float* d_x_emb,
-                      const TrainStash* stash, const TrainCotangents* cot,
-                      int logits, void* stream) {
+template <typename T>
+cudaError_t train_bwd(const TrainWeightsT<T>* w, int B, int R,
+                      const int* coins, const int* gt_pitch,
+                      const int* gt_dur, const int* lengths,
+                      const float* d_nums, const T* d_pitch, const T* d_dur,
+                      const T* d_summ, T* d_frame_h, T* d_x_emb,
+                      const TrainStashT<T>* stash,
+                      const TrainCotangents* cot, int logits, void* stream) {
   if (B <= 0 || !(R == 1 || R == 2 || R == 4) || !stash || !cot)
     return cudaErrorInvalidValue;
   const size_t bytes = bwd_smem_bytes(*w, R);
@@ -980,9 +1033,9 @@ cudaError_t train_bwd(const TrainWeights* w, int B, int R, const int* coins,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaSuccess;
 #define PCTD_BWD(RR)                                                         \
-  e = prepare_train(train_bwd_kernel<RR>, bytes);                            \
+  e = prepare_train(train_bwd_kernel<RR, T>, bytes);                         \
   if (e == cudaSuccess)                                                      \
-    train_bwd_kernel<RR><<<grid, NT, bytes, s>>>(                            \
+    train_bwd_kernel<RR, T><<<grid, NT, bytes, s>>>(                         \
         *w, B, coins, gt_pitch, gt_dur, lengths, d_nums, d_pitch, d_dur,     \
         d_summ, d_frame_h, d_x_emb, *stash, *cot, logits);
   switch (R) {
@@ -995,69 +1048,15 @@ cudaError_t train_bwd(const TrainWeights* w, int B, int R, const int* coins,
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-int pctd_train_smem_bytes(const TrainWeights* w, int rows_per_block,
-                          int backward) {
-  return (int)(backward ? bwd_smem_bytes(*w, rows_per_block)
-                        : fwd_smem_bytes(*w, rows_per_block));
-}
-
-// K1, loss mode: CE numerators per row.
-int pctd_train_fwd(const TrainWeights* w, int B, int rows_per_block,
-                   const int* coins, const float* frame_h, const float* x_emb,
-                   const int* gt_pitch, const int* gt_dur, float* nums_rows,
-                   float* summary, int* lengths, int* decisions,
-                   const TrainStash* stash, void* stream) {
-  return train_fwd(w, B, rows_per_block, coins, frame_h, x_emb, gt_pitch,
-                   gt_dur, nums_rows, nullptr, nullptr, summary, lengths,
-                   decisions, stash, 0, stream);
-}
-
-// K1, logits out.
-int pctd_train_fwd_logits(const TrainWeights* w, int B, int rows_per_block,
-                          const int* coins, const float* frame_h,
-                          const float* x_emb, float* pitch_logits,
-                          float* dur_logits, float* summary, int* lengths,
-                          int* decisions, const TrainStash* stash,
-                          void* stream) {
-  return train_fwd(w, B, rows_per_block, coins, frame_h, x_emb, nullptr,
-                   nullptr, nullptr, pitch_logits, dur_logits, summary,
-                   lengths, decisions, stash, 1, stream);
-}
-
-// K2a, loss mode: the CE cotangents from the targets and d_nums.
-int pctd_train_bwd(const TrainWeights* w, int B, int rows_per_block,
-                   const int* coins, const int* gt_pitch, const int* gt_dur,
-                   const int* lengths, const float* d_nums,
-                   const float* d_summ, float* d_frame_h, float* d_x_emb,
-                   const TrainStash* stash, const TrainCotangents* cot,
-                   void* stream) {
-  return train_bwd(w, B, rows_per_block, coins, gt_pitch, gt_dur, lengths,
-                   d_nums, nullptr, nullptr, d_summ, d_frame_h, d_x_emb,
-                   stash, cot, 0, stream);
-}
-
-// K2a, logits out: the logit cotangents d_pitch and d_dur given.
-int pctd_train_bwd_logits(const TrainWeights* w, int B, int rows_per_block,
-                          const int* coins, const int* lengths,
-                          const float* d_pitch, const float* d_dur,
-                          const float* d_summ, float* d_frame_h,
-                          float* d_x_emb, const TrainStash* stash,
-                          const TrainCotangents* cot, void* stream) {
-  return train_bwd(w, B, rows_per_block, coins, nullptr, nullptr, lengths,
-                   nullptr, d_pitch, d_dur, d_summ, d_frame_h, d_x_emb,
-                   stash, cot, 1, stream);
-}
-
-int pctd_train_wgrad(const WgradTask* tasks, int n_tasks, void* stream) {
+// K2b over n_tasks reductions (see wgrad_kernel).
+template <typename T>
+cudaError_t train_wgrad(const WgradTaskT<T>* tasks, int n_tasks,
+                        void* stream) {
   if (n_tasks <= 0 || n_tasks > MAX_TASKS) return cudaErrorInvalidValue;
-  WgradTable tab = {};
+  WgradTable<T> tab = {};
   int tiles = 0;
   for (int i = 0; i < n_tasks; ++i) {
-    WgradTask t = tasks[i];
+    WgradTaskT<T> t = tasks[i];
     if (t.N <= 0 || t.O <= 0 || t.I < 0 || t.n_in <= 0)
       return cudaErrorInvalidValue;
     const int rows = t.I + (t.gb ? 1 : 0);
@@ -1067,9 +1066,83 @@ int pctd_train_wgrad(const WgradTask* tasks, int n_tasks, void* stream) {
     tab.t[i] = t;
   }
   tab.n = n_tasks;
-  wgrad_kernel<<<tiles, WG_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  wgrad_kernel<T><<<tiles, WG_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       tab);
   return cudaGetLastError();
 }
+
+}  // namespace
+
+// The C entry points: one per kernel, mode and storage type (suffix _bf16
+// for bfloat16; float otherwise). Shared memory does not depend on the
+// storage type (a block keeps its state in f32).
+#define PCTD_TRAIN_ENTRIES(T, SFX)                                           \
+  /* K1, loss mode: CE numerators per row. */                                \
+  int pctd_train_fwd##SFX(const TrainWeightsT<T>* w, int B,                  \
+                          int rows_per_block, const int* coins,              \
+                          const T* frame_h, const T* x_emb,                  \
+                          const int* gt_pitch, const int* gt_dur,            \
+                          float* nums_rows, T* summary, int* lengths,        \
+                          int* decisions, const TrainStashT<T>* stash,       \
+                          void* stream) {                                    \
+    return train_fwd<T>(w, B, rows_per_block, coins, frame_h, x_emb,         \
+                        gt_pitch, gt_dur, nums_rows, nullptr, nullptr,       \
+                        summary, lengths, decisions, stash, 0, stream);      \
+  }                                                                          \
+  /* K1, logits out. */                                                      \
+  int pctd_train_fwd_logits##SFX(                                            \
+      const TrainWeightsT<T>* w, int B, int rows_per_block,                  \
+      const int* coins, const T* frame_h, const T* x_emb, T* pitch_logits,   \
+      T* dur_logits, T* summary, int* lengths, int* decisions,               \
+      const TrainStashT<T>* stash, void* stream) {                           \
+    return train_fwd<T>(w, B, rows_per_block, coins, frame_h, x_emb,         \
+                        nullptr, nullptr, nullptr, pitch_logits, dur_logits, \
+                        summary, lengths, decisions, stash, 1, stream);      \
+  }                                                                          \
+  /* K2a, loss mode: the CE cotangents from the targets and d_nums. */       \
+  int pctd_train_bwd##SFX(const TrainWeightsT<T>* w, int B,                  \
+                          int rows_per_block, const int* coins,              \
+                          const int* gt_pitch, const int* gt_dur,            \
+                          const int* lengths, const float* d_nums,           \
+                          const T* d_summ, T* d_frame_h, T* d_x_emb,         \
+                          const TrainStashT<T>* stash,                       \
+                          const TrainCotangents* cot, void* stream) {        \
+    return train_bwd<T>(w, B, rows_per_block, coins, gt_pitch, gt_dur,       \
+                        lengths, d_nums, nullptr, nullptr, d_summ,           \
+                        d_frame_h, d_x_emb, stash, cot, 0, stream);          \
+  }                                                                          \
+  /* K2a, logits out: the logit cotangents d_pitch and d_dur given. */       \
+  int pctd_train_bwd_logits##SFX(                                            \
+      const TrainWeightsT<T>* w, int B, int rows_per_block,                  \
+      const int* coins, const int* lengths, const T* d_pitch,                \
+      const T* d_dur, const T* d_summ, T* d_frame_h, T* d_x_emb,             \
+      const TrainStashT<T>* stash, const TrainCotangents* cot,               \
+      void* stream) {                                                        \
+    return train_bwd<T>(w, B, rows_per_block, coins, nullptr, nullptr,       \
+                        lengths, nullptr, d_pitch, d_dur, d_summ, d_frame_h, \
+                        d_x_emb, stash, cot, 1, stream);                     \
+  }                                                                          \
+  /* K2b. */                                                                 \
+  int pctd_train_wgrad##SFX(const WgradTaskT<T>* tasks, int n_tasks,         \
+                            void* stream) {                                  \
+    return train_wgrad<T>(tasks, n_tasks, stream);                           \
+  }
+
+// The float entry points are compiled here, the bf16 ones in
+// train_frame_bf16.cu, which includes this file: the two instantiations
+// build in parallel.
+extern "C" {
+
+#ifndef PCTD_TRAIN_BF16
+int pctd_train_smem_bytes(const TrainWeightsT<float>* w, int rows_per_block,
+                          int backward) {
+  return (int)(backward ? bwd_smem_bytes(*w, rows_per_block)
+                        : fwd_smem_bytes(*w, rows_per_block));
+}
+
+PCTD_TRAIN_ENTRIES(float, )
+#else
+PCTD_TRAIN_ENTRIES(bf16, _bf16)
+#endif
 
 }  // extern "C"

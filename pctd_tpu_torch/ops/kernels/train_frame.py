@@ -32,6 +32,17 @@ cotangents from the caller's loss. The CUDA source is
 out) are the plain PyTorch versions of K1 in the kernel's grouping;
 autograd of them is K2's plain version. The argmax decisions and the
 teacher coins carry no gradient.
+
+Every function here runs in the storage dtype of the weights, float32 or
+bfloat16 (the JAX kernels compute in the dtype of their inputs). In bf16
+all arithmetic stays f32: products take the bf16 values as f32 and sum in
+f32, and a value is rounded to bf16 only where the Pallas kernel writes
+``.astype(dtype)`` (the note and duration hiddens, the pitch and duration
+logits, the predicted-note embedding, the summary hiddens, and the
+duration GRU's two feedback rows). The argmaxes read the rounded logits.
+The stash keeps the rounded values in bf16 and the f32 gate values in f32;
+the per-sample cotangents and the CE numerators are f32, and each weight
+gradient is summed in f32 and rounded once to the weight's dtype.
 """
 from __future__ import annotations
 
@@ -40,8 +51,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from pctd_tpu_torch.config import ModelConfig, PianoTreeSpec
-from pctd_tpu_torch.ops.gru import GRUParams, bigru_last_masked, \
-    gru_gates_pre
+from pctd_tpu_torch.ops.gru import gru_gates_pre
 from pctd_tpu_torch.ops.losses import masked_ce_parts
 
 
@@ -95,6 +105,40 @@ def core_weights(p: dict, cfg: ModelConfig) -> CoreWeights:
         torch.stack([ef.b_ih, eb.b_ih]), torch.stack([ef.b_hh, eb.b_hh]))
 
 
+#: storage dtypes the frame kernels take
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+class _RoundTo(torch.autograd.Function):
+    """f32 -> the nearest value of ``dtype``, kept in f32; the backward
+    passes the cotangent through unchanged, as the hand-written VJP of the
+    JAX kernel does at its rounding points (its cotangents stay f32)."""
+
+    @staticmethod
+    def forward(ctx, x, dtype):
+        return x.to(dtype).float()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _rounding(dtype: torch.dtype):
+    """The rounding of a value to ``dtype`` (identity for float32)."""
+    if dtype == torch.float32:
+        return lambda x: x
+    return lambda x: _RoundTo.apply(x, dtype)
+
+
+def storage_dtype(cw: CoreWeights) -> torch.dtype:
+    """The one dtype of the 24 weights; raises on a mix or another dtype."""
+    dts = {w.dtype for w in cw}
+    if len(dts) != 1 or next(iter(dts)) not in DTYPES:
+        raise TypeError(f"train-frame weights must all be float32 or all "
+                        f"bfloat16, got {sorted(map(str, dts))}")
+    return next(iter(dts))
+
+
 class FrameOut(NamedTuple):
     nums: torch.Tensor      # (1 + W,) masked-CE numerators [pitch, bits]
     summary: torch.Tensor   # (B, 2EH) predicted-frame summary
@@ -111,39 +155,64 @@ class CoreOut(NamedTuple):
     lengths: torch.Tensor       # (B,) int32 eos lengths
 
 
+def _summary_plain(c: CoreWeights, pred: torch.Tensor,
+                   lengths: torch.Tensor, rnd) -> torch.Tensor:
+    """The masked bi-GRU summary of ``_summary_fwd`` (pack_padded
+    semantics) over pred (B, K, E), each new hidden rounded by ``rnd``."""
+    B, K, _ = pred.shape
+    mask = (torch.arange(K, device=pred.device)[None, :]
+            < lengths[:, None])
+    out = []
+    for d in range(2):
+        gi = pred @ c.we_ih[d] + c.be_ih[d]
+        h = pred.new_zeros((B, c.we_hh.shape[1]))
+        for k in (range(K) if d == 0 else range(K - 1, -1, -1)):
+            h_new = gru_gates_pre(gi[:, k], h @ c.we_hh[d] + c.be_hh[d], h)
+            h = rnd(torch.where(mask[:, k, None], h_new, h))
+        out.append(h)
+    return torch.cat(out, dim=-1)
+
+
 def _frame_plain(cw: CoreWeights, spec: PianoTreeSpec,
                  frame_h: torch.Tensor, x_emb: torch.Tensor,
                  coins: torch.Tensor):
     """One frame's teacher-forced decode in K1's grouping (``_run_forward``
-    and ``_summary_fwd`` of the JAX kernel). Returns (pitch logits
+    and ``_summary_fwd`` of the JAX kernel), in f32 arithmetic with the
+    rounding points of the weights' dtype (see the module docstring).
+    Returns f32 tensors holding values of that dtype: (pitch logits
     (B, K-1, P), dur logits (B, K-1, W, 2), summary, lengths, hs, pitch
     argmaxes (B, K-1), dur bits (B, K-1, W))."""
     K, W, P = spec.max_simu_note, spec.dur_width, spec.pitch_range
     B = frame_h.shape[0]
-    gi_d_sos = cw.dur_sos @ cw.w_dih + cw.b_dih
-    row0 = cw.w_dih[0] + cw.b_dih
-    row1 = cw.w_dih[1] + cw.b_dih
-    h = frame_h @ cw.w_t2n + cw.b_t2n
-    gi_frame = frame_h @ cw.w_ih_frame + cw.b_ih
-    gh = h @ cw.w_hh + cw.b_hh
+    rnd = _rounding(storage_dtype(cw))
+    # one f32 view of each weight, so autograd sums a weight's gradient in
+    # f32 and rounds it to the weight's dtype once (no copy in float32)
+    c = CoreWeights(*(w.float() for w in cw))
+    frame_h, x_emb = frame_h.float(), x_emb.float()
+    gi_d_sos = c.dur_sos @ c.w_dih + c.b_dih
+    row0 = rnd(c.w_dih[0] + c.b_dih)
+    row1 = rnd(c.w_dih[1] + c.b_dih)
+    h = rnd(frame_h @ c.w_t2n + c.b_t2n)
+    gi_frame = frame_h @ c.w_ih_frame + c.b_ih
+    gh = h @ c.w_hh + c.b_hh
     token = x_emb[:, 0]
     hs, pred, ests, dur_logits, pitches, all_bits = [h], [token], [], [], \
         [], []
     lengths = torch.zeros(B, dtype=torch.int32, device=frame_h.device)
     for k in range(1, K):
-        h = gru_gates_pre(gi_frame + token @ cw.w_ih_tok, gh, h)
+        h = rnd(gru_gates_pre(gi_frame + token @ c.w_ih_tok, gh, h))
         hs.append(h)
-        gh = h @ cw.w_hh + cw.b_hh
-        est = h @ cw.w_pitch + cw.b_pitch
+        gh = h @ c.w_hh + c.b_hh
+        est = rnd(h @ c.w_pitch + c.b_pitch)
         pitch = est.argmax(-1)
-        h_d = torch.cat([h, est], -1) @ cw.w_dhid + cw.b_dhid
-        gh_d = h_d @ cw.w_dhh + cw.b_dhh
+        h_d = rnd(torch.cat([h, est], -1) @ c.w_dhid + c.b_dhid)
+        gh_d = h_d @ c.w_dhh + c.b_dhh
         gi_d = gi_d_sos.expand(B, -1)
         logits, bits = [], []
         for _ in range(W):
-            h_d = gru_gates_pre(gi_d, gh_d, h_d)
-            logit = h_d @ cw.w_dout + cw.b_dout
-            gh_d = h_d @ cw.w_dhh + cw.b_dhh
+            h_d = rnd(gru_gates_pre(gi_d, gh_d, h_d))
+            logit = rnd(h_d @ c.w_dout + c.b_dout)
+            gh_d = h_d @ c.w_dhh + c.b_dhh
             bitf = (logit[:, 1:2] > logit[:, 0:1]).to(h.dtype)
             gi_d = bitf * row1 + (1.0 - bitf) * row0
             logits.append(logit)
@@ -151,7 +220,7 @@ def _frame_plain(cw: CoreWeights, spec: PianoTreeSpec,
         bits = torch.stack(bits, -1)
         raw = torch.cat([torch.nn.functional.one_hot(pitch, P).to(h.dtype),
                          bits], -1)
-        emb = raw @ cw.w_emb + cw.b_emb
+        emb = rnd(raw @ c.w_emb + c.b_emb)
         pred.append(emb)
         pitch = pitch.to(torch.int32)
         is_eos = (pitch == spec.pitch_eos) & (lengths == 0)
@@ -163,9 +232,7 @@ def _frame_plain(cw: CoreWeights, spec: PianoTreeSpec,
         all_bits.append(bits.to(torch.int32))
     lengths = torch.where(lengths == 0, torch.full_like(lengths, K - 1),
                           lengths)
-    fwd = GRUParams(cw.we_ih[0], cw.we_hh[0], cw.be_ih[0], cw.be_hh[0])
-    bwd = GRUParams(cw.we_ih[1], cw.we_hh[1], cw.be_ih[1], cw.be_hh[1])
-    summary = bigru_last_masked(fwd, bwd, torch.stack(pred, 1), lengths)
+    summary = _summary_plain(c, torch.stack(pred, 1), lengths, rnd)
     return (torch.stack(ests, 1), torch.stack(dur_logits, 1), summary,
             lengths, torch.stack(hs), torch.stack(pitches, 1),
             torch.stack(all_bits, 1))
@@ -182,13 +249,17 @@ def frame_recon_plain(cw: CoreWeights, spec: PianoTreeSpec,
     frame_h (B, TH) time hidden; x_emb (B, K, E) ground-truth note
     embeddings (x_emb[:, 0] is the sos token); coins (K-1,) teacher flags of
     slots 1..K-1; gt_pitch (B, K-1) and gt_dur (B, K-1, W) integer targets.
+    frame_h, x_emb, the summary and hs are in the weights' dtype; the
+    numerators are f32.
     """
+    dt = storage_dtype(cw)
     est_all, dur_all, summary, lengths, hs, pitch, bits = _frame_plain(
         cw, spec, frame_h, x_emb, coins)
     nums = [masked_ce_parts(est_all, gt_pitch, spec.pitch_pad)[0]]
     nums += [masked_ce_parts(dur_all[:, :, w], gt_dur[..., w],
                              spec.dur_pad)[0] for w in range(spec.dur_width)]
-    return FrameOut(torch.stack(nums), summary, lengths, hs, pitch, bits)
+    return FrameOut(torch.stack(nums), summary.to(dt), lengths, hs.to(dt),
+                    pitch, bits)
 
 
 def frame_core_plain(cw: CoreWeights, spec: PianoTreeSpec,
@@ -196,14 +267,20 @@ def frame_core_plain(cw: CoreWeights, spec: PianoTreeSpec,
                      coins: torch.Tensor) -> CoreOut:
     """Plain PyTorch version of K1 in logits-out mode (the JAX package's
     ``frame_core``): one frame's teacher-forced decode, returning the pitch
-    and duration logits, the predicted-frame summary and the lengths.
-    Arguments as in :func:`frame_recon_plain`."""
-    return CoreOut(*_frame_plain(cw, spec, frame_h, x_emb, coins)[:4])
+    and duration logits, the predicted-frame summary and the lengths (the
+    first three in the weights' dtype). Arguments as in
+    :func:`frame_recon_plain`."""
+    dt = storage_dtype(cw)
+    pitch, dur, summary, lengths = _frame_plain(cw, spec, frame_h, x_emb,
+                                                coins)[:4]
+    return CoreOut(pitch.to(dt), dur.to(dt), summary.to(dt), lengths)
 
 
 class Stash(NamedTuple):
     """Activations K1 writes on the gradient path and K2 reads (one frame;
     S = K-1 slots). Field order is ``TrainStash`` in ``csrc/train_frame.cu``.
+    The gate values (``ng``, ``dg``, ``sg``) are f32; the other fields hold
+    values of the storage dtype and are stored in it (:data:`F32_STASH`).
     """
     hs: torch.Tensor      # (K, B, NH) note-GRU hiddens, hs[0] initial
     ng: torch.Tensor      # (S, B, 4NH) note-GRU gates r, z, n, h_n
@@ -217,6 +294,10 @@ class Stash(NamedTuple):
     pred: torch.Tensor    # (K, B, E) summary inputs, pred[0] = x_emb[:, 0]
     sh: torch.Tensor      # (2, K, B, EH) summary hidden before step k
     sg: torch.Tensor      # (2, K, B, 4EH) summary gates at step k
+
+
+#: the stash fields kept in f32 whatever the storage dtype
+F32_STASH = ("ng", "dg", "sg")
 
 
 class Cotangents(NamedTuple):
@@ -261,19 +342,21 @@ def dims_of(cw: CoreWeights, spec: PianoTreeSpec) -> Dims:
                 dur_pad=spec.dur_pad)
 
 
-def _empty(dev, *shape):
-    return torch.empty(shape, dtype=torch.float32, device=dev)
+def _empty(dev, *shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device=dev)
 
 
-def new_stash(d: Dims, B: int, dev) -> Stash:
+def new_stash(d: Dims, B: int, dev, dtype=torch.float32) -> Stash:
+    """An empty :class:`Stash` of B rows for weights of ``dtype``."""
     S = d.K - 1
-    return Stash(
-        _empty(dev, d.K, B, d.NH), _empty(dev, S, B, 4 * d.NH),
-        _empty(dev, S, B, d.E), _empty(dev, S, B, d.P),
-        _empty(dev, S, B, d.W + 1, d.DH), _empty(dev, S, B, d.W, 4 * d.DH),
-        _empty(dev, S, B, d.W, 2), _empty(dev, S, B, d.W, d.W),
-        _empty(dev, S, B, d.P + d.W), _empty(dev, d.K, B, d.E),
-        _empty(dev, 2, d.K, B, d.EH), _empty(dev, 2, d.K, B, 4 * d.EH))
+    shapes = Stash(
+        (d.K, B, d.NH), (S, B, 4 * d.NH), (S, B, d.E), (S, B, d.P),
+        (S, B, d.W + 1, d.DH), (S, B, d.W, 4 * d.DH), (S, B, d.W, 2),
+        (S, B, d.W, d.W), (S, B, d.P + d.W), (d.K, B, d.E),
+        (2, d.K, B, d.EH), (2, d.K, B, 4 * d.EH))
+    return Stash(*(_empty(dev, *shape, dtype=torch.float32
+                          if name in F32_STASH else dtype)
+                   for name, shape in zip(Stash._fields, shapes)))
 
 
 def new_cotangents(d: Dims, B: int, dev) -> Cotangents:
@@ -355,23 +438,27 @@ def _rows(t: torch.Tensor, N: int, width: int, n_in: int, outer: int,
 
 def wgrad_plain(tasks) -> None:
     """Plain PyTorch version of K2b: each task's ``X^T dY`` and column sum
-    as torch products, written into the same outputs."""
+    as f32 torch products, written (rounded once) into the same outputs."""
     for tk in tasks:
         dy = _rows(tk.DY, tk.N, tk.O, tk.n_in, tk.y_o, tk.y_i)
         if tk.I:
             x = _rows(tk.X, tk.N, tk.I, tk.n_in, tk.x_o, tk.x_i)
-            tk.gW.copy_(x.t() @ dy)
+            tk.gW.copy_(x.float().t() @ dy)
         if tk.gb.numel():
             tk.gb.copy_(dy.sum(0))
 
 
 def _check(cw: CoreWeights, d: Dims, dev, B: int, named) -> None:
+    """Raise unless the weights (one dtype of :data:`DTYPES`) and the
+    ``named`` (name, tensor, shape, dtype) inputs are contiguous tensors of
+    their shapes and dtypes on the card ``dev``."""
     if dev.type != "cuda":
         raise ValueError(f"train-frame kernels take CUDA tensors, got {dev}")
     if B == 0:
         raise ValueError("empty batch")
+    dt = storage_dtype(cw)
     for name, t, shape, dtype in (
-            [(f"weight {n}", w, None, torch.float32)
+            [(f"weight {n}", w, None, dt)
              for n, w in zip(cw._fields, cw)] + list(named)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, expected {dev}")
@@ -390,25 +477,26 @@ def _check(cw: CoreWeights, d: Dims, dev, B: int, named) -> None:
 
 def frame_fwd(cw: CoreWeights, spec: PianoTreeSpec, frame_h, x_emb, coins,
               gt_pitch, gt_dur, stash: bool):
-    """K1 wrapper (CUDA tensors only): launches ``train_fwd_kernel``.
-    Returns (nums (1+W,), summary (B, 2EH), lengths (B,) i32, decisions
-    (B, K-1, 1+W) i32 [pitch | bits], the :class:`Stash` or None). Counts
-    its launches in ``frame_fwd.launches``."""
+    """K1 wrapper (CUDA tensors only): launches ``train_fwd_kernel`` in
+    the weights' dtype (frame_h and x_emb in it too). Returns (nums (1+W,)
+    f32, summary (B, 2EH), lengths (B,) i32, decisions (B, K-1, 1+W) i32
+    [pitch | bits], the :class:`Stash` or None). Counts its launches in
+    ``frame_fwd.launches``."""
     from pctd_tpu_torch.ops.kernels import build
 
     d = dims_of(cw, spec)
     B, dev, i32 = frame_h.shape[0], frame_h.device, torch.int32
-    S = d.K - 1
+    S, dt = d.K - 1, storage_dtype(cw)
     _check(cw, d, dev, B, [
-        ("frame_h", frame_h, (B, d.TH), torch.float32),
-        ("x_emb", x_emb, (B, d.K, d.E), torch.float32),
+        ("frame_h", frame_h, (B, d.TH), dt),
+        ("x_emb", x_emb, (B, d.K, d.E), dt),
         ("coins", coins, (S,), i32), ("gt_pitch", gt_pitch, (B, S), i32),
         ("gt_dur", gt_dur, (B, S, d.W), i32)])
     nums_rows = _empty(dev, B, 1 + d.W)
-    summary = _empty(dev, B, 2 * d.EH)
+    summary = _empty(dev, B, 2 * d.EH, dtype=dt)
     lengths = torch.empty(B, dtype=i32, device=dev)
     decisions = torch.empty((B, S, 1 + d.W), dtype=i32, device=dev)
-    st = new_stash(d, B, dev) if stash else None
+    st = new_stash(d, B, dev, dt) if stash else None
     build.launch_train_fwd(cw, d, B, [coins, frame_h, x_emb, gt_pitch,
                                       gt_dur, nums_rows, summary, lengths,
                                       decisions], st)
@@ -422,19 +510,19 @@ frame_fwd.launches = 0
 
 def frame_bwd(cw: CoreWeights, spec: PianoTreeSpec, frame_h, coins,
               gt_pitch, gt_dur, lengths, st: Stash, d_nums, d_summ):
-    """K2a wrapper: launches ``train_bwd_kernel``. Returns (d_frame_h,
-    d_x_emb, :class:`Cotangents`). Counts launches in
-    ``frame_bwd.launches``."""
+    """K2a wrapper: launches ``train_bwd_kernel``. d_nums is f32, d_summ in
+    the weights' dtype. Returns (d_frame_h, d_x_emb, both in that dtype,
+    :class:`Cotangents`, f32). Counts launches in ``frame_bwd.launches``."""
     from pctd_tpu_torch.ops.kernels import build
 
     d = dims_of(cw, spec)
-    B, dev = frame_h.shape[0], frame_h.device
+    B, dev, dt = frame_h.shape[0], frame_h.device, storage_dtype(cw)
     _check(cw, d, dev, B, [
         ("d_nums", d_nums, (1 + d.W,), torch.float32),
-        ("d_summ", d_summ, (B, 2 * d.EH), torch.float32)])
+        ("d_summ", d_summ, (B, 2 * d.EH), dt)])
     ct = new_cotangents(d, B, dev)
-    d_frame_h = _empty(dev, B, d.TH)
-    d_x_emb = _empty(dev, B, d.K, d.E)
+    d_frame_h = _empty(dev, B, d.TH, dtype=dt)
+    d_x_emb = _empty(dev, B, d.K, d.E, dtype=dt)
     build.launch_train_bwd(cw, d, B, [coins, gt_pitch, gt_dur, lengths,
                                       d_nums, d_summ, d_frame_h, d_x_emb],
                            st, ct)
@@ -448,7 +536,8 @@ frame_bwd.launches = 0
 def weight_grads(cw: CoreWeights, spec: PianoTreeSpec, frame_h, st: Stash,
                  ct: Cotangents) -> CoreWeights:
     """K2b wrapper: launches ``wgrad_kernel`` once for all 24 weight
-    gradients of a frame. Counts launches in ``weight_grads.launches``."""
+    gradients of a frame, each summed in f32 and written in its weight's
+    dtype. Counts launches in ``weight_grads.launches``."""
     from pctd_tpu_torch.ops.kernels import build
 
     d = dims_of(cw, spec)
@@ -528,17 +617,17 @@ def frame_core_fwd(cw: CoreWeights, spec: PianoTreeSpec, frame_h, x_emb,
 
     d = dims_of(cw, spec)
     B, dev, i32 = frame_h.shape[0], frame_h.device, torch.int32
-    S = d.K - 1
+    S, dt = d.K - 1, storage_dtype(cw)
     _check(cw, d, dev, B, [
-        ("frame_h", frame_h, (B, d.TH), torch.float32),
-        ("x_emb", x_emb, (B, d.K, d.E), torch.float32),
+        ("frame_h", frame_h, (B, d.TH), dt),
+        ("x_emb", x_emb, (B, d.K, d.E), dt),
         ("coins", coins, (S,), i32)])
-    pitch = _empty(dev, B, S, d.P)
-    dur = _empty(dev, B, S, d.W, 2)
-    summary = _empty(dev, B, 2 * d.EH)
+    pitch = _empty(dev, B, S, d.P, dtype=dt)
+    dur = _empty(dev, B, S, d.W, 2, dtype=dt)
+    summary = _empty(dev, B, 2 * d.EH, dtype=dt)
     lengths = torch.empty(B, dtype=i32, device=dev)
     decisions = torch.empty((B, S, 1 + d.W), dtype=i32, device=dev)
-    st = new_stash(d, B, dev) if stash else None
+    st = new_stash(d, B, dev, dt) if stash else None
     build.launch_train_fwd(cw, d, B, [coins, frame_h, x_emb, pitch, dur,
                                       summary, lengths, decisions], st,
                            logits=True)
@@ -552,21 +641,22 @@ frame_core_fwd.launches = 0
 def frame_core_bwd(cw: CoreWeights, spec: PianoTreeSpec, frame_h, coins,
                    lengths, st: Stash, d_pitch, d_dur, d_summ):
     """K2a wrapper in logits-out mode: launches ``train_bwd_kernel`` on the
-    logit cotangents d_pitch (B, K-1, P) and d_dur (B, K-1, W, 2). Returns
+    logit cotangents d_pitch (B, K-1, P) and d_dur (B, K-1, W, 2), in the
+    weights' dtype like d_summ. Returns
     (d_frame_h, d_x_emb, :class:`Cotangents`). Counts launches in
     ``frame_core_bwd.launches``."""
     from pctd_tpu_torch.ops.kernels import build
 
     d = dims_of(cw, spec)
-    B, dev = frame_h.shape[0], frame_h.device
+    B, dev, dt = frame_h.shape[0], frame_h.device, storage_dtype(cw)
     S = d.K - 1
     _check(cw, d, dev, B, [
-        ("d_pitch", d_pitch, (B, S, d.P), torch.float32),
-        ("d_dur", d_dur, (B, S, d.W, 2), torch.float32),
-        ("d_summ", d_summ, (B, 2 * d.EH), torch.float32)])
+        ("d_pitch", d_pitch, (B, S, d.P), dt),
+        ("d_dur", d_dur, (B, S, d.W, 2), dt),
+        ("d_summ", d_summ, (B, 2 * d.EH), dt)])
     ct = new_cotangents(d, B, dev)
-    d_frame_h = _empty(dev, B, d.TH)
-    d_x_emb = _empty(dev, B, d.K, d.E)
+    d_frame_h = _empty(dev, B, d.TH, dtype=dt)
+    d_x_emb = _empty(dev, B, d.K, d.E, dtype=dt)
     build.launch_train_bwd(cw, d, B, [coins, lengths, d_pitch, d_dur, d_summ,
                                       d_frame_h, d_x_emb], st, ct,
                            logits=True)

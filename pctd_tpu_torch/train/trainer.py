@@ -9,6 +9,17 @@ evaluated at the step count; the latent noise and the teacher coins come
 from one ``torch.Generator`` seeded from ``TrainConfig.seed``. Eval draws
 from a generator of its own (:data:`EVAL_SEED`). Checkpoints, metric
 writers and the training CLI are not ported yet.
+
+With ``ModelConfig.compute_dtype="bfloat16"`` the step runs under the
+mixed-precision policy (``pctd_tpu_torch.utils.precision``): the master
+params, their gradients, the gradient norm and the Adam moments stay f32,
+and the loss casts the params to bf16 inside, so autograd returns f32
+gradients to the f32 leaves; the frame kernels K1/K2 run in their bf16
+mode. Train and eval follow ``compute_dtype`` through the loss. Building a
+bf16 ``Trainer`` sets ``torch.backends.cuda.matmul.
+allow_bf16_reduced_precision_reduction`` to False for the process, and
+leaves it so: PyTorch's default lets a split-K bf16 GEMM sum its partial
+products in bf16, where JAX sums them in f32.
 """
 from __future__ import annotations
 
@@ -112,6 +123,9 @@ class Trainer:
                  val_batches=None, device=None, params: Optional[dict] = None):
         self.mcfg, self.tcfg = mcfg, tcfg
         self.device = resolve_device(device)
+        if mcfg.compute_dtype == "bfloat16":    # f32 partial sums, as JAX
+            torch.backends.cuda.matmul \
+                .allow_bf16_reduced_precision_reduction = False
         self.train_batches, self.val_batches = train_batches, val_batches
         self.params = params if params is not None else dv.init_params(
             mcfg, seed=tcfg.seed, device=self.device)

@@ -288,3 +288,188 @@ def test_frame_core_backward_needs_its_stash(cuda):
                                       inp["x_emb"], inp["coins"], *leaves)
     with pytest.raises(RuntimeError, match="stash"):
         out[2].sum().backward()
+
+
+# --- bf16 mode: K1, K2a and K2b with bf16 weights, inputs and stash --------
+
+def _bf16_case(cfg, device, B, seed, eos_bias=None):
+    """A :func:`_frame_case` with the decoder weights, frame_h and x_emb in
+    bf16 (the weights through the precision policy's cast)."""
+    from pctd_tpu_torch.utils.precision import cast_params
+
+    dec, inp = _frame_case(cfg, device, B, seed, eos_bias)
+    dec = cast_params(dec, torch.bfloat16)
+    inp = {k: (v.to(torch.bfloat16) if v.is_floating_point() else v)
+           for k, v in inp.items()}
+    return dec, inp
+
+
+def _first_difference_margins(got_dec, want_dec, want):
+    """For each row whose decisions differ, the plain version's margin at
+    the first differing decision (pitch: max logit minus the kernel's pitch
+    logit; bit: |logit1 - logit0|), over 1 + the largest |logit|."""
+    B, S, C = got_dec.shape
+    diff = (got_dec != want_dec).reshape(B, S * C)
+    rows = diff.any(1).nonzero()[:, 0]
+    first = diff[rows].int().argmax(1)
+    k, c = first // C, first % C
+    pl = want.pitch_logits.float()[rows, k]
+    mx = pl.max(-1).values
+    pick = pl.gather(-1, got_dec[rows, k, 0].long()[:, None])[:, 0]
+    dl = want.dur_logits.float()[rows, k, (c - 1).clamp(min=0)]
+    return torch.where(c == 0, (mx - pick) / (1 + mx.abs()),
+                       (dl[:, 1] - dl[:, 0]).abs()
+                       / (1 + dl.abs().amax(-1)))
+
+
+@pytest.mark.parametrize("width", ["tiny", "canonical"])
+@pytest.mark.parametrize("B", [64, 128])
+@pytest.mark.parametrize("logits", [False, True])
+def test_train_fwd_kernel_bf16_matches_plain(cuda, width, B, logits):
+    """K1 in bf16 against its plain version. The two sum in another f32
+    order, so a few bf16 roundings and near-tie argmaxes differ (0.16% of
+    the slots at B=512 on an H100): each row's first differing decision must
+    be a near-tie of the plain logits (margin <= 1e-2), the decided slots
+    agree on >= 0.99 (a case of B=64 has 960) and the lengths on >= 0.999;
+    on the agreeing rows the values agree within 1e-2 x (1 + max|plain|)."""
+    cfg = tiny_model_config() if width == "tiny" else ModelConfig()
+    spec = cfg.pianotree
+    dec, inp = _bf16_case(cfg, cuda, B, seed=B + 2, eos_bias=0.1)
+    cw = train_frame.core_weights(dec, cfg)
+    assert train_frame.storage_dtype(cw) == torch.bfloat16
+    with torch.no_grad():
+        want = train_frame.frame_core_plain(cw, spec, **_core_inputs(inp))
+        want_dec = torch.cat([
+            want.pitch_logits.argmax(-1, keepdim=True).to(torch.int32),
+            (want.dur_logits[..., 1] > want.dur_logits[..., 0]).to(
+                torch.int32)], -1)
+        if logits:
+            pitch, dur, summ, lens, got_dec, _ = train_frame.frame_core_fwd(
+                cw, spec, **_core_inputs(inp), stash=False)
+            pairs = ((pitch, want.pitch_logits), (dur, want.dur_logits),
+                     (summ, want.summary))
+        else:
+            nums, summ, lens, got_dec, st = train_frame.frame_fwd(
+                cw, spec, **inp, stash=True)
+            plain = train_frame.frame_recon_plain(cw, spec, **inp)
+            assert torch.equal(plain.lengths, want.lengths)
+            pairs = ((summ, plain.summary), (st.hs, plain.hs))
+    slots = (got_dec == want_dec).all(-1)
+    assert slots.float().mean().item() >= 0.99
+    assert (lens == want.lengths).float().mean().item() >= 0.999
+    margins = _first_difference_margins(got_dec, want_dec, want)
+    assert len(margins) == 0 or margins.max().item() <= 1e-2
+    rows = slots.all(1) & (lens == want.lengths)
+    for a, b in pairs:
+        assert a.dtype == b.dtype == torch.bfloat16
+        a, b = a.float(), b.float()
+        if a.shape[0] != rows.shape[0]:      # hs: (K, B, NH)
+            a, b = a[:, rows], b[:, rows]
+        else:
+            a, b = a[rows], b[rows]
+        assert (a - b).abs().max().item() <= 1e-2 * (
+            1.0 + b.abs().max().item())
+
+
+@pytest.mark.parametrize("width", ["tiny", "canonical"])
+@pytest.mark.parametrize("logits", [False, True])
+def test_train_bwd_kernel_bf16_matches_autograd(cuda, width, logits):
+    """K2a + K2b in bf16 against autograd of the plain version: all 26
+    gradients (bf16) within 1e-2 x (1 + max|plain|)."""
+    cfg = tiny_model_config() if width == "tiny" else ModelConfig()
+    spec = cfg.pianotree
+    K, W, P = spec.max_simu_note, spec.dur_width, spec.pitch_range
+    dec, inp = _bf16_case(cfg, cuda, 64, seed=13, eos_bias=0.1)
+    with torch.no_grad():
+        rows, _, _ = _agreeing_rows(train_frame.core_weights(dec, cfg), spec,
+                                    inp)
+    assert rows.any()
+    inp = {k: (v[rows] if k != "coins" else v) for k, v in inp.items()}
+    B = int(rows.sum())
+    g = torch.Generator(device=cuda).manual_seed(9)
+    bf = lambda *s: torch.randn(s, device=cuda, generator=g).to(
+        torch.bfloat16)
+    g_nums = torch.rand(1 + W, device=cuda, generator=g)
+    g_pitch, g_dur, g_summ = bf(B, K - 1, P), bf(B, K - 1, W, 2), \
+        bf(B, 2 * cfg.dec_emb_hidden)
+
+    def grads(plain):
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in train_frame.core_weights(dec, cfg)]
+        cw = train_frame.CoreWeights(*leaves)
+        fh = inp["frame_h"].clone().requires_grad_(True)
+        xe = inp["x_emb"].clone().requires_grad_(True)
+        if logits:
+            fn = (train_frame.frame_core_plain if plain
+                  else train_frame.frame_core)
+            out = fn(cw, spec, fh, xe, inp["coins"])
+            loss = ((out.pitch_logits * g_pitch).sum()
+                    + (out.dur_logits * g_dur).sum()
+                    + (out.summary * g_summ).sum())
+        else:
+            args = (cw, spec, fh, xe, inp["coins"], inp["gt_pitch"],
+                    inp["gt_dur"])
+            if plain:
+                out = train_frame.frame_recon_plain(*args)
+                nums, summ = out.nums, out.summary
+            else:
+                nums, summ = train_frame.frame_recon(*args)
+            loss = (nums * g_nums).sum() + (summ * g_summ).sum()
+        loss.float().backward()
+        return [t.grad for t in leaves] + [fh.grad, xe.grad]
+
+    k2b = train_frame.weight_grads.launches
+    got = grads(plain=False)
+    assert train_frame.weight_grads.launches == k2b + 1
+    want = grads(plain=True)
+    names = list(train_frame.CoreWeights._fields) + ["frame_h", "x_emb"]
+    for name, a, b in zip(names, got, want):
+        assert a.dtype == b.dtype == torch.bfloat16, name
+        a, b = a.float(), b.float()
+        tol = 1e-2 * (1.0 + b.abs().max().item())
+        assert (a - b).abs().max().item() <= tol, name
+
+
+def test_bf16_train_step_runs_the_bf16_kernels(cuda):
+    """A bf16 train step at tiny width on the card goes through K1, K2a and
+    K2b (32 launches each, bf16 weights at each), keeps the master params
+    and Adam moments f32, and pins cuBLAS to f32 partial sums."""
+    import dataclasses
+
+    from pctd_tpu_torch.config import TrainConfig
+    from pctd_tpu_torch.data.loaders import SegmentCorpus, make_loaders
+    from pctd_tpu_torch.ops.kernels import build
+    from pctd_tpu_torch.train import trainer as tr
+
+    cfg = dataclasses.replace(tiny_model_config(), compute_dtype="bfloat16")
+    rng = np.random.RandomState(0)
+    pr = (rng.rand(8, 32, 128) < 0.03).astype(np.uint8) * 2
+    chord = np.zeros((8, 8, 14), np.float32)
+    chord[..., 0] = rng.randint(0, 12, (8, 8))
+    train_b, _ = make_loaders(SegmentCorpus(pr, chord),
+                              SegmentCorpus(pr[:2], chord[:2]), 4, seed=0)
+    run = tr.Trainer(cfg, TrainConfig(batch_size=4), train_b, device=cuda)
+    dtypes = []
+    launch = build.launch_train_fwd
+
+    def record(cw, *a, **kw):
+        dtypes.append(cw.w_hh.dtype)
+        return launch(cw, *a, **kw)
+
+    counts = [f.launches for f in (train_frame.frame_fwd,
+                                   train_frame.frame_bwd,
+                                   train_frame.weight_grads)]
+    build.launch_train_fwd = record
+    try:
+        m = run.train_steps(1)[0]
+    finally:
+        build.launch_train_fwd = launch
+    after = [f.launches for f in (train_frame.frame_fwd,
+                                  train_frame.frame_bwd,
+                                  train_frame.weight_grads)]
+    assert not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    assert [b - a for a, b in zip(counts, after)] == [32, 32, 32]
+    assert dtypes == [torch.bfloat16] * 32
+    assert all(np.isfinite(v) for v in m.values())
+    assert all(t.dtype == torch.float32 for t in run.leaves)
+    assert all(t.dtype == torch.float32 for t in run.opt.mu + run.opt.nu)

@@ -26,7 +26,7 @@ for name in names:
 for name in ("data.loaders", "data.tensorize", "models.chord_decoder",
              "models.disentangle_vae", "models.pianotree_decoder",
              "ops.kernels.train_frame", "ops.losses", "train.optim",
-             "train.schedules", "train.trainer"):
+             "train.schedules", "train.trainer", "utils.precision"):
     assert "pctd_tpu_torch." + name in names, name
 import chip_smoke  # noqa: F401
 leaked = sorted(m for m in sys.modules
@@ -60,6 +60,11 @@ train_b, _ = make_loaders(SegmentCorpus(pr, chord), SegmentCorpus(pr, chord),
                           batch_size=2)
 run = Trainer(tiny_model_config(fused_loss=False), TrainConfig(batch_size=2),
               train_b, device="cpu", params=params)
+assert np.isfinite(run.train_steps(1)[0]["loss"])
+# and the bf16 training path (the precision policy's copy)
+run = Trainer(tiny_model_config(compute_dtype="bfloat16"),
+              TrainConfig(batch_size=2), train_b, device="cpu",
+              params=params)
 assert np.isfinite(run.train_steps(1)[0]["loss"])
 print("modules", len(names))
 """

@@ -1,7 +1,8 @@
 """The port's Trainer on the CPU at tiny width: a step runs and moves every
 parameter, the updated tree carries back to the JAX layouts bit-exactly,
 gradient accumulation averages its microbatches, an empty epoch reports
-zeros and eval draws its noise apart from the train stream."""
+zeros, eval draws its noise apart from the train stream, and two bf16
+steps match two JAX bf16 steps."""
 import numpy as np
 import torch
 
@@ -103,3 +104,58 @@ def test_eval_noise_is_apart_from_the_train_stream():
     assert not torch.equal(coins(train), coins(eval0))
     run.step_count = 1
     assert not torch.equal(draw(run.eval_generator()).eps_chd, eval0.eps_chd)
+
+
+#: bf16 step metrics vs JAX: step 1 at the bf16 loss parity's 1.4e-4; step
+#: 2 at 4.4e-3, the JAX package's own distance between its two bf16 paths
+#: (Pallas interpret vs XLA) after these two steps. Adam's first update is
+#: lr * g / |g|, so a near-zero gradient entry whose bf16 sign differs
+#: between two implementations moves its weight by 2 lr.
+STEP_RTOL = (1.4e-4, 4.4e-3)
+
+
+def test_two_bf16_train_steps_match_jax(monkeypatch):
+    """Two Trainer steps with compute_dtype="bfloat16" against two JAX bf16
+    train steps (its Pallas frame kernels in interpret mode), from the same
+    weights and with the JAX step keys' noise: the master params, their
+    gradients and the Adam moments stay f32, and each step's 11 metrics
+    match the JAX step's within :data:`STEP_RTOL` (measured 7.7e-5 and
+    2.2e-3). Building the bf16 Trainer turns PyTorch's bf16 reduced-precision
+    cuBLAS reductions off."""
+    import dataclasses
+
+    import jax
+
+    from tests.test_torch_port_multistep import TRAIN, _batches, _jax_steps
+    from tests.torch_port_helpers import JAX_TINY, jax_noise
+
+    jp = jax_params(seed=6)
+    batches = _batches()[:2]
+    base_key = jax.random.PRNGKey(11)
+    matmul = torch.backends.cuda.matmul
+    monkeypatch.setattr(matmul, "allow_bf16_reduced_precision_reduction",
+                        True)
+    jrows, _ = _jax_steps(
+        jp, dataclasses.replace(JAX_TINY, compute_dtype="bfloat16",
+                                train_frame_kernel=True), batches, base_key)
+    run = trainer.Trainer(dataclasses.replace(TINY, compute_dtype="bfloat16"),
+                          tcfg.TrainConfig(**TRAIN), None, device="cpu",
+                          params=params_from_jax(jp, "cpu"))
+    assert not matmul.allow_bf16_reduced_precision_reduction
+
+    def jax_step_noise(gen, cfg, batch, tfr1, tfr2, tfr3):
+        key = jax.random.fold_in(base_key, run.step_count)
+        return tdv.Noise(*(torch.from_numpy(a) for a in jax_noise(
+            key, JAX_TINY, batch, tfr1, tfr2, tfr3)))
+
+    monkeypatch.setattr(trainer.dv, "draw_noise", jax_step_noise)
+    for step, (batch, want, rtol) in enumerate(zip(batches, jrows,
+                                                   STEP_RTOL)):
+        got = run.train_step(batch)
+        assert all(np.isfinite(v) for v in got.values())
+        for name in tdv.METRIC_NAMES:
+            np.testing.assert_allclose(got[name], want[name], rtol=rtol,
+                                       err_msg=f"step {step + 1} {name}")
+    assert all(t.dtype == torch.float32 for t in run.leaves)
+    assert all(t.dtype == torch.float32 for t in run.opt.mu + run.opt.nu)
+    assert np.isfinite(run.grad_norms).all()
