@@ -7,9 +7,11 @@ Builds the CUDA kernels from the sources in this checkout and holds each
 against its plain PyTorch version on the card: the decode kernels K3 and
 K4, the train-frame forward K1 and its backward K2 (K2a, the per-row chain,
 and K2b, the weight-gradient reduction), K1 and K2a in both their modes
-(CE fused in, and logits out), and K1, K2a and K2b in both storage types
-(float32 and bfloat16). Then it serves the four latent-control workflows
-through ``Sampler(fixed_batch=128)`` and trains the model for a few steps
+(CE fused in, and logits out), and K3, K1, K2a and K2b in both storage
+types (float32 and bfloat16). Then it serves the four latent-control
+workflows through ``Sampler(fixed_batch=128)`` (K4), and with
+``compute_dtype="bfloat16"`` through ``Sampler(frame_decoder="frame")``
+(K3 in bf16), and trains the model for a few steps
 through ``Trainer`` at B=128 in each loss mode (``ModelConfig.fused_loss``
 True, then False), in float32 and then with ``compute_dtype="bfloat16"``,
 all at the canonical model width (random weights from ``--seed``), and
@@ -45,6 +47,7 @@ from pctd_tpu_torch.ops.kernels import ar_decoder, build, full_decoder
 from pctd_tpu_torch.ops.kernels import train_frame as tf
 from pctd_tpu_torch.train import trainer as tr
 from pctd_tpu_torch.train.optim import global_norm
+from pctd_tpu_torch.utils.precision import cast_params
 
 #: H100 SXM peaks (NVIDIA data sheet): f32 on CUDA cores, dense bf16 on the
 #: tensor cores, HBM3 bandwidth
@@ -80,6 +83,12 @@ BF16_GRAD_TOL = 1e-2   # bf16 K2 grads vs autograd of plain: x (1 + max|plain|)
 BF16_LOSS_RTOL = 1e-5
 BF16_NORM_RTOL = 1e-4  # its gradient global norm
 BF16_VS_F32_RTOL = 0.05  # bf16 vs f32 step 1 (the JAX package's own bar)
+# bf16 K3 vs plain: decisions and lengths as AGREE, each row's first
+# differing decision a near-tie (BF16_TIE); the summary on agreeing rows
+# within BF16_SUMMARY_TOL x (1 + max|plain|): an f32 sum in another order
+# can round a bf16 summary value to its other neighbour (2^-8 relative)
+BF16_SUMMARY_TOL = 1e-2
+SERVE_BF16_SIZES = (1, 37, 128)
 TRAIN_STEPS = 6
 LOGITS_STEPS = 3       # train steps with logits out
 BF16_STEPS = 3         # train steps in bf16, in each loss mode
@@ -132,16 +141,34 @@ def cuda_ms(fn, n: int) -> float:
 def frame_work(fw, spec, B: int):
     """(FLOPs, bytes) K3 must do and move for B rows: the products of one
     frame (gates and row selects are a few % more, not counted) and each
-    weight, input and output once."""
+    weight, input and output once, at its dtype's size."""
     d = build.decoder_dims(fw, spec)
     SL, DC = d.P + d.DH + 2 + 3 * d.DH, 2 + 3 * d.DH
     macs = (d.TH * 4 * d.NH + d.K * d.NH * 3 * d.NH
             + (d.K - 1) * (d.NH * SL + d.W * d.DH * DC)
             + d.K * 2 * (d.E + d.EH) * 3 * d.EH)
-    weights = sum(t.numel() for n, t in zip(fw._fields, fw)
+    weights = sum(t.numel() * t.element_size()
+                  for n, t in zip(fw._fields, fw)
                   if n not in ("wt_tok", "wt_hh", "bt_hh"))
-    io = d.TH + d.E + (d.K - 1) * (1 + d.W) + 2 * d.EH + 1
-    return 2.0 * macs * B, 4.0 * (weights + io * B)
+    es = fw.w_hh.element_size()
+    io = es * (d.TH + d.E + 2 * d.EH) + 4 * ((d.K - 1) * (1 + d.W) + 1)
+    return 2.0 * macs * B, weights + io * B
+
+
+def frame_bound_bf16(fw, spec, B: int):
+    """(bound ms, what bounds it) of K3 in bf16, its work counted as the
+    Pallas function defines it: the two products of the bf16 time hidden
+    with bf16 weights (``w_frame``) at the dense bf16 peak, every other
+    product (an f32 operand: the slot or dur hidden, the one-hot token, the
+    summary inputs) at the f32 CUDA-core peak, since its result must equal
+    the f32 product; bytes at each tensor's size (bf16 weights and inputs,
+    the f32 constants)."""
+    d = build.decoder_dims(fw, spec)
+    flops, nbytes = frame_work(fw, spec, B)
+    proj = 2.0 * B * d.TH * 4 * d.NH
+    f = (proj / PEAK_BF16_FLOPS + (flops - proj) / PEAK_F32_FLOPS) * 1e3
+    b = nbytes / PEAK_BYTES * 1e3
+    return (f, "operations") if f >= b else (b, "bytes")
 
 
 def full_work(fw, spec, B: int):
@@ -297,6 +324,90 @@ def launch_dtypes():
             setattr(build, n, fn)
 
 
+@contextlib.contextmanager
+def decode_launch_dtypes():
+    """Records, for every K3 launch in the context, the set of dtypes the
+    wrapper hands to the C entry point for the storage type: the weights
+    (the f32 constants ``ar_decoder.F32_FIELDS`` aside), ``h_time``,
+    ``sos_emb`` and the summary; and the entry point's name. Yields a
+    Counter of (entry point, dtypes)."""
+    seen = collections.Counter()
+    kernel_route = build.launch
+
+    def launch(name, fw, dims, batch, tensors, rows=0):
+        if name.startswith("pctd_frame_decode"):
+            stored = [t for n, t in zip(fw._fields, fw)
+                      if n not in ar_decoder.F32_FIELDS]
+            seen[(name, frozenset(str(t.dtype) for t in
+                                  [*stored, tensors[0], tensors[1],
+                                   tensors[4]]))] += 1
+        return kernel_route(name, fw, dims, batch, tensors, rows)
+
+    build.launch = launch
+    try:
+        yield seen
+    finally:
+        build.launch = kernel_route
+
+
+@contextlib.contextmanager
+def plain_decode():
+    """Inside this context the K3 route of ``decode_grid`` runs
+    ``frame_decode_plain`` on the card, for the served grids' plain
+    reference; the kernel route is restored on exit."""
+    kernel_route = ar_decoder.frame_decode
+    ar_decoder.frame_decode = ar_decoder.frame_decode_plain
+    try:
+        yield
+    finally:
+        ar_decoder.frame_decode = kernel_route
+
+
+def serve_workflows(sampler, sizes, rng, gen):
+    """The four workflows (swap in both fixings) through ``sampler`` at each
+    request size, three calls each: checks the grids' shape, dtype and
+    range and returns ({"workflow/n": {"p50_ms", "segments_per_s"}}, the
+    number of fixed-batch decode chunks the calls ran)."""
+    spec = sampler.cfg.pianotree
+    workflows = {
+        "swap_fix_rhy": lambda pr1, pr2, c1, c2: sampler.swap(
+            pr1, pr2, c1, c2, fix_rhy=True, fix_chd=False),
+        "swap_fix_chd": lambda pr1, pr2, c1, c2: sampler.swap(
+            pr1, pr2, c1, c2, fix_rhy=False, fix_chd=True),
+        "posterior_sample": lambda pr1, pr2, c1, c2:
+            sampler.posterior_sample(gen, pr1, c1, scale=0.5),
+        "prior_sample": lambda pr1, pr2, c1, c2: sampler.prior_sample(
+            gen, pr1, c1, sample_rhy=True),
+        "interp": lambda pr1, pr2, c1, c2: sampler.interp(
+            pr1, c1, pr2, c2, interp_chd=True, int_count=5),
+    }
+    serving, chunks = {}, 0
+    for name, fn in workflows.items():
+        for n in sizes:
+            pr1, c1 = requests(rng, n)
+            pr2, c2 = requests(rng, n)
+            times = []
+            for _ in range(3):
+                s0 = time.perf_counter()
+                out = fn(pr1, pr2, c1, c2)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - s0)
+            segs = n * (5 if name == "interp" else 1)
+            chunks += 3 * -(-segs // sampler.fixed_batch)
+            shape = ((n, 5) if name == "interp" else (n,)) + (32, 15, 6)
+            check(out.shape == shape and out.dtype == np.int32,
+                  f"{name} n={n}: {out.shape} {out.dtype}")
+            check(((out[..., 0] >= 0) & (out[..., 0] < spec.pitch_range))
+                  .all() and np.isin(out[..., 1:], (0, 1)).all(),
+                  f"{name} n={n}: grid values out of range")
+            p50 = float(np.median(times)) * 1e3
+            serving[f"{name}/{n}"] = {"p50_ms": p50,
+                                      "segments_per_s": segs / p50 * 1e3}
+            print(f"  {name} n={n}: p50 {p50:.2f} ms, "
+                  f"{segs / p50 * 1e3:.1f} segments/s")
+    return serving, chunks
+
+
 def root_margins(got_dec, want_dec, pitch_logits, dur_logits):
     """For each row whose kernel decisions differ from the plain version's,
     the plain version's margin at the first differing decision (slot-major,
@@ -434,19 +545,19 @@ def optimizer_ms(trainer, n: int) -> float:
     return cuda_ms(lambda: opt.step(grads), n)
 
 
-def profile_step(trainer) -> dict:
-    """Device time of one train step by kernel group, from torch.profiler:
-    the train-frame kernels, cuBLAS/CUTLASS products (time GRU, encoders,
-    chord decoder, heads) and the other PyTorch kernels (gates, losses,
-    tensorize, optimizer); and the device's idle share of the step."""
+def profile_call(fn, what: str) -> dict:
+    """Device time of one call of ``fn`` by kernel group, from
+    torch.profiler: the frame kernels (K1, K2a, K2b, K3, K4), cuBLAS/CUTLASS
+    products (time GRU, encoders, chord decoder, heads) and the other
+    PyTorch kernels (gates, losses, tensorize, optimizer, casts); and the
+    device's idle share of the call's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    batch = next(trainer.batches())
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         s0 = time.perf_counter()
-        trainer.train_step(batch)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - s0) * 1e6
     kernels = [e for e in prof.events()
@@ -454,7 +565,7 @@ def profile_step(trainer) -> dict:
     if not kernels:
         print("  profiler: no device events; breakdown not measured")
         return {"measured": False}
-    groups = {"K1": 0.0, "K2a": 0.0, "K2b": 0.0, "gemm": 0.0, "other": 0.0}
+    groups = collections.Counter()
     spans = []
     for e in kernels:
         us = e.time_range.elapsed_us()
@@ -463,6 +574,8 @@ def profile_step(trainer) -> dict:
         key = ("K1" if "train_fwd_kernel" in n else
                "K2a" if "train_bwd_kernel" in n else
                "K2b" if "wgrad_kernel" in n else
+               "K3" if "frame_kernel" in n else
+               "K4" if "full_kernel" in n else
                "gemm" if re.search(r"gemm|cutlass|cublas", n, re.I) else
                "other")
         groups[key] += us
@@ -479,13 +592,19 @@ def profile_step(trainer) -> dict:
            "device_busy_ms": busy / 1e3,
            "idle_share": 1.0 - busy / wall_us, "kernel_ms": ms,
            "host_self_ms_top": host_ms}
-    print(f"  profiled step: {wall_us / 1e3:.2f} ms wall (profiler on), "
+    print(f"  profiled {what}: {wall_us / 1e3:.2f} ms wall (profiler on), "
           f"device busy {busy / 1e3:.2f} ms, idle share "
           f"{out['idle_share']:.3f}; device ms by group "
           + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
     print("  host self time by op (profiler on), top: "
           + ", ".join(f"{k} {v:.2f} ms" for k, v in host_ms.items()))
     return out
+
+
+def profile_step(trainer) -> dict:
+    """:func:`profile_call` of one train step."""
+    batch = next(trainer.batches())
+    return profile_call(lambda: trainer.train_step(batch), "step")
 
 
 def eos_variant(params, cfg, fw_of, h, sos):
@@ -601,6 +720,65 @@ def main() -> int:
             check(err <= SUMMARY_ATOL, f"K3 {wname} B={B} summary {err}")
             k3_err, k3_agree = max(k3_err, err), min(k3_agree, min(ag))
     phase("K3 vs plain", t0)
+
+    # 4b. K3 in bf16 vs its plain version, on the folds of bf16-cast params
+    t0 = time.perf_counter()
+    cfg_b = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    bf16_sets = {wname: ar_decoder.folded_frame_weights(
+        cast_params(p["dec"], BF16), cfg_b)
+        for wname, (p, _) in weight_sets.items()}
+    sos_probe_b = ptd.decode_inputs(
+        cast_params(params["dec"], BF16), cfg_b,
+        torch.zeros(128, cfg.z_dim, device=dev, dtype=BF16)).sos_emb
+    k3b_err, k3b_agree, k3b_margin = 0.0, 1.0, 0.0
+    with decode_launch_dtypes() as seen:
+        for wname, w in bf16_sets.items():
+            for B in (128, 37):
+                h = (torch.randn(B, cfg.dec_time_hidden, device=dev,
+                                 generator=gen) * 0.6).to(BF16)
+                sos = sos_probe_b[:B].contiguous()
+                got = ar_decoder.frame_decode(w, spec, h, sos)
+                want = ar_decoder.frame_decode_plain(w, spec, h, sos)
+                hid, gi = ar_decoder.frame_projection(w, h)
+                *_, pl, dl = ar_decoder.slot_chain_plain(w, spec, hid, gi,
+                                                         logits=True)
+                torch.cuda.synchronize()
+                check(got[2].dtype == BF16 and want[2].dtype == BF16,
+                      "K3 bf16 summary is not bf16")
+                ag = [agreement(got[i], want[i]) for i in (0, 1, 3)]
+                dec_k = torch.cat([got[0][..., None], got[1]], -1)
+                dec_p = torch.cat([want[0][..., None], want[1]], -1)
+                rows = ((dec_k == dec_p).flatten(1).all(1)
+                        & (got[3] == want[3]))
+                margins = root_margins(dec_k, dec_p, pl, dl)
+                worst = margins.max().item() if len(margins) else 0.0
+                a, b = got[2][rows].float(), want[2][rows].float()
+                err = (a - b).abs().max().item() if rows.any() \
+                    else float("inf")
+                tol = BF16_SUMMARY_TOL * (1.0 + b.abs().max().item())
+                hist = torch.bincount(got[3].long(), minlength=16).tolist()
+                print(f"  K3 bf16 {wname} B={B}: agreement pitch/dur/len "
+                      f"{ag}, {len(margins)} differing rows, worst "
+                      f"first-difference margin {worst:.3g}; summary "
+                      f"max|err| {err:.3g} ({err / tol:.2f} of tol) on "
+                      f"{int(rows.sum())} rows; lengths {hist}")
+                check(min(ag) >= AGREE, f"K3 bf16 {wname} B={B} agreement "
+                      f"{ag}")
+                check(worst <= BF16_TIE, f"K3 bf16 {wname} B={B}: a row's "
+                      f"first differing decision is no near-tie of the "
+                      f"plain version's logits (margin {worst:.3g})")
+                check(err <= tol, f"K3 bf16 {wname} B={B} summary {err} > "
+                      f"{tol}")
+                k3b_err, k3b_agree = max(k3b_err, err), min(k3b_agree,
+                                                            min(ag))
+                k3b_margin = max(k3b_margin, worst)
+    print(f"  K3 bf16 launches by (entry point, dtypes at the call): "
+          f"{launch_summary(seen)}")
+    check(sum(seen.values()) == 4 and all(
+        k == "pctd_frame_decode_bf16" and v == {"torch.bfloat16"}
+        for (k, v) in seen), f"a bf16 K3 launch received another dtype or "
+        f"entry point: {launch_summary(seen)}")
+    phase("K3 bf16 vs plain", t0)
 
     # 5. K4 vs its plain version
     t0 = time.perf_counter()
@@ -929,41 +1107,7 @@ def main() -> int:
           f"{(warm == ref).mean():.6f}")
     full_decoder.decode_grid_full.launches = 0
     ar_decoder.frame_decode.launches = 0
-    workflows = {
-        "swap_fix_rhy": lambda pr1, pr2, c1, c2: sampler.swap(
-            pr1, pr2, c1, c2, fix_rhy=True, fix_chd=False),
-        "swap_fix_chd": lambda pr1, pr2, c1, c2: sampler.swap(
-            pr1, pr2, c1, c2, fix_rhy=False, fix_chd=True),
-        "posterior_sample": lambda pr1, pr2, c1, c2:
-            sampler.posterior_sample(gen, pr1, c1, scale=0.5),
-        "prior_sample": lambda pr1, pr2, c1, c2: sampler.prior_sample(
-            gen, pr1, c1, sample_rhy=True),
-        "interp": lambda pr1, pr2, c1, c2: sampler.interp(
-            pr1, c1, pr2, c2, interp_chd=True, int_count=5),
-    }
-    serving = {}
-    for name, fn in workflows.items():
-        for n in SIZES:
-            pr1, c1 = requests(rng, n)
-            pr2, c2 = requests(rng, n)
-            times = []
-            for _ in range(3):
-                s0 = time.perf_counter()
-                out = fn(pr1, pr2, c1, c2)
-                torch.cuda.synchronize()
-                times.append(time.perf_counter() - s0)
-            segs = n * (5 if name == "interp" else 1)
-            shape = ((n, 5) if name == "interp" else (n,)) + (32, 15, 6)
-            check(out.shape == shape and out.dtype == np.int32,
-                  f"{name} n={n}: {out.shape} {out.dtype}")
-            check(((out[..., 0] >= 0) & (out[..., 0] < spec.pitch_range))
-                  .all() and np.isin(out[..., 1:], (0, 1)).all(),
-                  f"{name} n={n}: grid values out of range")
-            p50 = float(np.median(times)) * 1e3
-            serving[f"{name}/{n}"] = {"p50_ms": p50,
-                                      "segments_per_s": segs / p50 * 1e3}
-            print(f"  {name} n={n}: p50 {p50:.2f} ms, "
-                  f"{segs / p50 * 1e3:.1f} segments/s")
+    serving, _ = serve_workflows(sampler, SIZES, rng, gen)
     frame_sampler = Sampler(params, cfg, frame_decoder="frame",
                             fixed_batch=128, device=dev)
     pr1, c1 = requests(rng, 128)
@@ -980,6 +1124,88 @@ def main() -> int:
     check(launches["K4"] > 0 and launches["K3"] > 0,
           f"a kernel of the path was not launched: {launches}")
     phase("serving", t0)
+
+    # 8b. serving in bf16 (compute_dtype="bfloat16"): the K3 route, the
+    # main path of K3's bf16 mode, counted, with the dtypes at every launch
+    t0 = time.perf_counter()
+    try:
+        Sampler(params, cfg_b, fixed_batch=128, device=dev)
+    except NotImplementedError as e:
+        print(f"  bf16 with the K4 route refused when the Sampler is built: "
+              f"{str(e)[:90]}...")
+    else:
+        check(False, "a bf16 Sampler took the K4 route")
+    b_sampler = Sampler(params, cfg_b, frame_decoder="frame",
+                        fixed_batch=128, device=dev)
+    check(b_sampler.fw.w_hh.dtype == BF16
+          and b_sampler.fw.gi_d.dtype == torch.float32,
+          "the bf16 Sampler's folds are not bf16 with f32 constants")
+    check(not torch.backends.cuda.matmul
+          .allow_bf16_reduced_precision_reduction,
+          "the bf16 Sampler must keep cuBLAS partial sums in f32")
+    b_sampler.swap(ref_pr, ref_pr, ref_c, ref_c, True, True)   # warm-up
+    full_decoder.decode_grid_full.launches = 0
+    ar_decoder.frame_decode.launches = 0
+    with decode_launch_dtypes() as seen:
+        serving_bf16, chunks = serve_workflows(b_sampler, SERVE_BF16_SIZES,
+                                               rng, gen)
+    launches_b = {"K3": ar_decoder.frame_decode.launches,
+                  "K4": full_decoder.decode_grid_full.launches}
+    print(f"  launches in {chunks} decode chunks of <= 128 rows: "
+          f"{launches_b}; by (entry point, dtypes at the call) "
+          f"{launch_summary(seen)}")
+    check(launches_b == {"K3": spec.num_step * chunks, "K4": 0},
+          f"bf16 serving launches {launches_b}, expected "
+          f"{spec.num_step * chunks} K3 and no K4")
+    check(all(k == "pctd_frame_decode_bf16" and v == {"torch.bfloat16"}
+              for (k, v) in seen)
+          and sum(seen.values()) == launches_b["K3"],
+          f"a bf16 K3 launch received another dtype or entry point: "
+          f"{launch_summary(seen)}")
+    # the served swap at n=128 against the plain bf16 route on the card,
+    # and against the f32 grids (the control: the gate tells them apart)
+    pr_s, c_s = requests(rng, 128)
+    via_b = b_sampler.swap(pr_s, pr_s, c_s, c_s, True, True)
+    k3_before = ar_decoder.frame_decode.launches
+    with plain_decode():
+        via_plain = b_sampler.swap(pr_s, pr_s, c_s, c_s, True, True)
+    check(ar_decoder.frame_decode.launches == k3_before,
+          "the plain bf16 route launched K3")
+    via_f32 = frame_sampler.swap(pr_s, pr_s, c_s, c_s, True, True)
+    ag_plain = float((via_b == via_plain).mean())
+    ag_f32 = float((via_b == via_f32).mean())
+    print(f"  bf16 swap n=128: grid agreement with the plain bf16 route on "
+          f"the card {ag_plain:.6f} (>= {AGREE}); with the f32 K3 route "
+          f"{ag_f32:.6f} (the control, < 1)")
+    check(ag_plain >= AGREE, f"bf16 served grids vs the plain bf16 route "
+          f"{ag_plain}")
+    check(ag_f32 < 1.0, "the bf16 swap equals the f32 swap: the gate cannot "
+          "tell bf16 from f32")
+    # the K3 route's swap at n=128 in f32 and bf16, in turns
+    turns = {"f32": (frame_sampler, []), "bf16": (b_sampler, [])}
+    for _ in range(TURNS):
+        for name, (smp, ms) in turns.items():
+            s0 = time.perf_counter()
+            smp.swap(pr_s, pr_s, c_s, c_s, True, True)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - s0) * 1e3)
+    k3_turns = {k: float(np.median(ms)) for k, (_, ms) in turns.items()}
+    print(f"  K3 route swap n=128 in turns, median of {TURNS}: "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in k3_turns.items())
+          + "; calls " + "; ".join(
+              f"{k} " + " ".join(f"{v:.1f}" for v in ms)
+              for k, (_, ms) in turns.items()))
+    # one swap of each K3 route under the profiler (after a warm-up call)
+    swap = lambda smp: (lambda: smp.swap(pr_s, pr_s, c_s, c_s, True, True))
+    profile_call(swap(b_sampler), "bf16 swap n=128, warm-up")
+    profiles = {"bf16": profile_call(swap(b_sampler), "bf16 swap n=128"),
+                "f32": profile_call(swap(frame_sampler),
+                                    "f32 K3-route swap n=128")}
+    serving_bf16.update({"launches": launches_b, "profiles": profiles,
+                         "swap128_vs_plain_bf16": ag_plain,
+                         "swap128_vs_f32": ag_f32,
+                         "k3_route_swap128_ms_in_turns": k3_turns})
+    phase("serving (bf16)", t0)
 
     # 9. training: the main path, counted
     t0 = time.perf_counter()
@@ -1266,11 +1492,26 @@ def main() -> int:
         for r in (1, 2, 4):
             per_r[r] = cuda_ms(lambda: build.launch(
                 "pctd_full_decode", fw, dims, B, [*inputs, grid], rows=r), 3)
+        # K3 in bf16 on the bf16 folds of the same weights, then the f32
+        # K3 again (f32, bf16, f32 in one call)
+        fw_b = bf16_sets["seed"]
+        h_b = h.to(BF16)
+        sos_b = sos_probe_b[:1].expand(B, -1).contiguous()
+        k3b = cuda_ms(lambda: ar_decoder.frame_decode(fw_b, spec, h_b,
+                                                      sos_b), 20)
+        k3bp = cuda_ms(lambda: ar_decoder.frame_decode_plain(fw_b, spec, h_b,
+                                                             sos_b), 3)
+        k3_again = cuda_ms(lambda: ar_decoder.frame_decode(fw, spec, h, sos),
+                           20)
         timing[B] = {"K3": (k3, k3p, *bound_ms(*frame_work(fw, spec, B))),
-                     "K4": (k4, k4p, *bound_ms(*full_work(fw, spec, B)))}
+                     "K4": (k4, k4p, *bound_ms(*full_work(fw, spec, B))),
+                     "K3 bf16": (k3b, k3bp,
+                                 *frame_bound_bf16(fw_b, spec, B))}
         print(f"  B={B}: K3 {k3:.3f} ms (plain {k3p:.3f}), K4 {k4:.3f} ms "
               f"(plain {k4p:.3f}); K4 ms by rows a block "
               + ", ".join(f"{r}: {v:.3f}" for r, v in per_r.items()))
+        print(f"  B={B}: K3 bf16 {k3b:.3f} ms (plain {k3bp:.3f}); f32 K3 "
+              f"before and after it {k3:.3f}, {k3_again:.3f} ms")
         for name, (ms, pms, bms, by) in timing[B].items():
             print(f"  B={B} {name} bound {bms:.4f} ms ({by}), "
                   f"{bms / ms:.3%} of it")
@@ -1448,6 +1689,23 @@ def main() -> int:
                      "library_ms": None, "batch": 128,
                      "ms_b512": timing[512][key][0],
                      "plain_ms_b512": timing[512][key][1]})
+    ms, pms, bms, by = timing[128]["K3 bf16"]
+    rows.append({"name": "K3 frame_kernel (bf16)", "route": "cuda",
+                 "source": "pctd_tpu_torch/ops/kernels/csrc/decoder.cu "
+                           "(instantiated in csrc/decoder_bf16.cu)",
+                 "replaces": "pctd_tpu/ops/pallas/ar_decoder.py:238",
+                 "launches": launches_b["K3"], "max_abs_err": k3b_err,
+                 "agreement": k3b_agree, "worst_tie_margin": k3b_margin,
+                 "tolerance": f"pitch/dur/length agreement >= {AGREE}, each "
+                 f"row's first differing decision a near-tie (margin <= "
+                 f"{BF16_TIE}); summary max|err| <= {BF16_SUMMARY_TOL} x "
+                 "(1 + max|plain|) on agreeing rows",
+                 "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                 "bound_peak": "h_time products at the dense bf16 989 "
+                 "TFLOP/s, the f32-operand products at 67 TFLOP/s",
+                 "library_ms": None, "batch": 128,
+                 "ms_b512": timing[512]["K3 bf16"][0],
+                 "plain_ms_b512": timing[512]["K3 bf16"][1]})
     tsrc = "pctd_tpu_torch/ops/kernels/csrc/train_frame.cu"
     for key, name, fn, err, tol in (
             ("K1", "K1 train_fwd_kernel",
@@ -1525,7 +1783,8 @@ def main() -> int:
                      "library_ms": None, "batch": 128,
                      "ms_b512": timing[512][key][0],
                      "plain_ms_b512": timing[512][key][1]})
-    print(json.dumps({"serving": serving, "training": training,
+    print(json.dumps({"serving": serving, "serving_bf16": serving_bf16,
+                      "training": training,
                       "training_logits_out": training_lo,
                       "training_bf16": training_bf16, "card": card}))
     print(json.dumps({"kernels": rows}))

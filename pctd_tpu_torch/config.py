@@ -8,7 +8,7 @@ can be rebuilt from the other package's ``dataclasses.asdict``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,21 +110,31 @@ class ModelConfig:
         return self.ptenc_pitch_range + self.pianotree.dur_width
 
 
-def check_config(cfg: ModelConfig, served: bool = False) -> None:
+def check_config(cfg: ModelConfig, frame_decoder: Optional[str] = None
+                 ) -> None:
     """Raise unless the port runs ``cfg``: the conv texture encoder and a
-    ``compute_dtype`` of float32 or bfloat16; with ``served`` (the decode
-    entry points built on the K3/K4 kernels) float32 only."""
+    ``compute_dtype`` of float32 or bfloat16. The decode entry points name
+    their ``frame_decoder``: ``"full"`` (the K4 kernel) decodes in float32
+    only, ``"frame"`` (the K3 kernel) in either dtype."""
     if cfg.txt_encoder != "conv":
         raise NotImplementedError(
             f"texture encoder {cfg.txt_encoder!r}: the port runs 'conv'")
     if cfg.compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: the port "
                          "runs 'bfloat16' and 'float32'")
-    if served and cfg.compute_dtype != "float32":
+    if frame_decoder is None:
+        return
+    if frame_decoder not in ("full", "frame"):
+        raise ValueError(f"frame_decoder must be 'full' or 'frame', "
+                         f"got {frame_decoder!r}")
+    if frame_decoder == "full" and cfg.compute_dtype != "float32":
         raise NotImplementedError(
-            f"compute_dtype {cfg.compute_dtype!r}: the port serves float32; "
-            "the bf16 mode of the decode kernels K3/K4 is still to be "
-            "ported (ROADMAP.md, Queue 2: the bf16 mode of K3/K4)")
+            f"frame_decoder='full' decodes in float32 only, not "
+            f"{cfg.compute_dtype!r}: the JAX package's K4 has no bf16 mode "
+            "(decode_grid_fused carries the time hidden through its "
+            "fori_loop in bf16 while _gru_pre returns f32, "
+            "pctd_tpu/ops/pallas/full_decoder.py:113,125-127, so it raises "
+            "in bf16); serve bf16 with frame_decoder='frame' (K3)")
 
 
 def tiny_model_config(**overrides) -> ModelConfig:

@@ -15,8 +15,10 @@ JAX package's key splits cannot be reproduced in torch. The pianotree
 texture encoder is not ported yet. ``compute_dtype="bfloat16"`` runs
 training and ``encode`` under the mixed-precision policy
 (:mod:`pctd_tpu_torch.utils.precision`: f32 master params cast inside,
-f32 Gaussian heads and losses); the decode entry points (``decode_z`` and
-the workflows built on it) serve float32 only.
+f32 Gaussian heads and losses) and ``decode_z`` in bf16 through the K3
+route (``frame_decoder="frame"``); the K4 route (``"full"``, the default of
+``decode_z`` and of the workflow functions built on it) decodes in float32
+only.
 """
 from __future__ import annotations
 
@@ -93,10 +95,13 @@ def decode_z(params: dict, cfg: ModelConfig, z_chd: torch.Tensor,
              ) -> torch.Tensor:
     """Argmax decode of latents -> estimated grid (B, 32, K-1, 6) int32;
     ``frame_decoder`` and ``fw`` as in
-    :func:`~pctd_tpu_torch.models.pianotree_decoder.decode_grid`. Serves
-    float32 only (``compute_dtype="bfloat16"`` raises)."""
-    check_config(cfg, served=True)
+    :func:`~pctd_tpu_torch.models.pianotree_decoder.decode_grid`. The
+    params (Gaussian heads excluded) and z are cast to the compute dtype
+    first, as the JAX ``decode_z`` does; bfloat16 decodes with
+    ``frame_decoder="frame"`` only."""
+    check_config(cfg, frame_decoder)
     z = torch.cat([z_chd, z_rhy], dim=-1)
+    params, z = _apply_precision(params, cfg, z)
     return pt_dec.decode_grid(params["dec"], cfg, z,
                               frame_decoder=frame_decoder, fw=fw)
 

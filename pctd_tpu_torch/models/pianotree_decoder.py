@@ -110,6 +110,14 @@ def dur_comb(w_dhh, b_dhh, w_dout, b_dout):
             torch.cat([b_dout, b_dhh], dim=0))
 
 
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as an XLA dot on operands of their dtype: f32 sums,
+    rounded once to that dtype (in float32, the plain product)."""
+    if a.dtype == torch.float32:
+        return a @ b
+    return (a.float() @ b.float()).to(a.dtype)
+
+
 def fold_inference_heads(p: dict, cfg: ModelConfig) -> dict:
     """Serial-path weight folds of the argmax decode, as in the JAX package:
 
@@ -122,7 +130,9 @@ def fold_inference_heads(p: dict, cfg: ModelConfig) -> dict:
       the pitch row is a row select and the dur rows accumulate bit by bit.
 
     Regroupings of the same math; every decode path applies them so the
-    paths agree on the argmax decisions.
+    paths agree on the argmax decisions. The folds take the params' dtype;
+    on bf16 params each product and each sum rounds to bf16, as XLA's ops
+    on bf16 params do.
     """
     nh = cfg.dec_notes_hidden
     th = cfg.dec_time_hidden
@@ -130,23 +140,23 @@ def fold_inference_heads(p: dict, cfg: ModelConfig) -> dict:
     w_dhid, b_dhid = p["dur_hid"]["w"], p["dur_hid"]["b"]
     w_p, b_p = p["pitch_out"]["w"], p["pitch_out"]["b"]
     w_tok = p["notes_gru"].w_ih[th:]
-    w_dhid_eff = w_dhid[:nh] + w_p @ w_dhid[nh:]
-    b_dhid_eff = b_dhid + b_p @ w_dhid[nh:]
+    w_dhid_eff = w_dhid[:nh] + _mm(w_p, w_dhid[nh:])
+    b_dhid_eff = b_dhid + _mm(b_p, w_dhid[nh:])
     dg = p["dur_gru"]
     w_dcomb, b_dcomb = dur_comb(dg.w_hh, dg.b_hh, p["dur_out"]["w"],
                                 p["dur_out"]["b"])
-    w_raw_gi = p["note_emb"]["w"] @ w_tok              # (note_size, 3NH)
+    w_raw_gi = _mm(p["note_emb"]["w"], w_tok)           # (note_size, 3NH)
     return {
         "w_dhid_eff": w_dhid_eff,
         "b_dhid_eff": b_dhid_eff,
-        "w_dx0": w_dhid_eff @ w_dcomb,
-        "b_dx0": b_dhid_eff @ w_dcomb + b_dcomb,
+        "w_dx0": _mm(w_dhid_eff, w_dcomb),
+        "b_dx0": _mm(b_dhid_eff, w_dcomb) + b_dcomb,
         "w_dcomb": w_dcomb,
         "b_dcomb": b_dcomb,
         "w_pitch_gi": w_raw_gi[:P],
         "w_dur_gi": w_raw_gi[P:],
         "w_raw_gi": w_raw_gi,
-        "b_raw_gi": p["note_emb"]["b"] @ w_tok,
+        "b_raw_gi": _mm(p["note_emb"]["b"], w_tok),
     }
 
 
@@ -226,10 +236,12 @@ class DecodeInputs(NamedTuple):
 
 def decode_inputs(p: dict, cfg: ModelConfig, z: torch.Tensor
                   ) -> DecodeInputs:
+    """The z-derived inputs of the argmax decode, in the dtype of ``z`` and
+    ``p`` (float32, or bfloat16 for a bf16 decode: each op rounds)."""
     B = z.shape[0]
     z_in = dense_apply(p["z2in"], z)
     sos_emb = dense_apply(p["note_emb"],
-                          sos_token_raw(cfg.pianotree, z.device))
+                          sos_token_raw(cfg.pianotree, z.device).to(z.dtype))
     token0 = p["init_input"].expand(B, -1).contiguous()
     tg = p["time_gru"]
     tok_dim = token0.shape[-1]
@@ -284,22 +296,27 @@ def decode_grid(p: dict, cfg: ModelConfig, z: torch.Tensor,
     (B, T, K-1, 6) int32.
 
     ``frame_decoder="full"`` runs the whole decode in the K4 kernel;
-    ``"frame"`` runs the time GRU here and each frame in the K3 kernel.
-    On CPU tensors both take their kernels' plain PyTorch versions.
-    ``fw`` is :func:`~pctd_tpu_torch.ops.kernels.ar_decoder.folded_frame_weights`
-    of ``p``, computed here when not given (a server folds once). Serves
-    float32 only: ``compute_dtype="bfloat16"`` raises.
+    ``"frame"`` runs the time GRU here and each frame in the K3 kernel (the
+    JAX package's ``frame_decoder="pallas"``). On CPU tensors both take
+    their kernels' plain PyTorch versions. ``fw`` is
+    :func:`~pctd_tpu_torch.ops.kernels.ar_decoder.folded_frame_weights` of
+    ``p``, computed here when not given (a server folds once).
+
+    ``p`` and ``z`` are in the compute dtype (``disentangle_vae.decode_z``
+    casts them). In bfloat16 only ``"frame"`` serves (the JAX package's K4
+    has no bf16 mode): the time GRU runs in bf16 ops, each rounding, and
+    K3 takes the bf16 time hidden and returns the bf16 summary that is the
+    next frame's token. Its products sum in f32 on the card only with
+    ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``
+    off, which a bf16 ``Sampler`` sets.
     """
-    check_config(cfg, served=True)
+    check_config(cfg, frame_decoder)
     if fw is None:
         fw = ar_decoder.folded_frame_weights(p, cfg)
     spec = cfg.pianotree
     inputs = decode_inputs(p, cfg, z)
     if frame_decoder == "full":
         return full_decoder.decode_grid_full(fw, spec, *inputs)
-    if frame_decoder != "frame":
-        raise ValueError(f"frame_decoder must be 'full' or 'frame', "
-                         f"got {frame_decoder!r}")
     h, gi_z, token, sos_emb = inputs
     steps = []
     for _ in range(spec.num_step):

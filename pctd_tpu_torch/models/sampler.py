@@ -8,6 +8,15 @@ launches the chosen kernel: ``frame_decoder="full"`` (K4, the default) or
 launches that kernel or raises: there is no fallback chain, and no CPU
 fallback when no card is found (``device="cpu"`` must be asked for, and
 then runs the kernels' plain versions).
+
+``compute_dtype="bfloat16"`` serves through ``frame_decoder="frame"``, the
+route of the JAX package's bf16 serving (its K4 has no bf16 mode; "full"
+raises when the Sampler is built). The Sampler casts the params once
+(Gaussian heads excluded) and folds the bf16 decoder; requests stay f32 in
+and int32 grids out. Building a bf16 Sampler sets
+``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction`` to
+False for the process, as a bf16 ``Trainer`` does: JAX sums a bf16
+product's partial sums in f32.
 """
 from __future__ import annotations
 
@@ -20,6 +29,7 @@ from pctd_tpu_torch.config import ModelConfig, check_config
 from pctd_tpu_torch.models import disentangle_vae as dv
 from pctd_tpu_torch.ops import DiagNormal
 from pctd_tpu_torch.ops.kernels.ar_decoder import folded_frame_weights
+from pctd_tpu_torch.utils import precision
 from pctd_tpu_torch.utils.device import resolve_device
 from pctd_tpu_torch.utils.weights import params_to
 
@@ -35,10 +45,7 @@ class Sampler:
     def __init__(self, params: dict, cfg: ModelConfig,
                  frame_decoder: str = "full",
                  fixed_batch: Optional[int] = None, device=None):
-        check_config(cfg, served=True)
-        if frame_decoder not in ("full", "frame"):
-            raise ValueError(f"frame_decoder must be 'full' or 'frame', "
-                             f"got {frame_decoder!r}")
+        check_config(cfg, frame_decoder)
         if fixed_batch is not None and fixed_batch < 1:
             raise ValueError(f"fixed_batch must be positive, got "
                              f"{fixed_batch}")
@@ -47,6 +54,13 @@ class Sampler:
         self.frame_decoder = frame_decoder
         self.fixed_batch = fixed_batch
         self.params = params_to(params, self.device)
+        dtype = precision.compute_dtype(cfg)
+        if dtype != torch.float32:
+            # cast once; the casts inside encode and decode_z are then
+            # no-ops
+            self.params = precision.cast_params(self.params, dtype)
+            torch.backends.cuda.matmul \
+                .allow_bf16_reduced_precision_reduction = False
         # the serving folds depend on the weights only: fold once
         self.fw = folded_frame_weights(self.params["dec"], cfg)
 

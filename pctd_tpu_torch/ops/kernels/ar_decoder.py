@@ -1,5 +1,5 @@
 """K3: argmax decode of ONE frame's note and duration levels, plus the
-masked bi-GRU summary of the predicted notes.
+masked bi-GRU summary of the predicted notes, in float32 or bfloat16.
 
 Replaces the Pallas kernel ``pctd_tpu/ops/pallas/ar_decoder.py::_frame_kernel``
 (launched by ``frame_decode_pallas``). The CUDA source is
@@ -16,6 +16,13 @@ of one product are the same contractions as separate products):
 - ``w_slot = [w_pitch | w_dhid_eff | w_dx0]``: pitch logits, dur-hidden
   init and first combined dur projection from the slot hidden;
 - ``w_dcomb = [w_dout | w_dhh]``: each dur step's logit and next gates.
+
+The bf16 mode is the Pallas kernel's on bf16 params and inputs: the folds
+and weights are bf16, the arithmetic f32 (every product there is an f32
+``dot``, and an f32 value times a bf16 weight is f32), the two sos
+constants f32, the dur-GRU feedback rows rounded to bf16, and the summary
+rounded to bf16 at the output. The JAX package's K4 has no bf16 mode, so
+the port's K4 takes float32 only.
 """
 from __future__ import annotations
 
@@ -29,9 +36,12 @@ from pctd_tpu_torch.ops.gru import GRUParams, bigru_last_masked, \
 
 
 class FoldedWeights(NamedTuple):
-    """Packed f32 weights of the folded decode, shared by K3 and K4 (K3
-    reads all but the three time-GRU fields). Field order is the order of
-    the pointer fields of ``DecoderWeights`` in ``csrc/decoder.cu``."""
+    """Packed weights of the folded decode, shared by K3 and K4 (K3 reads
+    all but the three time-GRU fields), in the storage dtype of the params
+    they were folded from (float32; bfloat16 for K3's bf16 mode), except
+    ``gi_tok_sos`` and ``gi_d``, which are float32 in either (see
+    :func:`folded_frame_weights`). Field order is the order of the pointer
+    fields of ``DecoderWeightsT`` in ``csrc/decoder.cu``."""
     w_frame: torch.Tensor     # (TH, NH + 3NH)
     b_frame: torch.Tensor     # (NH + 3NH,)
     b_raw_gi: torch.Tensor    # (3NH,) token-embedding bias share of gi
@@ -41,8 +51,8 @@ class FoldedWeights(NamedTuple):
     b_slot: torch.Tensor
     w_pitch_gi: torch.Tensor  # (P, 3NH)
     w_dur_gi: torch.Tensor    # (W, 3NH)
-    gi_tok_sos: torch.Tensor  # (3NH,) sos token's folded gi
-    gi_d: torch.Tensor        # (3, 3DH) dur-GRU gi: [sos, bit 0, bit 1]
+    gi_tok_sos: torch.Tensor  # (3NH,) sos token's folded gi, f32
+    gi_d: torch.Tensor        # (3, 3DH) dur-GRU gi: [sos, bit 0, bit 1], f32
     w_dcomb: torch.Tensor     # (DH, 2 + 3DH)
     b_dcomb: torch.Tensor
     w_emb: torch.Tensor       # (P + W, E) note embedding
@@ -56,8 +66,19 @@ class FoldedWeights(NamedTuple):
     bt_hh: torch.Tensor       # (3TH,)
 
 
+#: the fields of :class:`FoldedWeights` that are float32 in either storage
+#: dtype: constants the Pallas kernel computes as f32 products
+F32_FIELDS = ("gi_tok_sos", "gi_d")
+
+
 def folded_frame_weights(p: dict, cfg: ModelConfig) -> FoldedWeights:
-    """Fold and pack the decoder params ``p`` for the decode kernels."""
+    """Fold and pack the decoder params ``p`` for the decode kernels, in the
+    params' dtype. In bfloat16 the folds round as XLA's ops on bf16 params
+    do (:func:`~pctd_tpu_torch.models.pianotree_decoder.fold_inference_heads`),
+    and the two constants are what the Pallas kernel computes: the sos
+    rows ``dur_sos @ w_dih + b_dih`` and ``sos_raw @ w_raw_gi`` are f32
+    products (f32 operands), and the feedback rows ``w_dih[b] + b_dih``
+    are bf16 + bf16 sums, rounded to bf16; both are stored in f32."""
     from pctd_tpu_torch.models.pianotree_decoder import (
         fold_inference_heads, sos_token_raw)
 
@@ -67,7 +88,7 @@ def folded_frame_weights(p: dict, cfg: ModelConfig) -> FoldedWeights:
     ng, dg, tg = p["notes_gru"], p["dur_gru"], p["time_gru"]
     tok = 2 * cfg.dec_emb_hidden
     ef, eb = p["emb_fwd"], p["emb_bwd"]
-    gi_d_sos = p["dur_sos"][None] @ dg.w_ih + dg.b_ih
+    gi_d_sos = p["dur_sos"][None].float() @ dg.w_ih.float() + dg.b_ih.float()
     c = lambda t: t.contiguous()
     return FoldedWeights(
         w_frame=c(torch.cat([p["time2notes"]["w"], ng.w_ih[:th]], 1)),
@@ -80,8 +101,8 @@ def folded_frame_weights(p: dict, cfg: ModelConfig) -> FoldedWeights:
                             folds["b_dx0"]])),
         w_pitch_gi=c(folds["w_pitch_gi"]), w_dur_gi=c(folds["w_dur_gi"]),
         gi_tok_sos=c(sos_token_raw(spec, ng.w_ih.device)
-                     @ folds["w_raw_gi"]),
-        gi_d=c(torch.cat([gi_d_sos, dg.w_ih[0:2] + dg.b_ih])),
+                     @ folds["w_raw_gi"].float()),
+        gi_d=c(torch.cat([gi_d_sos, (dg.w_ih[0:2] + dg.b_ih).float()])),
         w_dcomb=c(folds["w_dcomb"]), b_dcomb=c(folds["b_dcomb"]),
         w_emb=c(p["note_emb"]["w"]), b_emb=c(p["note_emb"]["b"]),
         we_ih=torch.stack([ef.w_ih, eb.w_ih]),
@@ -92,27 +113,37 @@ def folded_frame_weights(p: dict, cfg: ModelConfig) -> FoldedWeights:
     )
 
 
+def _f32(fw: FoldedWeights) -> FoldedWeights:
+    """f32 views of the folded weights (the same tensors in float32)."""
+    return FoldedWeights(*(w.float() for w in fw))
+
+
 def frame_projection(fw: FoldedWeights, h_time: torch.Tensor):
-    """(hid (B, NH), gi_frame (B, 3NH)) from the time hidden: one product
-    with the combined ``w_frame``, then the token-bias share of gi."""
+    """(hid (B, NH), gi_frame (B, 3NH)) in f32 from the time hidden: one
+    product with the combined ``w_frame``, then the token-bias share of
+    gi."""
     nh = fw.w_hh.shape[0]
-    Yf = h_time @ fw.w_frame + fw.b_frame
-    return Yf[:, :nh], Yf[:, nh:] + fw.b_raw_gi
+    Yf = h_time.float() @ fw.w_frame.float() + fw.b_frame.float()
+    return Yf[:, :nh], Yf[:, nh:] + fw.b_raw_gi.float()
 
 
 def slot_chain_plain(fw: FoldedWeights, spec: PianoTreeSpec,
-                     hid: torch.Tensor, gi_frame: torch.Tensor):
-    """The serial 15-slot chain of one frame: notes-GRU step, pitch argmax,
-    5-bit dur chain, folded token feedback. Returns (pitch_idx (B, K-1),
-    dur_bits (B, K-1, W), lengths (B,)), all int32."""
+                     hid: torch.Tensor, gi_frame: torch.Tensor,
+                     logits: bool = False):
+    """The serial 15-slot chain of one frame in f32 arithmetic: notes-GRU
+    step, pitch argmax, 5-bit dur chain, folded token feedback. Returns
+    (pitch_idx (B, K-1), dur_bits (B, K-1, W), lengths (B,)), all int32,
+    and with ``logits`` also the pitch logits (B, K-1, P) and dur logits
+    (B, K-1, W, 2) that decided them."""
     B = hid.shape[0]
     K, W, P = spec.max_simu_note, spec.dur_width, spec.pitch_range
+    fw = _f32(fw)
     DH = fw.w_dcomb.shape[0]
     h = hid
     gh = h @ fw.w_hh + fw.b_hh
     gi_tok = fw.gi_tok_sos.expand(B, -1)
     lengths = torch.zeros(B, dtype=torch.int32, device=hid.device)
-    pitches, all_bits = [], []
+    pitches, all_bits, pitch_logits, dur_logits = [], [], [], []
     for k in range(1, K):
         h = gru_gates_pre(gi_frame + gi_tok, gh, h)
         Y = h @ fw.w_slot + fw.b_slot
@@ -121,12 +152,13 @@ def slot_chain_plain(fw: FoldedWeights, spec: PianoTreeSpec,
         acc = fw.w_pitch_gi[pitch]
         h_d, X = Y[:, P:P + DH], Y[:, P + DH:]
         gi_d = fw.gi_d[0:1]
-        bits = []
+        bits, dur = [], []
         for w in range(W):
             h_d = gru_gates_pre(gi_d, X[:, 2:], h_d)
             X = h_d @ fw.w_dcomb + fw.b_dcomb
             bitf = (X[:, 1:2] > X[:, 0:1]).to(h.dtype)
             bits.append(bitf[:, 0])
+            dur.append(X[:, 0:2])
             acc = acc + bitf * fw.w_dur_gi[w:w + 1]
             gi_d = bitf * fw.gi_d[2:3] + (1.0 - bitf) * fw.gi_d[1:2]
         gi_tok = acc
@@ -135,24 +167,31 @@ def slot_chain_plain(fw: FoldedWeights, spec: PianoTreeSpec,
         lengths = torch.where(is_eos, torch.full_like(lengths, k), lengths)
         pitches.append(pitch)
         all_bits.append(torch.stack(bits, -1).to(torch.int32))
+        if logits:
+            pitch_logits.append(Y[:, :P])
+            dur_logits.append(torch.stack(dur, 1))
     lengths = torch.where(lengths == 0, torch.full_like(lengths, K - 1),
                           lengths)
-    return torch.stack(pitches, 1), torch.stack(all_bits, 1), lengths
+    out = (torch.stack(pitches, 1), torch.stack(all_bits, 1), lengths)
+    if logits:
+        out += (torch.stack(pitch_logits, 1), torch.stack(dur_logits, 1))
+    return out
 
 
 def summary_plain(fw: FoldedWeights, spec: PianoTreeSpec,
                   pitch_idx: torch.Tensor, dur_bits: torch.Tensor,
                   sos_emb: torch.Tensor, lengths: torch.Tensor
                   ) -> torch.Tensor:
-    """Masked bi-GRU summary (B, 2EH) over [sos | predicted note
+    """Masked bi-GRU summary (B, 2EH) in f32 over [sos | predicted note
     embeddings] with pack_padded semantics."""
     P = spec.pitch_range
     raw = torch.cat([torch.nn.functional.one_hot(pitch_idx.long(), P),
-                     dur_bits], -1).to(fw.w_emb.dtype)
-    embs = raw @ fw.w_emb + fw.b_emb                     # (B, K-1, E)
-    notes = torch.cat([sos_emb[:, None], embs], 1)
-    fwd = GRUParams(fw.we_ih[0], fw.we_hh[0], fw.be_ih[0], fw.be_hh[0])
-    bwd = GRUParams(fw.we_ih[1], fw.we_hh[1], fw.be_ih[1], fw.be_hh[1])
+                     dur_bits], -1).float()
+    embs = raw @ fw.w_emb.float() + fw.b_emb.float()     # (B, K-1, E)
+    notes = torch.cat([sos_emb.float()[:, None], embs], 1)
+    fwd, bwd = (GRUParams(fw.we_ih[d].float(), fw.we_hh[d].float(),
+                          fw.be_ih[d].float(), fw.be_hh[d].float())
+                for d in range(2))
     return bigru_last_masked(fwd, bwd, notes, lengths)
 
 
@@ -160,20 +199,26 @@ def frame_decode_plain(fw: FoldedWeights, spec: PianoTreeSpec,
                        h_time: torch.Tensor, sos_emb: torch.Tensor):
     """Plain PyTorch version of K3. h_time (B, TH), sos_emb (B, E) ->
     (pitch_idx (B, K-1) i32, dur_bits (B, K-1, W) i32, summary (B, 2EH),
-    lengths (B,) i32)."""
+    lengths (B,) i32). The arithmetic is f32 in either storage dtype, as in
+    the Pallas kernel (its products take ``preferred_element_type=f32``,
+    and an f32 value times a bf16 weight is f32); the summary is rounded
+    to the inputs' dtype once, at the output."""
     hid, gi_frame = frame_projection(fw, h_time)
     pitch_idx, dur_bits, lengths = slot_chain_plain(fw, spec, hid, gi_frame)
     summary = summary_plain(fw, spec, pitch_idx, dur_bits, sos_emb, lengths)
-    return pitch_idx, dur_bits, summary, lengths
+    return pitch_idx, dur_bits, summary.to(h_time.dtype), lengths
 
 
 def frame_decode(fw: FoldedWeights, spec: PianoTreeSpec,
                  h_time: torch.Tensor, sos_emb: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                             torch.Tensor]:
-    """K3 wrapper: launches ``frame_kernel`` for CUDA tensors; a CPU
-    ``h_time`` takes :func:`frame_decode_plain`. Same contract as the plain
-    version. Counts its launches in ``frame_decode.launches``."""
+    """K3 wrapper: launches ``frame_kernel`` for CUDA tensors in the
+    weights' storage dtype (float32, or the ``pctd_frame_decode_bf16``
+    entry point for bfloat16; ``h_time``, ``sos_emb`` and the summary in the
+    same dtype); a CPU ``h_time`` takes :func:`frame_decode_plain`. Same
+    contract as the plain version. Counts its launches in
+    ``frame_decode.launches``."""
     if h_time.device.type == "cpu":
         return frame_decode_plain(fw, spec, h_time, sos_emb)
     from pctd_tpu_torch.ops.kernels import build
@@ -181,14 +226,14 @@ def frame_decode(fw: FoldedWeights, spec: PianoTreeSpec,
     B = h_time.shape[0]
     K, W = spec.max_simu_note, spec.dur_width
     dims = build.decoder_dims(fw, spec)
-    build.check_inputs(fw, h_time.device, [
+    dtype = build.check_inputs(fw, h_time.device, [
         ("h_time", h_time, (B, dims.TH)), ("sos_emb", sos_emb, (B, dims.E))])
     dev = h_time.device
     pitch_idx = torch.empty((B, K - 1), dtype=torch.int32, device=dev)
     dur_bits = torch.empty((B, K - 1, W), dtype=torch.int32, device=dev)
-    summary = torch.empty((B, 2 * dims.EH), dtype=torch.float32, device=dev)
+    summary = torch.empty((B, 2 * dims.EH), dtype=dtype, device=dev)
     lengths = torch.empty((B,), dtype=torch.int32, device=dev)
-    build.launch("pctd_frame_decode", fw, dims, B,
+    build.launch(build.FRAME_ENTRY[dtype], fw, dims, B,
                  [h_time, sos_emb, pitch_idx, dur_bits, summary, lengths])
     frame_decode.launches += 1
     return pitch_idx, dur_bits, summary, lengths

@@ -22,7 +22,7 @@ import torch
 
 from pctd_tpu_torch.config import PianoTreeSpec
 from pctd_tpu_torch.ops.kernels import train_frame as tf
-from pctd_tpu_torch.ops.kernels.ar_decoder import FoldedWeights
+from pctd_tpu_torch.ops.kernels.ar_decoder import F32_FIELDS, FoldedWeights
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "pctd_tpu_torch"
@@ -31,7 +31,7 @@ NVCC_FLAGS = ("-O3", "-std=c++17", "-Xcompiler", "-fPIC",
 
 
 class Dims(NamedTuple):
-    """Integer fields of ``DecoderWeights`` in ``csrc/decoder.cu``, in
+    """Integer fields of ``DecoderWeightsT`` in ``csrc/decoder.cu``, in
     order."""
     TH: int
     NH: int
@@ -141,8 +141,9 @@ def library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         weights = ctypes.POINTER(DecoderWeightsC)
-        lib.pctd_frame_decode.argtypes = [weights, i32, i32] + [ptr] * 7
-        lib.pctd_frame_decode.restype = i32
+        for name in FRAME_ENTRY.values():     # one C signature per dtype
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = [weights, i32, i32] + [ptr] * 7, i32
         lib.pctd_full_decode.argtypes = [weights, i32, i32] + [ptr] * 6
         lib.pctd_full_decode.restype = i32
         lib.pctd_smem_bytes.argtypes = [weights, i32]
@@ -186,18 +187,38 @@ def train_entry(name: str, dtype: torch.dtype) -> str:
     return name + TRAIN_SUFFIX[dtype]
 
 
+#: the C entry point of K3 for each storage dtype (the bf16 one compiled in
+#: ``csrc/decoder_bf16.cu``), and of K4, which decodes in float32 only (the
+#: JAX package's K4 has no bf16 mode)
+FRAME_ENTRY = {torch.float32: "pctd_frame_decode",
+               torch.bfloat16: "pctd_frame_decode_bf16"}
+FULL_ENTRY = {torch.float32: "pctd_full_decode"}
+
+
 def check_inputs(fw: FoldedWeights, device: torch.device,
-                 named: Sequence[Tuple[str, torch.Tensor, tuple]]) -> None:
-    """Raise unless every weight and input is a contiguous float32 tensor
-    on ``device`` and each input has its expected shape."""
+                 named: Sequence[Tuple[str, torch.Tensor, tuple]],
+                 entries: dict = FRAME_ENTRY) -> torch.dtype:
+    """Raise unless the weights hold one storage dtype that ``entries``
+    (dtype -> C entry point; K3's by default) takes, with the ``F32_FIELDS`` constants in
+    float32, and every weight and input is a contiguous tensor on
+    ``device``, each input of the storage dtype and its expected shape.
+    Returns the storage dtype."""
+    dtype = fw.w_hh.dtype
+    if dtype not in entries:
+        raise TypeError(f"this decode kernel takes "
+                        f"{sorted(map(str, entries))} weights, got {dtype}")
+    items = [(f"weight {n}", t, None,
+              torch.float32 if n in F32_FIELDS else dtype)
+             for n, t in zip(fw._fields, fw)]
+    items += [(n, t, shape, dtype) for n, t, shape in named]
+    for name, t, _, want in items:
+        if t.dtype != want:
+            raise TypeError(f"{name} has dtype {t.dtype}, expected {want}")
     if device.type != "cuda":
         raise ValueError(f"decode kernels take CUDA tensors, got {device}")
-    items = [(f"weight {n}", t, None) for n, t in zip(fw._fields, fw)]
-    for name, t, shape in items + list(named):
+    for name, t, shape, _ in items:
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, expected {device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} has dtype {t.dtype}, expected float32")
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
         if shape is not None and tuple(t.shape) != shape:
@@ -205,6 +226,7 @@ def check_inputs(fw: FoldedWeights, device: torch.device,
                              f"expected {shape}")
     if named[0][1].shape[0] == 0:
         raise ValueError("empty batch")
+    return dtype
 
 
 #: a block's decode time with R rows, relative to one row: K4 at canonical

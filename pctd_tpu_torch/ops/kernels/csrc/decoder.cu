@@ -3,6 +3,9 @@
 // frame_kernel (K3) replaces pctd_tpu/ops/pallas/ar_decoder.py::_frame_kernel:
 //   one frame's 15-slot note chain with argmax feedback, the 5-bit duration
 //   chain of every slot, and the masked bi-GRU summary of the predicted notes.
+//   It is a template on the storage type S of the weights, the time hidden,
+//   the sos embedding and the summary: float, or __nv_bfloat16 for the bf16
+//   mode (compiled in decoder_bf16.cu).
 // full_kernel (K4) replaces pctd_tpu/ops/pallas/full_decoder.py::_full_kernel:
 //   the whole T-frame decode, time GRU included, straight to the grid.
 // Both run the same device functions for the slot chain and the summary
@@ -33,15 +36,31 @@
 // The weight folds and combined-column layouts are the JAX serving path's
 // (see ar_decoder.py), so kernel, plain version and JAX package compute the
 // same regroupings.
+//
+// K3's bf16 mode is the Pallas kernel run on bf16 params and inputs: every
+// product there is a dot with preferred_element_type=f32, and an f32 value
+// times a bf16 weight is f32, so the arithmetic and all per-row state stay
+// f32 (a bf16 load converts exactly; each FMA is as in the float mode). The
+// two folded constants are f32 in either mode (gi_tok_sos, and gi_d: the
+// f32 sos row and the dur-GRU feedback rows w_dih[b] + b_dih, which the
+// wrapper rounds to bf16 as the Pallas bf16 + bf16 sum does). The one
+// rounding inside the kernel is the summary, stored as bf16. The bf16 mode
+// reads half the weight bytes from L2 and does the same f32 FMAs. full_kernel
+// (K4) is float only: the JAX package's K4 has no bf16 mode.
 #include "common.cuh"
 
 // Field order matches FoldedWeights and build.Dims (ar_decoder.py, build.py).
-struct DecoderWeights {
-  const float *w_frame, *b_frame, *b_raw_gi, *w_hh, *b_hh, *w_slot, *b_slot,
-      *w_pitch_gi, *w_dur_gi, *gi_tok_sos, *gi_d, *w_dcomb, *b_dcomb, *w_emb,
-      *b_emb, *we_ih, *we_hh, *be_ih, *be_hh, *wt_tok, *wt_hh, *bt_hh;
+// S is the storage type of the weights; gi_tok_sos and gi_d are f32 in either.
+template <typename S>
+struct DecoderWeightsT {
+  const S *w_frame, *b_frame, *b_raw_gi, *w_hh, *b_hh, *w_slot, *b_slot,
+      *w_pitch_gi, *w_dur_gi;
+  const float *gi_tok_sos, *gi_d;
+  const S *w_dcomb, *b_dcomb, *w_emb, *b_emb, *we_ih, *we_hh, *be_ih, *be_hh,
+      *wt_tok, *wt_hh, *bt_hh;
   int TH, NH, DH, E, EH, P, W, K, T, eos;
 };
+using DecoderWeights = DecoderWeightsT<float>;
 
 namespace {
 
@@ -53,7 +72,9 @@ struct Layout {
       o_sg, o_red, n_floats, n_ints;
 };
 
-__host__ __device__ inline Layout make_layout(const DecoderWeights& w, int R) {
+template <typename S>
+__host__ __device__ inline Layout make_layout(const DecoderWeightsT<S>& w,
+                                              int R) {
   Layout L;
   L.lTH = pad4(w.TH);
   L.lHS = pad4(2 * w.EH);
@@ -89,7 +110,8 @@ __host__ __device__ inline Layout make_layout(const DecoderWeights& w, int R) {
   return L;
 }
 
-__host__ inline size_t smem_bytes(const DecoderWeights& w, int R) {
+template <typename S>
+__host__ inline size_t smem_bytes(const DecoderWeightsT<S>& w, int R) {
   Layout L = make_layout(w, R);
   return sizeof(float) * (size_t)L.n_floats + sizeof(int) * (size_t)L.n_ints;
 }
@@ -99,8 +121,9 @@ struct Smem {
   int *pitch, *bits, *len;
 };
 
+template <typename S>
 __device__ inline Smem carve(const Layout& L, float* base, int R,
-                             const DecoderWeights& w) {
+                             const DecoderWeightsT<S>& w) {
   Smem s;
   s.h_time = base + L.o_htime;
   s.hs = base + L.o_hs;
@@ -123,11 +146,11 @@ __device__ inline Smem carve(const Layout& L, float* base, int R,
 }
 
 // One frame from s.yf = [hid | gi_frame + b_raw_gi]: the serial slot chain
-// (pitch/bits/len into shared ints) and the masked bi-GRU summary into s.hs.
-// sos_emb holds this block's rows (nrows valid).
-template <int R>
-__device__ void frame_body(const DecoderWeights& w, const Layout& L,
-                           const Smem& s, const float* sos_emb, int nrows) {
+// (pitch/bits/len into shared ints) and the masked bi-GRU summary into s.hs
+// (f32). sos_emb holds this block's rows (nrows valid).
+template <int R, typename S>
+__device__ void frame_body(const DecoderWeightsT<S>& w, const Layout& L,
+                           const Smem& s, const S* sos_emb, int nrows) {
   const int t = threadIdx.x;
   const int NH = w.NH, NH3 = 3 * w.NH, DH = w.DH, P = w.P, W = w.W,
             K = w.K, E = w.E, EH = w.EH, EH3 = 3 * w.EH;
@@ -198,7 +221,7 @@ __device__ void frame_body(const DecoderWeights& w, const Layout& L,
     for (int idx = t; idx < R * NH3; idx += NT) {
       const int r = idx / NH3, j = idx - r * NH3;
       const int pi = s.pitch[r * (K - 1) + k - 1];
-      s.acc[r * L.l3NH + j] = __ldg(w.w_pitch_gi + (size_t)pi * NH3 + j);
+      s.acc[r * L.l3NH + j] = ldg_f(w.w_pitch_gi + (size_t)pi * NH3 + j);
     }
     for (int ws = 0; ws < W; ++ws) {
       matvec<R>(w.w_dcomb, w.b_dcomb, DH, DC, s.hd, L.lDH, s.X, L.lDC,
@@ -208,7 +231,7 @@ __device__ void frame_body(const DecoderWeights& w, const Layout& L,
         const int r = idx / NH3, j = idx - r * NH3;
         const float* x = s.X + r * L.lDC;
         const float bitf = x[1] > x[0] ? 1.0f : 0.0f;
-        s.acc[r * L.l3NH + j] += bitf * __ldg(w.w_dur_gi + ws * NH3 + j);
+        s.acc[r * L.l3NH + j] += bitf * ldg_f(w.w_dur_gi + ws * NH3 + j);
       }
       if (t < R) {
         const float* x = s.X + t * L.lDC;
@@ -242,13 +265,13 @@ __device__ void frame_body(const DecoderWeights& w, const Layout& L,
       const int slot = d == 0 ? k : K - 1 - k;
       float v;
       if (slot == 0) {
-        v = r < nrows ? sos_emb[r * E + e] : 0.0f;
+        v = r < nrows ? to_f(sos_emb[r * E + e]) : 0.0f;
       } else {
         const int q = r * (K - 1) + slot - 1;
-        v = __ldg(w.w_emb + (size_t)s.pitch[q] * E + e);
+        v = ldg_f(w.w_emb + (size_t)s.pitch[q] * E + e);
         for (int ws = 0; ws < W; ++ws)
-          if (s.bits[q * W + ws]) v += __ldg(w.w_emb + (size_t)(P + ws) * E + e);
-        v += __ldg(w.b_emb + e);
+          if (s.bits[q * W + ws]) v += ldg_f(w.w_emb + (size_t)(P + ws) * E + e);
+        v += ldg_f(w.b_emb + e);
       }
       s.xs[r * 2 * L.lE + d * L.lE + e] = v;
     }
@@ -277,8 +300,8 @@ __device__ void frame_body(const DecoderWeights& w, const Layout& L,
 }
 
 // s.yf = h_time @ w_frame + b_frame, then the token-bias share of gi.
-template <int R>
-__device__ void frame_projection(const DecoderWeights& w, const Layout& L,
+template <int R, typename S>
+__device__ void frame_projection(const DecoderWeightsT<S>& w, const Layout& L,
                                  const Smem& s) {
   const int NH = w.NH, NH3 = 3 * w.NH;
   matvec<R>(w.w_frame, w.b_frame, w.TH, 4 * NH, s.h_time, L.lTH, s.yf, L.lYF,
@@ -286,16 +309,16 @@ __device__ void frame_projection(const DecoderWeights& w, const Layout& L,
   __syncthreads();
   for (int idx = threadIdx.x; idx < R * NH3; idx += NT) {
     const int r = idx / NH3, j = idx - r * NH3;
-    s.yf[r * L.lYF + NH + j] += __ldg(w.b_raw_gi + j);
+    s.yf[r * L.lYF + NH + j] += ldg_f(w.b_raw_gi + j);
   }
   __syncthreads();
 }
 
-template <int R>
+template <int R, typename S>
 __global__ void __launch_bounds__(NT, 1)
-frame_kernel(DecoderWeights w, int B, const float* __restrict__ h_time,
-             const float* __restrict__ sos_emb, int* __restrict__ pitch_idx,
-             int* __restrict__ dur_bits, float* __restrict__ summary,
+frame_kernel(DecoderWeightsT<S> w, int B, const S* __restrict__ h_time,
+             const S* __restrict__ sos_emb, int* __restrict__ pitch_idx,
+             int* __restrict__ dur_bits, S* __restrict__ summary,
              int* __restrict__ lengths) {
   extern __shared__ float4 smem4[];
   const Layout L = make_layout(w, R);
@@ -306,7 +329,7 @@ frame_kernel(DecoderWeights w, int B, const float* __restrict__ h_time,
   for (int idx = threadIdx.x; idx < R * TH; idx += NT) {
     const int r = idx / TH, j = idx - r * TH;
     s.h_time[r * L.lTH + j] =
-        r < nrows ? h_time[(size_t)(row0 + r) * TH + j] : 0.0f;
+        r < nrows ? to_f(h_time[(size_t)(row0 + r) * TH + j]) : 0.0f;
   }
   __syncthreads();
   frame_projection<R>(w, L, s);
@@ -321,7 +344,7 @@ frame_kernel(DecoderWeights w, int B, const float* __restrict__ h_time,
   }
   for (int idx = threadIdx.x; idx < nrows * EH2; idx += NT) {
     const int r = idx / EH2, j = idx - r * EH2;
-    summary[(size_t)(row0 + r) * EH2 + j] = s.hs[r * L.lHS + j];
+    summary[(size_t)(row0 + r) * EH2 + j] = from_f<S>(s.hs[r * L.lHS + j]);
   }
   if (threadIdx.x < nrows) lengths[row0 + threadIdx.x] = s.len[threadIdx.x];
 }
@@ -388,10 +411,38 @@ cudaError_t prepare(Kern kern, size_t bytes) {
                               (int)bytes);
 }
 
+// K3 over B rows, R rows a block, in storage type S.
+template <typename S>
+int frame_decode(const DecoderWeightsT<S>* w, int B, int R, const S* h_time,
+                 const S* sos_emb, int* pitch_idx, int* dur_bits, S* summary,
+                 int* lengths, void* stream) {
+  if (B <= 0 || !(R == 1 || R == 2 || R == 4)) return cudaErrorInvalidValue;
+  const size_t bytes = smem_bytes(*w, R);
+  const dim3 grid((B + R - 1) / R);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaSuccess;
+#define PCTD_FRAME(RR)                                                       \
+  e = prepare(frame_kernel<RR, S>, bytes);                                   \
+  if (e == cudaSuccess)                                                      \
+    frame_kernel<RR, S><<<grid, NT, bytes, st>>>(                            \
+        *w, B, h_time, sos_emb, pitch_idx, dur_bits, summary, lengths);
+  switch (R) {
+    case 1: PCTD_FRAME(1) break;
+    case 2: PCTD_FRAME(2) break;
+    default: PCTD_FRAME(4) break;
+  }
+#undef PCTD_FRAME
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
+// The float entry points are compiled here, the bf16 one of K3 in
+// decoder_bf16.cu, which includes this file: the two build in parallel.
 extern "C" {
 
+#ifndef PCTD_DECODE_BF16
 const char* pctd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
@@ -404,37 +455,8 @@ int pctd_frame_decode(const DecoderWeights* w, int B, int rows_per_block,
                       const float* h_time, const float* sos_emb,
                       int* pitch_idx, int* dur_bits, float* summary,
                       int* lengths, void* stream) {
-  const int R = rows_per_block;
-  if (B <= 0 || !(R == 1 || R == 2 || R == 4)) return cudaErrorInvalidValue;
-  const size_t bytes = smem_bytes(*w, R);
-  const dim3 grid((B + R - 1) / R);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaSuccess;
-  switch (R) {
-    case 1:
-      e = prepare(frame_kernel<1>, bytes);
-      if (e == cudaSuccess)
-        frame_kernel<1><<<grid, NT, bytes, st>>>(*w, B, h_time, sos_emb,
-                                                 pitch_idx, dur_bits, summary,
-                                                 lengths);
-      break;
-    case 2:
-      e = prepare(frame_kernel<2>, bytes);
-      if (e == cudaSuccess)
-        frame_kernel<2><<<grid, NT, bytes, st>>>(*w, B, h_time, sos_emb,
-                                                 pitch_idx, dur_bits, summary,
-                                                 lengths);
-      break;
-    default:
-      e = prepare(frame_kernel<4>, bytes);
-      if (e == cudaSuccess)
-        frame_kernel<4><<<grid, NT, bytes, st>>>(*w, B, h_time, sos_emb,
-                                                 pitch_idx, dur_bits, summary,
-                                                 lengths);
-      break;
-  }
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
+  return frame_decode(w, B, rows_per_block, h_time, sos_emb, pitch_idx,
+                      dur_bits, summary, lengths, stream);
 }
 
 int pctd_full_decode(const DecoderWeights* w, int B, int rows_per_block,
@@ -469,5 +491,15 @@ int pctd_full_decode(const DecoderWeights* w, int B, int rows_per_block,
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
+#else
+int pctd_frame_decode_bf16(const DecoderWeightsT<__nv_bfloat16>* w, int B,
+                           int rows_per_block, const __nv_bfloat16* h_time,
+                           const __nv_bfloat16* sos_emb, int* pitch_idx,
+                           int* dur_bits, __nv_bfloat16* summary,
+                           int* lengths, void* stream) {
+  return frame_decode(w, B, rows_per_block, h_time, sos_emb, pitch_idx,
+                      dur_bits, summary, lengths, stream);
+}
+#endif
 
 }  // extern "C"

@@ -8,7 +8,10 @@ Replaces the Pallas kernel
 (``full_kernel``), which shares K3's device functions for the slot chain and
 the summary; :func:`decode_grid_full_plain` is its plain PyTorch version,
 built on K3's plain pieces the same way. The JAX kernel's
-``dur_width <= 7`` limit came from its TPU output tile and is gone.
+``dur_width <= 7`` limit came from its TPU output tile and is gone. Both
+decode in float32 only: the JAX kernel has no bf16 mode (its ``fori_loop``
+carry enters in bf16 and leaves in f32, so ``decode_grid_fused`` raises on
+bf16 params).
 """
 from __future__ import annotations
 
@@ -28,7 +31,11 @@ def decode_grid_full_plain(fw: FoldedWeights, spec: PianoTreeSpec,
                            ) -> torch.Tensor:
     """Plain PyTorch version of K4: the z-derived inputs (see
     :class:`~pctd_tpu_torch.models.pianotree_decoder.DecodeInputs`) ->
-    grid (B, T, K-1, 6) int32 = [pitch | W dur bits] per slot."""
+    grid (B, T, K-1, 6) int32 = [pitch | W dur bits] per slot. Float32
+    only, as the kernel."""
+    if fw.w_hh.dtype != torch.float32:
+        raise TypeError(f"K4 decodes in float32 only (the JAX package's K4 "
+                        f"has no bf16 mode), got {fw.w_hh.dtype} weights")
     h, token = h0, token0
     steps = []
     for _ in range(spec.num_step):
@@ -59,11 +66,11 @@ def decode_grid_full(fw: FoldedWeights, spec: PianoTreeSpec,
     build.check_inputs(fw, h0.device, [
         ("h0", h0, (B, dims.TH)), ("gi_z", gi_z, (B, 3 * dims.TH)),
         ("token0", token0, (B, 2 * dims.EH)),
-        ("sos_emb", sos_emb, (B, dims.E))])
+        ("sos_emb", sos_emb, (B, dims.E))], build.FULL_ENTRY)
     grid = torch.empty((B, spec.num_step, spec.max_simu_note - 1,
                         1 + spec.dur_width), dtype=torch.int32,
                        device=h0.device)
-    build.launch("pctd_full_decode", fw, dims, B,
+    build.launch(build.FULL_ENTRY[torch.float32], fw, dims, B,
                  [h0, gi_z, token0, sos_emb, grid])
     decode_grid_full.launches += 1
     return grid

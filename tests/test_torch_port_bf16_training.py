@@ -148,9 +148,11 @@ def test_port_really_runs_bf16(case, fused_loss):
 
 
 def test_serving_refuses_bf16_and_encode_takes_it():
-    """The decode entry points serve float32 only, naming the bf16 K3/K4
-    slice still to port; encode runs the bf16 policy and returns f32
-    distributions (its Gaussian heads are f32)."""
+    """The decode entry points' default route (K4, ``"full"``) serves
+    float32 only, naming the JAX K4's missing bf16 mode (bf16 serving takes
+    ``frame_decoder="frame"``, tests/test_torch_port_bf16_decoder.py);
+    encode runs the bf16 policy and returns f32 distributions (its Gaussian
+    heads are f32)."""
     from pctd_tpu_torch.models import pianotree_decoder as ptd
     from pctd_tpu_torch.models.sampler import Sampler
 
@@ -161,7 +163,7 @@ def test_serving_refuses_bf16_and_encode_takes_it():
                                       z[:, cfg.chd_z_dim:]),
                  lambda: ptd.decode_grid(params["dec"], cfg, z),
                  lambda: Sampler(params, cfg, device="cpu")):
-        with pytest.raises(NotImplementedError, match="K3/K4"):
+        with pytest.raises(NotImplementedError, match="K4 has no bf16 mode"):
             call()
     pr = torch.zeros(2, 32, 128)
     c = torch.zeros(2, 8, 36)

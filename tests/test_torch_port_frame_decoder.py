@@ -85,11 +85,15 @@ def test_ctypes_struct_matches_the_cuda_struct():
     from pctd_tpu_torch.ops.kernels import build
 
     src = (build.CSRC / "decoder.cu").read_text()
-    body = re.search(r"struct DecoderWeights \{(.*?)\};", src, re.S).group(1)
-    ptrs, ints = body.split(";")[:2]
-    c_ptrs = re.findall(r"\*(\w+)", ptrs)
+    body = re.search(r"struct DecoderWeightsT \{(.*?)\};", src,
+                     re.S).group(1)
+    *ptrs, ints = [d for d in body.split(";") if d.strip()]
+    c_ptrs = [n for d in ptrs for n in re.findall(r"\*(\w+)", d)]
     c_ints = [n.strip() for n in ints.replace("int ", "").split(",")]
     assert c_ptrs == list(ar_decoder.FoldedWeights._fields)
+    # the f32 constants are float pointers in the struct of either dtype
+    f32 = re.findall(r"\*(\w+)", next(d for d in ptrs if "float" in d))
+    assert tuple(f32) == ar_decoder.F32_FIELDS
     assert c_ints == list(build.Dims._fields)
     assert [f for f, _ in build.DecoderWeightsC._fields_] == c_ptrs + c_ints
 

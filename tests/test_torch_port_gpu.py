@@ -1,7 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions on a CUDA card: the
-decode kernels K3/K4, and the train-frame pair K1 (forward) and K2
-(backward, against autograd of the plain forward) in loss mode and in
-logits-out mode.
+decode kernels K3 (float32 and bf16) and K4, and the train-frame pair K1
+(forward) and K2 (backward, against autograd of the plain forward) in loss
+mode and in logits-out mode, float32 and bf16.
 
 Skipped without a card. The card's machine has no JAX, so this file imports
 only torch and pctd_tpu_torch, and runs there without the JAX test conftest:
@@ -9,6 +9,7 @@ only torch and pctd_tpu_torch, and runs there without the JAX test conftest:
     python -m pytest --noconftest -m gpu tests/test_torch_port_gpu.py
 """
 import copy
+import types
 
 import numpy as np
 import pytest
@@ -473,3 +474,82 @@ def test_bf16_train_step_runs_the_bf16_kernels(cuda):
     assert all(np.isfinite(v) for v in m.values())
     assert all(t.dtype == torch.float32 for t in run.leaves)
     assert all(t.dtype == torch.float32 for t in run.opt.mu + run.opt.nu)
+
+
+# --- bf16 serving: K3 in bf16 ----------------------------------------------
+
+def _bf16_frame_case(cfg, device, B, eos_bias):
+    """bf16 decoder params (the precision policy's cast), their folds, and
+    one frame's bf16 time hidden and sos embedding."""
+    import dataclasses
+
+    from pctd_tpu_torch.utils.precision import cast_params
+
+    cfg = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    params, _ = _model(cfg, device, eos_bias=eos_bias)
+    dec = cast_params(params["dec"], torch.bfloat16)
+    fw = ar_decoder.folded_frame_weights(dec, cfg)
+    g = torch.Generator(device=device).manual_seed(B + 7)
+    h = (torch.randn(B, cfg.dec_time_hidden, device=device, generator=g)
+         * 0.6).to(torch.bfloat16)
+    sos = ptd.decode_inputs(dec, cfg, torch.zeros(
+        B, cfg.z_dim, device=device, dtype=torch.bfloat16)).sos_emb
+    return cfg, fw, h, sos
+
+
+@pytest.mark.parametrize("width", ["tiny", "canonical"])
+@pytest.mark.parametrize("B", [37, 128])
+def test_frame_kernel_bf16_matches_plain(cuda, width, B):
+    """K3 in bf16 against its plain version: the arithmetic is f32 in both,
+    so decisions and lengths agree on >= 0.999 (each row's first differing
+    decision a near-tie of the plain logits, margin <= 1e-2), and the bf16
+    summary within 1e-2 x (1 + max|plain|) on the agreeing rows."""
+    cfg, fw, h, sos = _bf16_frame_case(
+        tiny_model_config() if width == "tiny" else ModelConfig(), cuda, B,
+        eos_bias=0.0)
+    spec = cfg.pianotree
+    assert fw.w_hh.dtype == torch.bfloat16 and fw.gi_d.dtype == torch.float32
+    before = ar_decoder.frame_decode.launches
+    got = ar_decoder.frame_decode(fw, spec, h, sos)
+    want = ar_decoder.frame_decode_plain(fw, spec, h, sos)
+    assert ar_decoder.frame_decode.launches == before + 1
+    assert got[2].dtype == want[2].dtype == torch.bfloat16
+    for i in (0, 1, 3):
+        assert (got[i] == want[i]).float().mean().item() >= AGREE
+    hid, gi = ar_decoder.frame_projection(fw, h)
+    *_, pl, dl = ar_decoder.slot_chain_plain(fw, spec, hid, gi, logits=True)
+    dec = lambda o: torch.cat([o[0][..., None], o[1]], -1)
+    rows = (dec(got) == dec(want)).flatten(1).all(1) & (got[3] == want[3])
+    if not rows.all():
+        margins = _first_difference_margins(
+            dec(got), dec(want),
+            types.SimpleNamespace(pitch_logits=pl, dur_logits=dl))
+        assert margins.max().item() <= 1e-2
+    a, b = got[2][rows].float(), want[2][rows].float()
+    assert (a - b).abs().max().item() <= 1e-2 * (1.0 + b.abs().max().item())
+
+
+def test_sampler_serves_bf16_through_k3(cuda):
+    """A bf16 Sampler serves through K3 alone (32 launches a chunk, bf16
+    weights), its grids agree with the bf16 CPU plain path on >= 0.999,
+    and the K4 route refuses bf16 when the Sampler is built."""
+    import dataclasses
+
+    cfg = dataclasses.replace(tiny_model_config(), compute_dtype="bfloat16")
+    params, _ = _model(cfg, cuda)
+    rng = np.random.RandomState(0)
+    pr = (rng.rand(9, 32, 128) < 0.02).astype(np.float32) * 2
+    c = rng.rand(9, 8, 36).astype(np.float32)
+    with pytest.raises(NotImplementedError, match="K4 has no bf16 mode"):
+        Sampler(params, cfg, fixed_batch=4)
+    k3, k4 = (ar_decoder.frame_decode.launches,
+              full_decoder.decode_grid_full.launches)
+    s = Sampler(params, cfg, frame_decoder="frame", fixed_batch=4)
+    assert s.fw.w_hh.dtype == torch.bfloat16
+    got = s.swap(pr, pr, c, c, True, True)
+    assert ar_decoder.frame_decode.launches == k3 + 3 * 32
+    assert full_decoder.decode_grid_full.launches == k4
+    cpu = Sampler(params, cfg, frame_decoder="frame", fixed_batch=4,
+                  device="cpu").swap(pr, pr, c, c, True, True)
+    assert got.shape == (9, 32, 15, 6) and got.dtype == np.int32
+    assert (got == cpu).mean() >= AGREE
