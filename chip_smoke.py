@@ -16,8 +16,15 @@ through ``Trainer`` at B=128 in each loss mode (``ModelConfig.fused_loss``
 True, then False), in float32 and then with ``compute_dtype="bfloat16"``,
 all at the canonical model width (random weights from ``--seed``), and
 shows that each path went through its kernels (in bf16, with bf16 tensors
-at every launch). Prints one line per phase with its seconds,
-a ``{"kernels": [...]}`` line, and as its last line
+at every launch). The phase "K2b by task" times the weight-gradient
+reduction on each of its 16 reductions alone and on all together at B=128
+and 512 in both storage types, holds it against an f64 reference (f32)
+and against ``wgrad_plain`` in bf16 ulps (bf16), each gate beside a
+control that it must refuse, and across two launches (the same bits),
+measures the mma.sync issue rates that bound it, and times an f32 train
+step with K2b and one with ``wgrad_plain`` in its place, in turns. Prints
+one line per phase with its seconds, a ``{"kernels": [...]}`` line, and as
+its last line
 ``{"ok": true, "device": {...}}``. Exits nonzero, printing no result,
 without a CUDA card or when any phase fails. Imports nothing of JAX.
 """
@@ -54,6 +61,14 @@ from pctd_tpu_torch.utils.precision import cast_params
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+#: dense TF32 tensor-core peak (the same data sheet), and the fastest rates
+#: of the f32-accurate products that K2b's function needs: three TF32
+#: passes for an f32 x f32 product (3xTF32; six bf16 passes give the same),
+#: three bf16 passes for bf16 x f32 (X is bf16, and dY splits exactly into
+#: hi + mid + lo in bf16; K2b itself runs two TF32 passes, at 495 / 2)
+PEAK_TF32_FLOPS = 495e12
+PEAK_3XTF32 = PEAK_TF32_FLOPS / 3
+PEAK_3XBF16 = PEAK_BF16_FLOPS / 3
 AGREE = 0.999          # discrete outputs, kernel vs plain
 SUMMARY_ATOL = 1e-4    # K3 summary on rows whose discrete outputs agree
 SIZES = (1, 37, 128, 300)
@@ -95,6 +110,8 @@ BF16_STEPS = 3         # train steps in bf16, in each loss mode
 TURNS = 4              # timed train steps of each loss mode, in turns
 HOST_OPS = 8           # host ops listed by self time in a profiled step
 TRAIN_B = 128
+WGRAD_F64_TOL = 1e-5   # K2b f32 vs an f64 reference: x (1 + max|ref|)
+K2B_REPS = 10          # launches a K2b timing averages
 
 
 class PhaseFailed(RuntimeError):
@@ -136,6 +153,27 @@ def cuda_ms(fn, n: int) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / n
+
+
+def queued_ms(fn, n: int):
+    """(mean ms of ``fn`` over ``n`` runs by CUDA events, whether the host
+    enqueued them all while a sleep kernel held the card): the runs go in
+    behind ~10 ms of ``torch.cuda._sleep``, so the events time the device's
+    work and not a launch's host time (a few hundred microseconds for a
+    ctypes launch or a loop of small torch calls)."""
+    fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    torch.cuda._sleep(20_000_000)
+    ev[1].record()
+    s0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host_ms = (time.perf_counter() - s0) * 1e3
+    ev[2].record()
+    torch.cuda.synchronize()
+    return ev[1].elapsed_time(ev[2]) / n, host_ms < ev[0].elapsed_time(ev[1])
 
 
 def frame_work(fw, spec, B: int):
@@ -309,11 +347,11 @@ def launch_dtypes():
         return kernel_routes[1](cw, d, batch, tensors, stash, cot, rows,
                                 logits)
 
-    def wgrad(tasks):
+    def wgrad(tasks, *plan):
         seen[("K2b", frozenset(str(x.dtype) for t in tasks
                                for x in (t.X, t.gW, t.gb) if x.numel()))] \
             += 1
-        return kernel_routes[2](tasks)
+        return kernel_routes[2](tasks, *plan)
 
     for n, fn in zip(names, (fwd, bwd, wgrad)):
         setattr(build, n, fn)
@@ -565,7 +603,7 @@ def profile_call(fn, what: str) -> dict:
     if not kernels:
         print("  profiler: no device events; breakdown not measured")
         return {"measured": False}
-    groups = collections.Counter()
+    groups, counts = collections.Counter(), collections.Counter()
     spans = []
     for e in kernels:
         us = e.time_range.elapsed_us()
@@ -573,12 +611,13 @@ def profile_call(fn, what: str) -> dict:
         n = e.name
         key = ("K1" if "train_fwd_kernel" in n else
                "K2a" if "train_bwd_kernel" in n else
-               "K2b" if "wgrad_kernel" in n else
+               "K2b" if "wgrad_" in n else
                "K3" if "frame_kernel" in n else
                "K4" if "full_kernel" in n else
                "gemm" if re.search(r"gemm|cutlass|cublas", n, re.I) else
                "other")
         groups[key] += us
+        counts[key] += 1
     busy, end = 0.0, -1.0
     for a, b in sorted(spans):
         if b > end:
@@ -591,6 +630,7 @@ def profile_call(fn, what: str) -> dict:
     out = {"measured": True, "wall_ms": wall_us / 1e3,
            "device_busy_ms": busy / 1e3,
            "idle_share": 1.0 - busy / wall_us, "kernel_ms": ms,
+           "kernel_count": dict(counts),
            "host_self_ms_top": host_ms}
     print(f"  profiled {what}: {wall_us / 1e3:.2f} ms wall (profiler on), "
           f"device busy {busy / 1e3:.2f} ms, idle share "
@@ -628,6 +668,217 @@ def eos_variant(params, cfg, fw_of, h, sos):
             best = (key, off, q)
     print(f"  eos-biased variant: bias {best[1]:+}")
     return best[2]
+
+
+def wgrad_inputs(params, cfg, gen, B: int, bf16: bool):
+    """K2b's operands at B rows: a frame case (in bf16 if ``bf16``) run
+    through K1 with its stash and K2a in loss mode. Returns a function that
+    makes the 16 reductions writing into a fresh set of gradients."""
+    spec = cfg.pianotree
+    dev = gen.device
+    cw, inp = frame_case(params, cfg, B, gen)
+    if bf16:
+        cw, inp = to_bf16(cw, inp)
+    with torch.no_grad():
+        _, _, lens, _, st = tf.frame_fwd(cw, spec, **inp, stash=True)
+        d_nums = torch.rand(1 + spec.dur_width, device=dev, generator=gen)
+        d_summ = torch.randn(B, 2 * cfg.dec_emb_hidden, device=dev,
+                             generator=gen).to(cw.w_hh.dtype)
+        ct = tf.frame_bwd(cw, spec, inp["frame_h"], inp["coins"],
+                          inp["gt_pitch"], inp["gt_dur"], lens, st, d_nums,
+                          d_summ)[2]
+    d = tf.dims_of(cw, spec)
+
+    def tasks():
+        g = tf.CoreWeights(*(torch.empty_like(w) for w in cw))
+        return tf.wgrad_tasks(d, B, inp["frame_h"], st, ct, g)
+    return tasks
+
+
+def task_outputs(tk):
+    """A K2b task's outputs: (gW or None when I = 0, gb or None)."""
+    return (tk.gW if tk.I else None, tk.gb if tk.gb.numel() else None)
+
+
+def wgrad_f64(tasks):
+    """Each task's (gW, gb) in f64 on the card, from its rows."""
+    ref = []
+    for tk in tasks:
+        x, dy = tf.task_rows(tk)
+        dy = dy.double()
+        ref.append((None if x is None else x.double().t() @ dy,
+                    dy.sum(0) if tk.gb.numel() else None))
+    return ref
+
+
+def scaled_errs(tasks, ref):
+    """For each task, max|out - ref| / (1 + max|ref|) over its outputs."""
+    errs = []
+    for tk, r in zip(tasks, ref):
+        errs.append(max((a.double() - b).abs().max().item()
+                        / (1.0 + b.abs().max().item())
+                        for a, b in zip(task_outputs(tk), r)
+                        if b is not None))
+    return errs
+
+
+def bf16_ulps(a, b):
+    """|a - b| in units of the bf16 spacing at |b|, elementwise (b of bf16;
+    2^-133, the least bf16 step, where b is 0)."""
+    b32 = b.float()
+    _, e = torch.frexp(b32)
+    ulp = torch.where(b32 == 0, torch.full_like(b32, 2.0 ** -133),
+                      torch.ldexp(torch.ones_like(b32),
+                                  (e - 8).clamp(min=-133)))
+    return (a.float() - b32).abs() / ulp
+
+
+def ulp_report(tasks, plain_tasks, ref) -> dict:
+    """The bf16 kernel outputs against wgrad_plain's, in bf16 ulps of the
+    plain value: the largest, how many elements exceed one ulp, how many of
+    those also miss the f32 gate (WGRAD_F64_TOL x (1 + max|ref|)) against
+    the f64 reference, and the worst element with its f64 reference and its
+    output's max|ref|. Two f32-accurate sums in another order differ by
+    more than a bf16 ulp where an element cancels below their f32 rounding
+    error; such an element must still meet the f32 gate."""
+    worst, over, outside = None, 0, 0
+    for k, (ta, tb, r) in enumerate(zip(tasks, plain_tasks, ref)):
+        for a, b, f in zip(task_outputs(ta), task_outputs(tb), r):
+            if a is None:
+                continue
+            u = bf16_ulps(a, b)
+            big = u > 1
+            over += int(big.sum())
+            gate = WGRAD_F64_TOL * (1.0 + f.abs().max().item())
+            outside += int(((a.double() - f).abs() > gate)[big].sum())
+            j = int(u.argmax())
+            if worst is None or u.flatten()[j].item() > worst["ulps"]:
+                worst = {"ulps": u.flatten()[j].item(),
+                         "task": tf.WGRAD_NAMES[k],
+                         "kernel": a.flatten()[j].item(),
+                         "plain": b.flatten()[j].item(),
+                         "f64": f.flatten()[j].item(),
+                         "max_ref": f.abs().max().item()}
+    return {"max": worst["ulps"], "over_one": over,
+            "over_one_outside_f32_gate": outside, "worst": worst}
+
+
+@contextlib.contextmanager
+def plain_wgrad():
+    """Inside this context the training path's weight gradients come from
+    ``wgrad_plain`` (cuBLAS products) in K2b's place; restored on exit."""
+    kernel_route = tf.weight_grads
+
+    def plain(cw, spec, frame_h, st, ct):
+        grads = tf.CoreWeights(*(torch.empty_like(w) for w in cw))
+        tf.wgrad_plain(tf.wgrad_tasks(tf.dims_of(cw, spec), frame_h.shape[0],
+                                      frame_h, st, ct, grads))
+        return grads
+
+    tf.weight_grads = plain
+    try:
+        yield
+    finally:
+        tf.weight_grads = kernel_route
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest TF32 value (ties away from zero), as
+    ``cvt.rna.tf32.f32`` gives K2b's hi part: add half of the 13 dropped
+    mantissa bits, then mask them off."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def mma_ceilings(dev, threads: int = 128, warps_per_sm: int = 32,
+                 iters: int = 4096) -> dict:
+    """Measured issue-rate ceilings (TFLOP/s) of the tensor-core
+    instructions on K2b's bound (``csrc/mma_peak.cu``): mma.sync m16n8k8
+    TF32 and m16n8k16 bf16, register operands, ``warps_per_sm`` warps on
+    every SM, the mean of 5 launches after one warm-up by CUDA events."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = sms * warps_per_sm * 32 // threads
+    out = torch.empty(blocks * threads, device=dev)
+    rates = {}
+    for name, bf16, flops in (("tf32 m16n8k8", False, 2048),
+                              ("bf16 m16n8k16", True, 4096)):
+        ms = cuda_ms(lambda b=bf16: build.launch_mma_peak(
+            b, blocks, threads, iters, out), 5)
+        rates[name] = blocks * threads // 32 * iters * 8 * flops / ms / 1e9
+    check(bool(torch.isfinite(out).all()), "mma.sync probe: not finite")
+    return rates
+
+
+def k2b_case(make, bf16: bool) -> dict:
+    """K2b on one set of operands: its time on each task alone (the task
+    launched with its slices and workspace from the whole plan) and on all
+    together, and wgrad_plain's, the calls queued behind a sleep kernel
+    (:func:`queued_ms`; beside them the plain CUDA-event means, which a
+    call's host time can stretch), and what its gates read: f32 against an
+    f64 reference, with wgrad_plain in f32 beside it and in single-pass
+    TF32 (the control); bf16 in bf16 ulps of wgrad_plain
+    (:func:`ulp_report`), with wgrad_plain on dY rounded to TF32 (K2b
+    without its lo pass, the control); two launches' bits; both against
+    wgrad_plain scaled by (1 + max|plain|)."""
+    tasks, plain_tasks, again = make(), make(), make()
+    plan = tf.wgrad_plan(tf.wgrad_shapes(tasks))
+    ws = torch.empty(max(plan.ws_elems, 1), device=tasks[0].DY.device)
+
+    def alone(k):
+        build.launch_wgrad([tasks[k]], [plan.slices[k]], ws,
+                           [plan.ws_off[k]])
+    # a task alone runs in tens of microseconds, under a launch's host time
+    per_task = [queued_ms(lambda k=k: alone(k), K2B_REPS)
+                for k in range(len(tasks))]
+    whole, queued = queued_ms(lambda: tf.wgrad(tasks), K2B_REPS)
+    plain, plain_queued = queued_ms(lambda: tf.wgrad_plain(plain_tasks), 3)
+    events = cuda_ms(lambda: tf.wgrad(tasks), K2B_REPS)
+    plain_events = cuda_ms(lambda: tf.wgrad_plain(plain_tasks), 3)
+    tf.wgrad(again)
+    torch.cuda.synchronize()
+    ref = wgrad_f64(tasks)
+    out = {"per_task_ms": dict(zip(tf.WGRAD_NAMES,
+                                   (ms for ms, _ in per_task))),
+           "queued_behind_sleep": all(q for _, q in per_task)
+           and queued and plain_queued,
+           "slices": dict(zip(tf.WGRAD_NAMES, plan.slices)),
+           "items": sum(s * -(-(i + b) // tf.WG_TILE) * -(-o // tf.WG_TILE)
+                        for s, (_, i, o, b) in
+                        zip(plan.slices, tf.wgrad_shapes(tasks))),
+           "item_chunks_max": plan.length,
+           "workspace_bytes": 4 * plan.ws_elems,
+           "ms": whole, "ms_cuda_events": events,
+           "plain_ms": plain, "plain_ms_cuda_events": plain_events,
+           "vs_f64": max(scaled_errs(tasks, ref)),
+           "plain_vs_f64": max(scaled_errs(plain_tasks, ref)),
+           "bit_identical": all(
+               torch.equal(a, b) for ta, tb in zip(tasks, again)
+               for a, b in zip(task_outputs(ta), task_outputs(tb))
+               if a is not None),
+           "vs_plain": max((a.float() - b.float()).abs().max().item()
+                           / (1.0 + b.float().abs().max().item())
+                           for ta, tb in zip(tasks, plain_tasks)
+                           for a, b in zip(task_outputs(ta),
+                                           task_outputs(tb))
+                           if a is not None)}
+    if bf16:
+        out["ulps"] = ulp_report(tasks, plain_tasks, ref)
+        control = [tk._replace(DY=tf32_round(tk.DY)) for tk in make()]
+        tf.wgrad_plain(control)
+        out["control_ulps"] = ulp_report(control, plain_tasks, ref)
+    else:
+        tf32_tasks = make()
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf.wgrad_plain(tf32_tasks)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        out["tf32_vs_f64"] = max(scaled_errs(tf32_tasks, ref))
+    flops, nbytes = wgrad_work(tasks)
+    out["bound"] = bound_ms(flops, nbytes,
+                            PEAK_3XBF16 if bf16 else PEAK_3XTF32)
+    out["tasks"] = [(tk.N, tk.I, tk.O, int(tk.gb.numel() > 0))
+                    for tk in tasks]
+    return out
 
 
 def agreement(a, b) -> float:
@@ -671,6 +922,12 @@ def main() -> int:
         if re.search(r"Compiling entry|registers|spill", line):
             print("  " + line.strip())
     lib = build.library()
+    k2b_regs = {m.group(1): f"{m.group(3)}; {m.group(2)}"
+                for m in re.finditer(
+                    r"Compiling entry function '\S*?(wgrad_\w*?kernelI\w+?)"
+                    r"EE.*\n.*\n\s*(.*spill loads)\n.*?(Used \d+ "
+                    r"registers[^\n]*)", log)}
+    print(f"  K2b registers: {k2b_regs}")
     phase("build", t0)
 
     # 3. weights
@@ -1527,17 +1784,8 @@ def main() -> int:
         bwd = lambda: tf.frame_bwd(cw, spec, inp["frame_h"], inp["coins"],
                                    inp["gt_pitch"], inp["gt_dur"], lens, st,
                                    d_nums, d_summ)
-        ct = bwd()[2]
-        out = [tf.CoreWeights(*(torch.empty_like(w) for w in cw))
-               for _ in range(2)]
-        tasks = [tf.wgrad_tasks(d, B, inp["frame_h"], st, ct, g) for g in out]
         k1 = cuda_ms(fwd, 10)
         k2a = cuda_ms(bwd, 10)
-        k2b = cuda_ms(lambda: build.launch_wgrad(tasks[0]), 10)
-        k2b_plain = cuda_ms(lambda: tf.wgrad_plain(tasks[1]), 3)
-        k2b_vs = max((a - b).abs().max().item() / (1 + b.abs().max().item())
-                     for a, b in zip(*out))
-        check(k2b_vs <= GRAD_TOL, f"K2b vs its plain version {k2b_vs}")
         with torch.no_grad():
             k1p = cuda_ms(lambda: tf.frame_recon_plain(cw, spec, **inp), 2)
         k2p = plain_backward_ms(cw, spec, inp, (d_nums, d_summ), 2)
@@ -1561,13 +1809,10 @@ def main() -> int:
         timing[B].update({
             "K1": (k1, k1p, *bound_ms(f1, b1)),
             "K2a": (k2a, k2p, *bound_ms(f2a, b2a)),
-            "K2b": (k2b, k2b_plain, *bound_ms(*wgrad_work(tasks[0]))),
             "K1 logits": (k1l, k1lp, *bound_ms(f1l, b1l)),
             "K2a logits": (k2al, k2lp, *bound_ms(f2al, b2al))})
         print(f"  B={B}: K1 {k1:.3f} ms (plain {k1p:.3f}), K2a {k2a:.3f} ms "
-              f"+ K2b {k2b:.3f} ms (plain K2, autograd backward, "
-              f"{k2p:.3f}; plain K2b {k2b_plain:.3f}); K2b vs its plain "
-              f"version: max|err| / (1 + max|plain|) {k2b_vs:.3g}")
+              f"(plain K2, autograd backward, {k2p:.3f})")
         print(f"  B={B}: logits out: K1 {k1l:.3f} ms (plain {k1lp:.3f}), K2a "
               f"{k2al:.3f} ms (plain K2, autograd backward, {k2lp:.3f})")
         # the same work in bf16 (weights, frame_h, x_emb rounded)
@@ -1579,20 +1824,8 @@ def main() -> int:
                                      inpb["coins"], inpb["gt_pitch"],
                                      inpb["gt_dur"], lens_b, st_b, d_nums,
                                      d_summ_b)
-        ct_b = bwd_b()[2]
-        out_b = [tf.CoreWeights(*(torch.empty_like(w) for w in cwb))
-                 for _ in range(2)]
-        tasks_b = [tf.wgrad_tasks(d, B, inpb["frame_h"], st_b, ct_b, g)
-                   for g in out_b]
         k1b = cuda_ms(fwd_b, 10)
         k2ab = cuda_ms(bwd_b, 10)
-        k2bb = cuda_ms(lambda: build.launch_wgrad(tasks_b[0]), 10)
-        k2bb_plain = cuda_ms(lambda: tf.wgrad_plain(tasks_b[1]), 3)
-        k2bb_vs = max((a.float() - b.float()).abs().max().item()
-                      / (1 + b.float().abs().max().item())
-                      for a, b in zip(*out_b))
-        check(k2bb_vs <= BF16_GRAD_TOL,
-              f"K2b bf16 vs its plain version {k2bb_vs}")
         with torch.no_grad():
             k1bp = cuda_ms(lambda: tf.frame_recon_plain(cwb, spec, **inpb), 2)
         k2bp = plain_backward_ms(cwb, spec, inpb, (d_nums, d_summ_b), 2)
@@ -1619,25 +1852,20 @@ def main() -> int:
         timing[B].update({
             "K1 bf16": (k1b, k1bp, *bound_ms(f1b, b1b, peak)),
             "K2a bf16": (k2ab, k2bp, *bound_ms(f2ab, b2ab, peak)),
-            "K2b bf16": (k2bb, k2bb_plain,
-                         *bound_ms(*wgrad_work(tasks_b[0]), peak)),
             "K1 bf16 logits": (k1blo, k1blp, *bound_ms(f1lb, b1lb, peak)),
             "K2a bf16 logits": (k2ablo, k2blp,
                                 *bound_ms(f2alb, b2alb, peak))})
         print(f"  B={B} bf16: K1 {k1b:.3f} ms (plain {k1bp:.3f}), K2a "
-              f"{k2ab:.3f} ms + K2b {k2bb:.3f} ms (plain K2, autograd "
-              f"backward, {k2bp:.3f}; plain K2b {k2bb_plain:.3f}); K2b vs "
-              f"its plain version: max|err| / (1 + max|plain|) "
-              f"{k2bb_vs:.3g}; logits out: K1 {k1blo:.3f} ms (plain "
+              f"{k2ab:.3f} ms (plain K2, autograd backward, {k2bp:.3f}); "
+              f"logits out: K1 {k1blo:.3f} ms (plain "
               f"{k1blp:.3f}), K2a {k2ablo:.3f} ms (plain K2 {k2blp:.3f})")
-        for name in ("K1", "K2a", "K2b", "K1 logits", "K2a logits",
-                     "K1 bf16", "K2a bf16", "K2b bf16", "K1 bf16 logits",
-                     "K2a bf16 logits"):
+        for name in ("K1", "K2a", "K1 logits", "K2a logits", "K1 bf16",
+                     "K2a bf16", "K1 bf16 logits", "K2a bf16 logits"):
             ms, pms, bms, by = timing[B][name]
             print(f"  B={B} {name} bound {bms:.4f} ms ({by}"
                   + (", bf16 tensor peak" if "bf16" in name else "")
                   + f"), {bms / ms:.3%} of it")
-        del st, ct, tasks, out, st_lo, st_b, ct_b, tasks_b, out_b, st_lb
+        del st, st_lo, st_b, st_lb
     opt_ms = optimizer_ms(trainer, 5)
     print(f"  optimizer step (clip + Adam, all parameters): {opt_ms:.3f} ms")
     profile = profile_step(trainer)
@@ -1666,6 +1894,110 @@ def main() -> int:
                                            if n != "trainer"}
                      for k, r in bf16_runs.items()}
     phase("timing", t0)
+
+    # 10b. K2b by task: its time on each reduction alone and on all of them,
+    # its gates (f64 reference, bf16 ulps, with a control that each must
+    # refuse, bit identity), its device time from the profiled train steps,
+    # the mma.sync ceilings on its bound, and a train step with K2b and one
+    # with wgrad_plain in its place, in turns
+    t0 = time.perf_counter()
+    k2b = {"mma_ceilings_tflops": mma_ceilings(dev)}
+    print("  mma.sync issue-rate ceilings (register operands, 32 warps an "
+          "SM): " + ", ".join(f"{k} {v:.1f} TFLOP/s"
+                             for k, v in k2b["mma_ceilings_tflops"].items())
+          + f" (data sheet: tf32 {PEAK_TF32_FLOPS / 1e12:.0f}, bf16 "
+          f"{PEAK_BF16_FLOPS / 1e12:.0f})")
+    for B in (128, 512):
+        for bf16 in (False, True):
+            key = "K2b bf16" if bf16 else "K2b"
+            r = k2b_case(wgrad_inputs(params, cfg, gen, B, bf16), bf16)
+            k2b[f"{key} B={B}"] = r
+            timing[B][key] = (r["ms"], r["plain_ms"], *r["bound"])
+            print(f"  {key} B={B}: {r['ms']:.4f} ms (queued behind a sleep "
+                  f"kernel: {r['queued_behind_sleep']}; CUDA events alone "
+                  f"{r['ms_cuda_events']:.4f} ms), wgrad_plain "
+                  f"{r['plain_ms']:.4f} ms (CUDA events alone "
+                  f"{r['plain_ms_cuda_events']:.4f}), below it: "
+                  f"{r['ms'] < r['plain_ms']}; bound "
+                  f"{r['bound'][0]:.4f} ms ({r['bound'][1]}, "
+                  f"{'3xbf16' if bf16 else '3xTF32'} rate), "
+                  f"{r['bound'][0] / r['ms']:.2%} of it")
+            print("    by task (ms alone, queued; N, I, O, bias; slices): "
+                  + ", ".join(f"{n} {v:.4f} {tuple(sh)} {r['slices'][n]}"
+                              for (n, v), sh in
+                              zip(r["per_task_ms"].items(), r["tasks"])))
+            print(f"    plan: {r['items']} items of <= {r['item_chunks_max']} "
+                  f"chunks of {tf.WG_CHUNK} samples, f32 workspace "
+                  f"{r['workspace_bytes']} bytes")
+            print(f"    vs f64: {r['vs_f64']:.3g} x (1 + max|ref|) (gate "
+                  f"{WGRAD_F64_TOL}); wgrad_plain f32 {r['plain_vs_f64']:.3g}"
+                  + ("" if bf16 else f"; single-pass TF32 control "
+                     f"{r['tf32_vs_f64']:.3g}")
+                  + (f"; vs wgrad_plain in bf16 ulps: {r['ulps']}; the "
+                     f"control (dY rounded to TF32): {r['control_ulps']}"
+                     if bf16 else "")
+                  + f"; vs wgrad_plain {r['vs_plain']:.3g}; two launches "
+                  f"bit-identical: {r['bit_identical']}")
+    # K2b's device time a launch from torch.profiler, in the profiled f32
+    # and bf16 fused steps at B=128 (T launches a step, each its pass 1
+    # and its slice sum)
+    for key, prof in (("K2b B=128", training["profile"]),
+                      ("K2b bf16 B=128", bf16_runs["fused"]["profile"])):
+        if not prof["measured"]:
+            k2b[key]["profiler_ms"] = None
+            continue
+        seen = prof["kernel_count"].get("K2b", 0)
+        check(seen == 2 * T, f"{key}: the profiled step saw {seen} K2b "
+              f"kernels, expected {2 * T} (two a launch)")
+        k2b[key]["profiler_ms"] = prof["kernel_ms"]["K2b"] / T
+        print(f"  {key}: profiler device time {k2b[key]['profiler_ms']:.4f}"
+              f" ms a launch ({seen} kernels over {T} launches in the "
+              f"profiled step) beside {k2b[key]['ms']:.4f} ms queued")
+    for name, r in k2b.items():
+        if not name.startswith("K2b"):
+            continue
+        bf16 = "bf16" in name
+        check(r["queued_behind_sleep"], f"{name}: the host did not enqueue "
+              "the timed calls within the sleep kernel")
+        check(r["bit_identical"], f"{name}: two launches differ")
+        check(r["vs_plain"] <= (BF16_GRAD_TOL if bf16 else GRAD_TOL),
+              f"{name} vs its plain version {r['vs_plain']}")
+        if bf16:
+            check(r["ulps"]["over_one_outside_f32_gate"] == 0,
+                  f"{name}: elements over one bf16 ulp from wgrad_plain miss "
+                  f"the f32 gate too: {r['ulps']}")
+            check(r["control_ulps"]["over_one_outside_f32_gate"] > 0,
+                  f"{name}: the control (dY rounded to TF32) passes the "
+                  f"bf16 gate: {r['control_ulps']}")
+        else:
+            check(r["vs_f64"] <= WGRAD_F64_TOL,
+                  f"{name} vs f64 {r['vs_f64']} > {WGRAD_F64_TOL}")
+            check(r["tf32_vs_f64"] > WGRAD_F64_TOL,
+                  f"{name}: the single-pass TF32 control "
+                  f"{r['tf32_vs_f64']} is within the f64 gate")
+    # the f32 fused train step with K2b and with wgrad_plain, in turns
+    step_turns = {"K2b": [], "wgrad_plain": []}
+    stream = trainer.batches()
+    tf.weight_grads.launches = 0
+    for _ in range(TURNS):
+        trainer.train_step(next(stream))
+        step_turns["K2b"].append(trainer.step_seconds[-1] * 1e3)
+        with plain_wgrad():
+            trainer.train_step(next(stream))
+        step_turns["wgrad_plain"].append(trainer.step_seconds[-1] * 1e3)
+    check(tf.weight_grads.launches == T * TURNS,
+          f"K2b launches in the turns {tf.weight_grads.launches}")
+    k2b["step_ms_in_turns"] = {k: float(np.median(v))
+                               for k, v in step_turns.items()}
+    print(f"  f32 fused train step in turns, median of {TURNS}: "
+          + ", ".join(f"{k} {v:.2f} ms"
+                      for k, v in k2b["step_ms_in_turns"].items())
+          + "; steps " + "; ".join(f"{k} " + " ".join(f"{v:.1f}" for v in ms)
+                                   for k, ms in step_turns.items()))
+    with plain_wgrad():
+        k2b["profile_wgrad_plain"] = profile_step(trainer)
+    training["k2b"] = k2b
+    phase("K2b by task", t0)
 
     # 11. kernels
     rows = []
@@ -1783,6 +2115,31 @@ def main() -> int:
                      "library_ms": None, "batch": 128,
                      "ms_b512": timing[512][key][0],
                      "plain_ms_b512": timing[512][key][1]})
+    # K2b: the library yardstick is wgrad_plain (one cuBLAS X^T dY and a
+    # column sum a task), its bound the 3xTF32 (bf16: 3xbf16) rate
+    for row in rows:
+        if row["name"].startswith("K2b"):
+            key = "K2b bf16" if "bf16" in row["name"] else "K2b"
+            r128, r512 = k2b[f"{key} B=128"], k2b[f"{key} B=512"]
+            row.update({
+                "library_ms": r128["plain_ms"],
+                "library": "wgrad_plain: torch X^T @ dY and dY.sum(0) a "
+                           "task (cuBLAS), 16 tasks; timed as K2b",
+                "bound_peak": ("3xbf16, 989 / 3 TFLOP/s" if "bf16" in key
+                               else "3xTF32, 495 / 3 TFLOP/s"),
+                "mma_ceilings_tflops": k2b["mma_ceilings_tflops"],
+                "ms_source": "CUDA events over launches queued behind a "
+                             "sleep kernel (device time, host launch hidden)",
+                "profiler_ms": r128["profiler_ms"],
+                "ms_cuda_events": r128["ms_cuda_events"],
+                "plain_ms_cuda_events": r128["plain_ms_cuda_events"],
+                "per_task_ms": r128["per_task_ms"],
+                "bound_ms_b512": r512["bound"][0],
+                "ms_cuda_events_b512": r512["ms_cuda_events"],
+                "vs_f64": max(r128["vs_f64"], r512["vs_f64"]),
+                "workspace_bytes": r128["workspace_bytes"],
+                "workspace_bytes_b512": r512["workspace_bytes"],
+                "registers": k2b_regs})
     print(json.dumps({"serving": serving, "serving_bf16": serving_bf16,
                       "training": training,
                       "training_logits_out": training_lo,

@@ -1,4 +1,5 @@
-"""Build and bind the CUDA kernels (decode: K3, K4; training: K1, K2).
+"""Build and bind the CUDA kernels (decode: K3, K4; training: K1, K2; and
+``csrc/mma_peak.cu``, the tensor-core issue-rate probe of K2b's ceilings).
 
 At first use on the card, ``nvcc`` compiles every ``csrc/*.cu`` to an object,
 one compiler process per source, all started together, and links them into
@@ -65,11 +66,16 @@ TrainCotangentsC = _pointers("TrainCotangentsC", tf.Cotangents._fields)
 
 
 class WgradTaskC(ctypes.Structure):
-    _fields_ = ([(f, ctypes.c_void_p) for f in ("X", "DY", "gW", "gb")]
+    """``WgradTaskT`` of ``csrc/train_frame.cu``: a ``WgradTask``, its
+    workspace and slice count from the plan, and the bookkeeping the C side
+    fills in."""
+    _fields_ = ([(f, ctypes.c_void_p) for f in ("X", "DY", "gW", "gb",
+                                                "ws")]
                 + [(f, ctypes.c_int) for f in ("N", "I", "O", "n_in")]
                 + [(f, ctypes.c_longlong) for f in ("x_o", "x_i", "y_o",
                                                     "y_i")]
-                + [(f, ctypes.c_int) for f in ("tiles_o", "tile0")])
+                + [(f, ctypes.c_int) for f in ("slices", "tiles_o", "tiles",
+                                               "item0", "elem0")])
 
 
 def decoder_dims(fw: FoldedWeights, spec: PianoTreeSpec) -> Dims:
@@ -169,6 +175,8 @@ def library() -> ctypes.CDLL:
                 fn.argtypes, fn.restype = argtypes, i32
         lib.pctd_train_smem_bytes.argtypes = [tw, i32, i32]
         lib.pctd_train_smem_bytes.restype = i32
+        lib.pctd_mma_peak.argtypes = [i32, i32, i32, i32, ptr, ptr]
+        lib.pctd_mma_peak.restype = i32
         _LIB.append(lib)
     return _LIB[0]
 
@@ -322,20 +330,27 @@ def launch_train_bwd(cw, d, batch: int, tensors: Sequence[torch.Tensor],
           ctypes.byref(TrainCotangentsC(*(_ptr(t) for t in cot))))
 
 
-def launch_wgrad(tasks) -> None:
-    """Launch K2b (``pctd_train_wgrad``) over ``WgradTask`` reductions: the
-    stash rows ``X`` and the gradients in one storage dtype (the ``_bf16``
-    entry point for bfloat16), the cotangents ``DY`` f32."""
-    dtype = tasks[0].gb.dtype
-    for t in tasks:
-        for name, x, want in (("X", t.X, dtype), ("DY", t.DY, torch.float32),
-                              ("gW", t.gW, dtype), ("gb", t.gb, dtype)):
-            if x.numel() and x.dtype != want:
-                raise TypeError(f"K2b task {name} has dtype {x.dtype}, "
-                                f"expected {want}")
+def launch_wgrad(tasks, slices, ws, ws_off) -> None:
+    """Launch K2b (``pctd_train_wgrad``; ``_bf16`` for bfloat16) over
+    ``WgradTask`` reductions in this order, as checked by
+    ``train_frame.wgrad``: task k cut into ``slices[k]`` N-slices, its f32
+    partials at element ``ws_off[k]`` of ``ws`` when it has more than
+    one."""
+    ws_ptr = ws.data_ptr() if ws is not None else 0
     arr = (WgradTaskC * len(tasks))(*(
-        WgradTaskC(_ptr(t.X), _ptr(t.DY), _ptr(t.gW), _ptr(t.gb), t.N, t.I,
-                   t.O, t.n_in, t.x_o, t.x_i, t.y_o, t.y_i, 0, 0)
-        for t in tasks))
-    _call(train_entry("pctd_train_wgrad", dtype), tasks[0].DY.device, arr,
-          len(tasks))
+        WgradTaskC(_ptr(t.X), _ptr(t.DY), _ptr(t.gW), _ptr(t.gb),
+                   ws_ptr + 4 * off if s > 1 else 0, t.N, t.I, t.O, t.n_in,
+                   t.x_o, t.x_i, t.y_o, t.y_i, s, 0, 0, 0, 0)
+        for t, s, off in zip(tasks, slices, ws_off)))
+    _call(train_entry("pctd_train_wgrad", tasks[0].gb.dtype),
+          tasks[0].DY.device, arr, len(tasks))
+
+
+def launch_mma_peak(bf16: bool, blocks: int, threads: int, iters: int,
+                    out: torch.Tensor) -> None:
+    """Launch ``csrc/mma_peak.cu``'s issue-rate probe: ``iters`` rounds of
+    8 register-only mma.sync a warp, TF32 m16n8k8 (2,048 flops each) or
+    with ``bf16`` bf16 m16n8k16 (4,096); ``out`` (f32, blocks x threads
+    elements) keeps the results live."""
+    _call("pctd_mma_peak", out.device, int(bf16), blocks, threads, iters,
+          _ptr(out))

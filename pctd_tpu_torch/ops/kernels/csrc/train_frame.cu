@@ -1,5 +1,6 @@
-// Teacher-forced frame kernels of the training step for Hopper (sm_90a),
-// f32 arithmetic on CUDA cores, in two storage types (float and bf16).
+// Teacher-forced frame kernels of the training step for Hopper (sm_90a), in
+// two storage types (float and bf16): K1 and K2a in f32 arithmetic on CUDA
+// cores, K2b in f32-accurate products on the tensor cores.
 //
 // train_fwd_kernel (K1) replaces pctd_tpu/ops/pallas/train_frame.py::
 //   _fwd_kernel: one frame's 15 note-GRU slots (pitch head and argmax,
@@ -20,14 +21,13 @@
 //   caller's loss. K2b is the same in both modes.
 // Plain PyTorch versions: frame_recon_plain (loss mode) and
 // frame_core_plain (logits out) in train_frame.py beside this file
-// (autograd of them for K2).
+// (autograd of them for K2; wgrad_plain for K2b alone).
 //
-// What bounds them on this card: like the serving kernels (decoder.cu),
-// K1 and K2a are chains of small dependent matrix-vector products, ~45
-// MFLOP a row a frame each over ~30 MB of weights that every block reads
-// from L2; at training batches the f32 FLOP bound is a few ms a step, and
-// what the design pays is the per-block weight traffic. K2b is a plain
-// f32 reduction of ~6 GFLOP a frame at B=128, bound by operations.
+// What bounds K1 and K2a on this card: like the serving kernels
+// (decoder.cu), they are chains of small dependent matrix-vector products,
+// ~45 MFLOP a row a frame each over ~30 MB of weights that every block
+// reads from L2; at training batches the f32 FLOP bound is a few ms a step,
+// and what the design pays is the per-block weight traffic.
 //
 // What the design does about it: a block owns R batch rows (1, 2 or 4) and
 // keeps per-row state in shared memory, as K3 does; the forward products
@@ -40,7 +40,37 @@
 // cotangents and K2b sums them in a fixed order, so a gradient is the same
 // bits on every run.
 //
-// Arithmetic is plain f32 FMA (no TF32). Ties of the pitch argmax go to the
+// K2b (wgrad_kernel, then wgrad_reduce_kernel) replaces the weight-gradient
+// adds of _bwd_kernel (pctd_tpu/ops/pallas/train_frame.py:472-476, the
+// wgrad helper, and its uses at :613-729): 16 reductions gW = X^T dY, the
+// bias a ones row of X at i = I, over rows, slots and duration steps; 5.9
+// GFLOP a frame at B=128 over N = B to 75 B samples. What bounds it on this
+// card: its products must be f32-accurate (the JAX dot_general multiplies
+// in f32, and the cotangents dY are f32 in both storage types), so the
+// floor is the tensor cores at three TF32 passes (3xTF32: 495 / 3 = 165
+// TFLOP/s) against 67 TFLOP/s on the CUDA cores; for bf16 X, three bf16
+// passes (dY split exactly into hi + mid + lo in bf16: 989 / 3 = 330),
+// where this kernel runs two TF32 passes (X is exact in TF32: 247.5); and
+// the reductions are very unequal (the duration
+// GRU's N = 9,600 on 11 output tiles at B=128, the frame projections' 128
+// on 544 tiles), so one block a tile waits on the longest tile's chain,
+// which is what held the SIMT kernel this one replaced (PERF.md). What the
+// design does: the plan (wgrad_plan in train_frame.py) cuts every task
+// into work items (task, 64 x 64 output tile, N-slice of whole 32-sample
+// chunks) of about one length within a bounded f32 workspace, longest
+// first; a block streams its item's X and dY rows through a 3-stage
+// cp.async ring (16-byte copies where a row's base and width are 16-byte
+// aligned, 4-byte words otherwise: a bf16 row at an odd element offset
+// lands one element in, and the fragment reads skip it) while four warps
+// run m16n8k8 TF32 mma.sync on the chunk before it, the operands split
+// hi + lo (rounded to nearest TF32) and summed lo.hi + hi.lo + hi.hi (bf16
+// X: X.lo + X.hi), each thread's fragment values one vector load from a
+// conflict-free shared row, each chunk's sum added to the item's in f32.
+// A one-slice task writes its gradients rounded once to T; a cut task
+// writes f32 partials, and wgrad_reduce_kernel sums each element's slices
+// in slice order and rounds once. No atomics: the same bits on every run.
+//
+// K1 and K2a are plain f32 FMA (no TF32). Ties of the pitch argmax go to the
 // lowest index; a dur bit is logit[1] > logit[0] strictly. The argmax
 // decisions and the teacher coins carry no gradient.
 //
@@ -58,9 +88,11 @@
 // f32 gates (ng, dg, sg) in f32; the per-sample cotangents and the CE
 // numerators are f32; d_frame_h and d_x_emb are rounded once when stored;
 // K2b sums each weight gradient in f32 and rounds it once to bf16. Bounds:
-// the bf16 mode reads half the weight bytes from L2 and does the same f32
-// FMAs; the card's bf16 tensor-core peak is not used by these CUDA-core
-// kernels.
+// the bf16 mode of K1 and K2a reads half the weight bytes from L2 and does
+// the same f32 FMAs; the card's bf16 tensor-core peak is not used by these
+// CUDA-core kernels.
+#include <stdint.h>
+
 #include "common.cuh"
 
 // Field order matches CoreWeights and Dims (train_frame.py).
@@ -91,17 +123,22 @@ struct TrainCotangents {
       *d_sgi, *d_sgh, *dh0, *d_gif;
 };
 
-// Field order matches WgradTask (train_frame.py) plus the tile bookkeeping.
-// X (stash rows) and the gradients gW, gb are of the storage type T, the
-// cotangents DY f32.
+// Field order matches WgradTaskC (build.py): a WgradTask (train_frame.py),
+// its f32 partial-sum workspace and N-slice count from the plan
+// (wgrad_plan), and the bookkeeping train_wgrad fills in. X (stash rows)
+// and the gradients gW, gb are of the storage type T, the cotangents DY
+// f32. gb is null without a bias row, X null when I = 0, ws null with one
+// slice.
 template <typename T>
 struct WgradTaskT {
   const T* X;
   const float* DY;
   T *gW, *gb;
+  float* ws;  // [slices][I + bias][O]
   int N, I, O, n_in;
   long long x_o, x_i, y_o, y_i;
-  int tiles_o, tile0;
+  int slices;
+  int tiles_o, tiles, item0, elem0;
 };
 
 using bf16 = __nv_bfloat16;
@@ -109,9 +146,21 @@ using bf16 = __nv_bfloat16;
 namespace {
 
 constexpr int MAX_TASKS = 20;
-constexpr int WG_TILE = 64;   // wgrad output tile (rows of gW x columns)
-constexpr int WG_CHUNK = 16;  // samples a tile step reads
-constexpr int WG_THREADS = 256;
+// K2b: an output tile of WG_TILE rows of gW (the bias row too) by WG_TILE
+// columns, four warps of 32 x 32, up to four blocks an SM (128 registers a
+// thread, 4 x 56 KB of shared memory)
+constexpr int WG_TILE = 64;
+constexpr int WG_CHUNK = 32;   // samples a pipeline stage holds
+constexpr int WG_STAGES = 3;   // cp.async ring depth
+constexpr int WG_THREADS = 128;
+// shared row strides (elements): rows 8 words apart mod 32, so that the
+// fragment reads (16 bytes a lane; 8 for bf16 X) hit distinct banks
+constexpr int WG_LD_O = WG_TILE + 8;
+template <typename T>
+__host__ __device__ constexpr int wg_ld_i() {
+  return WG_TILE + (sizeof(T) == sizeof(float) ? 8 : 16);
+}
+constexpr int WG_REDUCE_THREADS = 256;
 
 template <typename T>
 struct WgradTable {
@@ -911,70 +960,400 @@ train_bwd_kernel(TrainWeightsT<T> w, int B, const int* __restrict__ coins,
 // K2b: weight gradients, gW = X^T dY and gb = 1^T dY per task
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ size_t sample_row(int n, int n_in, long long o,
-                                             long long i) {
-  return (size_t)((n / n_in) * o + (n % n_in) * i);
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes));
 }
 
-template <typename Ts>
-__global__ void __launch_bounds__(WG_THREADS)
-wgrad_kernel(const __grid_constant__ WgradTable<Ts> tab) {
-  __shared__ __align__(16) float Xs[WG_CHUNK][WG_TILE];
-  __shared__ __align__(16) float Ds[WG_CHUNK][WG_TILE];
-  int ti = 0;
-  while (ti + 1 < tab.n && (int)blockIdx.x >= tab.t[ti + 1].tile0) ++ti;
-  const WgradTaskT<Ts>& T = tab.t[ti];
-  const int local = blockIdx.x - T.tile0;
-  const int i0 = (local / T.tiles_o) * WG_TILE;
-  const int o0 = (local % T.tiles_o) * WG_TILE;
-  const bool bias = T.gb != nullptr;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = 0.0f;
-  for (int n0 = 0; n0 < T.N; n0 += WG_CHUNK) {
-    for (int q = threadIdx.x; q < WG_CHUNK * WG_TILE; q += WG_THREADS) {
-      const int nn = q / WG_TILE, c = q - nn * WG_TILE;
-      const int n = n0 + nn, i = i0 + c, o = o0 + c;
-      float xv = 0.0f, dv = 0.0f;
-      if (n < T.N) {
-        if (i < T.I)
-          xv = to_f(T.X[sample_row(n, T.n_in, T.x_o, T.x_i) + i]);
-        else if (i == T.I && bias)
-          xv = 1.0f;
-        if (o < T.O) dv = T.DY[sample_row(n, T.n_in, T.y_o, T.y_i) + o];
-      }
-      Xs[nn][c] = xv;
-      Ds[nn][c] = dv;
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// x rounded to TF32 (nearest, ties away from zero, as cvt.rna.tf32.f32),
+// as f32 bits: half of the 13 dropped mantissa bits added, then masked off
+__device__ __forceinline__ unsigned tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// c += a b: one m16n8k8 TF32 product, f32 accumulation
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// One operand's rows in a tile: sample n's row starts at element
+// (n / n_in) * outer + (n % n_in) * inner + col0 of base and holds len
+// elements of es bytes; and this thread's share of the copies: segment
+// `lane` of rows r0, r0 + step, ... of each chunk.
+struct WgRows {
+  const char* base;
+  long long outer, inner;
+  int col0, len, es;
+  bool vec;   // 16-byte copies: base, strides and width 16-byte aligned
+  bool fast;  // vec, n_in = 1: a row is base + n * outer, one copy a lane
+  int lanes, lane, r0, step;
+};
+
+// threads that share a row's copies: the least power of two >= copies, at
+// most a warp
+__device__ __forceinline__ int lanes_for(int copies) {
+  int p = 1;
+  while (p < copies && p < 32) p <<= 1;
+  return p;
+}
+
+__device__ __forceinline__ WgRows wg_rows(const void* base, long long outer,
+                                          long long inner, int width,
+                                          int n_in, int col0, int es) {
+  WgRows r;
+  r.base = static_cast<const char*>(base);
+  r.outer = outer;
+  r.inner = inner;
+  r.col0 = col0;
+  r.len = max(0, min(WG_TILE, width - col0));
+  r.es = es;
+  r.vec = ((reinterpret_cast<uintptr_t>(base) |
+            static_cast<uintptr_t>(outer * es) |
+            static_cast<uintptr_t>(inner * es) |
+            static_cast<uintptr_t>(width * es)) & 15) == 0;
+  r.fast = r.vec && n_in == 1;
+  r.lanes = lanes_for(r.vec ? r.len * es / 16 : (r.len * es + 5) / 4);
+  r.lane = threadIdx.x % r.lanes;
+  r.r0 = threadIdx.x / r.lanes;
+  r.step = WG_THREADS / r.lanes;
+  return r;
+}
+
+// Issues the cp.async copies of one chunk's sample rows [nbase, nbase +
+// WG_CHUNK) of an operand into dst (WG_CHUNK shared rows of ld elements);
+// rows at or past n_end are zero-filled. A fast operand's row is one
+// 16-byte copy a lane at base + n * outer. Otherwise each row's offset is
+// computed once (one division by n_in); a row of 16-byte aligned base and
+// width goes in 16-byte copies, any other in 4-byte words from the word
+// holding its first element, so a bf16 row at an odd element offset lands
+// one element into its shared row: that shift goes to shift[row] when
+// shift is given.
+__device__ __forceinline__ void wg_load_rows(const WgRows& op, char* dst,
+                                             int ld, int* shift, int nbase,
+                                             int n_end, int n_in) {
+  const int bytes = op.len * op.es;
+  if (op.fast) {
+    if (op.lane * 16 >= bytes) return;
+    const char* src = op.base + (long long)op.col0 * op.es + op.lane * 16;
+    const long long row_bytes = op.outer * op.es;
+    for (int r = op.r0; r < WG_CHUNK; r += op.step) {
+      const int n = nbase + r;
+      cp_async16(dst + (r * ld * op.es + op.lane * 16),
+                 n < n_end ? src + n * row_bytes : op.base,
+                 n < n_end ? 16 : 0);
     }
-    __syncthreads();
-#pragma unroll
-    for (int nn = 0; nn < WG_CHUNK; ++nn) {
-      const float4 a = *reinterpret_cast<const float4*>(&Xs[nn][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Ds[nn][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int p = 0; p < 4; ++p)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[p][q] = fmaf(av[p], bv[q], acc[p][q]);
-    }
-    __syncthreads();
+    return;
   }
-#pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    const int i = i0 + ty * 4 + p;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int o = o0 + tx * 4 + q;
-      if (o >= T.O) continue;
-      if (i < T.I)
-        T.gW[(size_t)i * T.O + o] = from_f<Ts>(acc[p][q]);
-      else if (i == T.I && bias)
-        T.gb[o] = from_f<Ts>(acc[p][q]);
+  for (int r = op.r0; r < WG_CHUNK; r += op.step) {
+    const int n = nbase + r;
+    char* d = dst + r * ld * op.es;
+    int sh = 0;
+    if (n < n_end) {
+      const int q = n_in == 1 ? n : n / n_in;
+      const char* src =
+          op.base + ((long long)q * op.outer +
+                     (long long)(n - q * n_in) * op.inner + op.col0) * op.es;
+      if (op.vec) {
+        for (int c = op.lane; c < bytes / 16; c += op.lanes)
+          cp_async16(d + 16 * c, src + 16 * c, 16);
+      } else {
+        const int lead = static_cast<int>(reinterpret_cast<uintptr_t>(src) & 3);
+        const char* w = src - lead;
+        for (int c = op.lane; c < (lead + bytes + 3) / 4; c += op.lanes)
+          cp_async4(d + 4 * c, w + 4 * c, 4);
+        sh = lead / op.es;
+      }
+    } else {
+      const char* z = reinterpret_cast<const char*>(
+          reinterpret_cast<uintptr_t>(op.base) & ~static_cast<uintptr_t>(15));
+      if (op.vec) {
+        for (int c = op.lane; c < bytes / 16; c += op.lanes)
+          cp_async16(d + 16 * c, z, 0);
+      } else {
+        for (int c = op.lane; c < (bytes + 3) / 4; c += op.lanes)
+          cp_async4(d + 4 * c, z, 0);
+      }
     }
+    if (shift && op.lane == 0) shift[r] = sh;
+  }
+}
+
+// Four consecutive values of a shared row as f32 (a 16-byte load for f32,
+// 8 bytes for bf16; p 16- or 8-byte aligned)
+__device__ __forceinline__ float4 wg_ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 wg_ld4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
+// The warp's 32 x 32 piece of the tile over one chunk: four k = 8 steps of
+// m16n8k8 TF32 products, f32-accurate. An f32 operand is split into
+// hi = tf32(x) and lo = tf32(x - hi) and a product summed as lo.hi + hi.lo
+// + hi.hi (3xTF32); a bf16 X is exact in TF32, so X.lo + X.hi (2xTF32).
+// Which gW row and column a fragment lane holds is chosen so that each
+// thread's values sit side by side in shared memory: lane (g, t)'s A rows
+// of block mi, halves h = 0, 1, are the piece's rows 4g + 2mi + h, and its
+// B column of block ni is the piece's column 4g + ni; so a k row's A and
+// B values are one vector load each. (The accumulator's element q of block
+// (mi, ni) is then row 4g + 2mi + q / 2, column 4 (2t + q % 2) + ni.)
+// amode says where each A value comes from: 0 zero, 1 shared X, 2 the bias
+// row's ones; sh, the shift of a bf16 row at an odd offset. Dense: every
+// A value comes from X and no row is shifted, and the warp's piece lies
+// inside the tile, so the chunk is one branch-free block.
+template <typename T, bool Dense>
+__device__ __forceinline__ void wg_chunk(const T* xs, const float* ds,
+                                         const int* sh, int wm, int wn,
+                                         int g, int t, int mcnt, int ncnt,
+                                         const int (&amode)[4],
+                                         float (&acc)[2][4][4]) {
+  constexpr bool split_x = sizeof(T) == sizeof(float);
+#pragma unroll
+  for (int kk = 0; kk < WG_CHUNK; kk += 8) {
+    const int ka = kk + t, kb = ka + 4;
+    float xa[4], xb[4];  // A values at rows 4g + j (j = 2mi + h), k = ka, kb
+    if (Dense) {
+      const float4 va = wg_ld4(xs + ka * wg_ld_i<T>() + wm + 4 * g);
+      const float4 vb = wg_ld4(xs + kb * wg_ld_i<T>() + wm + 4 * g);
+      xa[0] = va.x; xa[1] = va.y; xa[2] = va.z; xa[3] = va.w;
+      xb[0] = vb.x; xb[1] = vb.y; xb[2] = vb.z; xb[3] = vb.w;
+    } else {
+      const T* pa = xs + ka * wg_ld_i<T>() + sh[ka] + wm + 4 * g;
+      const T* pb = xs + kb * wg_ld_i<T>() + sh[kb] + wm + 4 * g;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float one = amode[j] == 2 ? 1.0f : 0.0f;
+        xa[j] = amode[j] == 1 ? to_f(pa[j]) : one;
+        xb[j] = amode[j] == 1 ? to_f(pb[j]) : one;
+      }
+    }
+    const float4 da = wg_ld4(ds + ka * WG_LD_O + wn + 4 * g);
+    const float4 db = wg_ld4(ds + kb * WG_LD_O + wn + 4 * g);
+    const float ya[4] = {da.x, da.y, da.z, da.w};
+    const float yb[4] = {db.x, db.y, db.z, db.w};
+    unsigned ah[2][4], al[2][4], bh[4][2], bl[4][2];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      // a0 (row g, k = t), a1 (row g + 8, k = t), a2, a3 (k = t + 4)
+      const float v[4] = {xa[2 * mi], xa[2 * mi + 1], xb[2 * mi],
+                          xb[2 * mi + 1]};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (split_x) {
+          ah[mi][q] = tf32_rna(v[q]);
+          al[mi][q] = tf32_rna(v[q] - __uint_as_float(ah[mi][q]));
+        } else {
+          ah[mi][q] = __float_as_uint(v[q]);
+        }
+      }
+    }
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      // b0 (k = t, column g), b1 (k = t + 4)
+      const float b[2] = {ya[ni], yb[ni]};
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        bh[ni][q] = tf32_rna(b[q]);
+        bl[ni][q] = tf32_rna(b[q] - __uint_as_float(bh[ni][q]));
+      }
+    }
+    // pass by pass over the eight accumulators, so that an mma never waits
+    // on the one just issued
+#pragma unroll
+    for (int p = split_x ? 0 : 1; p < 3; ++p) {
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          if (!Dense && (mi >= mcnt || ni >= ncnt)) continue;
+          if (p == 0)
+            mma_tf32(acc[mi][ni], al[mi], bh[ni]);
+          else if (p == 1)
+            mma_tf32(acc[mi][ni], ah[mi], bl[ni]);
+          else
+            mma_tf32(acc[mi][ni], ah[mi], bh[ni]);
+        }
+      }
+    }
+  }
+}
+
+template <typename T>
+__host__ __device__ constexpr size_t wg_smem_bytes() {
+  return (size_t)WG_STAGES * WG_CHUNK *
+         (WG_LD_O * sizeof(float) + wg_ld_i<T>() * sizeof(T) + sizeof(int));
+}
+
+// the epilogue's f32 tile in shared memory (over the ring): row stride
+constexpr int WG_LD_E = WG_TILE + 4;
+static_assert(WG_TILE * WG_LD_E * sizeof(float) <=
+                  WG_STAGES * WG_CHUNK * WG_LD_O * sizeof(float),
+              "the epilogue tile must fit in the dY ring");
+
+// Pass 1: one work item a block (task, output tile, N-slice of whole
+// chunks, as wgrad_plan in train_frame.py cuts them): the tile's X^T dY
+// over the slice's samples, the X and dY rows streamed through a
+// WG_STAGES-deep cp.async ring. A one-slice task's item writes gW / gb
+// rounded once to T; the others write f32 partials to the task's ws.
+template <typename T>
+__global__ void __launch_bounds__(WG_THREADS, 4)
+wgrad_kernel(const __grid_constant__ WgradTable<T> tab) {
+  extern __shared__ float4 smem4[];
+  float* Ds = reinterpret_cast<float*>(smem4);  // [stage][chunk][WG_LD_O]
+  T* Xs = reinterpret_cast<T*>(Ds + WG_STAGES * WG_CHUNK * WG_LD_O);
+  int* Sh = reinterpret_cast<int*>(Xs + WG_STAGES * WG_CHUNK * wg_ld_i<T>());
+  int ti = 0;
+  while (ti + 1 < tab.n && (int)blockIdx.x >= tab.t[ti + 1].item0) ++ti;
+  const WgradTaskT<T>& tk = tab.t[ti];
+  const int local = blockIdx.x - tk.item0;
+  const int slice = local / tk.tiles, tile = local - slice * tk.tiles;
+  const int i0 = tile / tk.tiles_o * WG_TILE;
+  const int o0 = tile % tk.tiles_o * WG_TILE;
+  const int chunks = (tk.N + WG_CHUNK - 1) / WG_CHUNK;
+  const int c0 = (int)((long long)slice * chunks / tk.slices);
+  const int c1 = (int)((long long)(slice + 1) * chunks / tk.slices);
+  const int n_end = min(c1 * WG_CHUNK, tk.N);
+  const bool bias = tk.gb != nullptr;
+  const int rows = tk.I + (bias ? 1 : 0);
+  const int rows_tile = min(WG_TILE, rows - i0);
+  const WgRows xr = wg_rows(tk.X, tk.x_o, tk.x_i, tk.I, tk.n_in, i0,
+                            sizeof(T));
+  const WgRows dr = wg_rows(tk.DY, tk.y_o, tk.y_i, tk.O, tk.n_in, o0,
+                            sizeof(float));
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+  // the A blocks mi (piece rows = 2 mi + h mod 4) and B blocks ni (piece
+  // columns = ni mod 4) holding any row / column inside the tile
+  const int mcnt = max(0, min(2, (rows_tile - wm + 1) / 2));
+  const int ncnt = max(0, min(4, dr.len - wn));
+  const bool dense = rows_tile >= wm + 32 && dr.len >= wn + 32 &&
+                     xr.len >= wm + 32 && (sizeof(T) == 4 || xr.vec);
+  int amode[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int m = wm + 4 * g + j;
+    amode[j] = m < xr.len ? 1 : (bias && i0 + m == tk.I ? 2 : 0);
+  }
+  float acc[2][4][4];
+#pragma unroll
+  for (int q = 0; q < 32; ++q) (&acc[0][0][0])[q] = 0.0f;
+  if (xr.fast)  // its rows are never shifted
+    for (int q = threadIdx.x; q < WG_STAGES * WG_CHUNK; q += WG_THREADS)
+      Sh[q] = 0;
+
+  const int nk = c1 - c0;
+  auto load = [&](int c) {
+    const int b = c % WG_STAGES, nbase = (c0 + c) * WG_CHUNK;
+    wg_load_rows(xr, reinterpret_cast<char*>(Xs + b * WG_CHUNK * wg_ld_i<T>()),
+                 wg_ld_i<T>(), Sh + b * WG_CHUNK, nbase, n_end, tk.n_in);
+    wg_load_rows(dr, reinterpret_cast<char*>(Ds + b * WG_CHUNK * WG_LD_O),
+                 WG_LD_O, nullptr, nbase, n_end, tk.n_in);
+  };
+#pragma unroll
+  for (int c = 0; c < WG_STAGES - 1; ++c) {
+    if (c < nk) load(c);
+    cp_async_commit();
+  }
+  for (int c = 0; c < nk; ++c) {
+    cp_async_wait<WG_STAGES - 2>();  // chunk c's copies have landed
+    __syncthreads();                 // ... all of them; chunk c-1 is read
+    if (c + WG_STAGES - 1 < nk) load(c + WG_STAGES - 1);
+    cp_async_commit();
+    const int b = c % WG_STAGES;
+    if (mcnt > 0 && ncnt > 0) {
+      // the chunk's products summed in a fresh fragment, then added to the
+      // item's sum in f32 (round to nearest): the tensor cores' own f32
+      // accumulation rounds less exactly, and over an item's hundreds of
+      // products its error would grow with their number
+      float part[2][4][4];
+#pragma unroll
+      for (int q = 0; q < 32; ++q) (&part[0][0][0])[q] = 0.0f;
+      const T* xs = Xs + b * WG_CHUNK * wg_ld_i<T>();
+      const float* ds = Ds + b * WG_CHUNK * WG_LD_O;
+      if (dense)
+        wg_chunk<T, true>(xs, ds, Sh + b * WG_CHUNK, wm, wn, g, t, mcnt,
+                          ncnt, amode, part);
+      else
+        wg_chunk<T, false>(xs, ds, Sh + b * WG_CHUNK, wm, wn, g, t, mcnt,
+                           ncnt, amode, part);
+#pragma unroll
+      for (int q = 0; q < 32; ++q) (&acc[0][0][0])[q] += (&part[0][0][0])[q];
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: the tile goes through it
+
+  float* Es = Ds;  // [WG_TILE][WG_LD_E]
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        Es[(wm + 4 * g + 2 * mi + (q >> 1)) * WG_LD_E + wn +
+           4 * (2 * t + (q & 1)) + ni] = acc[mi][ni][q];
+  __syncthreads();
+  float* part = tk.slices > 1 ? tk.ws + (size_t)slice * rows * tk.O : nullptr;
+  for (int e = threadIdx.x; e < rows_tile * WG_TILE; e += WG_THREADS) {
+    const int r = e / WG_TILE, col = e % WG_TILE;
+    if (col >= dr.len) continue;
+    const int i = i0 + r, o = o0 + col;
+    const float v = Es[r * WG_LD_E + col];
+    if (part)
+      part[(size_t)i * tk.O + o] = v;
+    else if (i < tk.I)
+      tk.gW[(size_t)i * tk.O + o] = from_f<T>(v);
+    else
+      tk.gb[o] = from_f<T>(v);
+  }
+}
+
+// Pass 2: each element of a cut task, its slices' partials summed in slice
+// order in f32 and rounded once to T.
+template <typename T>
+__global__ void __launch_bounds__(WG_REDUCE_THREADS)
+wgrad_reduce_kernel(const __grid_constant__ WgradTable<T> tab, int total) {
+  for (int q = blockIdx.x * WG_REDUCE_THREADS + threadIdx.x; q < total;
+       q += gridDim.x * WG_REDUCE_THREADS) {
+    int ti = 0;
+    while (ti + 1 < tab.n && q >= tab.t[ti + 1].elem0) ++ti;
+    const WgradTaskT<T>& tk = tab.t[ti];
+    const int e = q - tk.elem0;
+    const size_t plane = (size_t)(tk.I + (tk.gb ? 1 : 0)) * tk.O;
+    float s = tk.ws[e];
+    for (int j = 1; j < tk.slices; ++j) s += tk.ws[j * plane + e];
+    if (e < tk.I * tk.O)
+      tk.gW[e] = from_f<T>(s);
+    else
+      tk.gb[e - tk.I * tk.O] = from_f<T>(s);
   }
 }
 
@@ -1048,26 +1427,47 @@ cudaError_t train_bwd(const TrainWeightsT<T>* w, int B, int R,
   return cudaGetLastError();
 }
 
-// K2b over n_tasks reductions (see wgrad_kernel).
+// K2b over n_tasks reductions in table order (see wgrad_kernel), with each
+// task's slice count and workspace from the plan; a second launch sums the
+// cut tasks' slices.
 template <typename T>
 cudaError_t train_wgrad(const WgradTaskT<T>* tasks, int n_tasks,
                         void* stream) {
   if (n_tasks <= 0 || n_tasks > MAX_TASKS) return cudaErrorInvalidValue;
   WgradTable<T> tab = {};
-  int tiles = 0;
+  long long items = 0, elems = 0;
   for (int i = 0; i < n_tasks; ++i) {
     WgradTaskT<T> t = tasks[i];
-    if (t.N <= 0 || t.O <= 0 || t.I < 0 || t.n_in <= 0)
-      return cudaErrorInvalidValue;
     const int rows = t.I + (t.gb ? 1 : 0);
+    if (t.N <= 0 || t.O <= 0 || t.I < 0 || rows <= 0 || t.n_in <= 0 ||
+        (t.I > 0 && !t.X) || t.slices < 1 ||
+        t.slices > (t.N + WG_CHUNK - 1) / WG_CHUNK ||
+        (t.slices > 1) != (t.ws != nullptr))
+      return cudaErrorInvalidValue;
     t.tiles_o = (t.O + WG_TILE - 1) / WG_TILE;
-    t.tile0 = tiles;
-    tiles += ((rows + WG_TILE - 1) / WG_TILE) * t.tiles_o;
+    t.tiles = (rows + WG_TILE - 1) / WG_TILE * t.tiles_o;
+    t.item0 = (int)items;
+    t.elem0 = (int)elems;
+    items += (long long)t.tiles * t.slices;
+    if (t.slices > 1) elems += (long long)rows * t.O;
     tab.t[i] = t;
   }
+  if (items > 0x7fffffff || elems > 0x7fffffff) return cudaErrorInvalidValue;
   tab.n = n_tasks;
-  wgrad_kernel<T><<<tiles, WG_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      tab);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t bytes = wg_smem_bytes<T>();
+  cudaError_t e = prepare_train(wgrad_kernel<T>, bytes);
+  if (e == cudaSuccess)  // all of the SM's 228 KB to shared memory: 4 blocks
+    e = cudaFuncSetAttribute(wgrad_kernel<T>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return e;
+  wgrad_kernel<T><<<(unsigned)items, WG_THREADS, bytes, s>>>(tab);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || elems == 0) return e;
+  const long long blocks = (elems + WG_REDUCE_THREADS - 1) / WG_REDUCE_THREADS;
+  wgrad_reduce_kernel<T><<<(unsigned)(blocks < 4096 ? blocks : 4096),
+                           WG_REDUCE_THREADS, 0, s>>>(tab, (int)elems);
   return cudaGetLastError();
 }
 

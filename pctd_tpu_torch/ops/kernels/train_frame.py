@@ -23,10 +23,12 @@ cotangents from the caller's loss. The CUDA source is
   backward, the note-GRU reverse recurrence, the embedding and token
   routes. It writes the per-sample gate cotangents (:class:`Cotangents`),
   ``d_frame_h`` and ``d_x_emb``.
-- ``wgrad_kernel`` (K2b): the 24 weight gradients as ``X^T . dY``
-  reductions of stash against cotangents over rows, slots and duration
-  steps, tiled in shared memory and summed in a fixed order (no atomics).
-  The same in both modes.
+- ``wgrad_kernel`` and ``wgrad_reduce_kernel`` (K2b): the 24 weight
+  gradients as 16 ``X^T . dY`` reductions of stash against cotangents over
+  rows, slots and duration steps, f32-accurate on the tensor cores (TF32
+  products with split operands), cut into work items of about one length
+  by :func:`wgrad_plan` and summed in a fixed order (no atomics). The same
+  in both modes.
 
 :func:`frame_recon_plain` (loss mode) and :func:`frame_core_plain` (logits
 out) are the plain PyTorch versions of K1 in the kernel's grouping;
@@ -46,6 +48,7 @@ gradient is summed in f32 and rounded once to the weight's dtype.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Tuple
 
 import torch
@@ -389,6 +392,13 @@ class WgradTask(NamedTuple):
     y_i: int
 
 
+#: the reductions of :func:`wgrad_tasks`, in its order
+WGRAD_NAMES = ("w_t2n", "w_ih_frame", "w_ih_tok", "w_hh", "w_pitch",
+               "w_dhid[:NH]", "w_dhid[NH:]", "w_dih", "w_dhh", "w_dout",
+               "dur_sos", "w_emb", "we_ih[0]", "we_hh[0]", "we_ih[1]",
+               "we_hh[1]")
+
+
 def wgrad_tasks(d: Dims, B: int, frame_h: torch.Tensor, st: Stash,
                 ct: Cotangents, grads: CoreWeights):
     """The K2b reductions of one frame, writing into ``grads`` (24 tensors
@@ -436,16 +446,131 @@ def _rows(t: torch.Tensor, N: int, width: int, n_in: int, outer: int,
                         ).reshape(N, width)
 
 
+def task_rows(tk: WgradTask):
+    """(X (N, I) or None when I = 0, dY (N, O)): a task's operands as row
+    views."""
+    dy = _rows(tk.DY, tk.N, tk.O, tk.n_in, tk.y_o, tk.y_i)
+    x = _rows(tk.X, tk.N, tk.I, tk.n_in, tk.x_o, tk.x_i) if tk.I else None
+    return x, dy
+
+
 def wgrad_plain(tasks) -> None:
     """Plain PyTorch version of K2b: each task's ``X^T dY`` and column sum
     as f32 torch products, written (rounded once) into the same outputs."""
     for tk in tasks:
-        dy = _rows(tk.DY, tk.N, tk.O, tk.n_in, tk.y_o, tk.y_i)
-        if tk.I:
-            x = _rows(tk.X, tk.N, tk.I, tk.n_in, tk.x_o, tk.x_i)
+        x, dy = task_rows(tk)
+        if x is not None:
             tk.gW.copy_(x.float().t() @ dy)
         if tk.gb.numel():
             tk.gb.copy_(dy.sum(0))
+
+
+#: K2b's square output tile (rows of gW, the bias row included, by
+#: columns) and the samples a pipeline stage holds: ``WG_TILE`` and
+#: ``WG_CHUNK`` in ``csrc/train_frame.cu``
+WG_TILE, WG_CHUNK = 64, 32
+#: the most f32 partial-sum workspace a K2b plan may take (bytes)
+WG_WS_CAP = 48 << 20
+
+
+class WgradPlan(NamedTuple):
+    """K2b's work decomposition (:func:`wgrad_plan`). Task k is cut into
+    ``slices[k]`` N-slices of whole ``WG_CHUNK``-sample chunks: slice j of
+    C = ceil(N / WG_CHUNK) chunks covers chunks [j C // s, (j + 1) C // s).
+    A work item is one (task, output tile, slice): one block of
+    ``wgrad_kernel``, which numbers them from this table, tasks in
+    ``order``, within a task slice-major, tiles row-major. A task with more
+    than one slice writes f32 partials [slice][I + bias][O] at element
+    ``ws_off[k]`` of a ``ws_elems``-element workspace, which a second pass
+    sums in slice order."""
+    slices: Tuple[int, ...]
+    order: Tuple[int, ...]
+    ws_off: Tuple[int, ...]
+    ws_elems: int
+    length: int          # the most chunks an item may take
+
+
+def wgrad_shapes(tasks) -> tuple:
+    """The (N, I, O, bias) of each task: all a K2b plan depends on."""
+    return tuple((t.N, t.I, t.O, bool(t.gb.numel())) for t in tasks)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=None)
+def wgrad_plan(shapes: tuple) -> WgradPlan:
+    """Cut K2b's reductions (:func:`wgrad_shapes`) into work items of about
+    one length. Every item runs its chunks one after another, so the
+    longest item sets the kernel's time: a task of N samples over few
+    output tiles (the duration GRU's 9,600 at B=128) is cut into many
+    N-slices. The length L (in chunks) an item may take is the least that
+    keeps the f32 partials of the cut tasks within ``WG_WS_CAP`` bytes,
+    and no less than the tile-weighted median task length (cutting below
+    what most tiles run anyway shortens nothing and adds partials). Each
+    task takes ceil(C / L) slices; tasks run longest items first."""
+    rows = [i + b for _, i, _, b in shapes]
+    tiles = [_cdiv(r, WG_TILE) * _cdiv(o, WG_TILE)
+             for r, (_, _, o, _) in zip(rows, shapes)]
+    chunks = [_cdiv(n, WG_CHUNK) for n, _, _, _ in shapes]
+    by_len = sorted(zip(chunks, tiles))
+    half, seen, length = sum(tiles) / 2, 0, by_len[-1][0]
+    for c, n in by_len:
+        seen += n
+        if seen >= half:
+            length = c
+            break
+
+    def cut(length):
+        slices = [_cdiv(c, length) for c in chunks]
+        ws = sum(s * r * o for s, r, (_, _, o, _) in
+                 zip(slices, rows, shapes) if s > 1)
+        return slices, ws
+
+    slices, ws = cut(length)
+    while 4 * ws > WG_WS_CAP and length < max(chunks):
+        length += 1
+        slices, ws = cut(length)
+    longest = [_cdiv(c, s) for c, s in zip(chunks, slices)]
+    order = tuple(sorted(range(len(shapes)), key=lambda k: -longest[k]))
+    ws_off, off = [0] * len(shapes), 0
+    for k in order:
+        if slices[k] > 1:
+            ws_off[k], off = off, off + slices[k] * rows[k] * shapes[k][2]
+    return WgradPlan(tuple(slices), order, tuple(ws_off), off,
+                     max(longest))
+
+
+def wgrad(tasks) -> None:
+    """K2b on ``tasks`` (CUDA tensors): plans the work (:func:`wgrad_plan`,
+    cached by shapes), allocates the f32 workspace and launches. Raises on
+    a tensor off the card, of another dtype than the gradients' (the
+    cotangents f32), or a non-contiguous cotangent or gradient."""
+    from pctd_tpu_torch.ops.kernels import build
+
+    dev, dt = tasks[0].DY.device, tasks[0].gb.dtype
+    if dev.type != "cuda":
+        raise ValueError(f"K2b takes CUDA tensors, got {dev}")
+    for k, t in enumerate(tasks):
+        for name, x, want in (("X", t.X, dt), ("DY", t.DY, torch.float32),
+                              ("gW", t.gW, dt), ("gb", t.gb, dt)):
+            if not x.numel():
+                continue
+            if x.device != dev:
+                raise ValueError(f"K2b task {k} {name} is on {x.device}, "
+                                 f"expected {dev}")
+            if x.dtype != want:
+                raise TypeError(f"K2b task {k} {name} has dtype {x.dtype}, "
+                                f"expected {want}")
+            if name != "X" and not x.is_contiguous():
+                raise ValueError(f"K2b task {k} {name} is not contiguous")
+    plan = wgrad_plan(wgrad_shapes(tasks))
+    ws = (torch.empty(plan.ws_elems, dtype=torch.float32, device=dev)
+          if plan.ws_elems else None)
+    build.launch_wgrad([tasks[k] for k in plan.order],
+                       [plan.slices[k] for k in plan.order], ws,
+                       [plan.ws_off[k] for k in plan.order])
 
 
 def _check(cw: CoreWeights, d: Dims, dev, B: int, named) -> None:
@@ -535,15 +660,13 @@ frame_bwd.launches = 0
 
 def weight_grads(cw: CoreWeights, spec: PianoTreeSpec, frame_h, st: Stash,
                  ct: Cotangents) -> CoreWeights:
-    """K2b wrapper: launches ``wgrad_kernel`` once for all 24 weight
-    gradients of a frame, each summed in f32 and written in its weight's
-    dtype. Counts launches in ``weight_grads.launches``."""
-    from pctd_tpu_torch.ops.kernels import build
-
+    """K2b wrapper: all 24 weight gradients of a frame through
+    :func:`wgrad` (``wgrad_kernel`` and, for the cut tasks,
+    ``wgrad_reduce_kernel``), each summed in f32 and written in its
+    weight's dtype. Counts its launches in ``weight_grads.launches``."""
     d = dims_of(cw, spec)
     grads = CoreWeights(*(torch.empty_like(w) for w in cw))
-    build.launch_wgrad(wgrad_tasks(d, frame_h.shape[0], frame_h, st, ct,
-                                   grads))
+    wgrad(wgrad_tasks(d, frame_h.shape[0], frame_h, st, ct, grads))
     weight_grads.launches += 1
     return grads
 

@@ -553,3 +553,154 @@ def test_sampler_serves_bf16_through_k3(cuda):
                   device="cpu").swap(pr, pr, c, c, True, True)
     assert got.shape == (9, 32, 15, 6) and got.dtype == np.int32
     assert (got == cpu).mean() >= AGREE
+
+
+# --- K2b: the weight-gradient reduction ------------------------------------
+
+def _wgrad_dims(cfg):
+    spec = cfg.pianotree
+    return train_frame.Dims(
+        TH=cfg.dec_time_hidden, NH=cfg.dec_notes_hidden,
+        DH=cfg.dec_dur_hidden, E=cfg.note_emb_size, EH=cfg.dec_emb_hidden,
+        P=spec.pitch_range, W=spec.dur_width, K=spec.max_simu_note,
+        eos=spec.pitch_eos, pitch_pad=spec.pitch_pad, dur_pad=spec.dur_pad)
+
+
+def _wgrad_case(cfg, device, B, dtype, seed):
+    """Decoder weights in ``dtype`` and one frame's random stash (in
+    ``dtype``, its gates f32), cotangents and frame_h on ``device``, as
+    weight_grads takes them."""
+    params, _ = _model(cfg, device)
+    cw = train_frame.CoreWeights(*(
+        w.detach().to(dtype).contiguous()
+        for w in train_frame.core_weights(params["dec"], cfg)))
+    d = train_frame.dims_of(cw, cfg.pianotree)
+    g = torch.Generator(device=device).manual_seed(seed)
+    rn = lambda t: torch.randn(t.shape, device=device, generator=g).to(
+        t.dtype)
+    st = train_frame.Stash(*(rn(t) for t in
+                             train_frame.new_stash(d, B, device, dtype)))
+    ct = train_frame.Cotangents(*(rn(t) for t in
+                                  train_frame.new_cotangents(d, B, device)))
+    fh = torch.randn(B, d.TH, device=device, generator=g).to(dtype)
+    return cw, d, fh, st, ct
+
+
+def _wgrad_f64(tasks):
+    """Each task's (gW, gb) in f64 from the same rows."""
+    out = []
+    for tk in tasks:
+        x, dy = train_frame.task_rows(tk)
+        dy = dy.double()
+        out.append((None if x is None else x.double().t() @ dy,
+                    dy.sum(0) if tk.gb.numel() else None))
+    return out
+
+
+def _check_wgrad(tasks, plain_tasks):
+    """K2b's outputs against wgrad_plain's and an f64 reference: f32 within
+    1e-5 x (1 + max|f64|) of it and 1e-4 x (1 + max|plain|) of wgrad_plain;
+    bf16 within 1e-2 x (1 + max|plain|), each element within one bf16 ulp
+    of wgrad_plain's or, where a sum cancels below its f32 rounding error,
+    within the f32 gate of the f64 reference."""
+    for tk, tp, ref in zip(tasks, plain_tasks, _wgrad_f64(tasks)):
+        outs = [(tk.gW, tp.gW, ref[0]), (tk.gb, tp.gb, ref[1])]
+        for a, b, r in outs:
+            if r is None:
+                continue
+            a, b = a.reshape(r.shape), b.reshape(r.shape)
+            f32_tol = 1e-5 * (1.0 + r.abs().max().item())
+            if a.dtype == torch.float32:
+                assert (a.double() - r).abs().max().item() <= f32_tol
+                assert (a - b).abs().max().item() <= 1e-4 * (
+                    1.0 + b.abs().max().item())
+            else:
+                a32, b32 = a.float(), b.float()
+                assert (a32 - b32).abs().max().item() <= 1e-2 * (
+                    1.0 + b32.abs().max().item())
+                _, e = torch.frexp(b32)
+                ulp = torch.where(b32 == 0, torch.full_like(b32, 2.0 ** -133),
+                                  torch.ldexp(torch.ones_like(b32),
+                                              (e - 8).clamp(min=-133)))
+                over = (a32 - b32).abs() > ulp
+                assert ((a32.double() - r).abs()[over] <= f32_tol).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 3, 128])
+@pytest.mark.parametrize("width", ["tiny", "canonical"])
+def test_wgrad_kernel_matches_plain(cuda, width, B, dtype):
+    """K2b (one weight_grads call: the planned items, then the slice sums)
+    against wgrad_plain and an f64 reference, f32 and bf16."""
+    cfg = tiny_model_config() if width == "tiny" else ModelConfig()
+    cw, d, fh, st, ct = _wgrad_case(cfg, cuda, B, dtype, seed=B)
+    before = train_frame.weight_grads.launches
+    got = train_frame.weight_grads(cw, cfg.pianotree, fh, st, ct)
+    assert train_frame.weight_grads.launches == before + 1
+    assert all(g.dtype == dtype for g in got)
+    want = train_frame.CoreWeights(*(torch.empty_like(w) for w in cw))
+    tasks = train_frame.wgrad_tasks(d, B, fh, st, ct, got)
+    plain = train_frame.wgrad_tasks(d, B, fh, st, ct, want)
+    train_frame.wgrad_plain(plain)
+    _check_wgrad(tasks, plain)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wgrad_kernel_is_bit_identical_across_launches(cuda, dtype):
+    """Two K2b launches on the same operands write the same bits (no
+    atomics; the slices summed in slice order)."""
+    cfg = ModelConfig()
+    cw, _, fh, st, ct = _wgrad_case(cfg, cuda, 128, dtype, seed=5)
+    a = train_frame.weight_grads(cw, cfg.pianotree, fh, st, ct)
+    b = train_frame.weight_grads(cw, cfg.pianotree, fh, st, ct)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _ragged_tasks(device, dtype, g):
+    """Reductions over every ragged width K2b meets (I in {0, 5, 64, 128,
+    130, 135, 512, 1024}, O in {2, 5, 64, 128, 130, 192, 384, 512, 1536}),
+    with and without a bias row, contiguous and strided sample rows
+    (n_in > 1), and bf16 rows at odd element offsets."""
+    def task(N, I, O, bias, n_in=1, pad=0):
+        width = I + pad
+        X = torch.randn(N * width + 1, device=device, generator=g).to(
+            dtype)[1:] if I else torch.empty(0, device=device, dtype=dtype)
+        DY = torch.randn(N * O, device=device, generator=g)
+        gW = torch.empty(I, O, device=device, dtype=dtype)
+        gb = torch.empty(O if bias else 0, device=device, dtype=dtype)
+        return train_frame.WgradTask(
+            X, DY, gW, gb, N, I, O, n_in, n_in * width if n_in > 1 else width,
+            width if n_in > 1 else 0, n_in * O if n_in > 1 else O,
+            O if n_in > 1 else 0)
+    return [task(75, 0, 5, True), task(300, 5, 192, True),
+            task(1000, 64, 2, True, n_in=5, pad=3),
+            task(37, 128, 1536, False), task(300, 130, 64, False),
+            task(600, 135, 128, True), task(37, 512, 130, True),
+            task(1, 1024, 512, True), task(600, 5, 384, True, n_in=5),
+            task(300, 1024, 5, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wgrad_kernel_takes_every_ragged_width(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(11)
+    tasks = _ragged_tasks(cuda, dtype, g)
+    plain = [tk._replace(gW=torch.empty_like(tk.gW),
+                         gb=torch.empty_like(tk.gb)) for tk in tasks]
+    train_frame.wgrad(tasks)
+    train_frame.wgrad_plain(plain)
+    _check_wgrad(tasks, plain)
+
+
+def test_wgrad_refuses_what_the_kernel_cannot_take(cuda):
+    """The K2b wrapper raises on an operand off the card, a cotangent of
+    another dtype than f32, and a non-contiguous cotangent."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    tasks = _ragged_tasks(cuda, torch.float32, g)
+    k = 3
+    bad = [tasks[:k] + [tasks[k]._replace(X=tasks[k].X.cpu())],
+           tasks[:k] + [tasks[k]._replace(DY=tasks[k].DY.to(torch.bfloat16))],
+           tasks[:k] + [tasks[k]._replace(
+               DY=tasks[k].DY.view(tasks[k].N, -1).t())]]
+    for ts, err in zip(bad, (ValueError, TypeError, ValueError)):
+        with pytest.raises(err):
+            train_frame.wgrad(ts)
