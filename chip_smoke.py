@@ -5,28 +5,34 @@ CUDA card.
 
 Builds the CUDA kernels from the sources in this checkout and holds each
 against its plain PyTorch version on the card: the decode kernels K3 and
-K4, the train-frame forward K1 and its backward K2 (K2a, the per-row chain,
-and K2b, the weight-gradient reduction), K1 and K2a in both their modes
-(CE fused in, and logits out), and K3, K1, K2a and K2b in both storage
-types (float32 and bfloat16). Then it serves the four latent-control
-workflows through ``Sampler(fixed_batch=128)`` (K4), and with
-``compute_dtype="bfloat16"`` through ``Sampler(frame_decoder="frame")``
-(K3 in bf16), and trains the model for a few steps
-through ``Trainer`` at B=128 in each loss mode (``ModelConfig.fused_loss``
-True, then False), in float32 and then with ``compute_dtype="bfloat16"``,
-all at the canonical model width (random weights from ``--seed``), and
-shows that each path went through its kernels (in bf16, with bf16 tensors
-at every launch). The phase "K2b by task" times the weight-gradient
-reduction on each of its 16 reductions alone and on all together at B=128
-and 512 in both storage types, holds it against an f64 reference (f32)
-and against ``wgrad_plain`` in bf16 ulps (bf16), each gate beside a
-control that it must refuse, and across two launches (the same bits),
-measures the mma.sync issue rates that bound it, and times an f32 train
-step with K2b and one with ``wgrad_plain`` in its place, in turns. Prints
-one line per phase with its seconds, a ``{"kernels": [...]}`` line, and as
-its last line
-``{"ok": true, "device": {...}}``. Exits nonzero, printing no result,
-without a CUDA card or when any phase fails. Imports nothing of JAX.
+K4, the train-frame forward K1 and its backward K2 (K2a, the reverse chain
+in three kernels, and K2b, the weight-gradient reduction), K1 and K2a in
+both their modes (CE fused in, and logits out), and K3, K1, K2a and K2b in
+both storage types (float32 and bfloat16). K2a is also held alone against
+``frame_bwd_plain`` on the same stash (f32 against f64, with plain TF32 as
+the control that must fail the gate; bf16 against bf16; two launches' bits).
+Then it serves the four latent-control workflows through
+``Sampler(fixed_batch=128)`` (K4), and with ``compute_dtype="bfloat16"``
+through ``Sampler(frame_decoder="frame")`` (K3 in bf16), and trains the
+model for a few steps through ``Trainer`` at B=128 in each loss mode
+(``ModelConfig.fused_loss`` True, then False), in float32 and then with
+``compute_dtype="bfloat16"``, all at the canonical model width (random
+weights from ``--seed``), and shows that each path went through its
+kernels (in bf16, with bf16 tensors at every launch). The phase "K2b by
+task" times the weight-gradient reduction on each of its 16 reductions
+alone and on all together at B=128 and 512 in both storage types, holds it
+against an f64 reference (f32) and against ``wgrad_plain`` in bf16 ulps
+(bf16), each gate beside a control that it must refuse, and across two
+launches (the same bits), measures the mma.sync issue rates that bound it,
+and times an f32 train step with K2b and one with ``wgrad_plain`` in its
+place, in turns. The phase "K2a by phase" times K2a, each of its three
+kernels alone and each of the two serial chains alone at B=128 and 512 in
+both storage types, the chains at each cluster size, and counts K2a's
+kernels in the profiled steps.
+Prints one line per phase with its seconds, a ``{"kernels": [...]}`` line,
+and as its last line ``{"ok": true, "device": {...}}``. Exits nonzero,
+printing no result, without a CUDA card or when any phase fails. Imports
+nothing of JAX.
 """
 from __future__ import annotations
 
@@ -112,6 +118,14 @@ HOST_OPS = 8           # host ops listed by self time in a profiled step
 TRAIN_B = 128
 WGRAD_F64_TOL = 1e-5   # K2b f32 vs an f64 reference: x (1 + max|ref|)
 K2B_REPS = 10          # launches a K2b timing averages
+K2A_NAME = ("K2a train_bwd_slots_kernel + train_bwd_chain_kernel + "
+            "train_bwd_proj_kernel")
+K2A_REPS = 10          # launches a K2a timing averages
+# K2a f32 vs frame_bwd_plain in f64 on the same stash: x (1 + max|ref|), per
+# output (its products are f32-accurate: 3xTF32)
+K2A_F64_TOL = 1e-5
+K2A_GATE_B = (128, 512)
+K2A_CLUSTERS = (8, 16)  # the note chain's cluster sizes, timed beside
 
 
 class PhaseFailed(RuntimeError):
@@ -340,12 +354,12 @@ def launch_dtypes():
             += 1
         return kernel_routes[0](cw, d, batch, tensors, stash, rows, logits)
 
-    def bwd(cw, d, batch, tensors, stash, cot, rows=0, logits=False):
+    def bwd(cw, d, batch, tensors, stash, cot, logits=False, **kw):
         cots = tensors[2:5] if logits else tensors[5:6]
         seen[("K2a", frozenset(str(t.dtype) for t in
                                [*cw, *stored(stash), *cots]))] += 1
-        return kernel_routes[1](cw, d, batch, tensors, stash, cot, rows,
-                                logits)
+        return kernel_routes[1](cw, d, batch, tensors, stash, cot, logits,
+                                **kw)
 
     def wgrad(tasks, *plan):
         seen[("K2b", frozenset(str(x.dtype) for t in tasks
@@ -610,7 +624,7 @@ def profile_call(fn, what: str) -> dict:
         spans.append((e.time_range.start, e.time_range.end))
         n = e.name
         key = ("K1" if "train_fwd_kernel" in n else
-               "K2a" if "train_bwd_kernel" in n else
+               "K2a" if "train_bwd_" in n else
                "K2b" if "wgrad_" in n else
                "K3" if "frame_kernel" in n else
                "K4" if "full_kernel" in n else
@@ -782,6 +796,18 @@ def plain_wgrad():
         tf.weight_grads = kernel_route
 
 
+@contextlib.contextmanager
+def tf32_matmuls():
+    """float32 matmuls in single-pass TF32 inside the block (the controls
+    that an f32-accurate gate must refuse), the setting restored after."""
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+
+
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
     """f32 -> the nearest TF32 value (ties away from zero), as
     ``cvt.rna.tf32.f32`` gives K2b's hi part: add half of the 13 dropped
@@ -867,17 +893,110 @@ def k2b_case(make, bf16: bool) -> dict:
         out["control_ulps"] = ulp_report(control, plain_tasks, ref)
     else:
         tf32_tasks = make()
-        torch.backends.cuda.matmul.allow_tf32 = True
-        try:
+        with tf32_matmuls():
             tf.wgrad_plain(tf32_tasks)
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = False
         out["tf32_vs_f64"] = max(scaled_errs(tf32_tasks, ref))
     flops, nbytes = wgrad_work(tasks)
     out["bound"] = bound_ms(flops, nbytes,
                             PEAK_3XBF16 if bf16 else PEAK_3XTF32)
     out["tasks"] = [(tk.N, tk.I, tk.O, int(tk.gb.numel() > 0))
                     for tk in tasks]
+    return out
+
+
+def k2a_case(params, cfg, gen, B: int, bf16: bool):
+    """One loss-mode frame case at B rows (in bf16 if ``bf16``) run through
+    K1 with its stash, and random cotangents of its outputs: (weights,
+    inputs, lengths, stash, d_nums, d_summ)."""
+    spec = cfg.pianotree
+    cw, inp = frame_case(params, cfg, B, gen)
+    if bf16:
+        cw, inp = to_bf16(cw, inp)
+    with torch.no_grad():
+        lens, st = tf.frame_fwd(cw, spec, **inp, stash=True)[2::2]
+    d_nums = torch.rand(1 + spec.dur_width, device=gen.device, generator=gen)
+    d_summ = torch.randn(B, 2 * cfg.dec_emb_hidden, device=gen.device,
+                         generator=gen).to(cw.w_hh.dtype)
+    return cw, inp, lens, st, d_nums, d_summ
+
+
+def k2a_launch_ms(spec, case, variants: dict) -> dict:
+    """K2a's device time on ``case`` (:func:`k2a_case`) for each launch
+    variant (keyword arguments of ``build.launch_train_bwd``), the launches
+    queued behind a sleep kernel (:func:`queued_ms`): {name: (ms, queued)}."""
+    cw, inp, lens, st, d_nums, d_summ = case
+    d = tf.dims_of(cw, spec)
+    B = lens.shape[0]
+    ct, d_frame_h, d_x_emb, dh_inj = tf.bwd_buffers(d, B, lens.device,
+                                                    cw.w_hh.dtype)
+    tensors = [inp["coins"], inp["gt_pitch"], inp["gt_dur"], lens, d_nums,
+               d_summ, d_frame_h, d_x_emb, dh_inj]
+    return {name: queued_ms(lambda kw=kw: build.launch_train_bwd(
+        cw, d, B, tensors, st, ct, **kw), K2A_REPS)
+        for name, kw in variants.items()}
+
+
+def k2a_gate_case(params, cfg, gen, B: int, bf16: bool) -> dict:
+    """K2a on one loss-mode frame case (:func:`k2a_case`) against
+    frame_bwd_plain on the same stash, every output and cotangent as
+    max|out - ref| / (1 + max|ref|): f32 against the plain version in f64,
+    with the plain version in f32 beside it and in f32 with TF32 matmuls
+    (the control, which must miss the gate); bf16 against the plain version
+    in bf16 (f32 arithmetic). Also whether two launches give the same bits,
+    and K2a's time queued behind a sleep kernel beside the plain version's
+    (CUDA events; its host loop of small torch calls sets it)."""
+    spec = cfg.pianotree
+    cw, inp, lens, st, d_nums, d_summ = k2a_case(params, cfg, gen, B, bf16)
+    args = (inp["frame_h"], inp["coins"], inp["gt_pitch"], inp["gt_dur"],
+            lens)
+    run = lambda: tf.frame_bwd(cw, spec, *args, st, d_nums, d_summ)
+    flat = lambda out: [out[0], out[1], *out[2]]
+    names = ["d_frame_h", "d_x_emb", *tf.Cotangents._fields]
+
+    def plain(dtype=None):
+        cast = (lambda x: x.to(dtype)) if dtype else (lambda x: x)
+        return flat(tf.frame_bwd_plain(
+            tf.CoreWeights(*map(cast, cw)), spec, cast(args[0]), *args[1:],
+            tf.Stash(*map(cast, st)), cast(d_nums), cast(d_summ)))
+
+    def errs(got, ref):
+        return {n: (a.double() - b.double()).abs().max().item()
+                / (1.0 + b.double().abs().max().item())
+                for n, a, b in zip(names, got, ref)}
+    got, again = flat(run()), flat(run())
+    out = {"bit_identical": all(torch.equal(a, b)
+                                for a, b in zip(got, again))}
+    if bf16:
+        out["vs_plain"] = errs(got, plain())
+    else:
+        ref = plain(torch.float64)
+        out["vs_f64"] = errs(got, ref)
+        out["plain_f32_vs_f64"] = errs(plain(), ref)
+        with tf32_matmuls():
+            tf32 = plain()
+        out["tf32_vs_f64"] = errs(tf32, ref)
+    out["ms"], out["queued"] = queued_ms(run, K2A_REPS)
+    out["plain_ms"] = cuda_ms(plain, 2)
+    return out
+
+
+def k2a_shared_memory(lib, tw) -> dict:
+    """K2a's shared memory a block (bytes, f32) by kernel, and for the chain
+    kernel the cluster size a launch takes at B=128 and 512 and at the
+    other sizes, with how many such clusters the card holds at once
+    (``cudaOccupancyMaxActiveClusters``)."""
+    out = {"slots": lib.pctd_train_bwd_smem_bytes(
+        ctypes.byref(tw), 0, 0, 0, None, None)}
+    for c, B in ((0, 128), (0, 512), (8, 0), (16, 0)):
+        taken, most = ctypes.c_int(), ctypes.c_int()
+        b = lib.pctd_train_bwd_smem_bytes(ctypes.byref(tw), 1, c, B,
+                                          ctypes.byref(taken),
+                                          ctypes.byref(most))
+        name = f"chain, B={B}: C={taken.value}" if B else \
+            f"chain C={taken.value}"
+        out[name] = f"{b} ({most.value} clusters at once)"
+    out["proj"] = lib.pctd_train_bwd_smem_bytes(ctypes.byref(tw), 2, 0, 0,
+                                                None, None)
     return out
 
 
@@ -928,6 +1047,14 @@ def main() -> int:
                     r"EE.*\n.*\n\s*(.*spill loads)\n.*?(Used \d+ "
                     r"registers[^\n]*)", log)}
     print(f"  K2b registers: {k2b_regs}")
+    k2a_regs = {m.group(1): f"{m.group(3)}; {m.group(2)}"
+                for m in re.finditer(
+                    r"Compiling entry function '\S*?(train_bwd_\w*?kernelI"
+                    r"\w+?)EE.*\n.*\n\s*(.*spill loads)\n.*?(Used \d+ "
+                    r"registers[^\n]*)", log)}
+    print(f"  K2a registers: {k2a_regs}")
+    check(len(k2a_regs) == 6, f"K2a: {len(k2a_regs)} of its 6 kernels (3 "
+          "a storage type) in the build report")
     phase("build", t0)
 
     # 3. weights
@@ -942,8 +1069,10 @@ def main() -> int:
     for r in (1, 2, 4):
         print(f"  shared memory, {r} row(s) a block: K3/K4 "
               f"{lib.pctd_smem_bytes(ctypes.byref(wst), r)} B, K1 "
-              f"{lib.pctd_train_smem_bytes(ctypes.byref(tw), r, 0)} B, K2a "
-              f"{lib.pctd_train_smem_bytes(ctypes.byref(tw), r, 1)} B")
+              f"{lib.pctd_train_smem_bytes(ctypes.byref(tw), r)} B")
+    k2a_smem = k2a_shared_memory(lib, tw)
+    print("  K2a shared memory a block (f32): " + ", ".join(
+        f"{k} {v}" for k, v in k2a_smem.items()))
     h_probe = torch.randn(128, cfg.dec_time_hidden, device=dev,
                           generator=gen) * 0.6
     sos_probe = ptd.decode_inputs(
@@ -1350,6 +1479,47 @@ def main() -> int:
     check(all(v == {"torch.bfloat16"} for (_, v) in seen),
           f"a bf16 launch received another dtype: {launch_summary(seen)}")
     phase("K2 bf16 vs autograd of plain", t0)
+
+    # 7f. K2a alone against frame_bwd_plain on the same K1 stash: f32 against
+    # the plain version in f64 (the plain f32 path beside it, plain TF32 the
+    # control that must miss the gate), bf16 against the bf16 plain
+    # version, and two launches' bits
+    t0 = time.perf_counter()
+    k2a_gate = {}
+    for B in K2A_GATE_B:
+        for bf16 in (False, True):
+            key = f"{'bf16' if bf16 else 'f32'} B={B}"
+            r = k2a_gate_case(params, cfg, gen, B, bf16)
+            k2a_gate[key] = r
+            fmt = lambda d: max(d.values())
+            worst = lambda d: max(d, key=d.get)
+            if bf16:
+                e = r["vs_plain"]
+                print(f"  K2a bf16 B={B} vs frame_bwd_plain in bf16: "
+                      f"{fmt(e):.3g} x (1 + max|plain|) at {worst(e)} (gate "
+                      f"{BF16_GRAD_TOL}); two launches bit-identical: "
+                      f"{r['bit_identical']}")
+                check(fmt(e) <= BF16_GRAD_TOL, f"K2a bf16 B={B} vs plain "
+                      f"{e}")
+            else:
+                e, p32, t32 = (r["vs_f64"], r["plain_f32_vs_f64"],
+                               r["tf32_vs_f64"])
+                print(f"  K2a f32 B={B} vs frame_bwd_plain in f64: "
+                      f"{fmt(e):.3g} x (1 + max|ref|) at {worst(e)} (gate "
+                      f"{K2A_F64_TOL}); the plain version in f32 "
+                      f"{fmt(p32):.3g}; in TF32, the control, {fmt(t32):.3g}"
+                      f" at {worst(t32)}; two launches bit-identical: "
+                      f"{r['bit_identical']}")
+                print("    by output (kernel / plain f32): " + ", ".join(
+                    f"{n} {e[n]:.2e}/{p32[n]:.2e}" for n in e))
+                check(fmt(e) <= K2A_F64_TOL, f"K2a f32 B={B} vs f64 {e}")
+                check(fmt(t32) > K2A_F64_TOL, f"K2a B={B}: the TF32 control "
+                      f"passes the f64 gate: {t32}")
+            check(r["bit_identical"], f"K2a {key}: two launches differ")
+            print(f"    K2a {r['ms']:.4f} ms (queued behind a sleep kernel: "
+                  f"{r['queued']}), frame_bwd_plain {r['plain_ms']:.3f} ms "
+                  "(CUDA events)")
+    phase("K2a vs frame_bwd_plain", t0)
 
     # 8. serving: the main path, counted
     t0 = time.perf_counter()
@@ -1774,6 +1944,7 @@ def main() -> int:
                   f"{bms / ms:.3%} of it")
 
     W, EH2 = spec.dur_width, 2 * cfg.dec_emb_hidden
+    k2a_autograd = {}
     for B in (128, 512):
         cw, inp = frame_case(params, cfg, B, gen)
         d = tf.dims_of(cw, spec)
@@ -1785,10 +1956,14 @@ def main() -> int:
                                    inp["gt_pitch"], inp["gt_dur"], lens, st,
                                    d_nums, d_summ)
         k1 = cuda_ms(fwd, 10)
-        k2a = cuda_ms(bwd, 10)
+        k2a = queued_ms(bwd, K2A_REPS)[0]
         with torch.no_grad():
             k1p = cuda_ms(lambda: tf.frame_recon_plain(cw, spec, **inp), 2)
-        k2p = plain_backward_ms(cw, spec, inp, (d_nums, d_summ), 2)
+        k2p = cuda_ms(lambda: tf.frame_bwd_plain(
+            cw, spec, inp["frame_h"], inp["coins"], inp["gt_pitch"],
+            inp["gt_dur"], lens, st, d_nums, d_summ), 2)
+        k2_autograd = {"K2a": plain_backward_ms(cw, spec, inp,
+                                                (d_nums, d_summ), 2)}
         (f1, b1), (f2a, b2a) = train_frame_work(cw, spec, B)
         # logits-out mode: K1 with its stash, K2a on random logit cotangents
         fwd_lo = lambda: tf.frame_core_fwd(cw, spec, **core_inputs(inp),
@@ -1800,21 +1975,27 @@ def main() -> int:
                                            inp["coins"], lens_lo, st_lo,
                                            *cots_lo)
         k1l = cuda_ms(fwd_lo, 10)
-        k2al = cuda_ms(bwd_lo, 10)
+        k2al = queued_ms(bwd_lo, K2A_REPS)[0]
         with torch.no_grad():
             k1lp = cuda_ms(lambda: tf.frame_core_plain(
                 cw, spec, **core_inputs(inp)), 2)
-        k2lp = plain_backward_ms(cw, spec, inp, cots_lo, 2, logits=True)
+        k2lp = cuda_ms(lambda: tf.frame_bwd_plain(
+            cw, spec, inp["frame_h"], inp["coins"], None, None, lens_lo,
+            st_lo, None, d_summ, *cots_lo[:2]), 2)
+        k2_autograd["K2a logits"] = plain_backward_ms(cw, spec, inp, cots_lo,
+                                                      2, logits=True)
         (f1l, b1l), (f2al, b2al) = train_frame_work(cw, spec, B, logits=True)
         timing[B].update({
             "K1": (k1, k1p, *bound_ms(f1, b1)),
-            "K2a": (k2a, k2p, *bound_ms(f2a, b2a)),
+            "K2a": (k2a, k2p, *bound_ms(f2a, b2a, PEAK_3XTF32)),
             "K1 logits": (k1l, k1lp, *bound_ms(f1l, b1l)),
-            "K2a logits": (k2al, k2lp, *bound_ms(f2al, b2al))})
-        print(f"  B={B}: K1 {k1:.3f} ms (plain {k1p:.3f}), K2a {k2a:.3f} ms "
-              f"(plain K2, autograd backward, {k2p:.3f})")
+            "K2a logits": (k2al, k2lp, *bound_ms(f2al, b2al, PEAK_3XTF32))})
+        print(f"  B={B}: K1 {k1:.3f} ms (plain {k1p:.3f}), K2a {k2a:.4f} ms "
+              f"(queued; frame_bwd_plain {k2p:.3f}, autograd of the plain "
+              f"frame {k2_autograd['K2a']:.3f})")
         print(f"  B={B}: logits out: K1 {k1l:.3f} ms (plain {k1lp:.3f}), K2a "
-              f"{k2al:.3f} ms (plain K2, autograd backward, {k2lp:.3f})")
+              f"{k2al:.4f} ms (frame_bwd_plain {k2lp:.3f}, autograd "
+              f"{k2_autograd['K2a logits']:.3f})")
         # the same work in bf16 (weights, frame_h, x_emb rounded)
         cwb, inpb = to_bf16(cw, inp)
         d_summ_b = d_summ.to(BF16)
@@ -1825,10 +2006,14 @@ def main() -> int:
                                      inpb["gt_dur"], lens_b, st_b, d_nums,
                                      d_summ_b)
         k1b = cuda_ms(fwd_b, 10)
-        k2ab = cuda_ms(bwd_b, 10)
+        k2ab = queued_ms(bwd_b, K2A_REPS)[0]
         with torch.no_grad():
             k1bp = cuda_ms(lambda: tf.frame_recon_plain(cwb, spec, **inpb), 2)
-        k2bp = plain_backward_ms(cwb, spec, inpb, (d_nums, d_summ_b), 2)
+        k2bp = cuda_ms(lambda: tf.frame_bwd_plain(
+            cwb, spec, inpb["frame_h"], inpb["coins"], inpb["gt_pitch"],
+            inpb["gt_dur"], lens_b, st_b, d_nums, d_summ_b), 2)
+        k2_autograd["K2a bf16"] = plain_backward_ms(cwb, spec, inpb,
+                                                    (d_nums, d_summ_b), 2)
         fwd_lb = lambda: tf.frame_core_fwd(cwb, spec, **core_inputs(inpb),
                                            stash=True)
         pitch_b, dur_b, _, lens_lb, _, st_lb = fwd_lb()
@@ -1840,31 +2025,41 @@ def main() -> int:
                                            inpb["coins"], lens_lb, st_lb,
                                            *cots_lb)
         k1blo = cuda_ms(fwd_lb, 10)
-        k2ablo = cuda_ms(bwd_lb, 10)
+        k2ablo = queued_ms(bwd_lb, K2A_REPS)[0]
         with torch.no_grad():
             k1blp = cuda_ms(lambda: tf.frame_core_plain(
                 cwb, spec, **core_inputs(inpb)), 2)
-        k2blp = plain_backward_ms(cwb, spec, inpb, cots_lb, 2, logits=True)
+        k2blp = cuda_ms(lambda: tf.frame_bwd_plain(
+            cwb, spec, inpb["frame_h"], inpb["coins"], None, None, lens_lb,
+            st_lb, None, d_summ_b, *cots_lb[:2]), 2)
+        k2_autograd["K2a bf16 logits"] = plain_backward_ms(
+            cwb, spec, inpb, cots_lb, 2, logits=True)
         (f1b, b1b), (f2ab, b2ab) = train_frame_work(cwb, spec, B)
         (f1lb, b1lb), (f2alb, b2alb) = train_frame_work(cwb, spec, B,
                                                         logits=True)
         peak = PEAK_BF16_FLOPS
         timing[B].update({
             "K1 bf16": (k1b, k1bp, *bound_ms(f1b, b1b, peak)),
-            "K2a bf16": (k2ab, k2bp, *bound_ms(f2ab, b2ab, peak)),
+            "K2a bf16": (k2ab, k2bp, *bound_ms(f2ab, b2ab, PEAK_3XBF16)),
             "K1 bf16 logits": (k1blo, k1blp, *bound_ms(f1lb, b1lb, peak)),
             "K2a bf16 logits": (k2ablo, k2blp,
-                                *bound_ms(f2alb, b2alb, peak))})
+                                *bound_ms(f2alb, b2alb, PEAK_3XBF16))})
+        k2a_autograd[B] = k2_autograd
         print(f"  B={B} bf16: K1 {k1b:.3f} ms (plain {k1bp:.3f}), K2a "
-              f"{k2ab:.3f} ms (plain K2, autograd backward, {k2bp:.3f}); "
-              f"logits out: K1 {k1blo:.3f} ms (plain "
-              f"{k1blp:.3f}), K2a {k2ablo:.3f} ms (plain K2 {k2blp:.3f})")
+              f"{k2ab:.4f} ms (frame_bwd_plain {k2bp:.3f}, autograd "
+              f"{k2_autograd['K2a bf16']:.3f}); logits out: K1 {k1blo:.3f} "
+              f"ms (plain {k1blp:.3f}), K2a {k2ablo:.4f} ms "
+              f"(frame_bwd_plain {k2blp:.3f}, autograd "
+              f"{k2_autograd['K2a bf16 logits']:.3f})")
+        rates = {"K1": "67 TFLOP/s f32", "K2a": "3xTF32, 165 TFLOP/s",
+                 "K1 bf16": "bf16 tensor peak",
+                 "K2a bf16": "3xbf16, 329.7 TFLOP/s"}
         for name in ("K1", "K2a", "K1 logits", "K2a logits", "K1 bf16",
                      "K2a bf16", "K1 bf16 logits", "K2a bf16 logits"):
             ms, pms, bms, by = timing[B][name]
-            print(f"  B={B} {name} bound {bms:.4f} ms ({by}"
-                  + (", bf16 tensor peak" if "bf16" in name else "")
-                  + f"), {bms / ms:.3%} of it")
+            print(f"  B={B} {name} bound {bms:.4f} ms ({by}, "
+                  f"{rates[name.replace(' logits', '')]}), {bms / ms:.3%} "
+                  "of it")
         del st, st_lo, st_b, st_lb
     opt_ms = optimizer_ms(trainer, 5)
     print(f"  optimizer step (clip + Adam, all parameters): {opt_ms:.3f} ms")
@@ -1999,6 +2194,47 @@ def main() -> int:
     training["k2b"] = k2b
     phase("K2b by task", t0)
 
+    # 10c. K2a by phase: all of it, each of its kernels alone, and each of
+    # the two chains that share the chain kernel alone, queued behind a
+    # sleep kernel, at B=128 and 512 in both storage types (loss mode; a
+    # phase alone reads what the launch before it left), the chains also at
+    # each cluster size; and K2a's kernels in the profiled steps (three a
+    # launch)
+    t0 = time.perf_counter()
+    k2a_phases = {}
+    ph = build.K2A_PHASES
+    chains = ph["note"] | ph["summary"]
+    variants = {"all": {}, "slots (2b)": dict(phases=ph["slots"]),
+                "chains (2a + 2c)": dict(phases=chains),
+                "note chain (2c)": dict(phases=ph["note"]),
+                "summary chain (2a)": dict(phases=ph["summary"]),
+                "proj (2d)": dict(phases=ph["proj"]),
+                **{f"chains C={c}": dict(phases=chains, cluster=c)
+                   for c in K2A_CLUSTERS}}
+    for B in (128, 512):
+        for bf16 in (False, True):
+            key = f"{'bf16' if bf16 else 'f32'} B={B}"
+            r = k2a_launch_ms(spec, k2a_case(params, cfg, gen, B, bf16),
+                              variants)
+            check(all(q for _, q in r.values()), f"K2a {key}: the host did "
+                  "not enqueue the timed calls within the sleep kernel")
+            k2a_phases[key] = {k: ms for k, (ms, _) in r.items()}
+            print(f"  K2a {key} (ms a launch, queued): " + ", ".join(
+                f"{k} {v:.4f}" for k, v in k2a_phases[key].items()))
+    for key, prof in (("f32 fused", training["profile"]),
+                      ("f32 logits out", training_lo["profile"]),
+                      ("bf16 fused", bf16_runs["fused"]["profile"])):
+        if not prof["measured"]:
+            continue
+        seen = prof["kernel_count"].get("K2a", 0)
+        print(f"  profiled {key} step: {seen} K2a kernels over {T} launches,"
+              f" {prof['kernel_ms']['K2a']:.3f} ms")
+        check(seen == 3 * T, f"{key}: the profiled step saw {seen} K2a "
+              f"kernels, expected {3 * T} (three a launch)")
+    training["k2a_by_phase_ms"] = k2a_phases
+    training["k2a_vs_plain"] = k2a_gate
+    phase("K2a by phase", t0)
+
     # 11. kernels
     rows = []
     src = "pctd_tpu_torch/ops/kernels/csrc/decoder.cu"
@@ -2044,10 +2280,12 @@ def main() -> int:
              "pctd_tpu/ops/pallas/train_frame.py:289", k1_err,
              f"decisions agree on >= {AGREE} of rows; on those, nums rel "
              f"err <= {NUMS_RTOL}, summary and hs max|err| <= {STATE_ATOL}"),
-            ("K2a", "K2a train_bwd_kernel",
+            ("K2a", K2A_NAME,
              "pctd_tpu/ops/pallas/train_frame.py:736", k2a_err,
              f"d_frame_h, d_x_emb max|err| <= {GRAD_TOL} x (1 + max|plain|)"
-             " vs autograd of the plain version"),
+             " vs autograd of the plain version; every output and cotangent"
+             f" <= {K2A_F64_TOL} x (1 + max|ref|) vs frame_bwd_plain in f64 "
+             "(plain TF32 must miss it); the same bits over two launches"),
             ("K2b", "K2b wgrad_kernel",
              "pctd_tpu/ops/pallas/train_frame.py:736", max(k2b_err, k2bl_err),
              f"24 weight grads max|err| <= {GRAD_TOL} x (1 + max|plain|) "
@@ -2057,7 +2295,7 @@ def main() -> int:
              "decisions and lengths equal the plain version's on every row "
              "and the logits' argmaxes; logits and summary max|err| <= "
              f"{CORE_TOL} x (1 + max|plain|)"),
-            ("K2a logits", "K2a train_bwd_kernel (logits out)",
+            ("K2a logits", K2A_NAME + " (logits out)",
              "pctd_tpu/ops/pallas/train_frame.py:736", k2al_err,
              f"d_frame_h, d_x_emb max|err| <= {GRAD_TOL} x (1 + max|plain|)"
              " vs autograd of the plain version")):
@@ -2085,11 +2323,13 @@ def main() -> int:
              f"case, >= {BF16_POOL_AGREE} pooled, lengths >= "
              f"{BF16_LEN_AGREE} pooled; on agreeing rows nums, summary, hs "
              f"max|err| <= {BF16_TOL} x (1 + max|plain|)"),
-            ("K2a bf16", "K2a train_bwd_kernel (bf16)",
+            ("K2a bf16", K2A_NAME + " (bf16)",
              "pctd_tpu/ops/pallas/train_frame.py:736", k2ab_err,
              b_fused_l["K2a"],
              f"d_frame_h, d_x_emb max|err| <= {BF16_GRAD_TOL} x (1 + "
-             "max|plain|) vs autograd of the plain version, both modes"),
+             "max|plain|) vs autograd of the plain version, both modes; "
+             f"every output and cotangent <= {BF16_GRAD_TOL} x (1 + "
+             "max|plain|) vs frame_bwd_plain in bf16"),
             ("K2b bf16", "K2b wgrad_kernel (bf16)",
              "pctd_tpu/ops/pallas/train_frame.py:736", k2bb_err,
              b_fused_l["K2b"] + b_lo_l["K2b"],
@@ -2101,7 +2341,7 @@ def main() -> int:
              f"as K1 bf16; the logits' argmaxes equal the decisions; on "
              f"agreeing rows logits and summary max|err| <= {BF16_TOL} x "
              "(1 + max|plain|)"),
-            ("K2a bf16 logits", "K2a train_bwd_kernel (bf16, logits out)",
+            ("K2a bf16 logits", K2A_NAME + " (bf16, logits out)",
              "pctd_tpu/ops/pallas/train_frame.py:736", k2ab_err,
              b_lo_l["K2a"],
              f"d_frame_h, d_x_emb max|err| <= {BF16_GRAD_TOL} x (1 + "
@@ -2115,6 +2355,34 @@ def main() -> int:
                      "library_ms": None, "batch": 128,
                      "ms_b512": timing[512][key][0],
                      "plain_ms_b512": timing[512][key][1]})
+    # K2a: timed queued behind a sleep kernel, its plain version
+    # frame_bwd_plain (autograd of the plain frame beside it), its bound at
+    # the fastest f32-accurate product rate
+    for row in rows:
+        if row["name"].startswith("K2a"):
+            key = "K2a" + ("" if "(" not in row["name"] else " " + " ".join(
+                w for w in ("bf16", "logits") if w in row["name"]))
+            bf16 = "bf16" in key
+            row.update({
+                "plain": "frame_bwd_plain (CUDA events)",
+                "autograd_ms": k2a_autograd[128][key],
+                "autograd_ms_b512": k2a_autograd[512][key],
+                "bound_peak": ("3xbf16, 989 / 3 TFLOP/s" if bf16
+                               else "3xTF32, 495 / 3 TFLOP/s"),
+                "bound_ms_b512": timing[512][key][2],
+                "ms_source": "CUDA events over launches queued behind a "
+                             "sleep kernel (device time, host launch hidden)",
+                "by_phase_ms": k2a_phases[
+                    f"{'bf16' if bf16 else 'f32'} B=128"],
+                "by_phase_ms_b512": k2a_phases[
+                    f"{'bf16' if bf16 else 'f32'} B=512"],
+                "vs_plain_gate": {k: max(max(v.get("vs_f64", {}).values(),
+                                             default=0.0),
+                                         max(v.get("vs_plain", {}).values(),
+                                             default=0.0))
+                                  for k, v in k2a_gate.items()
+                                  if ("bf16" in k) == bf16},
+                "registers": k2a_regs, "shared_memory": k2a_smem})
     # K2b: the library yardstick is wgrad_plain (one cuBLAS X^T dY and a
     # column sum a task), its bound the 3xTF32 (bf16: 3xbf16) rate
     for row in rows:

@@ -100,17 +100,23 @@ def _tanh(x: torch.Tensor) -> torch.Tensor:
     return _XlaTanh.apply(x)
 
 
-def gru_gates_pre(gi: torch.Tensor, gh: torch.Tensor, h: torch.Tensor
-                  ) -> torch.Tensor:
-    """Gate math from precomputed input and hidden projections (B, 3H), in
-    their dtype. In bf16 every op rounds, forward and backward, in the
-    order of the JAX package's bf16 GRUs under XLA."""
+def gru_gates(gi: torch.Tensor, gh: torch.Tensor, h: torch.Tensor):
+    """:func:`gru_gates_pre` with its gates: (new hidden, (r, z, n, h_n)),
+    the values a hand-written backward reads."""
     i_r, i_z, i_n = gi.chunk(3, dim=-1)
     h_r, h_z, h_n = gh.chunk(3, dim=-1)
     r = _sigmoid(i_r + h_r)
     z = _sigmoid(i_z + h_z)
     n = _tanh(i_n + r * h_n)
-    return (1.0 - z) * n + z * h
+    return (1.0 - z) * n + z * h, (r, z, n, h_n)
+
+
+def gru_gates_pre(gi: torch.Tensor, gh: torch.Tensor, h: torch.Tensor
+                  ) -> torch.Tensor:
+    """Gate math from precomputed input and hidden projections (B, 3H), in
+    their dtype. In bf16 every op rounds, forward and backward, in the
+    order of the JAX package's bf16 GRUs under XLA."""
+    return gru_gates(gi, gh, h)[0]
 
 
 def gru_cell_pre(p: GRUParams, gi: torch.Tensor, h: torch.Tensor

@@ -165,16 +165,20 @@ def library() -> ctypes.CDLL:
                      + [stash, ptr]),
                     ("pctd_train_fwd_logits", [tw, i32, i32] + [ptr] * 8
                      + [stash, ptr]),
-                    ("pctd_train_bwd", [tw, i32, i32] + [ptr] * 8
+                    ("pctd_train_bwd", [tw, i32, i32, i32] + [ptr] * 9
                      + [stash, cot, ptr]),
-                    ("pctd_train_bwd_logits", [tw, i32, i32] + [ptr] * 7
-                     + [stash, cot, ptr]),
+                    ("pctd_train_bwd_logits", [tw, i32, i32, i32]
+                     + [ptr] * 8 + [stash, cot, ptr]),
                     ("pctd_train_wgrad", [ctypes.POINTER(WgradTaskC), i32,
                                           ptr])):
                 fn = getattr(lib, name + sfx)
                 fn.argtypes, fn.restype = argtypes, i32
-        lib.pctd_train_smem_bytes.argtypes = [tw, i32, i32]
+        lib.pctd_train_smem_bytes.argtypes = [tw, i32]
         lib.pctd_train_smem_bytes.restype = i32
+        out = ctypes.POINTER(ctypes.c_int)
+        lib.pctd_train_bwd_smem_bytes.argtypes = [tw, i32, i32, i32, out,
+                                                  out]
+        lib.pctd_train_bwd_smem_bytes.restype = i32
         lib.pctd_mma_peak.argtypes = [i32, i32, i32, i32, ptr, ptr]
         lib.pctd_mma_peak.restype = i32
         _LIB.append(lib)
@@ -316,16 +320,26 @@ def launch_train_fwd(cw, d, batch: int, tensors: Sequence[torch.Tensor],
           *(_ptr(t) for t in tensors), st)
 
 
+#: K2a's phases, the bits of ``launch_train_bwd``'s ``phases``: the slot
+#: rows (2b, the slot-row kernel), the note chain (2c) and the summary chain
+#: (2a), side by side in the chain kernel, the projections (2d)
+K2A_PHASES = {"slots": 1, "note": 2, "proj": 4, "summary": 8}
+
+
 def launch_train_bwd(cw, d, batch: int, tensors: Sequence[torch.Tensor],
-                     stash, cot, rows: int = 0, logits: bool = False) -> None:
+                     stash, cot, logits: bool = False, phases: int = 15,
+                     cluster: int = 0) -> None:
     """Launch K2a in loss mode (``pctd_train_bwd``) or, with ``logits``, in
-    logits-out mode (``pctd_train_bwd_logits``), in the weights' dtype."""
+    logits-out mode (``pctd_train_bwd_logits``), in the weights' dtype:
+    the phases of ``phases`` (:data:`K2A_PHASES`; all by default, in
+    order), the note chain in clusters of ``cluster`` blocks (0: the
+    kernel's choice). The last tensor is the f32 scratch dh_inj
+    (K-1, B, NH)."""
     device = tensors[0].device
     name = train_entry("pctd_train_bwd_logits" if logits else
                        "pctd_train_bwd", cw.w_hh.dtype)
     _call(name, device, ctypes.byref(train_weights(cw, d)),
-          batch, rows or _train_rows(batch, device),
-          *(_ptr(t) for t in tensors),
+          batch, phases, cluster, *(_ptr(t) for t in tensors),
           ctypes.byref(TrainStashC(*(_ptr(t) for t in stash))),
           ctypes.byref(TrainCotangentsC(*(_ptr(t) for t in cot))))
 

@@ -1,6 +1,6 @@
 // Teacher-forced frame kernels of the training step for Hopper (sm_90a), in
-// two storage types (float and bf16): K1 and K2a in f32 arithmetic on CUDA
-// cores, K2b in f32-accurate products on the tensor cores.
+// two storage types (float and bf16): K1 in f32 arithmetic on CUDA cores,
+// K2a and K2b in f32-accurate products on the tensor cores.
 //
 // train_fwd_kernel (K1) replaces pctd_tpu/ops/pallas/train_frame.py::
 //   _fwd_kernel: one frame's 15 note-GRU slots (pitch head and argmax,
@@ -9,36 +9,48 @@
 //   predicted notes. In loss mode it ends in the masked-CE numerators; in
 //   logits-out mode (the JAX package's frame_core) it writes the pitch and
 //   duration logits instead and reads no target. On the gradient path it
-//   writes every activation the backward reads (TrainStash).
-// train_bwd_kernel (K2a) and wgrad_kernel (K2b) replace _bwd_kernel, the
-//   hand-written VJP: K2a runs each row's reverse chain (summary bi-GRU,
-//   the logit cotangents, duration chain and heads, note-GRU reverse
-//   recurrence, embedding / token routes) and writes the per-sample gate
-//   cotangents; K2b reduces them against the stash into the 24 weight
-//   gradients, X^T dY over rows, slots and duration steps. In loss mode
-//   K2a computes the logit cotangents in place from the targets; in
-//   logits-out mode it reads them (d_pitch, d_dur), already masked by the
-//   caller's loss. K2b is the same in both modes.
-// Plain PyTorch versions: frame_recon_plain (loss mode) and
-// frame_core_plain (logits out) in train_frame.py beside this file
-// (autograd of them for K2; wgrad_plain for K2b alone).
+//   writes every activation the backward reads (TrainStash). What bounds
+//   it: a chain of small dependent matrix-vector products, ~45 MFLOP a row
+//   over ~30 MB of weights that every block reads from L2 (an argmax
+//   follows, so its products stay f32 FMA). What the design does: a block
+//   owns R batch rows (1, 2 or 4) and keeps per-row state in shared memory,
+//   as K3 does, reusing decoder.cu's matvec. Where the Pallas backward
+//   rebuilt the forward from a stash of slot hiddens, the H100's 80 GB lets
+//   K1 write every gate and decision it computed (~90 MB a frame at B=128),
+//   so K2 recomputes nothing and never re-decides an argmax.
 //
-// What bounds K1 and K2a on this card: like the serving kernels
-// (decoder.cu), they are chains of small dependent matrix-vector products,
-// ~45 MFLOP a row a frame each over ~30 MB of weights that every block
-// reads from L2; at training batches the f32 FLOP bound is a few ms a step,
-// and what the design pays is the per-block weight traffic.
-//
-// What the design does about it: a block owns R batch rows (1, 2 or 4) and
-// keeps per-row state in shared memory, as K3 does; the forward products
-// reuse decoder.cu's matvec, the backward's transposed products give each
-// weight row to a warp (coalesced row reads, shuffle reduction). Where the
-// Pallas backward rebuilt the forward from a stash of slot hiddens, the
-// H100's 80 GB lets K1 write every gate and decision it computed (~90 MB a
-// frame at B=128), so K2 recomputes nothing and never re-decides an argmax.
-// Weight gradients are not accumulated with atomics: K2a writes per-sample
-// cotangents and K2b sums them in a fixed order, so a gradient is the same
-// bits on every run.
+// K2a (train_bwd_slots_kernel, train_bwd_chain_kernel,
+//   train_bwd_proj_kernel) replaces _bwd_kernel's hand-written VJP,
+//   _frame_bwd_core (pctd_tpu/ops/pallas/train_frame.py:437-733) without
+//   its weight-gradient adds: it writes the per-sample gate cotangents
+//   (TrainCotangents), d_frame_h and d_x_emb. In loss mode it computes the
+//   logit cotangents from the targets; in logits-out mode it reads them
+//   (d_pitch, d_dur), already masked by the caller's loss. What bounds it
+//   on this card: its products must be f32-accurate (the cotangents are
+//   f32 and no argmax follows): 5.8 GFLOP a frame at B=128 at the 3xTF32
+//   rate (495 / 3 TFLOP/s; bf16 weights: three bf16 passes, 989 / 3), a
+//   floor of 0.035 ms; and the latency of its two serial chains, the note
+//   GRU's 15 steps (d_gh @ w_hh^T, 3.0 GFLOP) and the summary bi-GRU's 16
+//   (d_gh @ we_hh^T), each step a product that waits on the last. What the
+//   design does: it follows _frame_bwd_core's phases, batching all but the
+//   two chains over rows and slots. The slot-row kernel (2b) takes 16 of
+//   the (K-1) B slot rows a block: the logit cotangents, the 5-step
+//   duration chain with w_dhh staged in shared memory, the heads, and the
+//   note chain's injected cotangent dh_inj into scratch. The chain kernel
+//   runs the note chain (2c) in thread-block clusters of C blocks (16 where
+//   the launch fits the card at once, else 8): a cluster takes a group of
+//   16 rows, each block NH / C hidden units, so the group reads each weight
+//   once a step rather than once a row; a block's columns of d_gh @ w_hh^T
+//   land in its partial plane and the blocks sum their units' partials from
+//   each other's planes in rank order (distributed shared memory), one
+//   cluster barrier a step. Beside them, a block a (direction, row group)
+//   runs the summary chain (2a). The projection kernel (2d) runs the
+//   batched products d_pred, d_tok and d_frame_h and routes the token and
+//   embedding cotangents. Every product is m16n8k8 TF32 mma.sync with the
+//   f32 operands split hi + lo by round to nearest (3xTF32; bf16 weights
+//   are exact in TF32: two passes), 16 rows of cotangents against weight
+//   rows, each 32 k summed in a fresh fragment; gates and CE stay f32 on
+//   CUDA cores. No atomics: the same bits on every run.
 //
 // K2b (wgrad_kernel, then wgrad_reduce_kernel) replaces the weight-gradient
 // adds of _bwd_kernel (pctd_tpu/ops/pallas/train_frame.py:472-476, the
@@ -70,15 +82,18 @@
 // writes f32 partials, and wgrad_reduce_kernel sums each element's slices
 // in slice order and rounds once. No atomics: the same bits on every run.
 //
-// K1 and K2a are plain f32 FMA (no TF32). Ties of the pitch argmax go to the
-// lowest index; a dur bit is logit[1] > logit[0] strictly. The argmax
-// decisions and the teacher coins carry no gradient.
+// Plain PyTorch versions (train_frame.py beside this file): frame_recon_plain
+// (loss mode) and frame_core_plain (logits out) for K1, with autograd of
+// them for K2; frame_stash_plain and frame_bwd_plain for K2a alone;
+// wgrad_plain for K2b. Ties of the pitch argmax go to the lowest index; a
+// dur bit is logit[1] > logit[0] strictly. The argmax decisions and the
+// teacher coins carry no gradient.
 //
 // The bf16 mode (the JAX kernels' compute dtype bfloat16): every kernel is
 // a template on the storage type T of the weights, the inputs, the stashed
 // values and the outputs; one source serves both types. The arithmetic
 // stays f32 (a bf16 load converts exactly, a product of two bf16 values is
-// exact in f32, sums are f32 FMA), and a value is rounded to bf16 exactly
+// exact in f32, sums are f32), and a value is rounded to bf16 exactly
 // where the Pallas kernel writes .astype(dtype): the note and duration
 // hiddens, the pitch and duration logits (the argmaxes and the CE read the
 // rounded values), the predicted-note embedding, the summary hiddens, and
@@ -87,13 +102,13 @@
 // the gates stay f32. The stash holds the rounded values in bf16 and the
 // f32 gates (ng, dg, sg) in f32; the per-sample cotangents and the CE
 // numerators are f32; d_frame_h and d_x_emb are rounded once when stored;
-// K2b sums each weight gradient in f32 and rounds it once to bf16. Bounds:
-// the bf16 mode of K1 and K2a reads half the weight bytes from L2 and does
-// the same f32 FMAs; the card's bf16 tensor-core peak is not used by these
-// CUDA-core kernels.
+// K2b sums each weight gradient in f32 and rounds it once to bf16.
+#include <cooperative_groups.h>
 #include <stdint.h>
 
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 // Field order matches CoreWeights and Dims (train_frame.py).
 template <typename T>
@@ -172,61 +187,31 @@ struct WgradTable {
 // shared helpers
 // ---------------------------------------------------------------------------
 
-// y[r, i] (+)= sum_o d[r, o] * W[i, o] for i < I: the transposed product of
-// the backward. Warp w takes rows i = w, w + NT/32, ...; lanes stride over o
-// (coalesced reads of W's row i) and meet in a shuffle reduction. Rows
-// r >= nrows are computed but not written. Every thread of the block calls
-// it; the caller synchronizes before reading y.
-template <int R, typename T>
-__device__ void matvec_t(const T* __restrict__ W, int ldw, int I, int O,
-                         const float* d, int ldd, float* y, int ldy,
-                         bool accumulate, int nrows) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int i = warp; i < I; i += NT / 32) {
-    float acc[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) acc[r] = 0.0f;
-    const T* wr = W + (size_t)i * ldw;
-    for (int o = lane; o < O; o += 32) {
-      const float wv = ldg_f(wr + o);
-#pragma unroll
-      for (int r = 0; r < R; ++r) acc[r] = fmaf(d[r * ldd + o], wv, acc[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], off);
-    }
-    if (lane == 0) {
-      for (int r = 0; r < R && r < nrows; ++r) {
-        float* yp = y + (size_t)r * ldy + i;
-        *yp = accumulate ? *yp + acc[r] : acc[r];
-      }
-    }
-  }
+// The saved gates of one torch-order GRU step at hidden unit j: g = [r |
+// z | n | h_n] (stride H).
+struct Gates {
+  float r, z, n, hn;
+};
+
+__device__ __forceinline__ Gates load_gates(const float* g, int H, int j) {
+  return {g[j], g[H + j], g[2 * H + j], g[3 * H + j]};
 }
 
-// Backward of one torch-order GRU step for hidden unit j, from the saved
-// gates g = [r | z | n | h_n] (stride H): writes the input-gate cotangents
-// [dr, dz, dn] to d_gi and the hidden-gate ones [dr, dz, dn * r] to d_gh
-// (both stride H) and returns dh * z, the direct share of d h_prev.
-__device__ __forceinline__ float gru_bwd(float dh, float h_prev,
-                                         const float* g, int H, int j,
-                                         float* d_gi, float* d_gh) {
-  const float r = g[j], z = g[H + j], n = g[2 * H + j], hn = g[3 * H + j];
-  const float dz = dh * (h_prev - n);
-  const float dn = dh * (1.0f - z);
-  const float dn_pre = dn * (1.0f - n * n);
-  const float dz_pre = dz * z * (1.0f - z);
-  const float dr_pre = dn_pre * hn * r * (1.0f - r);
-  d_gi[j] = dr_pre;
-  d_gi[H + j] = dz_pre;
-  d_gi[2 * H + j] = dn_pre;
-  d_gh[j] = dr_pre;
-  d_gh[H + j] = dz_pre;
-  d_gh[2 * H + j] = dn_pre * r;
-  return dh * z;
+// Backward of one torch-order GRU step from its saved gates: the
+// input-gate cotangents [dr, dz, dn] in d_gi and the hidden-gate ones
+// [dr, dz, dn * r] in d_gh; returns dh * z, the direct share of d h_prev.
+__device__ __forceinline__ float gru_bwd(float dh, float h_prev, Gates g,
+                                         float (&d_gi)[3], float (&d_gh)[3]) {
+  const float dz = dh * (h_prev - g.n);
+  const float dn = dh * (1.0f - g.z);
+  const float dn_pre = dn * (1.0f - g.n * g.n);
+  const float dz_pre = dz * g.z * (1.0f - g.z);
+  const float dr_pre = dn_pre * g.hn * g.r * (1.0f - g.r);
+  d_gi[0] = d_gh[0] = dr_pre;
+  d_gi[1] = d_gh[1] = dz_pre;
+  d_gi[2] = dn_pre;
+  d_gh[2] = dn_pre * g.r;
+  return dh * g.z;
 }
 
 // logsumexp of a row of n logits, reduced over one warp.
@@ -619,341 +604,6 @@ train_fwd_kernel(TrainWeightsT<T> w, int B, const int* __restrict__ coins,
         c == 0 ? pitch[r * S + k] : bits[(r * S + k) * W + c - 1];
   }
   if (t < nrows) lengths[row0 + t] = len[t];
-}
-
-// ---------------------------------------------------------------------------
-// K2a: per-row reverse chain
-// ---------------------------------------------------------------------------
-
-struct BwdLayout {
-  int lTH, lNH, l3NH, lP, lHX, lE, lDH, l3DH, lHS, l3EH, lPR;
-  int o_dpred, o_dh, o_dgi, o_dgh, o_dgif, o_dest, o_dhin, o_dhd, o_dhd2,
-      o_dgid, o_dghd, o_dtok, o_dtokn, o_dsum, o_dsh, o_dsg, o_dl, o_dfh, o_g,
-      n_floats, n_ints;
-};
-
-template <typename T>
-__host__ __device__ inline BwdLayout bwd_layout(const TrainWeightsT<T>& w,
-                                                int R) {
-  BwdLayout L;
-  L.lTH = pad4(w.TH);
-  L.lNH = pad4(w.NH);
-  L.l3NH = pad4(3 * w.NH);
-  L.lP = pad4(w.P);
-  L.lHX = pad4(w.NH + w.P);
-  L.lE = pad4(w.E);
-  L.lDH = pad4(w.DH);
-  L.l3DH = pad4(3 * w.DH);
-  L.lHS = pad4(2 * w.EH);
-  L.l3EH = pad4(3 * w.EH);
-  L.lPR = w.K * L.lE;
-  int o = 0;
-  L.o_dpred = o; o += R * L.lPR;       // cotangent of the summary inputs
-  L.o_dh = o;    o += R * L.lNH;       // d h flowing down the note chain
-  L.o_dgi = o;   o += R * L.l3NH;      // note-GRU input-gate cotangents
-  L.o_dgh = o;   o += R * L.l3NH;      // note-GRU hidden-gate cotangents
-  L.o_dgif = o;  o += R * L.l3NH;      // d gi_frame (sum over slots)
-  L.o_dest = o;  o += R * L.lP;        // d pitch logits
-  L.o_dhin = o;  o += R * L.lHX;       // d [h | pitch logits] from dur init
-  L.o_dhd = o;   o += R * L.lDH;       // d dur hidden
-  L.o_dhd2 = o;  o += R * L.lDH;
-  L.o_dgid = o;  o += R * L.l3DH;
-  L.o_dghd = o;  o += R * L.l3DH;
-  L.o_dtok = o;  o += R * L.lE;        // d token consumed by this slot
-  L.o_dtokn = o; o += R * L.lE;        // d token consumed by the next slot
-  L.o_dsum = o;  o += R * L.lHS;       // d summary state [hf | hb]
-  L.o_dsh = o;   o += R * L.lHS;
-  L.o_dsg = o;   o += R * 4 * L.l3EH;  // [d_gi_f | d_gh_f | d_gi_b | d_gh_b]
-  L.o_dl = o;    o += R * 4;           // d dur logit
-  L.o_dfh = o;   o += R * L.lTH;       // d frame_h, summed in f32
-  L.o_g = o;     o += 8;               // d nums
-  L.n_floats = o;
-  L.n_ints = R + w.K;
-  return L;
-}
-
-template <typename T>
-__host__ inline size_t bwd_smem_bytes(const TrainWeightsT<T>& w, int R) {
-  BwdLayout L = bwd_layout(w, R);
-  return sizeof(float) * (size_t)L.n_floats + sizeof(int) * (size_t)L.n_ints;
-}
-
-template <int R, typename T>
-__global__ void __launch_bounds__(NT, 1)
-train_bwd_kernel(TrainWeightsT<T> w, int B, const int* __restrict__ coins,
-                 const int* __restrict__ gt_pitch,
-                 const int* __restrict__ gt_dur,
-                 const int* __restrict__ lengths,
-                 const float* __restrict__ d_nums,
-                 const T* __restrict__ d_pitch, const T* __restrict__ d_dur,
-                 const T* __restrict__ d_summ, T* __restrict__ d_frame_h,
-                 T* __restrict__ d_x_emb, TrainStashT<T> st,
-                 TrainCotangents ct, int logits) {
-  // loss mode (logits == 0): the logit cotangents are g * mask * (softmax -
-  // onehot) from gt_pitch, gt_dur and d_nums; logits out: they are read
-  // from d_pitch (B, K-1, P) and d_dur (B, K-1, W, 2), and the targets and
-  // d_nums are not read.
-  extern __shared__ float4 smem4[];
-  float* sm = reinterpret_cast<float*>(smem4);
-  const BwdLayout L = bwd_layout(w, R);
-  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
-  const int row0 = blockIdx.x * R;
-  const int nrows = min(R, B - row0);
-  const int TH = w.TH, NH = w.NH, NH3 = 3 * w.NH, DH = w.DH, DH3 = 3 * w.DH,
-            E = w.E, EH = w.EH, EH3 = 3 * w.EH, P = w.P, W = w.W, K = w.K;
-  const int S = K - 1;
-  float *dpred = sm + L.o_dpred, *dh = sm + L.o_dh, *dgi = sm + L.o_dgi,
-        *dgh = sm + L.o_dgh, *dgif = sm + L.o_dgif, *dest = sm + L.o_dest,
-        *dhin = sm + L.o_dhin, *dhd = sm + L.o_dhd, *dhd2 = sm + L.o_dhd2,
-        *dgid = sm + L.o_dgid, *dghd = sm + L.o_dghd, *dtok = sm + L.o_dtok,
-        *dtokn = sm + L.o_dtokn, *dsum = sm + L.o_dsum, *dsh = sm + L.o_dsh,
-        *dsg = sm + L.o_dsg, *dl = sm + L.o_dl, *dfh = sm + L.o_dfh,
-        *g = sm + L.o_g;
-  int* len = reinterpret_cast<int*>(sm + L.n_floats);  // [R]
-  int* coin = len + R;                                 // [K]
-  auto srow = [&](int k, int r) { return (size_t)k * B + row0 + r; };
-  const int ldg = 4 * L.l3EH;
-
-  if (t < R) len[t] = t < nrows ? lengths[row0 + t] : 0;
-  if (t >= 1 && t < K) coin[t] = coins[t - 1];
-  if (t < 1 + W) g[t] = logits ? 0.0f : d_nums[t];
-  for (int idx = t; idx < R * 2 * EH; idx += NT) {
-    const int r = idx / (2 * EH), j = idx - r * 2 * EH;
-    dsum[r * L.lHS + j] =
-        r < nrows ? to_f(d_summ[(size_t)(row0 + r) * 2 * EH + j]) : 0.0f;
-  }
-  for (int idx = t; idx < R * L.lPR; idx += NT) dpred[idx] = 0.0f;
-  __syncthreads();
-
-  // ---- summary bi-GRU backward, steps K-1 .. 0
-  for (int k = K - 1; k >= 0; --k) {
-    for (int idx = t; idx < R * 2 * EH; idx += NT) {
-      const int r = idx / (2 * EH), rem = idx - r * 2 * EH;
-      const int d = rem / EH, j = rem - d * EH;
-      const int slot = d == 0 ? k : K - 1 - k;
-      const float m = slot < len[r] ? 1.0f : 0.0f;
-      const int rr = r < nrows ? r : 0;
-      const size_t q = ((size_t)d * K + k) * B + row0 + rr;
-      const float* gates = st.sg + q * 4 * EH;
-      const float hp = to_f(st.sh[q * EH + j]);
-      float* dgi_ = dsg + r * ldg + 2 * d * L.l3EH;
-      float* dgh_ = dgi_ + L.l3EH;
-      dsh[r * L.lHS + d * EH + j] =
-          gru_bwd(m * dsum[r * L.lHS + d * EH + j], hp, gates, EH, j, dgi_,
-                  dgh_);
-      if (r < nrows) {
-        float* o_gi = ct.d_sgi + (((size_t)d * K + slot) * B + row0 + r) * EH3;
-        float* o_gh = ct.d_sgh + q * EH3;
-        for (int c = 0; c < 3; ++c) {
-          o_gi[c * EH + j] = dgi_[c * EH + j];
-          o_gh[c * EH + j] = dgh_[c * EH + j];
-        }
-      }
-    }
-    __syncthreads();
-    for (int d = 0; d < 2; ++d) {
-      const int slot = d == 0 ? k : K - 1 - k;
-      matvec_t<R>(w.we_hh + (size_t)d * EH * EH3, EH3, EH, EH3,
-                  dsg + 2 * d * L.l3EH + L.l3EH, ldg, dsh + d * EH, L.lHS,
-                  true, R);
-      matvec_t<R>(w.we_ih + (size_t)d * E * EH3, EH3, E, EH3,
-                  dsg + 2 * d * L.l3EH, ldg, dpred + slot * L.lE, L.lPR,
-                  true, R);
-      __syncthreads();  // both directions may add to one slot (K odd)
-    }
-    __syncthreads();
-    for (int idx = t; idx < R * 2 * EH; idx += NT) {
-      const int r = idx / (2 * EH), rem = idx - r * 2 * EH;
-      const int d = rem / EH;
-      const int slot = d == 0 ? k : K - 1 - k;
-      const float m = slot < len[r] ? 1.0f : 0.0f;
-      float* ds = dsum + r * L.lHS + rem;
-      *ds = (1.0f - m) * *ds + dsh[r * L.lHS + rem];
-    }
-    __syncthreads();
-  }
-
-  // ---- slots K-1 .. 1: CE cotangents, dur chain + heads, note-GRU step
-  for (int idx = t; idx < R * NH; idx += NT) {
-    const int r = idx / NH, j = idx - r * NH;
-    dh[r * L.lNH + j] = 0.0f;
-  }
-  for (int idx = t; idx < R * NH3; idx += NT) {
-    const int r = idx / NH3, j = idx - r * NH3;
-    dgif[r * L.l3NH + j] = 0.0f;
-  }
-  for (int idx = t; idx < R * E; idx += NT) {
-    const int r = idx / E, e = idx - r * E;
-    dtokn[r * L.lE + e] = 0.0f;
-  }
-  __syncthreads();
-  for (int k = K - 1; k >= 1; --k) {
-    // pitch-logit cotangent: given (logits out), or the CE's
-    // g0 * mask * (softmax - onehot), warp r (loss mode)
-    if (logits) {
-      for (int idx = t; idx < R * P; idx += NT) {
-        const int r = idx / P, j = idx - r * P;
-        dest[r * L.lP + j] =
-            r < nrows
-                ? to_f(d_pitch[((size_t)(row0 + r) * S + k - 1) * P + j])
-                : 0.0f;
-      }
-    } else if (warp < R) {
-      const int r = warp, rr = r < nrows ? r : 0;
-      const T* est = st.est + srow(k - 1, rr) * P;
-      const int gt = r < nrows ? gt_pitch[(size_t)(row0 + r) * S + k - 1]
-                               : w.pitch_pad;
-      const float lse = warp_lse(est, P, lane);
-      const float gm = gt != w.pitch_pad ? g[0] : 0.0f;
-      for (int j = lane; j < P; j += 32)
-        dest[r * L.lP + j] =
-            gm * (expf(to_f(est[j]) - lse) - (j == gt ? 1.0f : 0.0f));
-    }
-    for (int idx = t; idx < R * DH; idx += NT) {
-      const int r = idx / DH, j = idx - r * DH;
-      dhd[r * L.lDH + j] = 0.0f;
-    }
-    __syncthreads();
-    // duration chain backward, steps W-1 .. 0
-    for (int ws = W - 1; ws >= 0; --ws) {
-      if (t < R) {
-        const int r = t, rr = r < nrows ? r : 0;
-        float d0 = 0.0f, d1 = 0.0f;
-        if (logits) {
-          const T* dd =
-              d_dur + (((size_t)(row0 + rr) * S + k - 1) * W + ws) * 2;
-          if (r < nrows) {
-            d0 = to_f(dd[0]);
-            d1 = to_f(dd[1]);
-          }
-        } else {
-          const T* lgt = st.dlog + (srow(k - 1, rr) * W + ws) * 2;
-          const float lg[2] = {to_f(lgt[0]), to_f(lgt[1])};
-          const int gt =
-              r < nrows ? gt_dur[((size_t)(row0 + r) * S + k - 1) * W + ws]
-                        : w.dur_pad;
-          const float lse = lse2(lg[0], lg[1]);
-          const float gm = gt != w.dur_pad ? g[1 + ws] : 0.0f;
-          d0 = gm * (expf(lg[0] - lse) - (gt == 0 ? 1.0f : 0.0f));
-          d1 = gm * (expf(lg[1] - lse) - (gt == 1 ? 1.0f : 0.0f));
-        }
-        dl[r * 4] = d0;
-        dl[r * 4 + 1] = d1;
-        if (r < nrows) {
-          float* o = ct.d_log + (srow(k - 1, r) * W + ws) * 2;
-          o[0] = d0;
-          o[1] = d1;
-        }
-      }
-      __syncthreads();
-      for (int idx = t; idx < R * DH; idx += NT) {
-        const int r = idx / DH, j = idx - r * DH, rr = r < nrows ? r : 0;
-        const float dlogit = dl[r * 4] * ldg_f(w.w_dout + j * 2) +
-                             dl[r * 4 + 1] * ldg_f(w.w_dout + j * 2 + 1);
-        const float dhv = dhd[r * L.lDH + j] + dlogit;
-        const size_t q = srow(k - 1, rr) * W + ws;
-        const float hp =
-            to_f(st.hd[(srow(k - 1, rr) * (W + 1) + ws) * DH + j]);
-        dhd2[r * L.lDH + j] =
-            gru_bwd(dhv, hp, st.dg + q * 4 * DH, DH, j, dgid + r * L.l3DH,
-                    dghd + r * L.l3DH);
-        if (r < nrows) {
-          for (int c = 0; c < 3; ++c) {
-            ct.d_gid[q * DH3 + c * DH + j] = dgid[r * L.l3DH + c * DH + j];
-            ct.d_ghd[q * DH3 + c * DH + j] = dghd[r * L.l3DH + c * DH + j];
-          }
-        }
-      }
-      __syncthreads();
-      matvec_t<R>(w.w_dhh, DH3, DH, DH3, dghd, L.l3DH, dhd2, L.lDH, true, R);
-      if (ws == 0)
-        matvec_t<R>(w.w_dih, DH3, W, DH3, dgid, L.l3DH,
-                    ct.d_sos + srow(k - 1, 0) * W, W, false, nrows);
-      __syncthreads();
-      for (int idx = t; idx < R * DH; idx += NT) {
-        const int r = idx / DH, j = idx - r * DH;
-        dhd[r * L.lDH + j] = dhd2[r * L.lDH + j];
-      }
-      __syncthreads();
-    }
-    for (int idx = t; idx < nrows * DH; idx += NT) {
-      const int r = idx / DH, j = idx - r * DH;
-      ct.d_hd0[srow(k - 1, r) * DH + j] = dhd[r * L.lDH + j];
-    }
-    // dur-hidden init: d [h | est] = d_hd0 @ w_dhid^T
-    matvec_t<R>(w.w_dhid, DH, NH + P, DH, dhd, L.lDH, dhin, L.lHX, false, R);
-    __syncthreads();
-    for (int idx = t; idx < R * P; idx += NT) {
-      const int r = idx / P, j = idx - r * P;
-      const float v = dest[r * L.lP + j] + dhin[r * L.lHX + NH + j];
-      dest[r * L.lP + j] = v;
-      if (r < nrows) ct.d_est[srow(k - 1, r) * P + j] = v;
-    }
-    __syncthreads();
-    // injected d h_k = d_dhid_in[:NH] + d_est @ w_pitch^T
-    matvec_t<R>(w.w_pitch, P, NH, P, dest, L.lP, dhin, L.lHX, true, R);
-    __syncthreads();
-    // note-GRU step k backward
-    for (int idx = t; idx < R * NH; idx += NT) {
-      const int r = idx / NH, j = idx - r * NH, rr = r < nrows ? r : 0;
-      const float dhk = dh[r * L.lNH + j] + dhin[r * L.lHX + j];
-      const float hp = to_f(st.hs[srow(k - 1, rr) * NH + j]);
-      float* dgi_ = dgi + r * L.l3NH;
-      float* dgh_ = dgh + r * L.l3NH;
-      dh[r * L.lNH + j] = gru_bwd(dhk, hp, st.ng + srow(k - 1, rr) * 4 * NH,
-                                  NH, j, dgi_, dgh_);
-      for (int c = 0; c < 3; ++c) {
-        dgif[r * L.l3NH + c * NH + j] += dgi_[c * NH + j];
-        if (r < nrows) {
-          ct.d_gi[srow(k - 1, r) * NH3 + c * NH + j] = dgi_[c * NH + j];
-          ct.d_gh[srow(k - 1, r) * NH3 + c * NH + j] = dgh_[c * NH + j];
-        }
-      }
-    }
-    __syncthreads();
-    matvec_t<R>(w.w_hh, NH3, NH, NH3, dgh, L.l3NH, dh, L.lNH, true, R);
-    matvec_t<R>(w.w_ih_tok, NH3, E, NH3, dgi, L.l3NH, dtok, L.lE, false, R);
-    __syncthreads();
-    // slot k's embedding feeds the summary and, unless the coin took the
-    // ground truth, the next slot's token
-    for (int idx = t; idx < nrows * E; idx += NT) {
-      const int r = idx / E, e = idx - r * E;
-      const float dn = dtokn[r * L.lE + e];
-      ct.d_emb[srow(k - 1, r) * E + e] =
-          dpred[r * L.lPR + k * L.lE + e] + (coin[k] != 0 ? 0.0f : dn);
-      d_x_emb[((size_t)(row0 + r) * K + k) * E + e] =
-          from_f<T>(coin[k] != 0 ? dn : 0.0f);
-    }
-    __syncthreads();
-    for (int idx = t; idx < R * E; idx += NT) {
-      const int r = idx / E, e = idx - r * E;
-      dtokn[r * L.lE + e] = dtok[r * L.lE + e];
-    }
-    __syncthreads();
-  }
-  for (int idx = t; idx < nrows * E; idx += NT) {
-    const int r = idx / E, e = idx - r * E;
-    d_x_emb[(size_t)(row0 + r) * K * E + e] =
-        from_f<T>(dtokn[r * L.lE + e] + dpred[r * L.lPR + e]);
-  }
-  for (int idx = t; idx < nrows * NH; idx += NT) {
-    const int r = idx / NH, j = idx - r * NH;
-    ct.dh0[(size_t)(row0 + r) * NH + j] = dh[r * L.lNH + j];
-  }
-  for (int idx = t; idx < nrows * NH3; idx += NT) {
-    const int r = idx / NH3, j = idx - r * NH3;
-    ct.d_gif[(size_t)(row0 + r) * NH3 + j] = dgif[r * L.l3NH + j];
-  }
-  // d frame_h = dh0 @ w_t2n^T + d_gi_frame @ w_ih_frame^T, summed in f32
-  // and rounded once to T
-  matvec_t<R>(w.w_t2n, NH, TH, NH, dh, L.lNH, dfh, L.lTH, false, R);
-  __syncthreads();
-  matvec_t<R>(w.w_ih_frame, NH3, TH, NH3, dgif, L.l3NH, dfh, L.lTH, true, R);
-  __syncthreads();
-  for (int idx = t; idx < nrows * TH; idx += NT) {
-    const int r = idx / TH, j = idx - r * TH;
-    d_frame_h[(size_t)(row0 + r) * TH + j] = from_f<T>(dfh[r * L.lTH + j]);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1357,6 +1007,748 @@ wgrad_reduce_kernel(const __grid_constant__ WgradTable<T> tab, int total) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// K2a: the reverse chain in the phases of _frame_bwd_core
+// ---------------------------------------------------------------------------
+
+// K2a's blocks: eight warps. A row group is BW_M rows, the m of
+// mma.m16n8k8; every product is a group's rows against weight rows.
+constexpr int BW_THREADS = 256;
+constexpr int BW_WARPS = BW_THREADS / 32;
+constexpr int BW_M = 16;
+constexpr int BW_STAGE = 384;  // k of a cotangent chunk that 2d stages
+constexpr int BW_TILE = 128;   // output columns of a 2d item
+constexpr int BW_MAX_CLUSTER = 16;
+
+__host__ __device__ inline int pad16(int x) { return (x + 15) & ~15; }
+__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+// row stride (floats) of a split A plane holding k < K (zeros up to a
+// multiple of 32): an odd number of 16-byte units, so that the two rows a
+// quarter-warp reads (16 bytes a lane, 32 bytes apart) fall in different
+// banks
+__host__ __device__ inline int a_ld(int K) { return ((K + 31) & ~31) + 4; }
+// row stride (elements) of w_dhh staged in T: f32 as a_ld; bf16 (16 bytes
+// a lane, contiguous) rows 64 bytes apart mod 128
+template <typename T>
+__host__ __device__ inline int w_ld(int K) {
+  return sizeof(T) == sizeof(float) ? a_ld(K) : ((K + 63) & ~63) + 32;
+}
+
+// x into the split A planes at i: hi = tf32(x), lo = tf32(x - hi)
+__device__ __forceinline__ void put_split(float* Ah, float* Al, int i,
+                                          float x) {
+  const unsigned h = tf32_rna(x);
+  Ah[i] = __uint_as_float(h);
+  Al[i] = __uint_as_float(tf32_rna(x - __uint_as_float(h)));
+}
+
+// W[k .. k + 7] of a bf16 weight row as its raw bits, zero from k = kw on;
+// vec16: the row is 16-byte aligned (one vector load where k + 8 <= kw)
+__device__ __forceinline__ uint4 ld_w8(const __nv_bfloat16* row, int k,
+                                       int kw, bool vec16) {
+  if (vec16 && k + 8 <= kw) return *reinterpret_cast<const uint4*>(row + k);
+  unsigned short v[8];
+#pragma unroll
+  for (int u = 0; u < 8; ++u)
+    v[u] = k + u < kw ? __bfloat16_as_ushort(row[k + u]) : 0;
+  return make_uint4(v[0] | (unsigned)v[1] << 16, v[2] | (unsigned)v[3] << 16,
+                    v[4] | (unsigned)v[5] << 16, v[6] | (unsigned)v[7] << 16);
+}
+
+// W[k .. k + 7] of an f32 weight row, zero from k = kw on (two 16-byte
+// loads where the row is 16-byte aligned and k + 8 <= kw)
+struct W8 {
+  float4 a, b;
+};
+__device__ __forceinline__ W8 ld_w8f(const float* row, int k, int kw,
+                                     bool vec16) {
+  if (vec16 && k + 8 <= kw)
+    return {*reinterpret_cast<const float4*>(row + k),
+            *reinterpret_cast<const float4*>(row + k + 4)};
+  float v[8];
+#pragma unroll
+  for (int u = 0; u < 8; ++u) v[u] = k + u < kw ? row[k + u] : 0.0f;
+  return {make_float4(v[0], v[1], v[2], v[3]),
+          make_float4(v[4], v[5], v[6], v[7])};
+}
+
+// acc[ni] += the warp's 16 x 8 piece ni of out[m][n] = sum_k A[m][ka + k]
+// W[n][k], n = n0 + 8 ni + (0..7), over k < kspan, f32-accurate on the
+// tensor cores. A: split planes in shared memory (hi = tf32(x), lo =
+// tf32(x - hi), row stride lda), zero or finite past their k up to a
+// multiple of 32 (W is zero there). W: row n at W + n ldw (global or
+// shared memory), k < kw; rows n >= N and k >= kw count as zero. In 32-k
+// blocks: lane (g, t) holds k = 8t .. 8t + 7 of A rows g, g + 8 and of W
+// row g, and its four mmas take the pairs (8t + 2m, 8t + 2m + 1), m =
+// 0..3, as their k = t, t + 4 (the product sums over every k, so any
+// pairing that A and W share gives the same sum); so a piece's W values of
+// a block are one 16-byte load (bf16) or two (f32), issued together: the
+// loads, not the products, set the pace of these small products. f32 W:
+// three passes lo.hi + hi.lo + hi.hi (3xTF32), pass by pass over the
+// pieces so that an mma never waits on the one just issued; bf16 W is
+// exact in TF32: lo.W + hi.W. Each block sums in a fresh fragment added to
+// acc in f32, as wgrad_kernel does.
+template <int NTL, typename T>
+__device__ __forceinline__ void mma_rows(const float* Ah, const float* Al,
+                                           int lda, int ka, const T* W,
+                                           long long ldw, int kw, int n0,
+                                           int N, int kspan,
+                                           float (&acc)[NTL][4]) {
+  constexpr bool split_w = sizeof(T) == sizeof(float);
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const bool vec16 = ((reinterpret_cast<uintptr_t>(W) |
+                       static_cast<uintptr_t>(ldw * (long long)sizeof(T))) &
+                      15) == 0;
+  const float* ah = Ah + g * lda + ka + 8 * t;
+  const float* al = Al + g * lda + ka + 8 * t;
+  const T* wg = W + (long long)(n0 + g) * ldw;
+  const int span = (kspan + 31) & ~31;
+  for (int kb = 0; kb < span; kb += 32) {
+    // this block's W values of each piece, as 8 floats
+    float wv[NTL][8];
+#pragma unroll
+    for (int ni = 0; ni < NTL; ++ni) {
+      const bool ok = n0 + 8 * ni + g < N;
+      if constexpr (split_w) {
+        const W8 v = ok ? ld_w8f(wg + 8 * ni * ldw, kb + 8 * t, kw, vec16)
+                        : W8{make_float4(0.f, 0.f, 0.f, 0.f),
+                             make_float4(0.f, 0.f, 0.f, 0.f)};
+        wv[ni][0] = v.a.x; wv[ni][1] = v.a.y; wv[ni][2] = v.a.z;
+        wv[ni][3] = v.a.w; wv[ni][4] = v.b.x; wv[ni][5] = v.b.y;
+        wv[ni][6] = v.b.z; wv[ni][7] = v.b.w;
+      } else {
+        const uint4 v = ok ? ld_w8(wg + 8 * ni * ldw, kb + 8 * t, kw, vec16)
+                           : make_uint4(0u, 0u, 0u, 0u);
+        const unsigned words[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          wv[ni][2 * q] = __uint_as_float(words[q] << 16);
+          wv[ni][2 * q + 1] = __uint_as_float(words[q] & 0xffff0000u);
+        }
+      }
+    }
+    float part[NTL][4];
+#pragma unroll
+    for (int q = 0; q < 4 * NTL; ++q) (&part[0][0])[q] = 0.0f;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const float4 h0 = *reinterpret_cast<const float4*>(ah + kb + 4 * half);
+      const float4 h1 =
+          *reinterpret_cast<const float4*>(ah + 8 * lda + kb + 4 * half);
+      const float4 l0 = *reinterpret_cast<const float4*>(al + kb + 4 * half);
+      const float4 l1 =
+          *reinterpret_cast<const float4*>(al + 8 * lda + kb + 4 * half);
+      const float hv0[4] = {h0.x, h0.y, h0.z, h0.w};
+      const float hv1[4] = {h1.x, h1.y, h1.z, h1.w};
+      const float lv0[4] = {l0.x, l0.y, l0.z, l0.w};
+      const float lv1[4] = {l1.x, l1.y, l1.z, l1.w};
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const int m = 2 * half + p;  // k pair (8t + 2m, 8t + 2m + 1)
+        const unsigned a_h[4] = {
+            __float_as_uint(hv0[2 * p]), __float_as_uint(hv1[2 * p]),
+            __float_as_uint(hv0[2 * p + 1]), __float_as_uint(hv1[2 * p + 1])};
+        const unsigned a_l[4] = {
+            __float_as_uint(lv0[2 * p]), __float_as_uint(lv1[2 * p]),
+            __float_as_uint(lv0[2 * p + 1]), __float_as_uint(lv1[2 * p + 1])};
+        unsigned b_h[NTL][2], b_l[NTL][2];
+#pragma unroll
+        for (int ni = 0; ni < NTL; ++ni)
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const float x = wv[ni][2 * m + q];
+            b_h[ni][q] = split_w ? tf32_rna(x) : __float_as_uint(x);
+            b_l[ni][q] =
+                split_w ? tf32_rna(x - __uint_as_float(b_h[ni][q])) : 0u;
+          }
+#pragma unroll
+        for (int ni = 0; ni < NTL; ++ni) mma_tf32(part[ni], a_l, b_h[ni]);
+        if (split_w) {
+#pragma unroll
+          for (int ni = 0; ni < NTL; ++ni) mma_tf32(part[ni], a_h, b_l[ni]);
+        }
+#pragma unroll
+        for (int ni = 0; ni < NTL; ++ni) mma_tf32(part[ni], a_h, b_h[ni]);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 4 * NTL; ++q) (&acc[0][0])[q] += (&part[0][0])[q];
+  }
+}
+
+// The element (m, n) of fragment element q of piece ni: m = g + 8 (q / 2),
+// n = n0 + 8 ni + 2t + q % 2.
+__device__ __forceinline__ int frag_m(int q) {
+  return ((threadIdx.x & 31) >> 2) + 8 * (q >> 1);
+}
+__device__ __forceinline__ int frag_n(int n0, int ni, int q) {
+  return n0 + 8 * ni + 2 * (threadIdx.x & 3) + (q & 1);
+}
+
+// acc -> out[m][n] (row stride ldo) for n < N
+template <int NTL>
+__device__ __forceinline__ void store_rows(const float (&acc)[NTL][4],
+                                           float* out, int ldo, int n0,
+                                           int N) {
+#pragma unroll
+  for (int ni = 0; ni < NTL; ++ni)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int n = frag_n(n0, ni, q);
+      if (n < N) out[frag_m(q) * ldo + n] = acc[ni][q];
+    }
+}
+
+// ---- 2b: the slot rows' logit cotangents, duration chains and heads
+
+// Shared memory of train_bwd_slots_kernel (offsets in floats): the split A
+// planes X (d_ghd, then d_hd, then d_est) and Y (d_gid at the first
+// duration step), w_dhh staged in T, d_dhid_in (over Y, after the chain),
+// the chain's d_hd, its direct share and product, the pitch-logit
+// cotangent and the duration-logit cotangents.
+struct SlotLayout {
+  int lx, ly, lwd, ldi, lD, lP;
+  int o_xh, o_xl, o_wd, o_yh, o_yl, o_dhin, o_dhd, o_dir, o_tmp, o_dest,
+      o_dl, n_floats;
+};
+
+template <typename T>
+__host__ __device__ inline SlotLayout slot_layout(const TrainWeightsT<T>& w) {
+  SlotLayout L;
+  const int DH3 = 3 * w.DH;
+  L.lx = a_ld(imax(DH3, w.P));
+  L.ly = a_ld(DH3);
+  L.lwd = w_ld<T>(DH3);
+  L.ldi = pad4(w.NH + w.P);
+  L.lD = pad4(w.DH);
+  L.lP = pad4(w.P);
+  int o = 0;
+  L.o_xh = o; o += BW_M * L.lx;
+  L.o_xl = o; o += BW_M * L.lx;
+  L.o_wd = o; o += (w.DH * L.lwd * (int)sizeof(T) + 15) / 16 * 4;
+  L.o_yh = L.o_dhin = o;
+  L.o_yl = o + BW_M * L.ly;
+  o += imax(2 * BW_M * L.ly, BW_M * L.ldi);
+  L.o_dhd = o; o += BW_M * L.lD;
+  L.o_dir = o; o += BW_M * L.lD;
+  L.o_tmp = o; o += BW_M * L.lD;
+  L.o_dest = o; o += BW_M * L.lP;
+  L.o_dl = o; o += BW_M * 2;
+  L.n_floats = o;
+  return L;
+}
+
+// One block a group of BW_M slot rows q = s B + b (rows of the (S, B, .)
+// stash and cotangents): 2b of _frame_bwd_core, writing d_log, d_gid,
+// d_ghd, d_sos, d_hd0, d_est and the note chain's injected cotangent
+// dh_inj = d_dhid_in[:, :NH] + d_est @ w_pitch^T (S, B, NH).
+template <typename T>
+__global__ void __launch_bounds__(BW_THREADS, 1)
+train_bwd_slots_kernel(TrainWeightsT<T> w, int B,
+                       const int* __restrict__ gt_pitch,
+                       const int* __restrict__ gt_dur,
+                       const float* __restrict__ d_nums,
+                       const T* __restrict__ d_pitch,
+                       const T* __restrict__ d_dur, TrainStashT<T> st,
+                       TrainCotangents ct, float* __restrict__ dh_inj,
+                       int logits) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const SlotLayout L = slot_layout(w);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int NH = w.NH, DH = w.DH, DH3 = 3 * w.DH, P = w.P, W = w.W;
+  const int S = w.K - 1, q0 = blockIdx.x * BW_M;
+  const int nrows = min(BW_M, S * B - q0);
+  float *Xh = sm + L.o_xh, *Xl = sm + L.o_xl, *Yh = sm + L.o_yh,
+        *Yl = sm + L.o_yl, *dhin = sm + L.o_dhin, *dhd = sm + L.o_dhd,
+        *dir = sm + L.o_dir, *tmp = sm + L.o_tmp, *dest = sm + L.o_dest,
+        *dl = sm + L.o_dl;
+  T* Wd = reinterpret_cast<T*>(sm + L.o_wd);
+
+  for (int i = tid; i < 2 * BW_M * L.lx; i += BW_THREADS) Xh[i] = 0.0f;
+  for (int i = tid; i < 2 * BW_M * L.ly; i += BW_THREADS) Yh[i] = 0.0f;
+  for (int i = tid; i < DH * DH3; i += BW_THREADS)
+    Wd[i / DH3 * L.lwd + i % DH3] = w.w_dhh[i];
+  for (int i = tid; i < BW_M * L.lD; i += BW_THREADS) dhd[i] = 0.0f;
+  // the pitch-logit cotangent of each row: given (logits out), or the
+  // CE's g0 * mask * (softmax - onehot) (loss mode), a warp a row
+  for (int r = warp; r < BW_M; r += BW_WARPS) {
+    float* y = dest + r * L.lP;
+    const int q = q0 + r, s = q / B, b = q - s * B;
+    if (r >= nrows) {
+      for (int j = lane; j < P; j += 32) y[j] = 0.0f;
+    } else if (logits) {
+      const T* dp = d_pitch + ((size_t)b * S + s) * P;
+      for (int j = lane; j < P; j += 32) y[j] = to_f(dp[j]);
+    } else {
+      const T* est = st.est + (size_t)q * P;
+      const int gt = gt_pitch[(size_t)b * S + s];
+      const float lse = warp_lse(est, P, lane);
+      const float gm = gt != w.pitch_pad ? d_nums[0] : 0.0f;
+      for (int j = lane; j < P; j += 32)
+        y[j] = gm * (expf(to_f(est[j]) - lse) - (j == gt ? 1.0f : 0.0f));
+    }
+  }
+
+  // the duration chains backward, steps W-1 .. 0
+  for (int ws = W - 1; ws >= 0; --ws) {
+    if (tid < BW_M) {
+      const int r = tid, q = q0 + r, s = q / B, b = q - s * B;
+      float d0 = 0.0f, d1 = 0.0f;
+      if (r < nrows) {
+        if (logits) {
+          const T* dd = d_dur + (((size_t)b * S + s) * W + ws) * 2;
+          d0 = to_f(dd[0]);
+          d1 = to_f(dd[1]);
+        } else {
+          const T* lg = st.dlog + ((size_t)q * W + ws) * 2;
+          const float l0 = to_f(lg[0]), l1 = to_f(lg[1]);
+          const int gt = gt_dur[((size_t)b * S + s) * W + ws];
+          const float lse = lse2(l0, l1);
+          const float gm = gt != w.dur_pad ? d_nums[1 + ws] : 0.0f;
+          d0 = gm * (expf(l0 - lse) - (gt == 0 ? 1.0f : 0.0f));
+          d1 = gm * (expf(l1 - lse) - (gt == 1 ? 1.0f : 0.0f));
+        }
+        float* o = ct.d_log + ((size_t)q * W + ws) * 2;
+        o[0] = d0;
+        o[1] = d1;
+      }
+      dl[2 * r] = d0;
+      dl[2 * r + 1] = d1;
+    }
+    __syncthreads();
+    // IT items a thread at a time, every item's loads issued first
+    constexpr int IT = 4;
+    for (int i0 = tid; i0 < BW_M * DH; i0 += IT * BW_THREADS) {
+      float hp[IT];
+      Gates gt[IT];
+#pragma unroll
+      for (int u = 0; u < IT; ++u) {
+        const int i = min(i0 + u * BW_THREADS, BW_M * DH - 1);
+        const int r = i / DH, j = i - r * DH;
+        const size_t q = q0 + (r < nrows ? r : 0);
+        hp[u] = to_f(st.hd[(q * (W + 1) + ws) * DH + j]);
+        gt[u] = load_gates(st.dg + (q * W + ws) * 4 * DH, DH, j);
+      }
+#pragma unroll
+      for (int u = 0; u < IT; ++u) {
+        const int i = i0 + u * BW_THREADS;
+        if (i >= BW_M * DH) break;
+        const int r = i / DH, j = i - r * DH;
+        const bool ok = r < nrows;
+        const size_t qw = (q0 + (ok ? r : 0)) * (size_t)W + ws;
+        const float dlogit = dl[2 * r] * ldg_f(w.w_dout + 2 * j) +
+                             dl[2 * r + 1] * ldg_f(w.w_dout + 2 * j + 1);
+        const float dhv = ok ? dhd[r * L.lD + j] + dlogit : 0.0f;
+        float dgi[3], dgh[3];
+        dir[r * L.lD + j] = gru_bwd(dhv, hp[u], gt[u], dgi, dgh);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          put_split(Xh, Xl, r * L.lx + c * DH + j, dgh[c]);
+          if (ws == 0) put_split(Yh, Yl, r * L.ly + c * DH + j, dgi[c]);
+          if (ok) {
+            ct.d_gid[qw * DH3 + c * DH + j] = dgi[c];
+            ct.d_ghd[qw * DH3 + c * DH + j] = dgh[c];
+          }
+        }
+      }
+    }
+    __syncthreads();
+    // d_hd = direct + d_ghd @ w_dhh^T (w_dhh staged), and at the first
+    // step d_sos = d_gid @ w_dih^T (the last warp)
+    for (int nt = warp; nt < (DH + 7) / 8; nt += BW_WARPS) {
+      float acc[1][4] = {};
+      mma_rows<1, T>(Xh, Xl, L.lx, 0, Wd, L.lwd, DH3, 8 * nt, DH,
+                     pad16(DH3), acc);
+      store_rows<1>(acc, tmp, L.lD, 8 * nt, DH);
+    }
+    if (ws == 0 && warp == BW_WARPS - 1) {
+      for (int nt = 0; nt < (W + 7) / 8; ++nt) {
+        float acc[1][4] = {};
+        mma_rows<1, T>(Yh, Yl, L.ly, 0, w.w_dih, DH3, DH3, 8 * nt, W,
+                       pad16(DH3), acc);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int m = frag_m(q), n = frag_n(8 * nt, 0, q);
+          if (m < nrows && n < W) ct.d_sos[(size_t)(q0 + m) * W + n] =
+              acc[0][q];
+        }
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < BW_M * DH; i += BW_THREADS) {
+      const int r = i / DH, j = i - r * DH;
+      dhd[r * L.lD + j] = dir[r * L.lD + j] + tmp[r * L.lD + j];
+    }
+  }
+  __syncthreads();
+  // d_hd0, and d_hd into X for d_dhid_in = d_hd @ w_dhid^T
+  for (int i = tid; i < BW_M * pad16(DH); i += BW_THREADS) {
+    const int r = i / pad16(DH), j = i - r * pad16(DH);
+    const float v = j < DH ? dhd[r * L.lD + j] : 0.0f;
+    put_split(Xh, Xl, r * L.lx + j, v);
+    if (r < nrows && j < DH) ct.d_hd0[(size_t)(q0 + r) * DH + j] = v;
+  }
+  __syncthreads();
+  const int NI = NH + P;
+  for (int n0 = 32 * warp; n0 < NI; n0 += 32 * BW_WARPS) {
+    float acc[4][4] = {};
+    mma_rows<4, T>(Xh, Xl, L.lx, 0, w.w_dhid, DH, DH, n0, NI, pad16(DH),
+                   acc);
+    store_rows<4>(acc, dhin, L.ldi, n0, NI);
+  }
+  __syncthreads();
+  // d_est = the logit cotangent + d_dhid_in[:, NH:], into X
+  for (int i = tid; i < BW_M * pad16(P); i += BW_THREADS) {
+    const int r = i / pad16(P), p = i - r * pad16(P);
+    const float v = p < P ? dest[r * L.lP + p] + dhin[r * L.ldi + NH + p]
+                          : 0.0f;
+    put_split(Xh, Xl, r * L.lx + p, v);
+    if (r < nrows && p < P) ct.d_est[(size_t)(q0 + r) * P + p] = v;
+  }
+  __syncthreads();
+  // dh_inj = d_dhid_in[:, :NH] + d_est @ w_pitch^T
+  for (int n0 = 64 * warp; n0 < NH; n0 += 64 * BW_WARPS) {
+    float acc[8][4] = {};
+    mma_rows<8, T>(Xh, Xl, L.lx, 0, w.w_pitch, P, P, n0, NH, pad16(P), acc);
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int m = frag_m(q), n = frag_n(n0, ni, q);
+        if (m < nrows && n < NH)
+          dh_inj[(size_t)(q0 + m) * NH + n] = dhin[m * L.ldi + n] +
+                                              acc[ni][q];
+      }
+  }
+}
+
+// ---- 2a and 2c: the serial chains
+
+// Shared memory of train_bwd_chain_kernel: the larger of its two roles'.
+// A note-chain block (C blocks a cluster, U = NH / C units each): the split
+// planes of its d_gh columns (3 segments of pad16(U)), two planes of
+// partial products [BW_M][NH] (the step's and the last step's), and its
+// units' d h, direct shares and d_gi_frame sums. A summary block: the split
+// planes of d_gh (3EH), d h and the product.
+template <typename T>
+__host__ __device__ inline int chain_floats(const TrainWeightsT<T>& w,
+                                            int C) {
+  const int U = w.NH / C;
+  const int note = 2 * BW_M * a_ld(3 * pad16(U)) + 2 * BW_M * w.NH +
+                   BW_M * 5 * U;
+  const int summ = 2 * BW_M * a_ld(3 * w.EH) + 2 * BW_M * pad4(w.EH);
+  return imax(note, summ);
+}
+
+// The grid: G = ceil(B / BW_M) row groups. Blocks [0, C G), clusters of C:
+// the note-GRU reverse recurrence (2c) of a row group, each block owning
+// NH / C hidden units: per slot, gru_bwd on its units (writing d_gi,
+// d_gh), its columns of d_gh @ w_hh^T for all NH units into its partial
+// plane, then a cluster barrier, and each block sums its units' partials
+// from the C blocks' planes in rank order (distributed shared memory).
+// Then 2 G blocks, one a (direction, row group), run the summary bi-GRU
+// backward (2a), writing d_sgi and d_sgh; and the blocks up to the next
+// multiple of C idle. `roles` (bit 0 the note chain, bit 1 the summary
+// chain) lets a timing run one chain alone; the other's blocks return.
+template <typename T>
+__global__ void __launch_bounds__(BW_THREADS, 2)
+train_bwd_chain_kernel(TrainWeightsT<T> w, int B, int G,
+                       const int* __restrict__ lengths,
+                       const T* __restrict__ d_summ,
+                       const float* __restrict__ dh_inj, TrainStashT<T> st,
+                       TrainCotangents ct, int roles) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = cluster.num_blocks();
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int NH = w.NH, NH3 = 3 * w.NH, EH = w.EH, EH3 = 3 * w.EH, K = w.K;
+  if ((int)blockIdx.x >= C * G) {
+    // 2a: one direction of the summary bi-GRU over a row group
+    if (!(roles & 2)) return;
+    const int idx = blockIdx.x - C * G, d = idx & 1, b0 = (idx >> 1) * BW_M;
+    if (b0 >= B) return;
+    const int nrows = min(BW_M, B - b0), lda = a_ld(EH3), lE = pad4(EH);
+    float *Ah = sm, *Al = Ah + BW_M * lda, *dsum = Al + BW_M * lda,
+          *prod = dsum + BW_M * lE;
+    for (int i = tid; i < 2 * BW_M * lda; i += BW_THREADS) Ah[i] = 0.0f;
+    for (int i = tid; i < BW_M * EH; i += BW_THREADS) {
+      const int r = i / EH, j = i - r * EH;
+      dsum[r * lE + j] =
+          r < nrows ? to_f(d_summ[(size_t)(b0 + r) * 2 * EH + d * EH + j])
+                    : 0.0f;
+    }
+    __syncthreads();
+    const T* whh = w.we_hh + (size_t)d * EH * EH3;
+    for (int k = K - 1; k >= 0; --k) {
+      const int slot = d == 0 ? k : K - 1 - k;
+      // IT items a thread at a time, every item's loads issued first
+      constexpr int IT = 8;
+      for (int i0 = tid; i0 < BW_M * EH; i0 += IT * BW_THREADS) {
+        float hp[IT];
+        Gates gt[IT];
+#pragma unroll
+        for (int u = 0; u < IT; ++u) {
+          const int i = min(i0 + u * BW_THREADS, BW_M * EH - 1);
+          const int r = i / EH, j = i - r * EH;
+          const size_t q =
+              ((size_t)d * K + k) * B + b0 + (r < nrows ? r : 0);
+          hp[u] = to_f(st.sh[q * EH + j]);
+          gt[u] = load_gates(st.sg + q * 4 * EH, EH, j);
+        }
+#pragma unroll
+        for (int u = 0; u < IT; ++u) {
+          const int i = i0 + u * BW_THREADS;
+          if (i >= BW_M * EH) break;
+          const int r = i / EH, j = i - r * EH;
+          const bool ok = r < nrows;
+          const float m = ok && slot < lengths[b0 + r] ? 1.0f : 0.0f;
+          const size_t q = ((size_t)d * K + k) * B + b0 + (ok ? r : 0);
+          const float ds = dsum[r * lE + j];
+          float dgi[3], dgh[3];
+          const float direct = gru_bwd(m * ds, hp[u], gt[u], dgi, dgh);
+          const size_t qs = ((size_t)d * K + slot) * B + b0 + r;
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            put_split(Ah, Al, r * lda + c * EH + j, dgh[c]);
+            if (ok) {
+              ct.d_sgi[qs * EH3 + c * EH + j] = dgi[c];
+              ct.d_sgh[q * EH3 + c * EH + j] = dgh[c];
+            }
+          }
+          dsum[r * lE + j] = (1.0f - m) * ds + direct;
+        }
+      }
+      __syncthreads();
+      for (int n0 = 16 * warp; n0 < EH; n0 += 16 * BW_WARPS) {
+        float acc[2][4] = {};
+        mma_rows<2, T>(Ah, Al, lda, 0, whh, EH3, EH3, n0, EH, pad16(EH3),
+                       acc);
+        store_rows<2>(acc, prod, lE, n0, EH);
+      }
+      __syncthreads();
+      for (int i = tid; i < BW_M * EH; i += BW_THREADS) {
+        const int r = i / EH, j = i - r * EH;
+        dsum[r * lE + j] += prod[r * lE + j];
+      }
+    }
+    return;
+  }
+  // 2c: this block's units [j0, j0 + U) of a row group (a cluster's
+  // blocks return together)
+  if (!(roles & 1)) return;
+  const int c = cluster.block_rank(), U = NH / C, j0 = c * U;
+  const int Us = pad16(U), lda = a_ld(3 * Us), S = K - 1;
+  const int b0 = blockIdx.x / C * BW_M, nrows = min(BW_M, B - b0);
+  float *Ah = sm, *Al = Ah + BW_M * lda, *part = Al + BW_M * lda,
+        *dhn = part + 2 * BW_M * NH, *dir = dhn + BW_M * U,
+        *dgif = dir + BW_M * U;
+  for (int i = tid; i < 2 * BW_M * lda; i += BW_THREADS) Ah[i] = 0.0f;
+  for (int i = tid; i < BW_M * U; i += BW_THREADS) dhn[i] = 0.0f;
+  for (int i = tid; i < BW_M * 3 * U; i += BW_THREADS) dgif[i] = 0.0f;
+  __syncthreads();
+  // d h_prev of this block's units: the C blocks' partials summed in rank
+  // order, four units a thread, every block's value loaded before the sum
+  auto reduce = [&](const float* plane) {
+    for (int i = tid; i < BW_M * U / 4; i += BW_THREADS) {
+      const int r = i / (U / 4), u = 4 * (i - r * (U / 4));
+      float4 p[BW_MAX_CLUSTER];
+#pragma unroll
+      for (int cc = 0; cc < BW_MAX_CLUSTER; ++cc)
+        if (cc < C)
+          p[cc] = *reinterpret_cast<const float4*>(
+              cluster.map_shared_rank(plane, cc) + r * NH + j0 + u);
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int cc = 0; cc < BW_MAX_CLUSTER; ++cc)
+        if (cc < C) {
+          v.x += p[cc].x;
+          v.y += p[cc].y;
+          v.z += p[cc].z;
+          v.w += p[cc].w;
+        }
+      float* dh = dhn + r * U + u;
+      const float* dd = dir + r * U + u;
+      dh[0] = dd[0] + v.x;
+      dh[1] = dd[1] + v.y;
+      dh[2] = dd[2] + v.z;
+      dh[3] = dd[3] + v.w;
+    }
+    __syncthreads();
+  };
+  for (int k = S; k >= 1; --k) {
+    const size_t s = k - 1;
+    float* mine = part + (k & 1) * BW_M * NH;
+    if (k < S) reduce(part + ((k + 1) & 1) * BW_M * NH);
+    // IT items a thread at a time, every item's loads issued first
+    constexpr int IT = 4;
+    for (int i0 = tid; i0 < BW_M * U; i0 += IT * BW_THREADS) {
+      float hp[IT], inj[IT];
+      Gates gt[IT];
+#pragma unroll
+      for (int u = 0; u < IT; ++u) {
+        const int i = min(i0 + u * BW_THREADS, BW_M * U - 1);
+        const int r = i / U, j = j0 + i - r * U;
+        const size_t q = s * B + b0 + (r < nrows ? r : 0);
+        hp[u] = to_f(st.hs[q * NH + j]);
+        inj[u] = dh_inj[q * NH + j];
+        gt[u] = load_gates(st.ng + q * 4 * NH, NH, j);
+      }
+#pragma unroll
+      for (int u = 0; u < IT; ++u) {
+        const int i = i0 + u * BW_THREADS;
+        if (i >= BW_M * U) break;
+        const int r = i / U, jj = i - r * U, j = j0 + jj;
+        const bool ok = r < nrows;
+        const size_t q = s * B + b0 + (ok ? r : 0);
+        const float dhk = ok ? dhn[i] + inj[u] : 0.0f;
+        float dgi[3], dgh[3];
+        dir[i] = gru_bwd(dhk, hp[u], gt[u], dgi, dgh);
+#pragma unroll
+        for (int g3 = 0; g3 < 3; ++g3) {
+          put_split(Ah, Al, r * lda + g3 * Us + jj, dgh[g3]);
+          dgif[r * 3 * U + g3 * U + jj] += dgi[g3];
+          if (ok) {
+            ct.d_gi[q * NH3 + g3 * NH + j] = dgi[g3];
+            ct.d_gh[q * NH3 + g3 * NH + j] = dgh[g3];
+          }
+        }
+      }
+    }
+    __syncthreads();
+    // this block's columns of d_gh @ w_hh^T, for every unit
+    for (int n0 = 32 * warp; n0 < NH; n0 += 32 * BW_WARPS) {
+      float acc[4][4] = {};
+#pragma unroll 1
+      for (int g3 = 0; g3 < 3; ++g3)
+        mma_rows<4, T>(Ah, Al, lda, g3 * Us, w.w_hh + g3 * NH + j0, NH3, U,
+                       n0, NH, Us, acc);
+      store_rows<4>(acc, mine, NH, n0, NH);
+    }
+    cluster.sync();
+  }
+  reduce(part + BW_M * NH);  // slot 1's partials: d h0
+  for (int i = tid; i < BW_M * U; i += BW_THREADS) {
+    const int r = i / U, jj = i - r * U, j = j0 + jj;
+    if (r >= nrows) continue;
+    const size_t b = b0 + r;
+    ct.dh0[b * NH + j] = dhn[i];
+#pragma unroll
+    for (int g3 = 0; g3 < 3; ++g3)
+      ct.d_gif[b * NH3 + g3 * NH + j] = dgif[r * 3 * U + g3 * U + jj];
+  }
+  cluster.sync();  // every block has read this block's partials
+}
+
+// ---- 2d: the token and embedding routes, and d_frame_h
+
+// k of the cotangent rows src (BW_M rows from row b0 of nrows, row stride
+// lds, K wide) staged in chunks of BW_STAGE into the split planes, each
+// chunk's products with W (row n at W + n ldw, k < K) added to acc by every
+// warp at its n0. Every thread of the block calls it.
+template <int NTL, typename T>
+__device__ __forceinline__ void staged_mma(const float* src, long long lds,
+                                           int nrows, int K, const T* W,
+                                           long long ldw, int n0, int N,
+                                           float* Ah, float* Al, int lda,
+                                           float (&acc)[NTL][4]) {
+  for (int kc = 0; kc < K; kc += BW_STAGE) {
+    // zeros up to a multiple of 32 k: the bf16 products read 32-k blocks
+    const int kl = min(BW_STAGE, K - kc), ks = (kl + 31) & ~31;
+    for (int i = threadIdx.x; i < BW_M * ks; i += BW_THREADS) {
+      const int r = i / ks, kk = i - r * ks;
+      put_split(Ah, Al, r * lda + kk,
+                r < nrows && kk < kl ? src[r * lds + kc + kk] : 0.0f);
+    }
+    __syncthreads();
+    mma_rows<NTL, T>(Ah, Al, lda, 0, W + kc, ldw, kl, n0, N, ks, acc);
+    __syncthreads();
+  }
+}
+
+template <typename T>
+__host__ __device__ inline int proj_floats(const TrainWeightsT<T>& w) {
+  return 2 * BW_M * a_ld(BW_STAGE) + 2 * BW_M * BW_TILE;
+}
+
+// Items: (slot k < K, row group, column tile of E) first, then (row group,
+// column tile of TH); BW_TILE columns an item, 16 a warp. A slot item
+// computes d_pred[k] = d_sgi[0, k] @ we_ih[0]^T + d_sgi[1, k] @ we_ih[1]^T
+// and d_tok = d_gi[k] @ w_ih_tok^T, the cotangent of the token slot k + 1
+// took (none for k = K-1), and routes them: d_emb[k-1] = d_pred[k] + (the
+// coin took the ground truth ? 0 : d_tok), d_x_emb[:, k] = (coin ? d_tok :
+// 0), d_x_emb[:, 0] = d_tok + d_pred[0]. A frame item computes d_frame_h =
+// dh0 @ w_t2n^T + d_gi_frame @ w_ih_frame^T, rounded once to T.
+template <typename T>
+__global__ void __launch_bounds__(BW_THREADS, 2)
+train_bwd_proj_kernel(TrainWeightsT<T> w, int B, int G,
+                      const int* __restrict__ coins,
+                      T* __restrict__ d_frame_h, T* __restrict__ d_x_emb,
+                      TrainCotangents ct) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int lda = a_ld(BW_STAGE);
+  float *Ah = sm, *Al = Ah + BW_M * lda, *Dp = Al + BW_M * lda,
+        *Dt = Dp + BW_M * BW_TILE;
+  const int NH = w.NH, NH3 = 3 * w.NH, E = w.E, EH3 = 3 * w.EH, K = w.K;
+  const int S = K - 1, TH = w.TH, warp = threadIdx.x >> 5;
+  const int tiles_e = (E + BW_TILE - 1) / BW_TILE;
+  int item = blockIdx.x;
+  if (item < K * G * tiles_e) {
+    const int k = item / (G * tiles_e);
+    item -= k * G * tiles_e;
+    const int b0 = item / tiles_e * BW_M, e0 = item % tiles_e * BW_TILE;
+    const int nrows = min(BW_M, B - b0), n0 = e0 + 16 * warp;
+    float acc[2][4] = {};
+    for (int d = 0; d < 2; ++d)
+      staged_mma<2, T>(ct.d_sgi + (((size_t)d * K + k) * B + b0) * EH3, EH3,
+                       nrows, EH3, w.we_ih + (size_t)d * E * EH3, EH3, n0, E,
+                       Ah, Al, lda, acc);
+    store_rows<2>(acc, Dp - e0, BW_TILE, n0, min(E, e0 + BW_TILE));
+    float tok[2][4] = {};
+    if (k < S)
+      staged_mma<2, T>(ct.d_gi + ((size_t)k * B + b0) * NH3, NH3, nrows,
+                       NH3, w.w_ih_tok, NH3, n0, E, Ah, Al, lda, tok);
+    store_rows<2>(tok, Dt - e0, BW_TILE, n0, min(E, e0 + BW_TILE));
+    __syncthreads();
+    const int ne = min(BW_TILE, E - e0);
+    const bool coin = k > 0 && coins[k - 1] != 0;
+    for (int i = threadIdx.x; i < nrows * ne; i += BW_THREADS) {
+      const int r = i / ne, e = i - r * ne;
+      const size_t b = b0 + r;
+      const float dp = Dp[r * BW_TILE + e], dt = Dt[r * BW_TILE + e];
+      T* dx = d_x_emb + (b * K + k) * E + e0 + e;
+      if (k == 0) {
+        *dx = from_f<T>(dt + dp);
+      } else {
+        ct.d_emb[((size_t)(k - 1) * B + b) * E + e0 + e] =
+            dp + (coin ? 0.0f : dt);
+        *dx = from_f<T>(coin ? dt : 0.0f);
+      }
+    }
+    return;
+  }
+  item -= K * G * tiles_e;
+  const int tiles_t = (TH + BW_TILE - 1) / BW_TILE;
+  const int b0 = item / tiles_t * BW_M, n0 = item % tiles_t * BW_TILE +
+                                              16 * warp;
+  const int nrows = min(BW_M, B - b0);
+  float acc[2][4] = {};
+  staged_mma<2, T>(ct.dh0 + (size_t)b0 * NH, NH, nrows, NH, w.w_t2n, NH, n0,
+                   TH, Ah, Al, lda, acc);
+  staged_mma<2, T>(ct.d_gif + (size_t)b0 * NH3, NH3, nrows, NH3,
+                   w.w_ih_frame, NH3, n0, TH, Ah, Al, lda, acc);
+#pragma unroll
+  for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int m = frag_m(q), n = frag_n(n0, ni, q);
+      if (m < nrows && n < TH)
+        d_frame_h[(size_t)(b0 + m) * TH + n] = from_f<T>(acc[ni][q]);
+    }
+}
+
 template <typename Kern>
 cudaError_t prepare_train(Kern kern, size_t bytes) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1396,34 +1788,131 @@ cudaError_t train_fwd(const TrainWeightsT<T>* w, int B, int R,
   return cudaGetLastError();
 }
 
-// K2a in either mode (see train_bwd_kernel).
 template <typename T>
-cudaError_t train_bwd(const TrainWeightsT<T>* w, int B, int R,
-                      const int* coins, const int* gt_pitch,
+cudaError_t prepare_chain(const TrainWeightsT<T>& w, int C, size_t* bytes) {
+  if (C < 1 || C > BW_MAX_CLUSTER || (C & (C - 1)) || w.NH % (4 * C))
+    return cudaErrorInvalidValue;
+  *bytes = sizeof(float) * (size_t)chain_floats(w, C);
+  cudaError_t e = prepare_train(train_bwd_chain_kernel<T>, *bytes);
+  if (e == cudaSuccess && C > 8)
+    e = cudaFuncSetAttribute(train_bwd_chain_kernel<T>,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             1);
+  return e;
+}
+
+template <typename T>
+cudaLaunchConfig_t chain_config(const TrainWeightsT<T>& w, int B, int C,
+                                size_t bytes, cudaStream_t s,
+                                cudaLaunchAttribute* attr) {
+  const int G = (B + BW_M - 1) / BW_M;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C * G + (2 * G + C - 1) / C * C);
+  cfg.blockDim = dim3(BW_THREADS);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = s;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// How many clusters of C blocks of the chain kernel the card holds at once
+// (cudaOccupancyMaxActiveClusters; 0 if it cannot say), cached by size.
+template <typename T>
+int chain_clusters_at_once(const TrainWeightsT<T>& w, int C) {
+  static int cached_c = 0, cached_floats = 0, cached = 0;
+  size_t bytes = 0;
+  if (prepare_chain(w, C, &bytes) != cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  if (C == cached_c && chain_floats(w, C) == cached_floats) return cached;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = chain_config(w, C * BW_M, C, bytes, nullptr,
+                                              &attr);
+  int most = 0;
+  if (cudaOccupancyMaxActiveClusters(&most, train_bwd_chain_kernel<T>,
+                                     &cfg) != cudaSuccess) {
+    cudaGetLastError();
+    most = 0;
+  }
+  cached_c = C;
+  cached_floats = chain_floats(w, C);
+  cached = most;
+  return most;
+}
+
+// The cluster size of K2a's note chain: `cluster` if given; else 16 where
+// NH allows it and every cluster of the launch fits on the card at once
+// (the chain's steps then run on twice the SMs of 8: B = 128 at canonical
+// width), otherwise the largest of 8, 4, 2, 1 that leaves each block a
+// multiple of 4 units.
+template <typename T>
+int bwd_cluster(const TrainWeightsT<T>& w, int B, int cluster) {
+  if (cluster) return cluster;
+  const int G = (B + BW_M - 1) / BW_M;
+  if (w.NH % 64 == 0 &&
+      G + (2 * G + 15) / 16 <= chain_clusters_at_once(w, 16))
+    return 16;
+  int C = 8;
+  while (C > 1 && w.NH % (4 * C)) C >>= 1;
+  return C;
+}
+
+// K2a in either mode: `phases` selects its phases (1: 2b, the slot-row
+// kernel; 2: 2c, the note chain, and 8: 2a, the summary chain, both in the
+// chain kernel; 4: 2d, the projection kernel; 15 all, the kernels in that
+// order: each reads what the ones before it wrote). dh_inj is the
+// wrapper's f32 scratch (K-1, B, NH).
+template <typename T>
+cudaError_t train_bwd(const TrainWeightsT<T>* w, int B, int phases,
+                      int cluster, const int* coins, const int* gt_pitch,
                       const int* gt_dur, const int* lengths,
                       const float* d_nums, const T* d_pitch, const T* d_dur,
                       const T* d_summ, T* d_frame_h, T* d_x_emb,
-                      const TrainStashT<T>* stash,
+                      float* dh_inj, const TrainStashT<T>* stash,
                       const TrainCotangents* cot, int logits, void* stream) {
-  if (B <= 0 || !(R == 1 || R == 2 || R == 4) || !stash || !cot)
+  if (B <= 0 || phases < 1 || phases > 15 || !stash || !cot || !dh_inj)
     return cudaErrorInvalidValue;
-  const size_t bytes = bwd_smem_bytes(*w, R);
-  const dim3 grid((B + R - 1) / R);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int G = (B + BW_M - 1) / BW_M, S = w->K - 1;
   cudaError_t e = cudaSuccess;
-#define PCTD_BWD(RR)                                                         \
-  e = prepare_train(train_bwd_kernel<RR, T>, bytes);                         \
-  if (e == cudaSuccess)                                                      \
-    train_bwd_kernel<RR, T><<<grid, NT, bytes, s>>>(                         \
-        *w, B, coins, gt_pitch, gt_dur, lengths, d_nums, d_pitch, d_dur,     \
-        d_summ, d_frame_h, d_x_emb, *stash, *cot, logits);
-  switch (R) {
-    case 1: PCTD_BWD(1) break;
-    case 2: PCTD_BWD(2) break;
-    default: PCTD_BWD(4) break;
+  if (phases & 1) {
+    const size_t bytes = sizeof(float) * (size_t)slot_layout(*w).n_floats;
+    e = prepare_train(train_bwd_slots_kernel<T>, bytes);
+    if (e != cudaSuccess) return e;
+    train_bwd_slots_kernel<T><<<(S * B + BW_M - 1) / BW_M, BW_THREADS, bytes,
+                                s>>>(*w, B, gt_pitch, gt_dur, d_nums,
+                                     d_pitch, d_dur, *stash, *cot, dh_inj,
+                                     logits);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
   }
-#undef PCTD_BWD
-  if (e != cudaSuccess) return e;
+  if (phases & 10) {
+    const int C = bwd_cluster(*w, B, cluster);
+    size_t bytes = 0;
+    e = prepare_chain(*w, C, &bytes);
+    if (e != cudaSuccess) return e;
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = chain_config(*w, B, C, bytes, s, &attr);
+    e = cudaLaunchKernelEx(&cfg, train_bwd_chain_kernel<T>, *w, B, G,
+                           lengths, d_summ, (const float*)dh_inj, *stash,
+                           *cot, (phases & 2 ? 1 : 0) | (phases & 8 ? 2 : 0));
+    if (e != cudaSuccess) return e;
+  }
+  if (phases & 4) {
+    const size_t bytes = sizeof(float) * (size_t)proj_floats(*w);
+    e = prepare_train(train_bwd_proj_kernel<T>, bytes);
+    if (e != cudaSuccess) return e;
+    const int items = w->K * G * ((w->E + BW_TILE - 1) / BW_TILE) +
+                      G * ((w->TH + BW_TILE - 1) / BW_TILE);
+    train_bwd_proj_kernel<T><<<items, BW_THREADS, bytes, s>>>(
+        *w, B, G, coins, d_frame_h, d_x_emb, *cot);
+  }
   return cudaGetLastError();
 }
 
@@ -1474,8 +1963,9 @@ cudaError_t train_wgrad(const WgradTaskT<T>* tasks, int n_tasks,
 }  // namespace
 
 // The C entry points: one per kernel, mode and storage type (suffix _bf16
-// for bfloat16; float otherwise). Shared memory does not depend on the
-// storage type (a block keeps its state in f32).
+// for bfloat16; float otherwise). K1's shared memory does not depend on
+// the storage type (a block keeps its state in f32); K2a's slot-row kernel
+// stages w_dhh in it, and the sizes reported are float's.
 #define PCTD_TRAIN_ENTRIES(T, SFX)                                           \
   /* K1, loss mode: CE numerators per row. */                                \
   int pctd_train_fwd##SFX(const TrainWeightsT<T>* w, int B,                  \
@@ -1499,28 +1989,28 @@ cudaError_t train_wgrad(const WgradTaskT<T>* tasks, int n_tasks,
                         nullptr, nullptr, nullptr, pitch_logits, dur_logits, \
                         summary, lengths, decisions, stash, 1, stream);      \
   }                                                                          \
-  /* K2a, loss mode: the CE cotangents from the targets and d_nums. */       \
-  int pctd_train_bwd##SFX(const TrainWeightsT<T>* w, int B,                  \
-                          int rows_per_block, const int* coins,              \
+  /* K2a, loss mode: the CE cotangents from the targets and d_nums. */     \
+  int pctd_train_bwd##SFX(const TrainWeightsT<T>* w, int B, int phases,      \
+                          int cluster, const int* coins,                     \
                           const int* gt_pitch, const int* gt_dur,            \
                           const int* lengths, const float* d_nums,           \
                           const T* d_summ, T* d_frame_h, T* d_x_emb,         \
-                          const TrainStashT<T>* stash,                       \
+                          float* dh_inj, const TrainStashT<T>* stash,        \
                           const TrainCotangents* cot, void* stream) {        \
-    return train_bwd<T>(w, B, rows_per_block, coins, gt_pitch, gt_dur,       \
+    return train_bwd<T>(w, B, phases, cluster, coins, gt_pitch, gt_dur,      \
                         lengths, d_nums, nullptr, nullptr, d_summ,           \
-                        d_frame_h, d_x_emb, stash, cot, 0, stream);          \
+                        d_frame_h, d_x_emb, dh_inj, stash, cot, 0, stream);  \
   }                                                                          \
   /* K2a, logits out: the logit cotangents d_pitch and d_dur given. */       \
   int pctd_train_bwd_logits##SFX(                                            \
-      const TrainWeightsT<T>* w, int B, int rows_per_block,                  \
+      const TrainWeightsT<T>* w, int B, int phases, int cluster,             \
       const int* coins, const int* lengths, const T* d_pitch,                \
       const T* d_dur, const T* d_summ, T* d_frame_h, T* d_x_emb,             \
-      const TrainStashT<T>* stash, const TrainCotangents* cot,               \
+      float* dh_inj, const TrainStashT<T>* stash, const TrainCotangents* cot, \
       void* stream) {                                                        \
-    return train_bwd<T>(w, B, rows_per_block, coins, nullptr, nullptr,       \
+    return train_bwd<T>(w, B, phases, cluster, coins, nullptr, nullptr,      \
                         lengths, nullptr, d_pitch, d_dur, d_summ, d_frame_h, \
-                        d_x_emb, stash, cot, 1, stream);                     \
+                        d_x_emb, dh_inj, stash, cot, 1, stream);             \
   }                                                                          \
   /* K2b. */                                                                 \
   int pctd_train_wgrad##SFX(const WgradTaskT<T>* tasks, int n_tasks,         \
@@ -1534,10 +2024,24 @@ cudaError_t train_wgrad(const WgradTaskT<T>* tasks, int n_tasks,
 extern "C" {
 
 #ifndef PCTD_TRAIN_BF16
-int pctd_train_smem_bytes(const TrainWeightsT<float>* w, int rows_per_block,
-                          int backward) {
-  return (int)(backward ? bwd_smem_bytes(*w, rows_per_block)
-                        : fwd_smem_bytes(*w, rows_per_block));
+// K1's shared memory a block with rows_per_block rows.
+int pctd_train_smem_bytes(const TrainWeightsT<float>* w, int rows_per_block) {
+  return (int)fwd_smem_bytes(*w, rows_per_block);
+}
+
+// K2a's: kernel 0 the slot rows, 1 the chains (in clusters of `cluster`
+// blocks; 0, the size the launch at batch B takes, in cluster_taken), 2
+// the projections; for the chains also how many such clusters the card
+// holds at once (0 if it cannot say).
+int pctd_train_bwd_smem_bytes(const TrainWeightsT<float>* w, int kernel,
+                              int cluster, int B, int* cluster_taken,
+                              int* max_clusters) {
+  if (kernel == 0) return (int)sizeof(float) * slot_layout(*w).n_floats;
+  if (kernel == 2) return (int)sizeof(float) * proj_floats(*w);
+  const int C = bwd_cluster(*w, B, cluster);
+  *cluster_taken = C;
+  *max_clusters = chain_clusters_at_once(*w, C);
+  return (int)sizeof(float) * chain_floats(*w, C);
 }
 
 PCTD_TRAIN_ENTRIES(float, )

@@ -17,12 +17,16 @@ cotangents from the caller's loss. The CUDA source is
   (loss mode) or the logits (logits out). On the gradient path it also
   writes every activation the backward needs (the stash, :class:`Stash`),
   so K2 recomputes nothing and replays no argmax.
-- ``train_bwd_kernel`` (K2a): per batch row, the reverse chain: summary
-  bi-GRU backward, each slot's logit cotangents (computed from the targets
-  in loss mode, given in logits-out mode) and duration-chain + head
-  backward, the note-GRU reverse recurrence, the embedding and token
-  routes. It writes the per-sample gate cotangents (:class:`Cotangents`),
-  ``d_frame_h`` and ``d_x_emb``.
+- K2a, the reverse chain in the phases of the JAX backward, three kernels:
+  ``train_bwd_slots_kernel`` (2b: the logit cotangents, computed from the
+  targets in loss mode or given in logits-out mode, the duration chains
+  and the heads, batched over the slot rows), ``train_bwd_chain_kernel``
+  (the two serial chains side by side: 2c the note-GRU reverse recurrence
+  in thread-block clusters sharing each weight read among a row group, 2a
+  the summary bi-GRU backward) and ``train_bwd_proj_kernel`` (2d: the
+  token and embedding routes and ``d_frame_h``, batched). Its products are
+  f32-accurate on the tensor cores. It writes the per-sample gate
+  cotangents (:class:`Cotangents`), ``d_frame_h`` and ``d_x_emb``.
 - ``wgrad_kernel`` and ``wgrad_reduce_kernel`` (K2b): the 24 weight
   gradients as 16 ``X^T . dY`` reductions of stash against cotangents over
   rows, slots and duration steps, f32-accurate on the tensor cores (TF32
@@ -32,8 +36,10 @@ cotangents from the caller's loss. The CUDA source is
 
 :func:`frame_recon_plain` (loss mode) and :func:`frame_core_plain` (logits
 out) are the plain PyTorch versions of K1 in the kernel's grouping;
-autograd of them is K2's plain version. The argmax decisions and the
-teacher coins carry no gradient.
+autograd of them is K2's plain version (the CPU training path).
+:func:`frame_stash_plain` is K1's stash and :func:`frame_bwd_plain` K2a
+alone on it, in plain PyTorch; :func:`wgrad_plain` is K2b's. The argmax
+decisions and the teacher coins carry no gradient.
 
 Every function here runs in the storage dtype of the weights, float32 or
 bfloat16 (the JAX kernels compute in the dtype of their inputs). In bf16
@@ -48,13 +54,14 @@ gradient is summed in f32 and rounded once to the weight's dtype.
 """
 from __future__ import annotations
 
+import collections
 import functools
-from typing import NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
 from pctd_tpu_torch.config import ModelConfig, PianoTreeSpec
-from pctd_tpu_torch.ops.gru import gru_gates_pre
+from pctd_tpu_torch.ops.gru import gru_gates
 from pctd_tpu_torch.ops.losses import masked_ce_parts
 
 
@@ -110,6 +117,8 @@ def core_weights(p: dict, cfg: ModelConfig) -> CoreWeights:
 
 #: storage dtypes the frame kernels take
 DTYPES = (torch.float32, torch.bfloat16)
+#: the plain versions also take float64 (the reference of the f32 kernels)
+PLAIN_DTYPES = DTYPES + (torch.float64,)
 
 
 class _RoundTo(torch.autograd.Function):
@@ -127,19 +136,28 @@ class _RoundTo(torch.autograd.Function):
 
 
 def _rounding(dtype: torch.dtype):
-    """The rounding of a value to ``dtype`` (identity for float32)."""
-    if dtype == torch.float32:
+    """The rounding of a value to ``dtype`` (identity for float32 and
+    float64)."""
+    if dtype != torch.bfloat16:
         return lambda x: x
     return lambda x: _RoundTo.apply(x, dtype)
 
 
 def storage_dtype(cw: CoreWeights) -> torch.dtype:
-    """The one dtype of the 24 weights; raises on a mix or another dtype."""
+    """The one dtype of the 24 weights; raises on a mix or a dtype outside
+    :data:`PLAIN_DTYPES` (the kernels take only :data:`DTYPES`)."""
     dts = {w.dtype for w in cw}
-    if len(dts) != 1 or next(iter(dts)) not in DTYPES:
-        raise TypeError(f"train-frame weights must all be float32 or all "
-                        f"bfloat16, got {sorted(map(str, dts))}")
+    if len(dts) != 1 or next(iter(dts)) not in PLAIN_DTYPES:
+        raise TypeError(f"train-frame weights must all be float32, all "
+                        f"bfloat16 or all float64, got "
+                        f"{sorted(map(str, dts))}")
     return next(iter(dts))
+
+
+def compute_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The arithmetic dtype of the plain versions for weights of ``dtype``:
+    float64 for float64, float32 otherwise."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
 
 
 class FrameOut(NamedTuple):
@@ -159,9 +177,11 @@ class CoreOut(NamedTuple):
 
 
 def _summary_plain(c: CoreWeights, pred: torch.Tensor,
-                   lengths: torch.Tensor, rnd) -> torch.Tensor:
+                   lengths: torch.Tensor, rnd, rec=None) -> torch.Tensor:
     """The masked bi-GRU summary of ``_summary_fwd`` (pack_padded
-    semantics) over pred (B, K, E), each new hidden rounded by ``rnd``."""
+    semantics) over pred (B, K, E), each new hidden rounded by ``rnd``.
+    ``rec`` (lists by stash field) records, step by step, the hidden before
+    the step and its gates."""
     B, K, _ = pred.shape
     mask = (torch.arange(K, device=pred.device)[None, :]
             < lengths[:, None])
@@ -169,8 +189,15 @@ def _summary_plain(c: CoreWeights, pred: torch.Tensor,
     for d in range(2):
         gi = pred @ c.we_ih[d] + c.be_ih[d]
         h = pred.new_zeros((B, c.we_hh.shape[1]))
+        if rec is not None:
+            rec["sgi"].append(gi)
         for k in (range(K) if d == 0 else range(K - 1, -1, -1)):
-            h_new = gru_gates_pre(gi[:, k], h @ c.we_hh[d] + c.be_hh[d], h)
+            gh = h @ c.we_hh[d] + c.be_hh[d]
+            h_new, gates = gru_gates(gi[:, k], gh, h)
+            if rec is not None:
+                rec["sh"].append(h)
+                rec["sg"].append(torch.cat(gates, -1))
+                rec["sgh"].append(gh)
             h = rnd(torch.where(mask[:, k, None], h_new, h))
         out.append(h)
     return torch.cat(out, dim=-1)
@@ -178,32 +205,47 @@ def _summary_plain(c: CoreWeights, pred: torch.Tensor,
 
 def _frame_plain(cw: CoreWeights, spec: PianoTreeSpec,
                  frame_h: torch.Tensor, x_emb: torch.Tensor,
-                 coins: torch.Tensor):
+                 coins: torch.Tensor, rec=None):
     """One frame's teacher-forced decode in K1's grouping (``_run_forward``
-    and ``_summary_fwd`` of the JAX kernel), in f32 arithmetic with the
-    rounding points of the weights' dtype (see the module docstring).
-    Returns f32 tensors holding values of that dtype: (pitch logits
-    (B, K-1, P), dur logits (B, K-1, W, 2), summary, lengths, hs, pitch
-    argmaxes (B, K-1), dur bits (B, K-1, W))."""
+    and ``_summary_fwd`` of the JAX kernel), in f32 arithmetic (f64 for
+    f64 weights) with the rounding points of the weights' dtype (see the
+    module docstring). Returns tensors of that arithmetic holding values of
+    the weights' dtype: (pitch logits (B, K-1, P), dur logits
+    (B, K-1, W, 2), summary, lengths, hs, pitch argmaxes (B, K-1), dur bits
+    (B, K-1, W)). ``rec`` (a defaultdict of lists) records, slot by slot,
+    what K1 stashes beyond those (:func:`frame_stash_plain`) and the tensors
+    whose gradients are K2a's cotangents (the gate projections ``gi``,
+    ``gh``, ``gid``, ``ghd``, ``sgi``, ``sgh``, ``gi_frame``, the logits
+    ``est`` and ``logit``, the hidden inits ``h0`` and ``hd0``)."""
     K, W, P = spec.max_simu_note, spec.dur_width, spec.pitch_range
     B = frame_h.shape[0]
-    rnd = _rounding(storage_dtype(cw))
+    dt = storage_dtype(cw)
+    rnd, f = _rounding(dt), compute_dtype(dt)
     # one f32 view of each weight, so autograd sums a weight's gradient in
     # f32 and rounds it to the weight's dtype once (no copy in float32)
-    c = CoreWeights(*(w.float() for w in cw))
-    frame_h, x_emb = frame_h.float(), x_emb.float()
+    c = CoreWeights(*(w.to(f) for w in cw))
+    frame_h, x_emb = frame_h.to(f), x_emb.to(f)
     gi_d_sos = c.dur_sos @ c.w_dih + c.b_dih
     row0 = rnd(c.w_dih[0] + c.b_dih)
     row1 = rnd(c.w_dih[1] + c.b_dih)
     h = rnd(frame_h @ c.w_t2n + c.b_t2n)
     gi_frame = frame_h @ c.w_ih_frame + c.b_ih
     gh = h @ c.w_hh + c.b_hh
+    if rec is not None:
+        rec["h0"], rec["gi_frame"] = h, gi_frame
     token = x_emb[:, 0]
     hs, pred, ests, dur_logits, pitches, all_bits = [h], [token], [], [], \
         [], []
     lengths = torch.zeros(B, dtype=torch.int32, device=frame_h.device)
     for k in range(1, K):
-        h = rnd(gru_gates_pre(gi_frame + token @ c.w_ih_tok, gh, h))
+        gi = gi_frame + token @ c.w_ih_tok
+        h_new, gates = gru_gates(gi, gh, h)
+        if rec is not None:
+            rec["tok"].append(token)
+            rec["ng"].append(torch.cat(gates, -1))
+            rec["gi"].append(gi)
+            rec["gh"].append(gh)
+        h = rnd(h_new)
         hs.append(h)
         gh = h @ c.w_hh + c.b_hh
         est = rnd(h @ c.w_pitch + c.b_pitch)
@@ -211,19 +253,39 @@ def _frame_plain(cw: CoreWeights, spec: PianoTreeSpec,
         h_d = rnd(torch.cat([h, est], -1) @ c.w_dhid + c.b_dhid)
         gh_d = h_d @ c.w_dhh + c.b_dhh
         gi_d = gi_d_sos.expand(B, -1)
-        logits, bits = [], []
+        d_tok = c.dur_sos.expand(B, -1)
+        logits, bits, hds, dgs, dtoks = [], [], [h_d], [], []
+        if rec is not None:
+            rec["est"].append(est)
+            rec["hd0"].append(h_d)
         for _ in range(W):
-            h_d = rnd(gru_gates_pre(gi_d, gh_d, h_d))
+            if rec is not None:
+                rec["gid"].append(gi_d)
+                rec["ghd"].append(gh_d)
+            h_new, gates = gru_gates(gi_d, gh_d, h_d)
+            h_d = rnd(h_new)
             logit = rnd(h_d @ c.w_dout + c.b_dout)
             gh_d = h_d @ c.w_dhh + c.b_dhh
             bitf = (logit[:, 1:2] > logit[:, 0:1]).to(h.dtype)
             gi_d = bitf * row1 + (1.0 - bitf) * row0
             logits.append(logit)
             bits.append(bitf[:, 0])
+            if rec is not None:
+                rec["logit"].append(logit)
+                hds.append(h_d)
+                dgs.append(torch.cat(gates, -1))
+                dtoks.append(d_tok)
+                d_tok = torch.nn.functional.one_hot(
+                    bitf[:, 0].long(), W).to(h.dtype)
         bits = torch.stack(bits, -1)
         raw = torch.cat([torch.nn.functional.one_hot(pitch, P).to(h.dtype),
                          bits], -1)
         emb = rnd(raw @ c.w_emb + c.b_emb)
+        if rec is not None:
+            rec["hd"].append(torch.stack(hds, 1))
+            rec["dg"].append(torch.stack(dgs, 1))
+            rec["dtok"].append(torch.stack(dtoks, 1))
+            rec["emb_in"].append(raw)
         pred.append(emb)
         pitch = pitch.to(torch.int32)
         is_eos = (pitch == spec.pitch_eos) & (lengths == 0)
@@ -235,7 +297,9 @@ def _frame_plain(cw: CoreWeights, spec: PianoTreeSpec,
         all_bits.append(bits.to(torch.int32))
     lengths = torch.where(lengths == 0, torch.full_like(lengths, K - 1),
                           lengths)
-    summary = _summary_plain(c, torch.stack(pred, 1), lengths, rnd)
+    if rec is not None:
+        rec["pred"] = pred
+    summary = _summary_plain(c, torch.stack(pred, 1), lengths, rnd, rec)
     return (torch.stack(ests, 1), torch.stack(dur_logits, 1), summary,
             lengths, torch.stack(hs), torch.stack(pitches, 1),
             torch.stack(all_bits, 1))
@@ -277,6 +341,160 @@ def frame_core_plain(cw: CoreWeights, spec: PianoTreeSpec,
     pitch, dur, summary, lengths = _frame_plain(cw, spec, frame_h, x_emb,
                                                 coins)[:4]
     return CoreOut(pitch.to(dt), dur.to(dt), summary.to(dt), lengths)
+
+
+def frame_stash_plain(cw: CoreWeights, spec: PianoTreeSpec,
+                      frame_h: torch.Tensor, x_emb: torch.Tensor,
+                      coins: torch.Tensor) -> "Stash":
+    """K1's stash in plain PyTorch: the :class:`Stash` K1 writes on the
+    gradient path, from :func:`_frame_plain`'s arithmetic and rounding
+    points (the gates in f32, f64 for f64 weights; every other field in the
+    weights' dtype). Arguments as in :func:`frame_recon_plain`."""
+    rec = collections.defaultdict(list)
+    est, dur, _, _, hs = _frame_plain(cw, spec, frame_h, x_emb, coins,
+                                      rec)[:5]
+    dt = storage_dtype(cw)
+    gate = compute_dtype(dt)
+    K = spec.max_simu_note
+    st = lambda name: torch.stack(rec[name])
+    fields = Stash(
+        hs=hs, ng=st("ng"), tok=st("tok"), est=est.transpose(0, 1),
+        hd=st("hd"), dg=st("dg"), dlog=dur.transpose(0, 1), dtok=st("dtok"),
+        emb_in=st("emb_in"), pred=st("pred"),
+        sh=st("sh").reshape(2, K, hs.shape[1], -1),
+        sg=st("sg").reshape(2, K, hs.shape[1], -1))
+    return Stash(*(x.to(gate if name in F32_STASH else dt).contiguous()
+                   for name, x in zip(Stash._fields, fields)))
+
+
+def _gru_bwd(dh: torch.Tensor, h_prev: torch.Tensor, gates: torch.Tensor):
+    """Backward of one torch-order GRU step from its stashed gates
+    [r | z | n | h_n] (``gru_bwd`` in ``csrc/train_frame.cu``): (input-gate
+    cotangents, hidden-gate cotangents, dh * z, the direct share of
+    d h_prev)."""
+    r, z, n, hn = gates.chunk(4, dim=-1)
+    dz = dh * (h_prev - n)
+    dn = dh * (1.0 - z)
+    dn_pre = dn * (1.0 - n * n)
+    dz_pre = dz * z * (1.0 - z)
+    dr_pre = dn_pre * hn * r * (1.0 - r)
+    return (torch.cat([dr_pre, dz_pre, dn_pre], -1),
+            torch.cat([dr_pre, dz_pre, dn_pre * r], -1), dh * z)
+
+
+def _mm(y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """y @ w.T: a cotangent (..., O) through a weight (I, O)."""
+    return y @ w.t()
+
+
+def _frame_bwd(cw: CoreWeights, spec: PianoTreeSpec, coins, gt_pitch,
+               gt_dur, lengths, st: "Stash", d_nums, d_summ, d_pitch, d_dur,
+               mm: Callable = _mm):
+    """:func:`frame_bwd_plain` with its products ``mm(y, w)`` = y @ w.T
+    given (a test emulates K2a's tensor-core products through it)."""
+    K, W, P = spec.max_simu_note, spec.dur_width, spec.pitch_range
+    dt = storage_dtype(cw)
+    f = compute_dtype(dt)
+    c = CoreWeights(*(w.to(f) for w in cw))
+    st = Stash(*(x.to(f) for x in st))
+    S, B = K - 1, lengths.shape[0]
+    NH, EH = c.w_hh.shape[0], c.we_hh.shape[1]
+    # the logit cotangents: the CE's g * mask * (softmax - onehot) from the
+    # targets (loss mode), or given (logits out)
+    if d_pitch is None:
+        g = d_nums.to(f)
+        gt = gt_pitch.t().long()                          # (S, B)
+        mask = gt != spec.pitch_pad
+        onehot = torch.nn.functional.one_hot(torch.where(mask, gt, 0), P)
+        d_est_ce = (torch.where(mask, g[0], 0.0)[..., None]
+                    * (torch.softmax(st.est, -1) - onehot.to(f)))
+        gt = gt_dur.permute(1, 0, 2).long()               # (S, B, W)
+        mask = gt != spec.dur_pad
+        onehot = torch.nn.functional.one_hot(torch.where(mask, gt, 0), 2)
+        d_log = (torch.where(mask, g[1:], 0.0)[..., None]
+                 * (torch.softmax(st.dlog, -1) - onehot.to(f)))
+    else:
+        d_est_ce = d_pitch.transpose(0, 1).to(f)
+        d_log = d_dur.transpose(0, 1).to(f)
+
+    # 2a: the summary bi-GRU, serial over the K steps of each direction;
+    # only d_gh @ we_hh.T is on the serial path, d_pred is batched after
+    valid = torch.arange(K, device=lengths.device)[:, None] < lengths
+    d_sgi, d_sgh = [[None] * K for _ in range(2)], [[None] * K
+                                                    for _ in range(2)]
+    for d in range(2):
+        dsum = d_summ[:, d * EH:(d + 1) * EH].to(f)
+        for k in range(K - 1, -1, -1):
+            slot = k if d == 0 else K - 1 - k
+            m = valid[slot][:, None].to(f)
+            dgi, dgh, direct = _gru_bwd(m * dsum, st.sh[d, k], st.sg[d, k])
+            d_sgi[d][slot], d_sgh[d][k] = dgi, dgh
+            dsum = (1.0 - m) * dsum + direct + mm(dgh, c.we_hh[d])
+    d_sgi = torch.stack([torch.stack(x) for x in d_sgi])  # (2, K, B, 3EH)
+    d_sgh = torch.stack([torch.stack(x) for x in d_sgh])
+    d_pred = mm(d_sgi[0], c.we_ih[0]) + mm(d_sgi[1], c.we_ih[1])
+
+    # 2b: the duration chains and the heads, batched over the S*B slot rows
+    d_hd = st.hd.new_zeros(st.hd[:, :, 0].shape)
+    d_gid, d_ghd = [None] * W, [None] * W
+    for ws in range(W - 1, -1, -1):
+        dhv = d_hd + mm(d_log[:, :, ws], c.w_dout)
+        d_gid[ws], d_ghd[ws], direct = _gru_bwd(dhv, st.hd[:, :, ws],
+                                                st.dg[:, :, ws])
+        d_hd = direct + mm(d_ghd[ws], c.w_dhh)
+    d_sos = mm(d_gid[0], c.w_dih)
+    d_dhid_in = mm(d_hd, c.w_dhid)
+    d_est = d_est_ce + d_dhid_in[..., NH:]
+    dh_inj = d_dhid_in[..., :NH] + mm(d_est, c.w_pitch)
+
+    # 2c: the note-GRU reverse recurrence, serial over the slots; only
+    # d_gh @ w_hh.T is on the serial path
+    dh = st.hs.new_zeros(st.hs[0].shape)
+    d_gif = st.ng.new_zeros(B, 3 * NH)
+    d_gi, d_gh = [None] * S, [None] * S
+    for s in range(S - 1, -1, -1):
+        d_gi[s], d_gh[s], direct = _gru_bwd(dh + dh_inj[s], st.hs[s],
+                                            st.ng[s])
+        d_gif = d_gif + d_gi[s]
+        dh = direct + mm(d_gh[s], c.w_hh)
+    d_gi, d_gh = torch.stack(d_gi), torch.stack(d_gh)
+
+    # 2d: the token and embedding routes, batched over the slot rows, and
+    # d_frame_h. Slot k's embedding feeds the summary and, unless the coin
+    # took the ground truth, the token of slot k+1 (none after the last)
+    d_tok = mm(d_gi, c.w_ih_tok)              # d of the token slot s+1 took
+    nxt = torch.cat([d_tok[1:], torch.zeros_like(d_tok[:1])])
+    coin = (coins != 0)[:, None, None]
+    d_emb = d_pred[1:] + torch.where(coin, 0.0, nxt)
+    d_x_emb = torch.cat([(d_tok[0] + d_pred[0])[None],
+                         torch.where(coin, nxt, 0.0)]).transpose(0, 1)
+    d_frame_h = mm(dh, c.w_t2n) + mm(d_gif, c.w_ih_frame)
+    ct = Cotangents(d_gi, d_gh, d_est, d_hd, torch.stack(d_gid, 2),
+                    torch.stack(d_ghd, 2), d_log, d_sos, d_emb, d_sgi, d_sgh,
+                    dh, d_gif)
+    return (d_frame_h.to(dt), d_x_emb.to(dt).contiguous(),
+            Cotangents(*(x.contiguous() for x in ct)))
+
+
+def frame_bwd_plain(cw: CoreWeights, spec: PianoTreeSpec, frame_h, coins,
+                    gt_pitch, gt_dur, lengths, st: "Stash", d_nums, d_summ,
+                    d_pitch: Optional[torch.Tensor] = None,
+                    d_dur: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of K2a alone: the hand-written VJP of the frame
+    (``_frame_bwd_core`` of the JAX package without its weight-gradient
+    adds) on K1's stash ``st`` (:func:`frame_stash_plain`), in the JAX
+    phase order: 2a the summary bi-GRU backward, 2b the logit cotangents,
+    duration chains and heads batched over the slot rows, 2c the note-GRU
+    reverse recurrence, 2d the token and embedding routes and d_frame_h.
+    Loss mode (``d_pitch`` None): the logit cotangents come from the
+    targets and d_nums (1+W,), the cotangents of the CE numerators; logits
+    out: from d_pitch (B, K-1, P) and d_dur (B, K-1, W, 2). Computes in f32
+    (f64 for f64 weights and stash) and returns (d_frame_h (B, TH), d_x_emb
+    (B, K, E), both in the weights' dtype, :class:`Cotangents` in the
+    arithmetic's dtype). frame_h is not read (the signature is K2a's)."""
+    del frame_h
+    return _frame_bwd(cw, spec, coins, gt_pitch, gt_dur, lengths, st,
+                      d_nums, d_summ, d_pitch, d_dur)
 
 
 class Stash(NamedTuple):
@@ -456,11 +674,12 @@ def task_rows(tk: WgradTask):
 
 def wgrad_plain(tasks) -> None:
     """Plain PyTorch version of K2b: each task's ``X^T dY`` and column sum
-    as f32 torch products, written (rounded once) into the same outputs."""
+    as torch products in the cotangents' dtype (f32; f64 for an f64
+    reference), written (rounded once) into the same outputs."""
     for tk in tasks:
         x, dy = task_rows(tk)
         if x is not None:
-            tk.gW.copy_(x.float().t() @ dy)
+            tk.gW.copy_(x.to(dy.dtype).t() @ dy)
         if tk.gb.numel():
             tk.gb.copy_(dy.sum(0))
 
@@ -582,6 +801,9 @@ def _check(cw: CoreWeights, d: Dims, dev, B: int, named) -> None:
     if B == 0:
         raise ValueError("empty batch")
     dt = storage_dtype(cw)
+    if dt not in DTYPES:
+        raise TypeError(f"train-frame kernels take float32 or bfloat16 "
+                        f"weights, got {dt}")
     for name, t, shape, dtype in (
             [(f"weight {n}", w, None, dt)
              for n, w in zip(cw._fields, cw)] + list(named)):
@@ -633,11 +855,24 @@ def frame_fwd(cw: CoreWeights, spec: PianoTreeSpec, frame_h, x_emb, coins,
 frame_fwd.launches = 0
 
 
+def bwd_buffers(d: Dims, B: int, dev, dtype):
+    """K2a's outputs and scratch, allocated for its wrappers: (Cotangents,
+    d_frame_h (B, TH) and d_x_emb (B, K, E) of ``dtype``, the f32 injected
+    note-chain cotangent dh_inj (K-1, B, NH) that its slot-row kernel hands
+    to its chain kernel)."""
+    return (new_cotangents(d, B, dev), _empty(dev, B, d.TH, dtype=dtype),
+            _empty(dev, B, d.K, d.E, dtype=dtype),
+            _empty(dev, d.K - 1, B, d.NH))
+
+
 def frame_bwd(cw: CoreWeights, spec: PianoTreeSpec, frame_h, coins,
               gt_pitch, gt_dur, lengths, st: Stash, d_nums, d_summ):
-    """K2a wrapper: launches ``train_bwd_kernel``. d_nums is f32, d_summ in
-    the weights' dtype. Returns (d_frame_h, d_x_emb, both in that dtype,
-    :class:`Cotangents`, f32). Counts launches in ``frame_bwd.launches``."""
+    """K2a wrapper (CUDA tensors only; :func:`frame_bwd_plain` is its plain
+    version): launches its three kernels (``train_bwd_slots_kernel``,
+    ``train_bwd_chain_kernel``, ``train_bwd_proj_kernel``). d_nums is f32,
+    d_summ in the weights' dtype. Returns (d_frame_h, d_x_emb, both in that
+    dtype, :class:`Cotangents`, f32). Counts its calls in
+    ``frame_bwd.launches``."""
     from pctd_tpu_torch.ops.kernels import build
 
     d = dims_of(cw, spec)
@@ -645,12 +880,10 @@ def frame_bwd(cw: CoreWeights, spec: PianoTreeSpec, frame_h, coins,
     _check(cw, d, dev, B, [
         ("d_nums", d_nums, (1 + d.W,), torch.float32),
         ("d_summ", d_summ, (B, 2 * d.EH), dt)])
-    ct = new_cotangents(d, B, dev)
-    d_frame_h = _empty(dev, B, d.TH, dtype=dt)
-    d_x_emb = _empty(dev, B, d.K, d.E, dtype=dt)
+    ct, d_frame_h, d_x_emb, dh_inj = bwd_buffers(d, B, dev, dt)
     build.launch_train_bwd(cw, d, B, [coins, gt_pitch, gt_dur, lengths,
-                                      d_nums, d_summ, d_frame_h, d_x_emb],
-                           st, ct)
+                                      d_nums, d_summ, d_frame_h, d_x_emb,
+                                      dh_inj], st, ct)
     frame_bwd.launches += 1
     return d_frame_h, d_x_emb, ct
 
@@ -763,10 +996,10 @@ frame_core_fwd.launches = 0
 
 def frame_core_bwd(cw: CoreWeights, spec: PianoTreeSpec, frame_h, coins,
                    lengths, st: Stash, d_pitch, d_dur, d_summ):
-    """K2a wrapper in logits-out mode: launches ``train_bwd_kernel`` on the
+    """K2a wrapper in logits-out mode: launches its three kernels on the
     logit cotangents d_pitch (B, K-1, P) and d_dur (B, K-1, W, 2), in the
     weights' dtype like d_summ. Returns
-    (d_frame_h, d_x_emb, :class:`Cotangents`). Counts launches in
+    (d_frame_h, d_x_emb, :class:`Cotangents`). Counts its calls in
     ``frame_core_bwd.launches``."""
     from pctd_tpu_torch.ops.kernels import build
 
@@ -777,11 +1010,9 @@ def frame_core_bwd(cw: CoreWeights, spec: PianoTreeSpec, frame_h, coins,
         ("d_pitch", d_pitch, (B, S, d.P), dt),
         ("d_dur", d_dur, (B, S, d.W, 2), dt),
         ("d_summ", d_summ, (B, 2 * d.EH), dt)])
-    ct = new_cotangents(d, B, dev)
-    d_frame_h = _empty(dev, B, d.TH, dtype=dt)
-    d_x_emb = _empty(dev, B, d.K, d.E, dtype=dt)
+    ct, d_frame_h, d_x_emb, dh_inj = bwd_buffers(d, B, dev, dt)
     build.launch_train_bwd(cw, d, B, [coins, lengths, d_pitch, d_dur, d_summ,
-                                      d_frame_h, d_x_emb], st, ct,
+                                      d_frame_h, d_x_emb, dh_inj], st, ct,
                            logits=True)
     frame_core_bwd.launches += 1
     return d_frame_h, d_x_emb, ct

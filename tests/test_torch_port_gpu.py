@@ -704,3 +704,158 @@ def test_wgrad_refuses_what_the_kernel_cannot_take(cuda):
     for ts, err in zip(bad, (ValueError, TypeError, ValueError)):
         with pytest.raises(err):
             train_frame.wgrad(ts)
+
+
+# --- K2a alone against its plain version on the same K1 stash --------------
+
+def _k2a_case(cfg, device, B, dtype, logits, seed):
+    """K1's stash of one frame in ``dtype`` (loss mode, or with ``logits``
+    out), and random cotangents of the frame's outputs."""
+    dec, inp = _frame_case(cfg, device, B, seed, eos_bias=0.1)
+    spec = cfg.pianotree
+    cw = train_frame.CoreWeights(*(t.detach().to(dtype) for t in
+                                   train_frame.core_weights(dec, cfg)))
+    inp = {k: (v.to(dtype) if v.is_floating_point() else v)
+           for k, v in inp.items()}
+    with torch.no_grad():
+        if logits:
+            lens, _, st = train_frame.frame_core_fwd(
+                cw, spec, inp["frame_h"], inp["x_emb"], inp["coins"],
+                stash=True)[3:]
+        else:
+            lens, st = train_frame.frame_fwd(cw, spec, **inp,
+                                             stash=True)[2::2]
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    rn = lambda *s: torch.randn(s, device=device, generator=g)
+    S, W = spec.max_simu_note - 1, spec.dur_width
+    cots = dict(d_nums=torch.rand(1 + W, device=device, generator=g),
+                d_summ=rn(B, 2 * cfg.dec_emb_hidden).to(dtype))
+    if logits:
+        cots.update(d_pitch=rn(B, S, spec.pitch_range).to(dtype),
+                    d_dur=rn(B, S, W, 2).to(dtype))
+    return cw, inp, lens, st, cots
+
+
+def _k2a(cw, spec, inp, lens, st, cots, plain=None):
+    """K2a on a :func:`_k2a_case`; with ``plain`` ("f64" or "same"),
+    frame_bwd_plain instead, on the weights, stash and cotangents cast to
+    float64 or as they are."""
+    logits = "d_pitch" in cots
+    if plain is None:
+        if logits:
+            return train_frame.frame_core_bwd(
+                cw, spec, inp["frame_h"], inp["coins"], lens, st,
+                cots["d_pitch"], cots["d_dur"], cots["d_summ"])
+        return train_frame.frame_bwd(
+            cw, spec, inp["frame_h"], inp["coins"], inp["gt_pitch"],
+            inp["gt_dur"], lens, st, cots["d_nums"], cots["d_summ"])
+    cast = (lambda x: x.double()) if plain == "f64" else (lambda x: x)
+    return train_frame.frame_bwd_plain(
+        train_frame.CoreWeights(*map(cast, cw)), spec, cast(inp["frame_h"]),
+        inp["coins"], inp["gt_pitch"], inp["gt_dur"], lens,
+        train_frame.Stash(*map(cast, st)), cast(cots["d_nums"]),
+        cast(cots["d_summ"]),
+        *((cast(cots["d_pitch"]), cast(cots["d_dur"])) if logits else ()))
+
+
+def _k2a_outputs(out):
+    d_frame_h, d_x_emb, ct = out
+    return [("d_frame_h", d_frame_h), ("d_x_emb", d_x_emb)] + list(
+        zip(train_frame.Cotangents._fields, ct))
+
+
+@pytest.mark.parametrize("logits", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 3, 37, 128])
+@pytest.mark.parametrize("width", ["tiny", "canonical"])
+def test_k2a_matches_frame_bwd_plain(cuda, width, B, dtype, logits):
+    """K2a against its plain version on the same K1 stash, every output and
+    every cotangent: f32 within 1e-5 x (1 + max|ref|) of the f64 plain
+    version (its products are f32-accurate); bf16 within 1e-2 x (1 +
+    max|plain|) of the plain version in bf16 (f32 arithmetic, d_frame_h
+    and d_x_emb rounded to bf16 once)."""
+    cfg = tiny_model_config() if width == "tiny" else ModelConfig()
+    spec = cfg.pianotree
+    case = _k2a_case(cfg, cuda, B, dtype, logits, seed=11 + B)
+    counter = (train_frame.frame_core_bwd if logits
+               else train_frame.frame_bwd)
+    before = counter.launches
+    got = _k2a(case[0], spec, *case[1:])
+    assert counter.launches == before + 1
+    f32 = dtype == torch.float32
+    want = _k2a(case[0], spec, *case[1:], plain="f64" if f32 else "same")
+    for (name, a), (_, b) in zip(_k2a_outputs(got), _k2a_outputs(want)):
+        assert a.shape == b.shape, name
+        assert a.dtype == (dtype if name in ("d_frame_h", "d_x_emb")
+                           else torch.float32), name
+        tol = (1e-5 if f32 else 1e-2) * (1.0 + b.abs().max().item())
+        assert (a.double() - b.double()).abs().max().item() <= tol, name
+
+
+@pytest.mark.parametrize("B", [37, 600])
+def test_k2a_by_phase_and_cluster_size(cuda, B):
+    """The launch options K2a is timed with: its phases launched one at a
+    time, in order, give the bits of one launch; the note chain in clusters
+    of 8 or 16 blocks meets the f64 gate either way (B=600: more clusters
+    than the card holds at once, the last row group ragged)."""
+    from pctd_tpu_torch.ops.kernels import build
+
+    cfg = ModelConfig()
+    spec = cfg.pianotree
+    cw, inp, lens, st, cots = _k2a_case(cfg, cuda, B, torch.float32, False,
+                                        seed=7)
+    d = train_frame.dims_of(cw, spec)
+
+    def launch(order=(15,), cluster=0):
+        ct, d_frame_h, d_x_emb, dh_inj = train_frame.bwd_buffers(
+            d, B, cuda, torch.float32)
+        tensors = [inp["coins"], inp["gt_pitch"], inp["gt_dur"], lens,
+                   cots["d_nums"], cots["d_summ"], d_frame_h, d_x_emb,
+                   dh_inj]
+        for phases in order:
+            build.launch_train_bwd(cw, d, B, tensors, st, ct, phases=phases,
+                                   cluster=cluster)
+        return _k2a_outputs((d_frame_h, d_x_emb, ct))
+
+    ph = build.K2A_PHASES
+    apart = launch((ph["slots"], ph["summary"], ph["note"], ph["proj"]))
+    for (name, a), (_, b) in zip(launch(), apart):
+        assert torch.equal(a, b), name
+    want = _k2a_outputs(_k2a(cw, spec, inp, lens, st, cots, plain="f64"))
+    for C in (8, 16):
+        for (name, a), (_, b) in zip(launch(cluster=C), want):
+            tol = 1e-5 * (1.0 + b.abs().max().item())
+            assert (a.double() - b).abs().max().item() <= tol, (C, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2a_is_bit_identical_across_launches(cuda, dtype):
+    cfg = ModelConfig()
+    case = _k2a_case(cfg, cuda, 128, dtype, False, seed=5)
+    a = _k2a(case[0], cfg.pianotree, *case[1:])
+    b = _k2a(case[0], cfg.pianotree, *case[1:])
+    for (name, x), (_, y) in zip(_k2a_outputs(a), _k2a_outputs(b)):
+        assert torch.equal(x, y), name
+
+
+def test_k2a_refuses_what_the_kernel_cannot_take(cuda):
+    """The K2a wrapper raises on tensors off the card, on weights of a dtype
+    the kernels do not take, and on a cotangent of another dtype than the
+    weights'."""
+    cfg = tiny_model_config()
+    spec = cfg.pianotree
+    cw, inp, lens, st, cots = _k2a_case(cfg, cuda, 3, torch.float32, False,
+                                        seed=2)
+    cpu = lambda x: x.cpu()
+    with pytest.raises(ValueError):
+        _k2a(train_frame.CoreWeights(*map(cpu, cw)), spec,
+             {k: cpu(v) for k, v in inp.items()}, cpu(lens),
+             train_frame.Stash(*map(cpu, st)),
+             {k: cpu(v) for k, v in cots.items()})
+    f64 = lambda x: x.double()
+    with pytest.raises(TypeError):
+        _k2a(train_frame.CoreWeights(*map(f64, cw)), spec, inp, lens, st,
+             cots)
+    with pytest.raises(TypeError):
+        _k2a(cw, spec, inp, lens, st,
+             dict(cots, d_summ=cots["d_summ"].to(torch.bfloat16)))
