@@ -5,14 +5,19 @@ CUDA card.
 
 Builds the CUDA kernels from the sources in this checkout and holds each
 against its plain PyTorch version on the card: the decode kernels K3 and
-K4, the train-frame forward K1 and its backward K2 (K2a, the reverse chain
+K4 (row groups in thread-block clusters, at B = 1, 37, 128 and 512 in
+clusters of 8 and of 16, the same bits over two launches), the
+train-frame forward K1 and its backward K2 (K2a, the reverse chain
 in three kernels, and K2b, the weight-gradient reduction), K1 and K2a in
 both their modes (CE fused in, and logits out), and K3, K1, K2a and K2b in
 both storage types (float32 and bfloat16). K2a is also held alone against
 ``frame_bwd_plain`` on the same stash (f32 against f64, with plain TF32 as
 the control that must fail the gate; bf16 against bf16; two launches' bits).
 Then it serves the four latent-control workflows through
-``Sampler(fixed_batch=128)`` (K4), and with ``compute_dtype="bfloat16"``
+``Sampler(fixed_batch=128)`` (K4), a swap of 300 and one of 512 requests
+through an unchunked ``Sampler()`` (one K4 launch of all the rows, above the
+~240 rows the card holds in one wave of clusters), and with
+``compute_dtype="bfloat16"``
 through ``Sampler(frame_decoder="frame")`` (K3 in bf16), and trains the
 model for a few steps through ``Trainer`` at B=128 in each loss mode
 (``ModelConfig.fused_loss`` True, then False), in float32 and then with
@@ -28,7 +33,11 @@ and times an f32 train step with K2b and one with ``wgrad_plain`` in its
 place, in turns. The phase "K2a by phase" times K2a, each of its three
 kernels alone and each of the two serial chains alone at B=128 and 512 in
 both storage types, the chains at each cluster size, and counts K2a's
-kernels in the profiled steps.
+kernels in the profiled steps. The phase "timing" times the row-group K3
+(both storage types) and K4 queued behind a sleep kernel (the per-row
+kernels they replaced are timed from a checkout of the parent commit by
+``pctd_tpu_torch/tools/decode_by_rows.py``); the phase "K3/K4 by phase"
+times them whole and by phase at both cluster sizes.
 Prints one line per phase with its seconds, a ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``. Exits nonzero,
 printing no result, without a CUDA card or when any phase fails. Imports
@@ -44,6 +53,7 @@ import ctypes
 import dataclasses
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -60,6 +70,7 @@ from pctd_tpu_torch.ops.kernels import ar_decoder, build, full_decoder
 from pctd_tpu_torch.ops.kernels import train_frame as tf
 from pctd_tpu_torch.train import trainer as tr
 from pctd_tpu_torch.train.optim import global_norm
+from pctd_tpu_torch.utils.cuda_timing import cuda_ms, queued_ms
 from pctd_tpu_torch.utils.precision import cast_params
 
 #: H100 SXM peaks (NVIDIA data sheet): f32 on CUDA cores, dense bf16 on the
@@ -78,6 +89,8 @@ PEAK_3XBF16 = PEAK_BF16_FLOPS / 3
 AGREE = 0.999          # discrete outputs, kernel vs plain
 SUMMARY_ATOL = 1e-4    # K3 summary on rows whose discrete outputs agree
 SIZES = (1, 37, 128, 300)
+DECODE_B = (1, 37, 128, 512)  # K3/K4 vs plain: ragged and full groups
+DECODE_REPS = {"K3": 20, "K3 bf16": 20, "K4": 3}  # launches a timing averages
 NUMS_RTOL = 1e-5       # K1 CE numerators vs plain
 STATE_ATOL = 1e-4      # K1 summary and note hiddens vs plain
 GRAD_TOL = 1e-4        # K2 grads vs autograd of plain: x (1 + max|plain|)
@@ -109,7 +122,8 @@ BF16_VS_F32_RTOL = 0.05  # bf16 vs f32 step 1 (the JAX package's own bar)
 # within BF16_SUMMARY_TOL x (1 + max|plain|): an f32 sum in another order
 # can round a bf16 summary value to its other neighbour (2^-8 relative)
 BF16_SUMMARY_TOL = 1e-2
-SERVE_BF16_SIZES = (1, 37, 128)
+SERVE_BF16_SIZES = (1, 37, 128, 300)
+WIDE_SIZES = (300, 512)   # unchunked swaps: one K4 launch of n rows
 TRAIN_STEPS = 6
 LOGITS_STEPS = 3       # train steps with logits out
 BF16_STEPS = 3         # train steps in bf16, in each loss mode
@@ -155,39 +169,40 @@ def requests(rng: np.random.RandomState, B: int):
     return pr, c
 
 
-def cuda_ms(fn, n: int) -> float:
-    """Mean ms of ``fn`` over ``n`` runs after one warm-up, CUDA events."""
-    fn()
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(n):
-        fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / n
+def phase_outputs(key: str, fw, spec, B: int, dev):
+    """Output tensors of a row-group K3 ("K3", "K3 bf16") or K4 ("K4")
+    launch of B rows."""
+    S, W = spec.max_simu_note - 1, spec.dur_width
+    i32 = dict(dtype=torch.int32, device=dev)
+    if key == "K4":
+        return [torch.empty((B, spec.num_step, S, 1 + W), **i32)]
+    EH2 = build.decoder_dims(fw, spec).EH * 2
+    return [torch.empty((B, S), **i32), torch.empty((B, S, W), **i32),
+            torch.empty((B, EH2), dtype=fw.w_hh.dtype, device=dev),
+            torch.empty((B,), **i32)]
 
 
-def queued_ms(fn, n: int):
-    """(mean ms of ``fn`` over ``n`` runs by CUDA events, whether the host
-    enqueued them all while a sleep kernel held the card): the runs go in
-    behind ~10 ms of ``torch.cuda._sleep``, so the events time the device's
-    work and not a launch's host time (a few hundred microseconds for a
-    ctypes launch or a loop of small torch calls)."""
-    fn()
-    torch.cuda.synchronize()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-    ev[0].record()
-    torch.cuda._sleep(20_000_000)
-    ev[1].record()
-    s0 = time.perf_counter()
-    for _ in range(n):
-        fn()
-    host_ms = (time.perf_counter() - s0) * 1e3
-    ev[2].record()
-    torch.cuda.synchronize()
-    return ev[1].elapsed_time(ev[2]) / n, host_ms < ev[0].elapsed_time(ev[1])
+def sass_sizes(lib_path, pattern: str) -> dict:
+    """Instructions in the compiled code (``cuobjdump -sass``) of each
+    kernel of the built library whose name matches ``pattern``: {short
+    name: count}; {} where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        out = subprocess.run([tool, "-sass", str(lib_path)],
+                             capture_output=True, text=True,
+                             timeout=120).stdout
+    except (OSError, subprocess.TimeoutExpired):
+        return {}
+    sizes, name = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : \S*?(" + pattern + r"I\w+?)EE", line)
+        if "Function : " in line:
+            name = m.group(1) if m else None
+            if name:
+                sizes.setdefault(name, 0)
+        elif name and re.search(r"/\*[0-9a-f]{4,}\*/", line):
+            sizes[name] += 1
+    return sizes
 
 
 def frame_work(fw, spec, B: int):
@@ -386,14 +401,14 @@ def decode_launch_dtypes():
     seen = collections.Counter()
     kernel_route = build.launch
 
-    def launch(name, fw, dims, batch, tensors, rows=0):
+    def launch(name, fw, dims, batch, tensors, **kw):
         if name.startswith("pctd_frame_decode"):
             stored = [t for n, t in zip(fw._fields, fw)
                       if n not in ar_decoder.F32_FIELDS]
             seen[(name, frozenset(str(t.dtype) for t in
                                   [*stored, tensors[0], tensors[1],
                                    tensors[4]]))] += 1
-        return kernel_route(name, fw, dims, batch, tensors, rows)
+        return kernel_route(name, fw, dims, batch, tensors, **kw)
 
     build.launch = launch
     try:
@@ -1055,6 +1070,17 @@ def main() -> int:
     print(f"  K2a registers: {k2a_regs}")
     check(len(k2a_regs) == 6, f"K2a: {len(k2a_regs)} of its 6 kernels (3 "
           "a storage type) in the build report")
+    decode_regs = {m.group(1): f"{m.group(3)}; {m.group(2)}"
+                   for m in re.finditer(
+                       r"Compiling entry function '\S*?((?:frame|full)_group"
+                       r"_kernelI\w+?)EE.*\n.*\n\s*(.*spill loads)\n.*?(Used "
+                       r"\d+ registers[^\n]*)", log)}
+    print(f"  row-group K3/K4 registers: {decode_regs}")
+    decode_sass = sass_sizes(build.build()[0], r"(?:frame|full)_group_kernel")
+    print(f"  row-group K3/K4 SASS instructions: {decode_sass}")
+    check(len(decode_regs) == 6, f"row-group K3/K4: {len(decode_regs)} of "
+          "their 6 instances (K3: 2 cluster sizes x 2 storage types; K4: 2 "
+          "cluster sizes) in the build report")
     phase("build", t0)
 
     # 3. weights
@@ -1063,13 +1089,16 @@ def main() -> int:
     fw_of = lambda p: ar_decoder.folded_frame_weights(p["dec"], cfg)
     fw = fw_of(params)
     dims = build.decoder_dims(fw, spec)
-    wst = build.DecoderWeightsC(*(t.data_ptr() for t in fw), *dims)
     cw0 = tf.core_weights(params["dec"], cfg)
     tw = build.train_weights(cw0, tf.dims_of(cw0, spec))
     for r in (1, 2, 4):
-        print(f"  shared memory, {r} row(s) a block: K3/K4 "
-              f"{lib.pctd_smem_bytes(ctypes.byref(wst), r)} B, K1 "
+        print(f"  shared memory, {r} row(s) a block: K1 "
               f"{lib.pctd_train_smem_bytes(ctypes.byref(tw), r)} B")
+    for C in build.DECODE_CLUSTERS:
+        print(f"  row-group K3 / K4 at {C} blocks a cluster (shared memory "
+              f"B, clusters at once): "
+              f"{build.decode_info(fw, dims, False, C, dev)} / "
+              f"{build.decode_info(fw, dims, True, C, dev)}")
     k2a_smem = k2a_shared_memory(lib, tw)
     print("  K2a shared memory a block (f32): " + ", ".join(
         f"{k} {v}" for k, v in k2a_smem.items()))
@@ -1082,29 +1111,37 @@ def main() -> int:
                                                         fw_of(biased))}
     phase("weights", t0)
 
-    # 4. K3 vs its plain version
+    # 4. K3 vs its plain version, at each batch and cluster size, and the
+    # same bits over two launches
     t0 = time.perf_counter()
     k3_err, k3_agree = 0.0, 1.0
     for wname, (p, w) in weight_sets.items():
-        for B in (128, 37):
+        for B in DECODE_B:
             h = torch.randn(B, cfg.dec_time_hidden, device=dev,
                             generator=gen) * 0.6
-            sos = sos_probe[:B].contiguous()
-            got = ar_decoder.frame_decode(w, spec, h, sos)
+            sos = sos_probe[:1].expand(B, -1).contiguous()
             want = ar_decoder.frame_decode_plain(w, spec, h, sos)
-            torch.cuda.synchronize()
-            ag = [agreement(got[i], want[i]) for i in (0, 1, 3)]
-            rows = ((got[0] == want[0]).all(1) & (got[1] == want[1])
-                    .flatten(1).all(1) & (got[3] == want[3]))
-            err = (got[2] - want[2]).abs()[rows].max().item() \
-                if rows.any() else float("inf")
-            hist = torch.bincount(got[3].long(), minlength=16).tolist()
-            print(f"  K3 {wname} B={B}: agreement pitch/dur/len {ag}, "
-                  f"summary max|err| {err:.3g} on {int(rows.sum())} rows; "
-                  f"lengths {hist}")
-            check(min(ag) >= AGREE, f"K3 {wname} B={B} agreement {ag}")
-            check(err <= SUMMARY_ATOL, f"K3 {wname} B={B} summary {err}")
-            k3_err, k3_agree = max(k3_err, err), min(k3_agree, min(ag))
+            for C in build.DECODE_CLUSTERS:
+                got = ar_decoder.frame_decode(w, spec, h, sos, cluster=C)
+                again = ar_decoder.frame_decode(w, spec, h, sos, cluster=C)
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                ag = [agreement(got[i], want[i]) for i in (0, 1, 3)]
+                rows = ((got[0] == want[0]).all(1) & (got[1] == want[1])
+                        .flatten(1).all(1) & (got[3] == want[3]))
+                err = (got[2] - want[2]).abs()[rows].max().item() \
+                    if rows.any() else float("inf")
+                hist = torch.bincount(got[3].long(), minlength=16).tolist()
+                print(f"  K3 {wname} B={B} C={C}: agreement pitch/dur/len "
+                      f"{ag}, summary max|err| {err:.3g} on "
+                      f"{int(rows.sum())} rows; two launches bit-identical: "
+                      f"{same}; lengths {hist}")
+                check(min(ag) >= AGREE, f"K3 {wname} B={B} C={C} agreement "
+                      f"{ag}")
+                check(err <= SUMMARY_ATOL, f"K3 {wname} B={B} C={C} summary "
+                      f"{err}")
+                check(same, f"K3 {wname} B={B} C={C}: two launches differ")
+                k3_err, k3_agree = max(k3_err, err), min(k3_agree, min(ag))
     phase("K3 vs plain", t0)
 
     # 4b. K3 in bf16 vs its plain version, on the folds of bf16-cast params
@@ -1119,74 +1156,92 @@ def main() -> int:
     k3b_err, k3b_agree, k3b_margin = 0.0, 1.0, 0.0
     with decode_launch_dtypes() as seen:
         for wname, w in bf16_sets.items():
-            for B in (128, 37):
+            for B in DECODE_B:
                 h = (torch.randn(B, cfg.dec_time_hidden, device=dev,
                                  generator=gen) * 0.6).to(BF16)
-                sos = sos_probe_b[:B].contiguous()
-                got = ar_decoder.frame_decode(w, spec, h, sos)
+                sos = sos_probe_b[:1].expand(B, -1).contiguous()
                 want = ar_decoder.frame_decode_plain(w, spec, h, sos)
                 hid, gi = ar_decoder.frame_projection(w, h)
                 *_, pl, dl = ar_decoder.slot_chain_plain(w, spec, hid, gi,
                                                          logits=True)
-                torch.cuda.synchronize()
-                check(got[2].dtype == BF16 and want[2].dtype == BF16,
-                      "K3 bf16 summary is not bf16")
-                ag = [agreement(got[i], want[i]) for i in (0, 1, 3)]
-                dec_k = torch.cat([got[0][..., None], got[1]], -1)
-                dec_p = torch.cat([want[0][..., None], want[1]], -1)
-                rows = ((dec_k == dec_p).flatten(1).all(1)
-                        & (got[3] == want[3]))
-                margins = root_margins(dec_k, dec_p, pl, dl)
-                worst = margins.max().item() if len(margins) else 0.0
-                a, b = got[2][rows].float(), want[2][rows].float()
-                err = (a - b).abs().max().item() if rows.any() \
-                    else float("inf")
-                tol = BF16_SUMMARY_TOL * (1.0 + b.abs().max().item())
-                hist = torch.bincount(got[3].long(), minlength=16).tolist()
-                print(f"  K3 bf16 {wname} B={B}: agreement pitch/dur/len "
-                      f"{ag}, {len(margins)} differing rows, worst "
-                      f"first-difference margin {worst:.3g}; summary "
-                      f"max|err| {err:.3g} ({err / tol:.2f} of tol) on "
-                      f"{int(rows.sum())} rows; lengths {hist}")
-                check(min(ag) >= AGREE, f"K3 bf16 {wname} B={B} agreement "
-                      f"{ag}")
-                check(worst <= BF16_TIE, f"K3 bf16 {wname} B={B}: a row's "
-                      f"first differing decision is no near-tie of the "
-                      f"plain version's logits (margin {worst:.3g})")
-                check(err <= tol, f"K3 bf16 {wname} B={B} summary {err} > "
-                      f"{tol}")
-                k3b_err, k3b_agree = max(k3b_err, err), min(k3b_agree,
-                                                            min(ag))
-                k3b_margin = max(k3b_margin, worst)
+                for C in build.DECODE_CLUSTERS:
+                    got = ar_decoder.frame_decode(w, spec, h, sos, cluster=C)
+                    again = ar_decoder.frame_decode(w, spec, h, sos,
+                                                    cluster=C)
+                    torch.cuda.synchronize()
+                    same = all(torch.equal(a, b) for a, b in zip(got, again))
+                    check(got[2].dtype == BF16 and want[2].dtype == BF16,
+                          "K3 bf16 summary is not bf16")
+                    ag = [agreement(got[i], want[i]) for i in (0, 1, 3)]
+                    dec_k = torch.cat([got[0][..., None], got[1]], -1)
+                    dec_p = torch.cat([want[0][..., None], want[1]], -1)
+                    rows = ((dec_k == dec_p).flatten(1).all(1)
+                            & (got[3] == want[3]))
+                    margins = root_margins(dec_k, dec_p, pl, dl)
+                    worst = margins.max().item() if len(margins) else 0.0
+                    a, b = got[2][rows].float(), want[2][rows].float()
+                    err = (a - b).abs().max().item() if rows.any() \
+                        else float("inf")
+                    tol = BF16_SUMMARY_TOL * (1.0 + b.abs().max().item())
+                    hist = torch.bincount(got[3].long(),
+                                          minlength=16).tolist()
+                    print(f"  K3 bf16 {wname} B={B} C={C}: agreement "
+                          f"pitch/dur/len {ag}, {len(margins)} differing "
+                          f"rows, worst first-difference margin {worst:.3g};"
+                          f" summary max|err| {err:.3g} ({err / tol:.2f} of "
+                          f"tol) on {int(rows.sum())} rows; two launches "
+                          f"bit-identical: {same}; lengths {hist}")
+                    check(min(ag) >= AGREE, f"K3 bf16 {wname} B={B} C={C} "
+                          f"agreement {ag}")
+                    check(worst <= BF16_TIE, f"K3 bf16 {wname} B={B} C={C}: "
+                          f"a row's first differing decision is no near-tie "
+                          f"of the plain version's logits (margin "
+                          f"{worst:.3g})")
+                    check(err <= tol, f"K3 bf16 {wname} B={B} C={C} summary "
+                          f"{err} > {tol}")
+                    check(same, f"K3 bf16 {wname} B={B} C={C}: two launches "
+                          "differ")
+                    k3b_err, k3b_agree = max(k3b_err, err), min(k3b_agree,
+                                                                min(ag))
+                    k3b_margin = max(k3b_margin, worst)
     print(f"  K3 bf16 launches by (entry point, dtypes at the call): "
           f"{launch_summary(seen)}")
-    check(sum(seen.values()) == 4 and all(
+    n_k3b = 2 * len(bf16_sets) * len(DECODE_B) * len(build.DECODE_CLUSTERS)
+    check(sum(seen.values()) == n_k3b and all(
         k == "pctd_frame_decode_bf16" and v == {"torch.bfloat16"}
         for (k, v) in seen), f"a bf16 K3 launch received another dtype or "
         f"entry point: {launch_summary(seen)}")
     phase("K3 bf16 vs plain", t0)
 
-    # 5. K4 vs its plain version
+    # 5. K4 vs its plain version, at each batch and cluster size, and the
+    # same bits over two launches
     t0 = time.perf_counter()
     k4_err, k4_agree = 0, 1.0
     for wname, (p, w) in weight_sets.items():
-        for B in (128, 512):
+        for B in DECODE_B:
             z = torch.randn(B, cfg.z_dim, device=dev, generator=gen)
             inputs = ptd.decode_inputs(p["dec"], cfg, z)
-            got = full_decoder.decode_grid_full(w, spec, *inputs)
             want = full_decoder.decode_grid_full_plain(w, spec, *inputs)
-            torch.cuda.synchronize()
-            ag = agreement(got, want)
-            err = (got - want).abs().max().item()
-            eos = got[..., 0] == spec.pitch_eos
-            lens = torch.where(eos.any(-1), eos.int().argmax(-1) + 1,
-                               spec.max_simu_note - 1)
-            hist = torch.bincount(lens.flatten().long(),
-                                  minlength=16).tolist()
-            print(f"  K4 {wname} B={B}: grid agreement {ag:.6f}, "
-                  f"max|err| {err}; frame lengths {hist}")
-            check(ag >= AGREE, f"K4 {wname} B={B} agreement {ag}")
-            k4_err, k4_agree = max(k4_err, err), min(k4_agree, ag)
+            for C in build.DECODE_CLUSTERS:
+                got = full_decoder.decode_grid_full(w, spec, *inputs,
+                                                    cluster=C)
+                again = full_decoder.decode_grid_full(w, spec, *inputs,
+                                                      cluster=C)
+                torch.cuda.synchronize()
+                same = torch.equal(got, again)
+                ag = agreement(got, want)
+                err = (got - want).abs().max().item()
+                eos = got[..., 0] == spec.pitch_eos
+                lens = torch.where(eos.any(-1), eos.int().argmax(-1) + 1,
+                                   spec.max_simu_note - 1)
+                hist = torch.bincount(lens.flatten().long(),
+                                      minlength=16).tolist()
+                print(f"  K4 {wname} B={B} C={C}: grid agreement {ag:.6f}, "
+                      f"max|err| {err}; two launches bit-identical: {same}; "
+                      f"frame lengths {hist}")
+                check(ag >= AGREE, f"K4 {wname} B={B} C={C} agreement {ag}")
+                check(same, f"K4 {wname} B={B} C={C}: two launches differ")
+                k4_err, k4_agree = max(k4_err, err), min(k4_agree, ag)
     phase("K4 vs plain", t0)
 
     # 6. K1 vs its plain version
@@ -1550,6 +1605,31 @@ def main() -> int:
     check((via_k3 == via_k4).mean() >= AGREE, "K3 vs K4 served grids")
     check(launches["K4"] > 0 and launches["K3"] > 0,
           f"a kernel of the path was not launched: {launches}")
+    # unchunked requests wider than the clusters the card holds at once:
+    # one K4 launch of all the rows, against the fixed-batch sampler's grids
+    wide = Sampler(params, cfg, device=dev)
+    for n in WIDE_SIZES:
+        pr1, c1 = requests(rng, n)
+        before = full_decoder.decode_grid_full.launches
+        times = []
+        for _ in range(3):
+            s0 = time.perf_counter()
+            got = wide.swap(pr1, pr1, c1, c1, True, True)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - s0)
+        one = full_decoder.decode_grid_full.launches - before
+        ag = float((got == sampler.swap(pr1, pr1, c1, c1, True, True)).mean())
+        p50 = float(np.median(times)) * 1e3
+        plan = build.plan_on_card(wide.fw, dims, n, True, dev)
+        serving[f"swap_unchunked/{n}"] = {"p50_ms": p50,
+                                          "segments_per_s": n / p50 * 1e3,
+                                          "plan": plan._asdict()}
+        print(f"  unchunked swap n={n}: p50 {p50:.2f} ms, {one} K4 "
+              f"launches in 3 calls, plan {plan._asdict()}; agreement with "
+              f"the fixed-batch grids {ag:.6f}")
+        check(one == 3, f"unchunked swap n={n}: {one} K4 launches, not 3")
+        check(ag >= AGREE, f"unchunked swap n={n} vs fixed-batch grids {ag}")
+    launches["K4"] = full_decoder.decode_grid_full.launches
     phase("serving", t0)
 
     # 8b. serving in bf16 (compute_dtype="bfloat16"): the K3 route, the
@@ -1899,46 +1979,51 @@ def main() -> int:
 
     # 10. timing
     t0 = time.perf_counter()
-    timing = {}
+    timing, plans = {}, {}
     for B in (128, 512):
         z = torch.randn(B, cfg.z_dim, device=dev, generator=gen)
         inputs = ptd.decode_inputs(params["dec"], cfg, z)
         h = torch.randn(B, cfg.dec_time_hidden, device=dev,
                         generator=gen) * 0.6
         sos = inputs.sos_emb
-        k3 = cuda_ms(lambda: ar_decoder.frame_decode(fw, spec, h, sos), 20)
-        k4 = cuda_ms(lambda: full_decoder.decode_grid_full(fw, spec,
-                                                            *inputs), 5)
+        fw_b = bf16_sets["seed"]
+        h_b = h.to(BF16)
+        sos_b = sos_probe_b[:1].expand(B, -1).contiguous()
+        # the row-group kernels, each queued behind a sleep kernel, twice
+        # in turns (the per-row kernels they replaced are timed from the
+        # parent commit's checkout: pctd_tpu_torch/tools/decode_by_rows.py)
+        new = {"K3": lambda: ar_decoder.frame_decode(fw, spec, h, sos),
+               "K3 bf16": lambda: ar_decoder.frame_decode(fw_b, spec, h_b,
+                                                          sos_b),
+               "K4": lambda: full_decoder.decode_grid_full(fw, spec,
+                                                           *inputs)}
+        turns = {k: [] for k in new}
+        for _ in range(2):
+            for k, fn in new.items():
+                q, ok = queued_ms(fn, DECODE_REPS[k])
+                check(ok, f"{k} B={B}: the host did not enqueue the timed "
+                      "calls within the sleep kernel")
+                turns[k].append(q)
+        k3, k3b, k4 = (float(np.mean(turns[k]))
+                       for k in ("K3", "K3 bf16", "K4"))
         k3p = cuda_ms(lambda: ar_decoder.frame_decode_plain(fw, spec, h,
                                                             sos), 3)
         k4p = cuda_ms(lambda: full_decoder.decode_grid_full_plain(
             fw, spec, *inputs), 1)
-        per_r = {}
-        grid = torch.empty((B, spec.num_step, spec.max_simu_note - 1, 6),
-                           dtype=torch.int32, device=dev)
-        for r in (1, 2, 4):
-            per_r[r] = cuda_ms(lambda: build.launch(
-                "pctd_full_decode", fw, dims, B, [*inputs, grid], rows=r), 3)
-        # K3 in bf16 on the bf16 folds of the same weights, then the f32
-        # K3 again (f32, bf16, f32 in one call)
-        fw_b = bf16_sets["seed"]
-        h_b = h.to(BF16)
-        sos_b = sos_probe_b[:1].expand(B, -1).contiguous()
-        k3b = cuda_ms(lambda: ar_decoder.frame_decode(fw_b, spec, h_b,
-                                                      sos_b), 20)
         k3bp = cuda_ms(lambda: ar_decoder.frame_decode_plain(fw_b, spec, h_b,
                                                              sos_b), 3)
-        k3_again = cuda_ms(lambda: ar_decoder.frame_decode(fw, spec, h, sos),
-                           20)
         timing[B] = {"K3": (k3, k3p, *bound_ms(*frame_work(fw, spec, B))),
                      "K4": (k4, k4p, *bound_ms(*full_work(fw, spec, B))),
                      "K3 bf16": (k3b, k3bp,
                                  *frame_bound_bf16(fw_b, spec, B))}
-        print(f"  B={B}: K3 {k3:.3f} ms (plain {k3p:.3f}), K4 {k4:.3f} ms "
-              f"(plain {k4p:.3f}); K4 ms by rows a block "
-              + ", ".join(f"{r}: {v:.3f}" for r, v in per_r.items()))
-        print(f"  B={B}: K3 bf16 {k3b:.3f} ms (plain {k3bp:.3f}); f32 K3 "
-              f"before and after it {k3:.3f}, {k3_again:.3f} ms")
+        plans[B] = {k: build.plan_on_card(fw_b if "bf16" in k else fw, dims,
+                                          B, k == "K4", dev)._asdict()
+                    for k in new}
+        print(f"  B={B} (queued, two turns): " + "; ".join(
+                  f"{k} {v[0]:.4f} / {v[1]:.4f} ms"
+                  for k, v in turns.items()))
+        print(f"  B={B}: plain K3 {k3p:.3f} ms, K3 bf16 {k3bp:.3f}, K4 "
+              f"{k4p:.3f}; plans {plans[B]}")
         for name, (ms, pms, bms, by) in timing[B].items():
             print(f"  B={B} {name} bound {bms:.4f} ms ({by}), "
                   f"{bms / ms:.3%} of it")
@@ -2235,18 +2320,68 @@ def main() -> int:
     training["k2a_vs_plain"] = k2a_gate
     phase("K2a by phase", t0)
 
+    # 10d. K3/K4 by phase: the row-group kernels whole and each phase
+    # launched alone (a phase alone reads zeros where the ones before it
+    # would have written; "barriers": the slot chain's cluster barriers
+    # alone), queued behind a sleep kernel, at B=128 and 512 in clusters
+    # of 8 and of 16, and at B=16, one group: its cluster alone on the card
+    t0 = time.perf_counter()
+    decode_phases = {}
+    fw_b = bf16_sets["seed"]
+    for B in (16, 128, 512):
+        z = torch.randn(B, cfg.z_dim, device=dev, generator=gen)
+        inputs = ptd.decode_inputs(params["dec"], cfg, z)
+        h = torch.randn(B, cfg.dec_time_hidden, device=dev,
+                        generator=gen) * 0.6
+        cases = {"K3": (fw, [h, inputs.sos_emb]),
+                 "K3 bf16": (fw_b, [h.to(BF16), inputs.sos_emb.to(BF16)]),
+                 "K4": (fw, list(inputs))}
+        for C in build.DECODE_CLUSTERS:
+            for key, (w, ins) in cases.items():
+                full = key == "K4"
+                variants = {"all": build.PHASES_ALL, **{
+                    n: b for n, b in build.DECODE_PHASES.items()
+                    if full or n != "time"}}
+                if full:   # K4's phases: the whole, its time GRU and its
+                    # duration chains alone
+                    variants = {n: variants[n] for n in ("all", "time",
+                                                         "dur")}
+                name = (build.FULL_ENTRY if full
+                        else build.FRAME_ENTRY)[w.w_hh.dtype]
+                res = {}
+                for n, bits in variants.items():
+                    outs = phase_outputs(key, w, spec, B, dev)
+                    ms, ok = queued_ms(lambda: build.launch(
+                        name, w, build.decoder_dims(w, spec), B,
+                        [*ins, *outs], phases=bits, cluster=C),
+                        DECODE_REPS[key])
+                    check(ok, f"{key} {n} B={B} C={C}: the host did not "
+                          "enqueue the timed calls within the sleep kernel")
+                    res[n] = ms
+                info = build.decode_info(w, build.decoder_dims(w, spec),
+                                         full, C, dev)
+                decode_phases[f"{key} B={B} C={C}"] = res
+                print(f"  {key} B={B} C={C} (ms a launch, queued; shared "
+                      f"memory {info[0]} B, {info[1]} clusters at once): "
+                      + ", ".join(
+                          f"{k} {v:.4f}" for k, v in res.items()))
+    phase("K3/K4 by phase", t0)
+
     # 11. kernels
     rows = []
     src = "pctd_tpu_torch/ops/kernels/csrc/decoder.cu"
+    sizes = (f"at B = {', '.join(map(str, DECODE_B))} in clusters of "
+             f"{' and '.join(map(str, build.DECODE_CLUSTERS))} blocks; the "
+             "same bits over two launches")
     for name, fn, err, ag, tol in (
-            ("K3 frame_kernel", "pctd_tpu/ops/pallas/ar_decoder.py:238",
+            ("K3 frame_group_kernel", "pctd_tpu/ops/pallas/ar_decoder.py:238",
              k3_err, k3_agree,
              f"pitch/dur/length agreement >= {AGREE}; summary max|err| "
-             f"<= {SUMMARY_ATOL} on agreeing rows"),
-            ("K4 full_kernel", "pctd_tpu/ops/pallas/full_decoder.py:59",
+             f"<= {SUMMARY_ATOL} on agreeing rows; {sizes}"),
+            ("K4 full_group_kernel", "pctd_tpu/ops/pallas/full_decoder.py:59",
              k4_err, k4_agree,
              f"grid agreement >= {AGREE} (max_abs_err: largest int "
-             "difference of a grid cell)")):
+             f"difference of a grid cell); {sizes}")):
         key = name[:2]
         ms, pms, bms, by = timing[128][key]
         rows.append({"name": name, "route": "cuda", "source": src,
@@ -2258,7 +2393,7 @@ def main() -> int:
                      "ms_b512": timing[512][key][0],
                      "plain_ms_b512": timing[512][key][1]})
     ms, pms, bms, by = timing[128]["K3 bf16"]
-    rows.append({"name": "K3 frame_kernel (bf16)", "route": "cuda",
+    rows.append({"name": "K3 frame_group_kernel (bf16)", "route": "cuda",
                  "source": "pctd_tpu_torch/ops/kernels/csrc/decoder.cu "
                            "(instantiated in csrc/decoder_bf16.cu)",
                  "replaces": "pctd_tpu/ops/pallas/ar_decoder.py:238",
@@ -2267,13 +2402,30 @@ def main() -> int:
                  "tolerance": f"pitch/dur/length agreement >= {AGREE}, each "
                  f"row's first differing decision a near-tie (margin <= "
                  f"{BF16_TIE}); summary max|err| <= {BF16_SUMMARY_TOL} x "
-                 "(1 + max|plain|) on agreeing rows",
+                 f"(1 + max|plain|) on agreeing rows; {sizes}",
                  "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
                  "bound_peak": "h_time products at the dense bf16 989 "
                  "TFLOP/s, the f32-operand products at 67 TFLOP/s",
                  "library_ms": None, "batch": 128,
                  "ms_b512": timing[512]["K3 bf16"][0],
                  "plain_ms_b512": timing[512]["K3 bf16"][1]})
+    # the row-group decode kernels: queued times, the plan, the phases
+    # alone, the build report
+    for row in rows:
+        key = "K3 bf16" if "bf16" in row["name"] else row["name"][:2]
+        row.update({
+            "ms_source": "CUDA events over launches queued behind a sleep "
+                         "kernel (device time, host launch hidden)",
+            "bound_ms_b512": timing[512][key][2],
+            "plan": plans[128][key], "plan_b512": plans[512][key],
+            "by_phase_ms": {k: v for k, v in decode_phases.items()
+                            if k.rsplit(" B=", 1)[0] == key},
+            "registers": {k: v for k, v in decode_regs.items()
+                          if k.startswith("full" if key == "K4"
+                                          else "frame")},
+            "sass_instructions": {k: v for k, v in decode_sass.items()
+                                  if k.startswith("full" if key == "K4"
+                                                  else "frame")}})
     tsrc = "pctd_tpu_torch/ops/kernels/csrc/train_frame.cu"
     for key, name, fn, err, tol in (
             ("K1", "K1 train_fwd_kernel",

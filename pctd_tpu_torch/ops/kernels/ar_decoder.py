@@ -3,8 +3,10 @@ masked bi-GRU summary of the predicted notes, in float32 or bfloat16.
 
 Replaces the Pallas kernel ``pctd_tpu/ops/pallas/ar_decoder.py::_frame_kernel``
 (launched by ``frame_decode_pallas``). The CUDA source is
-``csrc/decoder.cu`` (``frame_kernel``); :func:`frame_decode_plain` is its
-plain PyTorch version, which the wrapper takes for CPU tensors.
+``csrc/decoder.cu`` (``frame_group_kernel``: a thread-block cluster decodes
+a group of 16 rows, each block a share of every product's columns;
+``build.decode_plan`` picks the cluster size); :func:`frame_decode_plain`
+is its plain PyTorch version, which the wrapper takes for CPU tensors.
 
 Both run the serving folds of
 :func:`pctd_tpu_torch.models.pianotree_decoder.fold_inference_heads`, packed
@@ -210,14 +212,16 @@ def frame_decode_plain(fw: FoldedWeights, spec: PianoTreeSpec,
 
 
 def frame_decode(fw: FoldedWeights, spec: PianoTreeSpec,
-                 h_time: torch.Tensor, sos_emb: torch.Tensor
+                 h_time: torch.Tensor, sos_emb: torch.Tensor,
+                 cluster: int = 0
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                             torch.Tensor]:
-    """K3 wrapper: launches ``frame_kernel`` for CUDA tensors in the
+    """K3 wrapper: launches ``frame_group_kernel`` for CUDA tensors in the
     weights' storage dtype (float32, or the ``pctd_frame_decode_bf16``
     entry point for bfloat16; ``h_time``, ``sos_emb`` and the summary in the
     same dtype); a CPU ``h_time`` takes :func:`frame_decode_plain`. Same
-    contract as the plain version. Counts its launches in
+    contract as the plain version. ``cluster`` forces the blocks a cluster
+    (0: ``build.decode_plan``'s). Counts its launches in
     ``frame_decode.launches``."""
     if h_time.device.type == "cpu":
         return frame_decode_plain(fw, spec, h_time, sos_emb)
@@ -234,7 +238,8 @@ def frame_decode(fw: FoldedWeights, spec: PianoTreeSpec,
     summary = torch.empty((B, 2 * dims.EH), dtype=dtype, device=dev)
     lengths = torch.empty((B,), dtype=torch.int32, device=dev)
     build.launch(build.FRAME_ENTRY[dtype], fw, dims, B,
-                 [h_time, sos_emb, pitch_idx, dur_bits, summary, lengths])
+                 [h_time, sos_emb, pitch_idx, dur_bits, summary, lengths],
+                 cluster=cluster)
     frame_decode.launches += 1
     return pitch_idx, dur_bits, summary, lengths
 

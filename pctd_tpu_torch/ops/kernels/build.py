@@ -147,13 +147,16 @@ def library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         weights = ctypes.POINTER(DecoderWeightsC)
+        out = ctypes.POINTER(ctypes.c_int)
         for name in FRAME_ENTRY.values():     # one C signature per dtype
             fn = getattr(lib, name)
-            fn.argtypes, fn.restype = [weights, i32, i32] + [ptr] * 7, i32
-        lib.pctd_full_decode.argtypes = [weights, i32, i32] + [ptr] * 6
+            fn.argtypes, fn.restype = [weights, i32, i32, i32] + [ptr] * 7, i32
+        lib.pctd_full_decode.argtypes = [weights, i32, i32, i32] + [ptr] * 6
         lib.pctd_full_decode.restype = i32
-        lib.pctd_smem_bytes.argtypes = [weights, i32]
-        lib.pctd_smem_bytes.restype = i32
+        lib.pctd_decode_info.argtypes = [weights, i32, i32, out]
+        lib.pctd_decode_info_bf16.argtypes = [weights, i32, out]
+        for fn in (lib.pctd_decode_info, lib.pctd_decode_info_bf16):
+            fn.restype = i32
         lib.pctd_error_string.argtypes = [i32]
         lib.pctd_error_string.restype = ctypes.c_char_p
         tw = ctypes.POINTER(TrainWeightsC)
@@ -175,7 +178,6 @@ def library() -> ctypes.CDLL:
                 fn.argtypes, fn.restype = argtypes, i32
         lib.pctd_train_smem_bytes.argtypes = [tw, i32]
         lib.pctd_train_smem_bytes.restype = i32
-        out = ctypes.POINTER(ctypes.c_int)
         lib.pctd_train_bwd_smem_bytes.argtypes = [tw, i32, i32, i32, out,
                                                   out]
         lib.pctd_train_bwd_smem_bytes.restype = i32
@@ -201,7 +203,7 @@ def train_entry(name: str, dtype: torch.dtype) -> str:
 
 #: the C entry point of K3 for each storage dtype (the bf16 one compiled in
 #: ``csrc/decoder_bf16.cu``), and of K4, which decodes in float32 only (the
-#: JAX package's K4 has no bf16 mode)
+#: JAX package's K4 has no bf16 mode): the row-group kernels
 FRAME_ENTRY = {torch.float32: "pctd_frame_decode",
                torch.bfloat16: "pctd_frame_decode_bf16"}
 FULL_ENTRY = {torch.float32: "pctd_full_decode"}
@@ -241,39 +243,134 @@ def check_inputs(fw: FoldedWeights, device: torch.device,
     return dtype
 
 
-#: a block's decode time with R rows, relative to one row: K4 at canonical
-#: width, B=128, on an H100 SXM at 700 W (chip_smoke.py's rows-per-block
-#: timing: 53.5, 55.8 and 79.2 ms).
+#: a block's time with R rows, relative to one row, of the per-row frame
+#: kernels (K1, and the per-row K4 it was measured on: canonical width,
+#: B=128, on an H100 SXM at 700 W, 53.5, 55.8 and 79.2 ms).
 BLOCK_COST = {1: 1.0, 2: 1.04, 4: 1.48}
 
 
 def rows_per_block(batch: int, sms: int) -> int:
-    """Batch rows a block decodes (1, 2 or 4). One block runs per SM (its
-    registers fill the SM), so the decode takes waves of ``sms`` blocks;
-    more rows a block means fewer waves but a slower block. Picks the R
-    with the least (waves x block cost)."""
+    """Batch rows a per-row block takes (1, 2 or 4). One block runs per SM
+    (its registers fill the SM), so the kernel takes waves of ``sms``
+    blocks; more rows a block means fewer waves but a slower block. Picks
+    the R with the least (waves x block cost)."""
     cdiv = lambda a, b: -(-a // b)
     return min(BLOCK_COST,
                key=lambda r: cdiv(cdiv(batch, r), sms) * BLOCK_COST[r])
 
 
-def launch(name: str, fw: FoldedWeights, dims: Dims, batch: int,
-           tensors: Sequence[torch.Tensor], rows: int = 0) -> None:
-    """Launch ``name`` on the current stream of the tensors' device; raises
-    if the launch is refused. ``rows`` overrides :func:`rows_per_block`."""
+#: rows of a decode group: one cluster of the row-group K3/K4 decodes them,
+#: so that each weight read from L2 serves this many rows
+DECODE_G = 16
+#: the cluster sizes the plan takes, largest first (16 blocks is a
+#: non-portable cluster size, which Hopper allows)
+DECODE_CLUSTERS = (16, 8)
+#: the phases of a row-group launch (bits of ``launch``'s ``phases``): the
+#: frame projection, the note chain (note steps with the slot product, the
+#: argmax and the token feedback), the duration chains, the summary, and
+#: K4's time GRU; a phase launched alone reads zeros where the phases
+#: before it would have written, for timing; and, for timing only, the slot
+#: chain's cluster barriers alone (three a slot)
+DECODE_PHASES = {"proj": 1, "note": 2, "dur": 4, "summary": 8, "time": 16,
+                 "barriers": 32}
+PHASES_ALL = 31
+
+
+class DecodePlan(NamedTuple):
+    """How a row-group decode covers a batch: ``groups`` groups of ``G``
+    rows (the last one padded), one cluster of ``C`` blocks each, in
+    ``waves`` rounds of the clusters the card holds at once."""
+    G: int
+    C: int
+    groups: int
+    waves: int
+
+
+def decode_plan(batch: int, sms: int, clusters_at_once=None) -> DecodePlan:
+    """The plan of a row-group K3/K4 launch for ``batch`` rows:
+    ``clusters_at_once`` maps each size of :data:`DECODE_CLUSTERS` to the
+    clusters of that size the card holds at once (the kernels' occupancy
+    query on the card; by default ``sms // C``, one block an SM). Takes 16
+    blocks a cluster where every group fits at once (a block then owns half
+    the columns it would at 8), else 8, the size that fits more groups at
+    once; a size that fits no cluster at all is never taken."""
+    if batch < 1:
+        raise ValueError(f"empty batch: {batch}")
+    at_once = dict(clusters_at_once or {c: sms // c for c in DECODE_CLUSTERS})
+    sizes = [c for c in DECODE_CLUSTERS if at_once.get(c, 0) > 0]
+    if not sizes:
+        raise RuntimeError(f"no cluster size of {DECODE_CLUSTERS} fits this "
+                           f"card (clusters at once: {at_once})")
+    groups = -(-batch // DECODE_G)
+    C = sizes[0] if groups <= at_once[sizes[0]] else sizes[-1]
+    return DecodePlan(G=DECODE_G, C=C, groups=groups,
+                      waves=-(-groups // at_once[C]))
+
+
+_INFO: dict = {}
+
+
+def _weights_c(fw: FoldedWeights, dims: Dims) -> DecoderWeightsC:
+    """The C weights struct; raises unless every width is a multiple of 4
+    and every weight starts 16 bytes aligned (the kernels' vector loads)."""
     for d in ("TH", "NH", "DH", "E", "EH"):
         if getattr(dims, d) % 4:
             raise ValueError(f"decode kernels need {d} % 4 == 0, got "
                              f"{getattr(dims, d)}")
+    for n, t in zip(fw._fields, fw):
+        if t.data_ptr() % 16:
+            raise ValueError(f"weight {n} is not 16-byte aligned")
+    return DecoderWeightsC(*(t.data_ptr() for t in fw), *dims)
+
+
+def decode_info(fw: FoldedWeights, dims: Dims, full: bool, cluster: int,
+                device: torch.device) -> Tuple[int, int]:
+    """(shared memory bytes a block, clusters the card holds at once) of
+    the row-group K3 (K4 with ``full``) in the weights' dtype at
+    ``cluster`` blocks a cluster; cached by dtype and shapes."""
+    bf16 = fw.w_hh.dtype == torch.bfloat16
+    key = (full, bf16, cluster, dims, device)
+    if key not in _INFO:
+        lib = library()
+        out = (ctypes.c_int * 2)()
+        st = _weights_c(fw, dims)
+        with torch.cuda.device(device):
+            rc = (lib.pctd_decode_info_bf16(ctypes.byref(st), cluster, out)
+                  if bf16 else lib.pctd_decode_info(ctypes.byref(st),
+                                                    int(full), cluster, out))
+        if rc != 0:
+            raise RuntimeError(f"decode_info: "
+                               f"{lib.pctd_error_string(rc).decode()}")
+        _INFO[key] = (out[0], out[1])
+    return _INFO[key]
+
+
+def plan_on_card(fw: FoldedWeights, dims: Dims, batch: int, full: bool,
+                 device: torch.device) -> DecodePlan:
+    """:func:`decode_plan` with the card's SM count and occupancy."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return decode_plan(batch, sms, {
+        c: decode_info(fw, dims, full, c, device)[1]
+        for c in DECODE_CLUSTERS})
+
+
+def launch(name: str, fw: FoldedWeights, dims: Dims, batch: int,
+           tensors: Sequence[torch.Tensor], phases: int = PHASES_ALL,
+           cluster: int = 0) -> None:
+    """Launch the row-group kernel ``name`` (:data:`FRAME_ENTRY`,
+    :data:`FULL_ENTRY`) on the current stream of the tensors' device, in
+    clusters of ``cluster`` blocks (0: :func:`plan_on_card`'s), the phases
+    of ``phases`` (:data:`DECODE_PHASES`; all by default); raises if the
+    launch is refused."""
     lib = library()
     device = tensors[0].device
-    if not rows:
-        sms = torch.cuda.get_device_properties(device).multi_processor_count
-        rows = rows_per_block(batch, sms)
-    st = DecoderWeightsC(*(t.data_ptr() for t in fw), *dims)
+    st = _weights_c(fw, dims)
+    if not cluster:
+        cluster = plan_on_card(fw, dims, batch, name in FULL_ENTRY.values(),
+                               device).C
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, name)(ctypes.byref(st), batch, rows,
+        rc = getattr(lib, name)(ctypes.byref(st), batch, phases, cluster,
                                 *(t.data_ptr() for t in tensors), stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: "

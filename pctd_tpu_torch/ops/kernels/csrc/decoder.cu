@@ -1,41 +1,57 @@
 // Argmax PianoTree decode kernels for Hopper (sm_90a), f32 on CUDA cores.
 //
-// frame_kernel (K3) replaces pctd_tpu/ops/pallas/ar_decoder.py::_frame_kernel:
-//   one frame's 15-slot note chain with argmax feedback, the 5-bit duration
-//   chain of every slot, and the masked bi-GRU summary of the predicted notes.
-//   It is a template on the storage type S of the weights, the time hidden,
-//   the sos embedding and the summary: float, or __nv_bfloat16 for the bf16
-//   mode (compiled in decoder_bf16.cu).
-// full_kernel (K4) replaces pctd_tpu/ops/pallas/full_decoder.py::_full_kernel:
-//   the whole T-frame decode, time GRU included, straight to the grid.
-// Both run the same device functions for the slot chain and the summary
-// (frame_body), as the Pallas pair shares _slot_chain/_summary_from_raws.
-// Their plain PyTorch versions are frame_decode_plain and
-// decode_grid_full_plain (ar_decoder.py, full_decoder.py beside this file).
+// K3 replaces pctd_tpu/ops/pallas/ar_decoder.py::_frame_kernel: one frame's
+//   15-slot note chain with argmax feedback, the 5-bit duration chain of
+//   every slot, and the masked bi-GRU summary of the predicted notes. It is
+//   a template on the storage type S of the weights, the time hidden, the
+//   sos embedding and the summary: float, or __nv_bfloat16 for the bf16 mode
+//   (compiled in decoder_bf16.cu).
+// K4 replaces pctd_tpu/ops/pallas/full_decoder.py::_full_kernel: the whole
+//   T-frame decode, time GRU included, straight to the grid (float only).
+// Both run the same device functions for the frame (the projection, the
+// slot chain and the summary), as the Pallas pair shares
+// _slot_chain/_summary_from_raws. Their plain PyTorch versions are
+// frame_decode_plain and decode_grid_full_plain (ar_decoder.py,
+// full_decoder.py beside this file).
 //
 // What bounds them on this card: the decode is a chain of small dependent
-// matrix-vector products (per row and frame: 15 slots x [512 -> 1536 and
-// 512 -> 388 products + 5 dur steps of 64 -> 194], a 16-step bi-GRU on 128,
-// and for K4 a 1024 -> 3072 time GRU), ~50 MFLOP a row a frame over ~30 MB of
-// weights. At serving batches the FLOP bound (f32 FMA, 67 TFLOP/s) is a few
-// ms; what this design pays instead is weight traffic from L2: each block
-// reads every weight once per frame, whatever its row count.
+// matrix-vector products (per row and frame: 16 products 512 -> 1536 with
+// w_hh, 15 of 512 -> 388 with w_slot, 75 duration steps 64 -> 194, a
+// 16-step bi-GRU on 128, and for K4 a 1024 -> 3072 time GRU), ~45 MFLOP a
+// row a frame over ~30 MB of weights, ~87 MB read a row a frame (103 MB in
+// K4) counting each weight as often as the chain reads it. The FLOP bound
+// is a few hundredths of a ms at serving batches. A block that reads every
+// weight for its own few rows is bound by that L2 stream (the per-row
+// design these kernels replaced; PERF.md keeps its times); a cluster that
+// shares each read among 16 rows is bound by its serial chain instead: each
+// slot's products wait on dependent rounds of weight loads, and every
+// exchange waits on a cluster barrier.
 //
-// What the design does about it: rows are independent, so a block owns R
-// batch rows (R in {1, 2, 4}) and walks frames, slots and dur steps in a
-// loop, keeping all per-row state in shared memory. Each weight element it
-// reads from L2 feeds R FMAs (R accumulators per thread), and weights are read
-// row-major (in, out), neighbouring threads on neighbouring columns, so the
-// loads coalesce; narrow products split the input dimension across thread
-// groups so more threads issue loads. More rows per block cut L2 traffic,
-// more blocks use more SMs; the wrapper picks R from the batch.
+// Row groups (frame_group_kernel, K3; full_group_kernel, K4). A
+// thread-block cluster of C blocks (16, or 8 where the launch would
+// not fit the card at once; the plan is build.decode_plan) decodes a group
+// of DG = 16 rows, so every weight element read from L2 feeds 16 FMAs.
+// Each block owns a 1/C share of every product's output columns: NH / C
+// notes-GRU units (their w_hh columns and gate math), SL / C columns of
+// w_slot, TH / C time-GRU units (K4), and, per summary direction, EH / (C /
+// 2) units on half of the cluster's blocks. A block multiplies the group's
+// whole input (its 16 rows, in shared memory) by its columns, splitting k
+// over threads so that ~all 512 take part (group_product), and pushes the
+// outputs that other blocks need into their shared memory (distributed
+// shared memory), then a cluster barrier: the new hidden state into every
+// block; a slot's logits and duration projections into the block that owns
+// the row (row r: block r % C), which runs the pitch argmax and the 5-step
+// duration chain (w_dcomb staged in shared memory) and pushes
+// the decisions into every block; each block then folds the token feedback
+// of its own columns. Three cluster barriers a slot, one a summary step.
 //
-// Arithmetic is plain f32 (no TF32, no reduced precision): every argmax feeds
-// back, so the logits that decide it stay f32. Ties go to the lowest pitch
-// index, and a dur bit is logit[1] > logit[0] strictly, as in the JAX package.
-// The weight folds and combined-column layouts are the JAX serving path's
-// (see ar_decoder.py), so kernel, plain version and JAX package compute the
-// same regroupings.
+// Arithmetic is plain f32 FMA (no TF32, no reduced precision): every argmax
+// feeds back, so the logits that decide it stay f32; sums run in a fixed
+// order, so two launches give the same bits. Ties go to the lowest pitch
+// index, and a dur bit is logit[1] > logit[0] strictly, as in the JAX
+// package. The weight folds and combined-column layouts are the JAX serving
+// path's (see ar_decoder.py), so kernel, plain version and JAX package
+// compute the same regroupings.
 //
 // K3's bf16 mode is the Pallas kernel run on bf16 params and inputs: every
 // product there is a dot with preferred_element_type=f32, and an f32 value
@@ -44,10 +60,12 @@
 // two folded constants are f32 in either mode (gi_tok_sos, and gi_d: the
 // f32 sos row and the dur-GRU feedback rows w_dih[b] + b_dih, which the
 // wrapper rounds to bf16 as the Pallas bf16 + bf16 sum does). The one
-// rounding inside the kernel is the summary, stored as bf16. The bf16 mode
-// reads half the weight bytes from L2 and does the same f32 FMAs. full_kernel
-// (K4) is float only: the JAX package's K4 has no bf16 mode.
+// rounding inside the kernel is the summary, stored as bf16.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 // Field order matches FoldedWeights and build.Dims (ar_decoder.py, build.py).
 // S is the storage type of the weights; gi_tok_sos and gi_d are f32 in either.
@@ -64,382 +82,966 @@ using DecoderWeights = DecoderWeightsT<float>;
 
 namespace {
 
-// Shared-memory layout of one block, in floats (ints after the floats).
-// Every row stride is a multiple of 4 floats so float4 reads stay aligned.
-struct Layout {
-  int lTH, lHS, l3TH, lYF, l3NH, lSL, lDH, lDC, lE, l3EH;
-  int o_htime, o_hs, o_git, o_ght, o_yf, o_gh, o_acc, o_Y, o_hd, o_X, o_xs,
-      o_sg, o_red, n_floats, n_ints;
+constexpr int DG = 16;                // rows of a group
+constexpr int DEC_MAX_SMEM = 232448;  // a block's shared memory on sm_90
+
+constexpr int XI = 4;  // a summary step's embeddings a thread: DG E <= XI NT
+
+// phases of a row-group launch: all to decode; one alone to time it
+constexpr int PH_PROJ = 1, PH_NOTE = 2, PH_DUR = 4, PH_SUMM = 8,
+              PH_TIME = 16, PH_ALL = 31, PH_BARRIERS = 32;
+
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ inline int imax2(int a, int b) { return a > b ? a : b; }
+// first index of share c when n items (a multiple of 4) are cut into C
+// shares of whole 4-item quads: every share starts 16 bytes into an f32 row
+__host__ __device__ inline int part(int n, int C, int c) {
+  return 4 * (int)((long long)(n / 4) * c / C);
+}
+
+// Shared memory of a row-group block (offsets in floats, then in bytes).
+// Written by other blocks: ht (K4), tok (K4), hf, Y, pitch, bits, and the
+// summary planes hsd. One region holds, phase by phase, the note chain's
+// locals (gif, gh, acc, ys, hd, X, red), the time GRU's gates tg (K4) and the
+// summary's planes and locals (hsd, sg, xs): a cluster barrier separates
+// the phases, so no block writes into a region that another still reads.
+// w_dcomb, in the weights' storage type, comes last.
+struct GLayout {
+  int C, nro, U, TU, SU, SLc;
+  int lTH, lHS, lNH, lSL, lDH, lDC, lE, lEH, lU3, lT6, lS6, lSLc;
+  int o_ht, o_tok, o_hf, o_Y, o_wdg, o_emb, o_dc, o_gif, o_gh, o_acc, o_ys,
+      o_hd, o_X, o_red, o_tg, o_hsd, o_sg, o_xs, n_floats;
+  int b_own, b_pitch, b_bits, b_wd, bytes;
 };
 
 template <typename S>
-__host__ __device__ inline Layout make_layout(const DecoderWeightsT<S>& w,
-                                              int R) {
-  Layout L;
+__host__ __device__ inline GLayout group_layout(const DecoderWeightsT<S>& w,
+                                                int C, bool full) {
+  GLayout L;
+  const int SL = w.P + w.DH + 2 + 3 * w.DH, DC = 2 + 3 * w.DH;
+  L.C = C;
+  L.nro = DG / C;
+  L.U = 4 * cdiv(w.NH / 4, C);   // the largest share of each partition
+  L.TU = 4 * cdiv(w.TH / 4, C);
+  L.SU = 4 * cdiv(w.EH / 4, C / 2);
+  L.SLc = 4 * cdiv(SL / 4, C);
   L.lTH = pad4(w.TH);
   L.lHS = pad4(2 * w.EH);
-  L.l3TH = pad4(3 * w.TH);
-  L.lYF = pad4(4 * w.NH);
-  L.l3NH = pad4(3 * w.NH);
-  L.lSL = pad4(w.P + w.DH + 2 + 3 * w.DH);
+  L.lNH = pad4(w.NH);
+  L.lSL = pad4(SL);
   L.lDH = pad4(w.DH);
-  L.lDC = pad4(2 + 3 * w.DH);
+  L.lDC = pad4(DC);
   L.lE = pad4(w.E);
-  L.l3EH = pad4(3 * w.EH);
+  L.lEH = pad4(w.EH);
+  L.lU3 = pad4(3 * L.U);
+  L.lT6 = pad4(6 * L.TU);
+  L.lS6 = pad4(6 * L.SU);
+  L.lSLc = pad4(L.SLc);
   int o = 0;
-  L.o_htime = o;  o += R * L.lTH;   // time hidden (persistent)
-  L.o_hs = o;     o += R * L.lHS;   // [hf | hb] summary = next time token
-  // union: the time-GRU phase and the frame phase never overlap
-  int u = o;
-  L.o_git = u;
-  L.o_ght = u + R * L.l3TH;
-  int time_end = u + 2 * R * L.l3TH;
-  int f = u;
-  L.o_yf = f;   f += R * L.lYF;      // [hid/h | gi_frame]
-  L.o_gh = f;   f += R * L.l3NH;     // notes-GRU hidden gates
-  L.o_acc = f;  f += R * L.l3NH;     // folded token feedback (gi_tok)
-  L.o_Y = f;    f += R * L.lSL;      // [pitch logits | h_d0 | X0]
-  L.o_hd = f;   f += R * L.lDH;      // dur hidden
-  L.o_X = f;    f += R * L.lDC;      // [dur logit | dur gates]
-  L.o_xs = f;   f += R * 2 * L.lE;   // summary inputs [fwd | bwd]
-  L.o_sg = f;   f += R * 4 * L.l3EH; // summary [gi_f | gh_f | gi_b | gh_b]
-  o = time_end > f ? time_end : f;
-  L.o_red = o;  o += NT * R;         // split-K partial sums
-  L.n_floats = o;
-  L.n_ints = R * ((w.K - 1) * (1 + w.W) + 1);
+  L.o_ht = o;  o += DG * L.lTH;   // time hidden of the group's rows
+  L.o_tok = o;                    // K4: summary token [hf | hb]
+  if (full) o += DG * L.lHS;
+  L.o_hf = o;  o += DG * L.lNH;   // notes hidden
+  L.o_Y = o;   o += L.nro * L.lSL;  // owned rows' slot projections
+  L.o_wdg = o; o += w.W * L.lU3;    // w_dur_gi, this block's columns
+  L.o_emb = o; o += (w.W + 1) * L.lE;  // w_emb's bit rows, then b_emb
+  L.o_dc = o;  o += L.lDC + 9 * L.lDH;  // b_dcomb, then gi_d's 3 x 3 rows
+  int u = o;                      // the note chain's locals
+  L.o_gif = u; u += DG * L.lU3;   // frame share of gi (own units)
+  L.o_gh = u;  u += DG * L.lU3;   // hidden gates (own units)
+  L.o_acc = u; u += DG * L.lU3;   // folded token feedback (own units)
+  L.o_ys = u;  u += DG * L.lSLc;  // own w_slot columns
+  L.o_hd = u;  u += L.nro * L.lDH;  // owned rows' dur hidden
+  L.o_X = u;   u += L.nro * L.lDC;  // owned rows' [dur logits | gates]
+  L.o_red = u; u += L.nro * NT;     // dur_product's partial sums
+  int end = u;
+  L.o_tg = o;                     // K4: time gates [gi | gh] (own units)
+  if (full) end = imax2(end, o + DG * L.lT6);
+  u = o;                          // the summary
+  L.o_hsd = u; u += 2 * DG * L.lEH;  // two planes of a direction's hidden
+  L.o_sg = u;  u += DG * L.lS6;   // [gi | gh] (own units)
+  L.o_xs = u;  u += DG * L.lE;    // a step's note embeddings
+  L.n_floats = imax2(end, u);
+  const int S1 = w.K - 1;
+  int b = 4 * L.n_floats;
+  L.b_own = b;   b += 4 * (L.nro * (1 + w.W) + DG);  // owned decisions, len
+  L.b_pitch = b; b += 2 * DG * S1;                   // short [DG][K-1]
+  L.b_bits = b;  b += DG * S1 * w.W;                 // uchar [DG][K-1][W]
+  b = (b + 15) & ~15;
+  L.b_wd = b;
+  L.bytes = b + w.DH * DC * (int)sizeof(S);
   return L;
 }
 
-template <typename S>
-__host__ inline size_t smem_bytes(const DecoderWeightsT<S>& w, int R) {
-  Layout L = make_layout(w, R);
-  return sizeof(float) * (size_t)L.n_floats + sizeof(int) * (size_t)L.n_ints;
-}
-
-struct Smem {
-  float *h_time, *hs, *git, *ght, *yf, *gh, *acc, *Y, *hd, *X, *xs, *sg, *red;
-  int *pitch, *bits, *len;
+struct GSmem {
+  float *ht, *tok, *hf, *Y, *wdg, *emb, *bdc, *gid, *gif, *gh, *acc, *ys,
+      *hd, *X, *red, *tg, *hsd, *sg, *xs;
+  int *own, *len;       // own: [nro][1 + W] pitch and bits of owned rows
+  short* pitch;         // [DG][K-1]
+  unsigned char* bits;  // [DG][K-1][W]
+  void* wd;
 };
 
-template <typename S>
-__device__ inline Smem carve(const Layout& L, float* base, int R,
-                             const DecoderWeightsT<S>& w) {
-  Smem s;
-  s.h_time = base + L.o_htime;
-  s.hs = base + L.o_hs;
-  s.git = base + L.o_git;
-  s.ght = base + L.o_ght;
-  s.yf = base + L.o_yf;
-  s.gh = base + L.o_gh;
-  s.acc = base + L.o_acc;
-  s.Y = base + L.o_Y;
-  s.hd = base + L.o_hd;
-  s.X = base + L.o_X;
-  s.xs = base + L.o_xs;
-  s.sg = base + L.o_sg;
-  s.red = base + L.o_red;
-  int* ib = reinterpret_cast<int*>(base + L.n_floats);
-  s.pitch = ib;                         // [R][K-1]
-  s.bits = ib + R * (w.K - 1);          // [R][K-1][W]
-  s.len = s.bits + R * (w.K - 1) * w.W; // [R]
+__device__ inline GSmem group_carve(const GLayout& L, char* base, int W) {
+  float* f = reinterpret_cast<float*>(base);
+  GSmem s;
+  s.ht = f + L.o_ht;
+  s.tok = f + L.o_tok;
+  s.hf = f + L.o_hf;
+  s.Y = f + L.o_Y;
+  s.wdg = f + L.o_wdg;
+  s.emb = f + L.o_emb;
+  s.bdc = f + L.o_dc;
+  s.gid = f + L.o_dc + L.lDC;
+  s.gif = f + L.o_gif;
+  s.gh = f + L.o_gh;
+  s.acc = f + L.o_acc;
+  s.ys = f + L.o_ys;
+  s.hd = f + L.o_hd;
+  s.X = f + L.o_X;
+  s.red = f + L.o_red;
+  s.tg = f + L.o_tg;
+  s.hsd = f + L.o_hsd;
+  s.sg = f + L.o_sg;
+  s.xs = f + L.o_xs;
+  s.own = reinterpret_cast<int*>(base + L.b_own);
+  s.len = s.own + L.nro * (1 + W);
+  s.pitch = reinterpret_cast<short*>(base + L.b_pitch);
+  s.bits = reinterpret_cast<unsigned char*>(base + L.b_bits);
+  s.wd = base + L.b_wd;
   return s;
 }
 
-// One frame from s.yf = [hid | gi_frame + b_raw_gi]: the serial slot chain
-// (pitch/bits/len into shared ints) and the masked bi-GRU summary into s.hs
-// (f32). sos_emb holds this block's rows (nrows valid).
-template <int R, typename S>
-__device__ void frame_body(const DecoderWeightsT<S>& w, const Layout& L,
-                           const Smem& s, const S* sos_emb, int nrows) {
-  const int t = threadIdx.x;
-  const int NH = w.NH, NH3 = 3 * w.NH, DH = w.DH, P = w.P, W = w.W,
-            K = w.K, E = w.E, EH = w.EH, EH3 = 3 * w.EH;
-  const int SL = P + DH + 2 + 3 * DH, DC = 2 + 3 * DH;
-  float* h = s.yf;              // slot hidden, row stride lYF
-  const float* gif = s.yf + NH; // frame share of the notes-GRU gi
+// v into element p of every block of ranks [r0, r0 + n) of the cluster
+template <typename T>
+__device__ __forceinline__ void put_ranks(cg::cluster_group& cl, int r0,
+                                          int n, T* p, T v) {
+  for (int cc = r0; cc < r0 + n; ++cc) *cl.map_shared_rank(p, cc) = v;
+}
 
-  for (int idx = t; idx < R * NH3; idx += NT) {
-    const int r = idx / NH3, j = idx - r * NH3;
-    s.acc[r * L.l3NH + j] = __ldg(w.gi_tok_sos + j);
-  }
-  if (t < R) s.len[t] = 0;
-  matvec<R>(w.w_hh, w.b_hh, NH, NH3, h, L.lYF, s.gh, L.l3NH, s.red);
-  __syncthreads();
+// One part of a group product: out[r][j] = b[j] + sum_{k < in} x[r][k]
+// W[k][j] for the group's DG rows, j < n. W points at the part's first
+// column of a row-major (in, ldw) weight; b at its bias, or null.
+template <typename S>
+struct Seg {
+  const S* W;
+  const S* b;
+  int ldw, n, in;
+  const float* x;
+  int ldx;
+  float* out;
+  int ldo;
+};
 
-  for (int k = 1; k < K; ++k) {
-    // notes-GRU step: h = gates(gi_frame + gi_tok, gh, h)
-    for (int idx = t; idx < R * NH; idx += NT) {
-      const int r = idx / NH, j = idx - r * NH;
-      const float* g = gif + r * L.lYF;
-      const float* a = s.acc + r * L.l3NH;
-      const float* hh = s.gh + r * L.l3NH;
-      float ir = g[j] + a[j], iz = g[NH + j] + a[NH + j],
-            in_ = g[2 * NH + j] + a[2 * NH + j];
-      float rr = sigmoid_(ir + hh[j]);
-      float zz = sigmoid_(iz + hh[NH + j]);
-      float nn = tanhf(in_ + rr * hh[2 * NH + j]);
-      float hv = h[r * L.lYF + j];
-      h[r * L.lYF + j] = (1.0f - zz) * nn + zz * hv;
-    }
-    __syncthreads();
-    // [pitch logits | dur-hid init | first dur projection], then the next
-    // slot's hidden gates
-    matvec<R>(w.w_slot, w.b_slot, NH, SL, h, L.lYF, s.Y, L.lSL, s.red);
-    matvec<R>(w.w_hh, w.b_hh, NH, NH3, h, L.lYF, s.gh, L.l3NH, s.red);
-    __syncthreads();
-    // pitch argmax (warp r takes row r; ties to the lowest index) and the
-    // first dur step's gates from the sos gi
-    const int warp = t >> 5, lane = t & 31;
-    if (warp < R) {
-      const float* y = s.Y + warp * L.lSL;
-      float best = -INFINITY;
-      int bi = P;
-      for (int j = lane; j < P; j += 32) {
-        const float v = y[j];
-        if (v > best) { best = v; bi = j; }
-      }
+template <typename S>
+__device__ __forceinline__ Seg<S> seg(const S* W, const S* b, int ldw, int n,
+                                      int in, const float* x, int ldx,
+                                      float* out, int ldo) {
+  return Seg<S>{W, b, ldw, n, in, x, ldx, out, ldo};
+}
+
+// A product unit: PJ = 4 neighbouring columns of a part (a part's width
+// and first column are multiples of 4, so the unit's weights of one k are
+// one 16-byte load in f32, 8 bytes in bf16) for PR of the DG rows, over one
+// k-slice. Each x value read from shared memory then feeds PJ FMAs and each
+// weight PR: the load path delivers 128 bytes a cycle to an SM, so with one
+// scalar column a thread the FMAs would run at a quarter of their rate,
+// and 16 rows x 4 columns of sums spill the 128 registers a thread has.
+constexpr int PJ = 4;
+constexpr int PR = 8;   // rows of a unit: the group's rows in DG / PR halves
+
+// W[0 .. 3] as f32 (16 bytes of f32; 8 bytes of bf16, the bf16 bits in
+// the high half of an f32)
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(__uint_as_float(v.x << 16),
+                     __uint_as_float(v.x & 0xffff0000u),
+                     __uint_as_float(v.y << 16),
+                     __uint_as_float(v.y & 0xffff0000u));
+}
+
+// acc[r][u] += sum_{k0 <= k < k1} x[r][k] W[k][u], k in order, 4 k a round
+// (k0 a multiple of 4, x's row stride too: 16-byte loads); the next round's
+// weights are loaded while this round's products run. (Two rounds ahead
+// measured no faster here and spilled registers.)
+template <typename T>
+__device__ __forceinline__ void dot_quad(const T* __restrict__ W, int ldw,
+                                         int k0, int k1, const float* x,
+                                         int ldx, float (&acc)[PR][PJ]) {
+  const int n4 = (k1 - k0) >> 2;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 wv[4];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ob = __shfl_down_sync(0xffffffffu, best, off);
-        const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-        if (ob > best || (ob == best && oi < bi)) { best = ob; bi = oi; }
-      }
-      if (lane == 0) {
-        if (bi >= P) bi = 0;
-        s.pitch[warp * (K - 1) + k - 1] = bi;
-        if (bi == w.eos && s.len[warp] == 0) s.len[warp] = k;
+  for (int kk = 0; kk < 4; ++kk)
+    wv[kk] = n4 > 0 ? ld4(W + (size_t)(k0 + kk) * ldw) : zero;
+  for (int c = 0; c < n4; ++c) {
+    const int k = k0 + 4 * c;
+    float4 nv[4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      nv[kk] = c + 1 < n4 ? ld4(W + (size_t)(k + 4 + kk) * ldw) : zero;
+#pragma unroll
+    for (int r = 0; r < PR; ++r) {
+      const float4 a = *reinterpret_cast<const float4*>(x + r * ldx + k);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        acc[r][0] = fmaf(av[kk], wv[kk].x, acc[r][0]);
+        acc[r][1] = fmaf(av[kk], wv[kk].y, acc[r][1]);
+        acc[r][2] = fmaf(av[kk], wv[kk].z, acc[r][2]);
+        acc[r][3] = fmaf(av[kk], wv[kk].w, acc[r][3]);
       }
     }
-    for (int idx = t; idx < R * DH; idx += NT) {
-      const int r = idx / DH, j = idx - r * DH;
-      const float* y = s.Y + r * L.lSL;
-      s.hd[r * L.lDH + j] = gru_gate(w.gi_d, y + P + DH + 2, DH, j, y[P + j]);
-    }
-    __syncthreads();
-    // token feedback seeded with the pitch row (a row select of the
-    // one-hot product)
-    for (int idx = t; idx < R * NH3; idx += NT) {
-      const int r = idx / NH3, j = idx - r * NH3;
-      const int pi = s.pitch[r * (K - 1) + k - 1];
-      s.acc[r * L.l3NH + j] = ldg_f(w.w_pitch_gi + (size_t)pi * NH3 + j);
-    }
-    for (int ws = 0; ws < W; ++ws) {
-      matvec<R>(w.w_dcomb, w.b_dcomb, DH, DC, s.hd, L.lDH, s.X, L.lDC,
-                s.red);
-      __syncthreads();
-      for (int idx = t; idx < R * NH3; idx += NT) {
-        const int r = idx / NH3, j = idx - r * NH3;
-        const float* x = s.X + r * L.lDC;
-        const float bitf = x[1] > x[0] ? 1.0f : 0.0f;
-        s.acc[r * L.l3NH + j] += bitf * ldg_f(w.w_dur_gi + ws * NH3 + j);
-      }
-      if (t < R) {
-        const float* x = s.X + t * L.lDC;
-        s.bits[(t * (K - 1) + k - 1) * W + ws] = x[1] > x[0] ? 1 : 0;
-      }
-      if (ws + 1 < W) {
-        for (int idx = t; idx < R * DH; idx += NT) {
-          const int r = idx / DH, j = idx - r * DH;
-          const float* x = s.X + r * L.lDC;
-          const float* gid = w.gi_d + (x[1] > x[0] ? 2 : 1) * 3 * DH;
-          s.hd[r * L.lDH + j] =
-              gru_gate(gid, x + 2, DH, j, s.hd[r * L.lDH + j]);
-        }
-      }
-      __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wv[kk] = nv[kk];
+  }
+  for (int k = k0 + 4 * n4; k < k1; ++k) {
+    const float4 wk = ld4(W + (size_t)k * ldw);
+#pragma unroll
+    for (int r = 0; r < PR; ++r) {
+      const float xv = x[r * ldx + k];
+      acc[r][0] = fmaf(xv, wk.x, acc[r][0]);
+      acc[r][1] = fmaf(xv, wk.y, acc[r][1]);
+      acc[r][2] = fmaf(xv, wk.z, acc[r][2]);
+      acc[r][3] = fmaf(xv, wk.w, acc[r][3]);
     }
   }
-  if (t < R && s.len[t] == 0) s.len[t] = K - 1;
-  for (int idx = t; idx < R * 2 * EH; idx += NT) {
-    const int r = idx / (2 * EH), j = idx - r * 2 * EH;
-    s.hs[r * L.lHS + j] = 0.0f;
+}
+
+// The parts' products over the block's threads: the units of all parts in
+// order, `sl` lanes of a warp a unit (sl = 1, 2, 4 or 8, the most that the
+// block's threads hold), each lane one k-slice. A slice is a multiple of 4
+// k whose count of 16-byte words is odd, so that the lanes of one unit
+// read x from different banks. The lanes' sums meet by xor shuffles
+// (every lane ends with the same bits) and lane 0 of the unit writes the
+// outputs plus the bias. A part's width is a multiple of 4. Every thread
+// calls it; it ends synchronized.
+template <int NS, typename S>
+__device__ __forceinline__ void group_product(const Seg<S> (&sg)[NS]) {
+  const int t = threadIdx.x, lane = t & 31;
+  constexpr int RH = DG / PR;
+  int nq = 0;
+#pragma unroll
+  for (int i = 0; i < NS; ++i) nq += RH * (sg[i].n / PJ);
+  if (nq == 0) return;
+  int sl = 1;
+  while (sl < 8 && nq * sl * 2 <= NT) sl *= 2;
+  const int per_warp = 32 / sl, s = lane % sl;
+  const int warps = cdiv(nq, per_warp);
+  for (int wq = t >> 5; wq < warps; wq += NT / 32) {
+    int p = wq * per_warp + lane / sl;
+    const bool live = p < nq;
+    // the unit's part, chosen without indexing sg at run time (sg stays in
+    // registers); within a part, unit p is row half p / Q, quad p % Q
+    Seg<S> g = sg[0];
+    int base = 0;
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const int n = RH * (sg[i].n / PJ);
+      if (live && p >= base && p < base + n) {
+        g = sg[i];
+        p -= base;
+      }
+      base += n;
+    }
+    const int Q = imax2(g.n / PJ, 1), r0 = live ? p / Q * PR : 0;
+    const int c0 = live ? PJ * (p - r0 / PR * Q) : 0;
+    int kc = (cdiv(g.in, sl) + 3) & ~3;
+    if (!(kc & 4)) kc += 4;
+    const int k0 = min(g.in, s * kc), k1 = live ? min(g.in, k0 + kc) : k0;
+    float b[PJ];
+#pragma unroll
+    for (int u = 0; u < PJ; ++u)
+      b[u] = live && s == 0 && g.b ? ldg_f(g.b + c0 + u) : 0.0f;
+    float acc[PR][PJ];
+#pragma unroll
+    for (int r = 0; r < PR; ++r)
+#pragma unroll
+      for (int u = 0; u < PJ; ++u) acc[r][u] = 0.0f;
+    dot_quad(g.W + c0, g.ldw, k0, k1, g.x + r0 * g.ldx, g.ldx, acc);
+    for (int off = 1; off < sl; off <<= 1)
+#pragma unroll
+      for (int r = 0; r < PR; ++r)
+#pragma unroll
+        for (int u = 0; u < PJ; ++u)
+          acc[r][u] += __shfl_xor_sync(0xffffffffu, acc[r][u], off);
+    if (live && s == 0) {
+#pragma unroll
+      for (int r = 0; r < PR; ++r) {
+        float* o = g.out + (r0 + r) * g.ldo + c0;
+#pragma unroll
+        for (int u = 0; u < PJ; ++u) o[u] = acc[r][u] + b[u];
+      }
+    }
   }
   __syncthreads();
+}
 
-  // masked bi-GRU over [sos | 15 predicted notes]: step k runs slot k
-  // forward and slot K-1-k backward
-  for (int k = 0; k < K; ++k) {
-    for (int idx = t; idx < R * 2 * E; idx += NT) {
-      const int r = idx / (2 * E), rem = idx - r * 2 * E;
-      const int d = rem / E, e = rem - d * E;
-      const int slot = d == 0 ? k : K - 1 - k;
-      float v;
-      if (slot == 0) {
-        v = r < nrows ? to_f(sos_emb[r * E + e]) : 0.0f;
-      } else {
-        const int q = r * (K - 1) + slot - 1;
-        v = ldg_f(w.w_emb + (size_t)s.pitch[q] * E + e);
+// X[ro] = hd[ro] @ w_dcomb + b_dcomb for the NRO owned rows, both from
+// shared memory. k cut into slices summed in order, slice 0 plus the bias.
+template <int NRO, typename S>
+__device__ __forceinline__ void dur_product(const S* Wd, const float* bd,
+                                            int DH, int DC, const float* hd,
+                                            int lDH, float* X, int lDC,
+                                            float* red) {
+  const int t = threadIdx.x;
+  int ns = NT / DC;
+  ns = ns > 8 ? 8 : (ns < 1 ? 1 : ns);
+  const int chunk = cdiv(DH, ns);
+  for (int q = t; q < ns * DC; q += NT) {
+    const int sl = q / DC, j = q - sl * DC;
+    const int k0 = sl * chunk, k1 = min(DH, k0 + chunk);
+    const float b = sl == 0 ? bd[j] : 0.0f;
+    float acc[NRO];
+#pragma unroll
+    for (int ro = 0; ro < NRO; ++ro) acc[ro] = 0.0f;
+#pragma unroll 8
+    for (int k = k0; k < k1; ++k) {
+      const float wv = to_f(Wd[k * DC + j]);
+#pragma unroll
+      for (int ro = 0; ro < NRO; ++ro)
+        acc[ro] = fmaf(hd[ro * lDH + k], wv, acc[ro]);
+    }
+#pragma unroll
+    for (int ro = 0; ro < NRO; ++ro)
+      red[(sl * NRO + ro) * DC + j] = acc[ro] + b;
+  }
+  __syncthreads();
+  for (int q = t; q < NRO * DC; q += NT) {
+    const int ro = q / DC, j = q - ro * DC;
+    float v = red[ro * DC + j];
+    for (int sl = 1; sl < ns; ++sl) v += red[(sl * NRO + ro) * DC + j];
+    X[ro * lDC + j] = v;
+  }
+  __syncthreads();
+}
+
+// The GRU gate of unit j with its three gi values in registers (gru_gate's
+// arithmetic).
+__device__ __forceinline__ float gru_gate_r(const float (&gi)[3],
+                                            const float* gh, int H, int j,
+                                            float h) {
+  const float r = sigmoid_(gi[0] + gh[j]);
+  const float z = sigmoid_(gi[1] + gh[H + j]);
+  const float n = tanhf(gi[2] + r * gh[2 * H + j]);
+  return (1.0f - z) * n + z * h;
+}
+
+// Zeroed exchange buffers and phase region (a phase launched alone reads
+// zeros, not junk); the small constants the serial steps read staged in
+// shared memory (this block's columns of w_dur_gi, w_emb's bit rows and
+// b_emb, b_dcomb, gi_d, w_dcomb).
+template <typename S>
+__device__ __forceinline__ void group_init(const DecoderWeightsT<S>& w,
+                                           const GLayout& L, const GSmem& s,
+                                           int c) {
+  const int t = threadIdx.x, S1 = w.K - 1;
+  const int NH = w.NH, j0 = part(NH, L.C, c), U = part(NH, L.C, c + 1) - j0;
+  for (int i = t; i < w.W * 3 * U; i += NT) {
+    const int ws = i / (3 * U), q = i - ws * 3 * U, g = q / U;
+    s.wdg[ws * L.lU3 + q] = ldg_f(w.w_dur_gi + ws * 3 * NH + g * NH + j0 +
+                                  q - g * U);
+  }
+  for (int i = t; i < (w.W + 1) * w.E; i += NT) {
+    const int ws = i / w.E, e = i - ws * w.E;
+    s.emb[ws * L.lE + e] = ws < w.W ? ldg_f(w.w_emb + (size_t)(w.P + ws) *
+                                                w.E + e)
+                                    : ldg_f(w.b_emb + e);
+  }
+  const int DH = w.DH, DC = 2 + 3 * w.DH;
+  for (int i = t; i < DC; i += NT) s.bdc[i] = ldg_f(w.b_dcomb + i);
+  for (int i = t; i < 9 * DH; i += NT)  // gi_d (3, 3DH): row g a DH-row
+    s.gid[i / DH * L.lDH + i % DH] = __ldg(w.gi_d + i);
+  for (int i = t; i < L.nro * L.lSL; i += NT) s.Y[i] = 0.0f;
+  for (int i = t; i < DG * L.lNH; i += NT) s.hf[i] = 0.0f;
+  for (int i = t; i < L.n_floats - L.o_gif; i += NT) s.gif[i] = 0.0f;
+  for (int i = t; i < DG * S1; i += NT) s.pitch[i] = 0;
+  for (int i = t; i < DG * S1 * w.W; i += NT) s.bits[i] = 0;
+  S* wd = static_cast<S*>(s.wd);
+  for (int i = t; i < DH * DC; i += NT) wd[i] = w.w_dcomb[i];
+}
+
+// The frame projection: this block's units' columns of [hid | gi_frame] =
+// h_time @ w_frame + b_frame (gi_frame plus b_raw_gi) into gif, hid pushed
+// into every block's hf.
+template <typename S>
+__device__ __forceinline__ void group_projection(
+    const DecoderWeightsT<S>& w, const GLayout& L, const GSmem& s,
+    cg::cluster_group& cl) {
+  const int t = threadIdx.x, C = L.C, c = cl.block_rank();
+  const int NH = w.NH, NH4 = 4 * w.NH;
+  const int j0 = part(NH, C, c), U = part(NH, C, c + 1) - j0;
+  Seg<S> sg[4];
+  sg[0] = seg(w.w_frame + j0, w.b_frame + j0, NH4, U, w.TH, s.ht, L.lTH,
+              s.gh, L.lU3);  // hid, staged in gh
+#pragma unroll
+  for (int g = 0; g < 3; ++g)
+    sg[1 + g] = seg(w.w_frame + NH + g * NH + j0, w.b_frame + NH + g * NH + j0,
+                    NH4, U, w.TH, s.ht, L.lTH, s.gif + g * U, L.lU3);
+  group_product(sg);
+#pragma unroll 8
+  for (int idx = t; idx < DG * 3 * U; idx += NT) {
+    const int r = idx / (3 * U), q = idx - r * 3 * U, g = q / U;
+    s.gif[r * L.lU3 + q] += ldg_f(w.b_raw_gi + g * NH + j0 + q - g * U);
+  }
+  for (int idx = t; idx < DG * U; idx += NT) {
+    const int r = idx / U, u = idx - r * U;
+    put_ranks(cl, 0, C, s.hf + r * L.lNH + j0 + u, s.gh[r * L.lU3 + u]);
+  }
+  cl.sync();
+}
+
+// The owned rows r = c + C ro of a slot (Y pushed by every block): the
+// pitch argmax (warp ro; ties to the lowest index) and, with `dur`, the
+// 5-step duration chain, into s.own = [pitch | W bits] a row. Thread
+// t < NRO DH keeps unit t % DH of row t / DH, its three gi_d values (sos,
+// bit 0, bit 1 rows) in registers.
+template <int NRO, typename S>
+__device__ __forceinline__ void owned_rows(const DecoderWeightsT<S>& w,
+                                           const GLayout& L, const GSmem& s,
+                                           bool dur) {
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int P = w.P, DH = w.DH, W = w.W, DC = 2 + 3 * w.DH;
+  const bool mine = dur && t < NRO * DH;
+  const int ro = t / DH, j = t - ro * DH;
+  float gs[3], g0[3], g1[3];   // gi_d rows: sos, bit 0, bit 1
+#pragma unroll
+  for (int g = 0; g < 3; ++g) {
+    gs[g] = mine ? s.gid[g * L.lDH + j] : 0.0f;
+    g0[g] = mine ? s.gid[(3 + g) * L.lDH + j] : 0.0f;
+    g1[g] = mine ? s.gid[(6 + g) * L.lDH + j] : 0.0f;
+  }
+  if (warp < NRO) {
+    const float* y = s.Y + warp * L.lSL;
+    float best = -INFINITY;
+    int bi = P;
+    for (int k = lane; k < P; k += 32) {
+      const float v = y[k];
+      if (v > best) {
+        best = v;
+        bi = k;
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ob = __shfl_down_sync(0xffffffffu, best, off);
+      const int oi = __shfl_down_sync(0xffffffffu, bi, off);
+      if (ob > best || (ob == best && oi < bi)) {
+        best = ob;
+        bi = oi;
+      }
+    }
+    if (lane == 0) {
+      int* o = s.own + warp * (1 + W);
+      o[0] = bi >= P ? 0 : bi;
+      for (int ws = 0; ws < W; ++ws) o[1 + ws] = 0;
+    }
+  }
+  if (!dur) {
+    __syncthreads();
+    return;
+  }
+  float* hd = s.hd + ro * L.lDH + j;
+  if (mine) {
+    const float* y = s.Y + ro * L.lSL;
+    *hd = gru_gate_r(gs, y + P + DH + 2, DH, j, y[P + j]);
+  }
+  __syncthreads();
+  const S* Wd = static_cast<const S*>(s.wd);
+  for (int ws = 0; ws < W; ++ws) {
+    dur_product<NRO>(Wd, s.bdc, DH, DC, s.hd, L.lDH, s.X, L.lDC,
+                          s.red);
+    if (t < NRO) {
+      const float* x = s.X + t * L.lDC;
+      s.own[t * (1 + W) + 1 + ws] = x[1] > x[0] ? 1 : 0;
+    }
+    if (mine && ws + 1 < W) {
+      const float* x = s.X + ro * L.lDC;
+      *hd = gru_gate_r(x[1] > x[0] ? g1 : g0, x + 2, DH, j, *hd);
+    }
+    __syncthreads();
+  }
+}
+
+// The serial 15-slot chain of a frame from hf (hid) and gif: notes-GRU
+// step on this block's units (pushed into every block's hf), this block's
+// columns of the slot projection (pushed to the rows' owners) and of the
+// next hidden gates, the owners' argmax and duration chains (decisions
+// pushed into every block), and this block's columns of the folded token
+// feedback. The phases bits NOTE and DUR select what runs.
+template <int NRO, typename S>
+__device__ __forceinline__ void group_chain(const DecoderWeightsT<S>& w,
+                                            const GLayout& L, const GSmem& s,
+                                            cg::cluster_group& cl,
+                                            int phases) {
+  const int t = threadIdx.x, C = L.C, c = cl.block_rank();
+  const int NH = w.NH, NH3 = 3 * w.NH, DH = w.DH, P = w.P, W = w.W, K = w.K;
+  const int SL = P + DH + 2 + 3 * DH;
+  const int j0 = part(NH, C, c), U = part(NH, C, c + 1) - j0;
+  const int s0 = part(SL, C, c), ns = part(SL, C, c + 1) - s0;
+  const bool note = phases & PH_NOTE, dur = phases & PH_DUR;
+  if (phases & PH_BARRIERS) {  // timing: the chain's cluster barriers alone
+    for (int k = 1; k < K; ++k) {
+      cl.sync();
+      cl.sync();
+      cl.sync();
+    }
+  }
+  if (note) {
+#pragma unroll 8
+    for (int idx = t; idx < DG * 3 * U; idx += NT) {
+      const int r = idx / (3 * U), q = idx - r * 3 * U, g = q / U;
+      s.acc[r * L.lU3 + q] = __ldg(w.gi_tok_sos + g * NH + j0 + q - g * U);
+    }
+    Seg<S> sg[3];
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+      sg[g] = seg(w.w_hh + g * NH + j0, w.b_hh + g * NH + j0, NH3, U, NH,
+                  s.hf, L.lNH, s.gh + g * U, L.lU3);
+    group_product(sg);
+    cl.sync();  // every block has read hid before the first slot's h comes
+  }
+  for (int k = 1; k < K; ++k) {
+    if (note) {
+      for (int idx = t; idx < DG * U; idx += NT) {
+        const int r = idx / U, u = idx - r * U, j = j0 + u;
+        const float* g = s.gif + r * L.lU3;
+        const float* a = s.acc + r * L.lU3;
+        const float* hh = s.gh + r * L.lU3;
+        const float ir = g[u] + a[u], iz = g[U + u] + a[U + u],
+                    in_ = g[2 * U + u] + a[2 * U + u];
+        const float rr = sigmoid_(ir + hh[u]);
+        const float zz = sigmoid_(iz + hh[U + u]);
+        const float nn = tanhf(in_ + rr * hh[2 * U + u]);
+        const float hv = s.hf[r * L.lNH + j];
+        put_ranks(cl, 0, C, s.hf + r * L.lNH + j, (1.0f - zz) * nn + zz * hv);
+      }
+      cl.sync();
+      // the last slot's next hidden gates are never read
+      const int Uh = k + 1 < K ? U : 0;
+      Seg<S> sg[4];
+      sg[0] = seg(w.w_slot + s0, w.b_slot + s0, SL, ns, NH, s.hf, L.lNH,
+                  s.ys, L.lSLc);
+#pragma unroll
+      for (int g = 0; g < 3; ++g)
+        sg[1 + g] = seg(w.w_hh + g * NH + j0, w.b_hh + g * NH + j0, NH3, Uh,
+                        NH, s.hf, L.lNH, s.gh + g * U, L.lU3);
+      group_product(sg);
+      for (int idx = t; idx < DG * ns; idx += NT) {
+        const int r = idx / ns, j = idx - r * ns;
+        *cl.map_shared_rank(s.Y + (r / C) * L.lSL + s0 + j, r % C) =
+            s.ys[r * L.lSLc + j];
+      }
+      cl.sync();
+    }
+    if (note || dur) {
+      owned_rows<NRO>(w, L, s, dur);
+      for (int idx = t; idx < NRO * C; idx += NT) {
+        const int ro = idx / C, cc = idx - ro * C, r = c + C * ro;
+        const int* o = s.own + ro * (1 + W);
+        const int q = r * (K - 1) + k - 1;
+        *cl.map_shared_rank(s.pitch + q, cc) = static_cast<short>(o[0]);
         for (int ws = 0; ws < W; ++ws)
-          if (s.bits[q * W + ws]) v += ldg_f(w.w_emb + (size_t)(P + ws) * E + e);
-        v += ldg_f(w.b_emb + e);
+          *cl.map_shared_rank(s.bits + q * W + ws, cc) =
+              static_cast<unsigned char>(o[1 + ws]);
       }
-      s.xs[r * 2 * L.lE + d * L.lE + e] = v;
+      cl.sync();
     }
-    __syncthreads();
-    const int ldg = 4 * L.l3EH;
-    matvec<R>(w.we_ih, w.be_ih, E, EH3, s.xs, 2 * L.lE, s.sg, ldg, s.red);
-    matvec<R>(w.we_hh, w.be_hh, EH, EH3, s.hs, L.lHS, s.sg + L.l3EH, ldg,
-              s.red);
-    matvec<R>(w.we_ih + (size_t)E * EH3, w.be_ih + EH3, E, EH3, s.xs + L.lE,
-              2 * L.lE, s.sg + 2 * L.l3EH, ldg, s.red);
-    matvec<R>(w.we_hh + (size_t)EH * EH3, w.be_hh + EH3, EH, EH3,
-              s.hs + EH, L.lHS, s.sg + 3 * L.l3EH, ldg, s.red);
-    __syncthreads();
-    for (int idx = t; idx < R * 2 * EH; idx += NT) {
-      const int r = idx / (2 * EH), rem = idx - r * 2 * EH;
-      const int d = rem / EH, j = rem - d * EH;
-      const int slot = d == 0 ? k : K - 1 - k;
-      if (slot < s.len[r]) {
-        const float* g = s.sg + r * ldg + 2 * d * L.l3EH;
-        float* hv = s.hs + r * L.lHS + d * EH + j;
-        *hv = gru_gate(g, g + L.l3EH, EH, j, *hv);
+    // this block's columns of the next slot's folded token feedback: the
+    // pitch row, then each set bit's row in order (none after the last
+    // slot: the summary's planes share this region)
+    if (note && k + 1 < K) {
+#pragma unroll 8
+      for (int idx = t; idx < DG * 3 * U; idx += NT) {
+        const int r = idx / (3 * U), q = idx - r * 3 * U, g = q / U;
+        const int col = g * NH + j0 + q - g * U, qd = r * (K - 1) + k - 1;
+        float a = ldg_f(w.w_pitch_gi + (size_t)s.pitch[qd] * NH3 + col);
+        for (int ws = 0; ws < W; ++ws)
+          if (s.bits[qd * W + ws]) a += s.wdg[ws * L.lU3 + q];
+        s.acc[r * L.lU3 + q] = a;
       }
+      __syncthreads();
     }
-    __syncthreads();
   }
 }
 
-// s.yf = h_time @ w_frame + b_frame, then the token-bias share of gi.
-template <int R, typename S>
-__device__ void frame_projection(const DecoderWeightsT<S>& w, const Layout& L,
-                                 const Smem& s) {
-  const int NH = w.NH, NH3 = 3 * w.NH;
-  matvec<R>(w.w_frame, w.b_frame, w.TH, 4 * NH, s.h_time, L.lTH, s.yf, L.lYF,
-            s.red);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < R * NH3; idx += NT) {
-    const int r = idx / NH3, j = idx - r * NH3;
-    s.yf[r * L.lYF + NH + j] += ldg_f(w.b_raw_gi + j);
+// Each row's length: the first slot that decided eos, else K - 1.
+template <typename S>
+__device__ __forceinline__ void group_lengths(const DecoderWeightsT<S>& w,
+                                              const GSmem& s) {
+  for (int r = threadIdx.x; r < DG; r += NT) {
+    int len = 0;
+    for (int k = 1; k < w.K && !len; ++k)
+      if (s.pitch[r * (w.K - 1) + k - 1] == w.eos) len = k;
+    s.len[r] = len ? len : w.K - 1;
   }
   __syncthreads();
 }
 
-template <int R, typename S>
+// The masked bi-GRU over [sos | 15 predicted notes]: blocks [0, C/2) run
+// the forward direction, [C/2, C) the backward, each block EH / (C/2)
+// units; step k runs slot k forward and slot K-1-k backward, and a row's
+// hidden moves only while the slot is below its length. Two planes of the
+// direction's hidden alternate (one cluster barrier a step); the result is
+// plane K & 1. sos_emb holds the group's rows (nrows valid).
+template <typename S>
+__device__ __forceinline__ void group_summary(const DecoderWeightsT<S>& w,
+                                              const GLayout& L,
+                                              const GSmem& s,
+                                              cg::cluster_group& cl,
+                                              const S* sos_emb, int nrows) {
+  const int t = threadIdx.x, Cd = L.C / 2, c = cl.block_rank();
+  const int d = c / Cd, e0 = part(w.EH, Cd, c - d * Cd),
+            SU = part(w.EH, Cd, c - d * Cd + 1) - e0;
+  const int E = w.E, EH = w.EH, EH3 = 3 * w.EH, K = w.K, W = w.W;
+  const int plane = DG * L.lEH;
+  for (int i = t; i < plane; i += NT) s.hsd[i] = 0.0f;
+  // a step's note embeddings, x = w_emb[pitch] + the set bits' rows +
+  // b_emb (sos_emb for slot 0): gather() loads the pitch rows (or sos) of
+  // step k into registers, the step before, behind that step's product;
+  // finish() adds the staged bit rows and bias into xs
+  float nx[XI];
+  auto gather = [&](int k) {
+    const int slot = d == 0 ? k : K - 1 - k;
+#pragma unroll
+    for (int i = 0; i < XI; ++i) {
+      const int idx = t + i * NT, r = idx / E, e = idx - r * E;
+      nx[i] = 0.0f;
+      if (idx >= DG * E) continue;
+      if (slot == 0)
+        nx[i] = r < nrows ? to_f(sos_emb[r * E + e]) : 0.0f;
+      else
+        nx[i] = ldg_f(w.w_emb +
+                      (size_t)s.pitch[r * (K - 1) + slot - 1] * E + e);
+    }
+  };
+  auto finish = [&](int k) {
+    const int slot = d == 0 ? k : K - 1 - k;
+#pragma unroll
+    for (int i = 0; i < XI; ++i) {
+      const int idx = t + i * NT, r = idx / E, e = idx - r * E;
+      if (idx >= DG * E) continue;
+      float v = nx[i];
+      if (slot != 0) {
+        const int q = r * (K - 1) + slot - 1;
+        for (int ws = 0; ws < W; ++ws)
+          if (s.bits[q * W + ws]) v += s.emb[ws * L.lE + e];
+        v += s.emb[W * L.lE + e];
+      }
+      s.xs[r * L.lE + e] = v;
+    }
+  };
+  gather(0);
+  for (int k = 0; k < K; ++k) {
+    const int slot = d == 0 ? k : K - 1 - k;
+    const float* hin = s.hsd + (k & 1) * plane;
+    float* hout = s.hsd + ((k + 1) & 1) * plane;
+    finish(k);
+    __syncthreads();
+    if (k + 1 < K) gather(k + 1);
+    Seg<S> sg[6];
+#pragma unroll
+    for (int g = 0; g < 3; ++g) {
+      sg[g] = seg(w.we_ih + (size_t)d * E * EH3 + g * EH + e0,
+                  w.be_ih + d * EH3 + g * EH + e0, EH3, SU, E, s.xs, L.lE,
+                  s.sg + g * SU, L.lS6);
+      sg[3 + g] = seg(w.we_hh + (size_t)d * EH * EH3 + g * EH + e0,
+                      w.be_hh + d * EH3 + g * EH + e0, EH3, SU, EH, hin,
+                      L.lEH, s.sg + (3 + g) * SU, L.lS6);
+    }
+    group_product(sg);
+    for (int idx = t; idx < DG * SU; idx += NT) {
+      const int r = idx / SU, u = idx - r * SU, e = e0 + u;
+      const float hv = hin[r * L.lEH + e];
+      const float* g = s.sg + r * L.lS6;
+      const float hn = slot < s.len[r] ? gru_gate(g, g + 3 * SU, SU, u, hv)
+                                       : hv;
+      put_ranks(cl, d * Cd, Cd, hout + r * L.lEH + e, hn);
+    }
+    cl.sync();
+  }
+}
+
+// K3 over a row group a cluster (see the note at the top).
+template <int NRO, typename S>
 __global__ void __launch_bounds__(NT, 1)
-frame_kernel(DecoderWeightsT<S> w, int B, const S* __restrict__ h_time,
-             const S* __restrict__ sos_emb, int* __restrict__ pitch_idx,
-             int* __restrict__ dur_bits, S* __restrict__ summary,
-             int* __restrict__ lengths) {
+frame_group_kernel(DecoderWeightsT<S> w, int B, int phases,
+                   const S* __restrict__ h_time,
+                   const S* __restrict__ sos_emb, int* __restrict__ pitch_idx,
+                   int* __restrict__ dur_bits, S* __restrict__ summary,
+                   int* __restrict__ lengths) {
   extern __shared__ float4 smem4[];
-  const Layout L = make_layout(w, R);
-  const Smem s = carve(L, reinterpret_cast<float*>(smem4), R, w);
-  const int row0 = blockIdx.x * R;
-  const int nrows = min(R, B - row0);
-  const int TH = w.TH, K = w.K, W = w.W, EH2 = 2 * w.EH;
-  for (int idx = threadIdx.x; idx < R * TH; idx += NT) {
+  cg::cluster_group cl = cg::this_cluster();
+  const int C = cl.num_blocks(), c = cl.block_rank(), t = threadIdx.x;
+  const GLayout L = group_layout(w, C, false);
+  const GSmem s = group_carve(L, reinterpret_cast<char*>(smem4), w.W);
+  const int row0 = blockIdx.x / C * DG, nrows = min(DG, B - row0);
+  const int TH = w.TH, K = w.K, W = w.W, S1 = w.K - 1;
+  group_init(w, L, s, c);
+  for (int idx = t; idx < DG * TH; idx += NT) {
     const int r = idx / TH, j = idx - r * TH;
-    s.h_time[r * L.lTH + j] =
+    s.ht[r * L.lTH + j] =
         r < nrows ? to_f(h_time[(size_t)(row0 + r) * TH + j]) : 0.0f;
   }
-  __syncthreads();
-  frame_projection<R>(w, L, s);
-  frame_body<R>(w, L, s, sos_emb + (size_t)row0 * w.E, nrows);
-  for (int idx = threadIdx.x; idx < nrows * (K - 1); idx += NT) {
-    const int r = idx / (K - 1), k = idx - r * (K - 1);
-    pitch_idx[(size_t)(row0 + r) * (K - 1) + k] = s.pitch[r * (K - 1) + k];
+  cl.sync();
+  if (phases & PH_PROJ) group_projection(w, L, s, cl);
+  group_chain<NRO>(w, L, s, cl, phases);
+  group_lengths(w, s);
+  for (int idx = t; idx < NRO * S1 * (1 + W); idx += NT) {
+    const int ro = idx / (S1 * (1 + W)), q = idx - ro * S1 * (1 + W);
+    const int r = c + C * ro, k = q / (1 + W), cc = q - k * (1 + W);
+    if (r >= nrows) continue;
+    if (cc == 0)
+      pitch_idx[(size_t)(row0 + r) * S1 + k] = s.pitch[r * S1 + k];
+    else
+      dur_bits[((size_t)(row0 + r) * S1 + k) * W + cc - 1] =
+          s.bits[(r * S1 + k) * W + cc - 1];
   }
-  for (int idx = threadIdx.x; idx < nrows * (K - 1) * W; idx += NT) {
-    const int r = idx / ((K - 1) * W), q = idx - r * (K - 1) * W;
-    dur_bits[(size_t)(row0 + r) * (K - 1) * W + q] = s.bits[r * (K - 1) * W + q];
+  if (t < NRO && c + C * t < nrows) lengths[row0 + c + C * t] =
+      s.len[c + C * t];
+  if (phases & PH_SUMM) {
+    group_summary(w, L, s, cl, sos_emb + (size_t)row0 * w.E, nrows);
+    const int Cd = C / 2, d = c / Cd, e0 = part(w.EH, Cd, c - d * Cd),
+              SU = part(w.EH, Cd, c - d * Cd + 1) - e0;
+    const float* hfin = s.hsd + (K & 1) * DG * L.lEH;
+    for (int idx = t; idx < nrows * SU; idx += NT) {
+      const int r = idx / SU, e = e0 + idx - r * SU;
+      summary[(size_t)(row0 + r) * 2 * w.EH + d * w.EH + e] =
+          from_f<S>(hfin[r * L.lEH + e]);
+    }
   }
-  for (int idx = threadIdx.x; idx < nrows * EH2; idx += NT) {
-    const int r = idx / EH2, j = idx - r * EH2;
-    summary[(size_t)(row0 + r) * EH2 + j] = from_f<S>(s.hs[r * L.lHS + j]);
-  }
-  if (threadIdx.x < nrows) lengths[row0 + threadIdx.x] = s.len[threadIdx.x];
+  cl.sync();  // no block leaves while another may write into its memory
 }
 
-template <int R>
+// K4 over a row group a cluster: the time GRU (this block's TH / C units,
+// pushed into every block's ht), then K3's frame, the grid rows of the
+// owned rows, and the summary pushed into every block's tok, T times.
+template <int NRO>
 __global__ void __launch_bounds__(NT, 1)
-full_kernel(DecoderWeights w, int B, const float* __restrict__ h0,
-            const float* __restrict__ gi_z, const float* __restrict__ token0,
-            const float* __restrict__ sos_emb, int* __restrict__ grid) {
+full_group_kernel(DecoderWeights w, int B, int phases,
+                  const float* __restrict__ h0, const float* __restrict__ gi_z,
+                  const float* __restrict__ token0,
+                  const float* __restrict__ sos_emb, int* __restrict__ grid) {
   extern __shared__ float4 smem4[];
-  const Layout L = make_layout(w, R);
-  const Smem s = carve(L, reinterpret_cast<float*>(smem4), R, w);
-  const int t = threadIdx.x;
-  const int row0 = blockIdx.x * R;
-  const int nrows = min(R, B - row0);
-  const int TH = w.TH, TH3 = 3 * w.TH, K = w.K, W = w.W, EH2 = 2 * w.EH;
-  const int cell = 1 + W;
-  for (int idx = t; idx < R * TH; idx += NT) {
+  cg::cluster_group cl = cg::this_cluster();
+  const int C = cl.num_blocks(), c = cl.block_rank(), t = threadIdx.x;
+  const GLayout L = group_layout(w, C, true);
+  const GSmem s = group_carve(L, reinterpret_cast<char*>(smem4), w.W);
+  const int row0 = blockIdx.x / C * DG, nrows = min(DG, B - row0);
+  const int TH = w.TH, TH3 = 3 * w.TH, EH2 = 2 * w.EH, K = w.K, W = w.W,
+            S1 = w.K - 1, cell = 1 + w.W;
+  const int t0 = part(TH, C, c), TU = part(TH, C, c + 1) - t0;
+  const int Cd = C / 2, d = c / Cd, e0 = part(w.EH, Cd, c - d * Cd),
+            SU = part(w.EH, Cd, c - d * Cd + 1) - e0;
+  group_init(w, L, s, c);
+  for (int idx = t; idx < DG * TH; idx += NT) {
     const int r = idx / TH, j = idx - r * TH;
-    s.h_time[r * L.lTH + j] = r < nrows ? h0[(size_t)(row0 + r) * TH + j] : 0.0f;
+    s.ht[r * L.lTH + j] = r < nrows ? h0[(size_t)(row0 + r) * TH + j] : 0.0f;
   }
-  for (int idx = t; idx < R * EH2; idx += NT) {
+  for (int idx = t; idx < DG * EH2; idx += NT) {
     const int r = idx / EH2, j = idx - r * EH2;
-    s.hs[r * L.lHS + j] = r < nrows ? token0[(size_t)(row0 + r) * EH2 + j] : 0.0f;
+    s.tok[r * L.lHS + j] =
+        r < nrows ? token0[(size_t)(row0 + r) * EH2 + j] : 0.0f;
   }
-  __syncthreads();
+  cl.sync();
   for (int ti = 0; ti < w.T; ++ti) {
-    // time GRU: gi = gi_z + token @ wt_tok, gh = h @ wt_hh + bt_hh
-    matvec<R>(w.wt_tok, nullptr, EH2, TH3, s.hs, L.lHS, s.git, L.l3TH, s.red);
-    matvec<R>(w.wt_hh, w.bt_hh, TH, TH3, s.h_time, L.lTH, s.ght, L.l3TH,
-              s.red);
-    __syncthreads();
-    for (int idx = t; idx < R * TH; idx += NT) {
-      const int r = idx / TH, j = idx - r * TH;
-      const float* gz = gi_z + (size_t)(row0 + (r < nrows ? r : 0)) * TH3;
-      const float zr = r < nrows ? 1.0f : 0.0f;
-      const float* gt = s.git + r * L.l3TH;
-      const float* gh = s.ght + r * L.l3TH;
-      float ir = zr * gz[j] + gt[j], iz = zr * gz[TH + j] + gt[TH + j],
-            in_ = zr * gz[2 * TH + j] + gt[2 * TH + j];
-      float rr = sigmoid_(ir + gh[j]);
-      float zz = sigmoid_(iz + gh[TH + j]);
-      float nn = tanhf(in_ + rr * gh[2 * TH + j]);
-      float hv = s.h_time[r * L.lTH + j];
-      s.h_time[r * L.lTH + j] = (1.0f - zz) * nn + zz * hv;
+    if (phases & PH_TIME) {
+      // gi = gi_z + token @ wt_tok, gh = h @ wt_hh + bt_hh
+      Seg<float> sg[6];
+#pragma unroll
+      for (int g = 0; g < 3; ++g) {
+        sg[g] = seg<float>(w.wt_tok + g * TH + t0, nullptr, TH3, TU, EH2,
+                           s.tok, L.lHS, s.tg + g * TU, L.lT6);
+        sg[3 + g] = seg<float>(w.wt_hh + g * TH + t0, w.bt_hh + g * TH + t0,
+                               TH3, TU, TH, s.ht, L.lTH,
+                               s.tg + (3 + g) * TU, L.lT6);
+      }
+      group_product(sg);
+      cl.sync();  // every block has read ht before the new one comes in
+#pragma unroll 4
+      for (int idx = t; idx < DG * TU; idx += NT) {
+        const int r = idx / TU, u = idx - r * TU, j = t0 + u;
+        const float* gz = gi_z + (size_t)(row0 + (r < nrows ? r : 0)) * TH3;
+        const float zr = r < nrows ? 1.0f : 0.0f;
+        const float* gi = s.tg + r * L.lT6;
+        const float* gh = gi + 3 * TU;
+        const float ir = zr * gz[j] + gi[u], iz = zr * gz[TH + j] + gi[TU + u],
+                    in_ = zr * gz[2 * TH + j] + gi[2 * TU + u];
+        const float rr = sigmoid_(ir + gh[u]);
+        const float zz = sigmoid_(iz + gh[TU + u]);
+        const float nn = tanhf(in_ + rr * gh[2 * TU + u]);
+        const float hv = s.ht[r * L.lTH + j];
+        put_ranks(cl, 0, C, s.ht + r * L.lTH + j, (1.0f - zz) * nn + zz * hv);
+      }
+      cl.sync();
     }
-    __syncthreads();
-    frame_projection<R>(w, L, s);
-    frame_body<R>(w, L, s, sos_emb + (size_t)row0 * w.E, nrows);
-    // grid (B, T, K-1, 1+W) = [pitch | dur bits] per slot
-    for (int idx = t; idx < nrows * (K - 1) * cell; idx += NT) {
-      const int r = idx / ((K - 1) * cell), q = idx - r * (K - 1) * cell;
-      const int k = q / cell, c = q - k * cell;
-      const int v = c == 0 ? s.pitch[r * (K - 1) + k]
-                           : s.bits[(r * (K - 1) + k) * W + c - 1];
-      grid[(((size_t)(row0 + r) * w.T + ti) * (K - 1) + k) * cell + c] = v;
+    if (phases & PH_PROJ) group_projection(w, L, s, cl);
+    group_chain<NRO>(w, L, s, cl, phases);
+    group_lengths(w, s);
+    // grid (B, T, K-1, 1+W) = [pitch | dur bits] a slot, owned rows
+    for (int idx = t; idx < NRO * S1 * cell; idx += NT) {
+      const int ro = idx / (S1 * cell), q = idx - ro * S1 * cell;
+      const int r = c + C * ro, k = q / cell, cc = q - k * cell;
+      if (r >= nrows) continue;
+      grid[(((size_t)(row0 + r) * w.T + ti) * S1 + k) * cell + cc] =
+          cc == 0 ? s.pitch[r * S1 + k] : s.bits[(r * S1 + k) * W + cc - 1];
+    }
+    if (phases & PH_SUMM) {
+      group_summary(w, L, s, cl, sos_emb + (size_t)row0 * w.E, nrows);
+      const float* hfin = s.hsd + (K & 1) * DG * L.lEH;
+      for (int idx = t; idx < DG * SU; idx += NT) {
+        const int r = idx / SU, e = e0 + idx - r * SU;
+        put_ranks(cl, 0, C, s.tok + r * L.lHS + d * w.EH + e,
+                  hfin[r * L.lEH + e]);
+      }
+      cl.sync();
     }
   }
+  cl.sync();  // no block leaves while another may write into its memory
 }
 
 template <typename Kern>
-cudaError_t prepare(Kern kern, size_t bytes) {
-  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
+cudaError_t group_prepare(Kern kern, int bytes, int C) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess && C > 8)
+    e = cudaFuncSetAttribute(kern,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return e;
 }
 
-// K3 over B rows, R rows a block, in storage type S.
+inline cudaLaunchConfig_t group_config(int groups, int C, int bytes,
+                                       cudaStream_t st,
+                                       cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(groups * C);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+inline bool cluster_ok(int C) { return C == 8 || C == 16; }
+
+// What the row-group kernels take beyond the cluster size: their shared
+// memory fits a block, an owned row's dur units fit a block's threads, a
+// step's embeddings fit XI a thread, and w_slot's width (P + 2 + 4 DH) is
+// whole quads like the other widths (the wrapper checks TH, NH, DH, E, EH).
 template <typename S>
-int frame_decode(const DecoderWeightsT<S>* w, int B, int R, const S* h_time,
-                 const S* sos_emb, int* pitch_idx, int* dur_bits, S* summary,
-                 int* lengths, void* stream) {
-  if (B <= 0 || !(R == 1 || R == 2 || R == 4)) return cudaErrorInvalidValue;
-  const size_t bytes = smem_bytes(*w, R);
-  const dim3 grid((B + R - 1) / R);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaSuccess;
-#define PCTD_FRAME(RR)                                                       \
-  e = prepare(frame_kernel<RR, S>, bytes);                                   \
-  if (e == cudaSuccess)                                                      \
-    frame_kernel<RR, S><<<grid, NT, bytes, st>>>(                            \
-        *w, B, h_time, sos_emb, pitch_idx, dur_bits, summary, lengths);
-  switch (R) {
-    case 1: PCTD_FRAME(1) break;
-    case 2: PCTD_FRAME(2) break;
-    default: PCTD_FRAME(4) break;
+bool group_fits(const DecoderWeightsT<S>& w, const GLayout& L) {
+  return L.bytes <= DEC_MAX_SMEM && L.nro * w.DH <= NT &&
+         DG * w.E <= XI * NT && (w.P + 2) % 4 == 0;
+}
+
+template <typename S>
+using FrameGroupKern = void (*)(DecoderWeightsT<S>, int, int, const S*,
+                                const S*, int*, int*, S*, int*);
+using FullGroupKern = void (*)(DecoderWeights, int, int, const float*,
+                               const float*, const float*, const float*,
+                               int*);
+
+// the instance of a kernel for cluster size C (16 or 8; rows owned a
+// block: 16 / C)
+template <typename S>
+FrameGroupKern<S> frame_group_instance(int C) {
+  return C == 16 ? frame_group_kernel<1, S> : frame_group_kernel<2, S>;
+}
+
+inline FullGroupKern full_group_instance(int C) {
+  return C == 16 ? full_group_kernel<1> : full_group_kernel<2>;
+}
+
+// {shared memory bytes, clusters of C blocks the card holds at once (0 if
+// it cannot say)} of K3 (full = 0) or K4 (full = 1)
+template <typename S>
+cudaError_t group_info(const DecoderWeightsT<S>& w, bool full, int C,
+                       int* out) {
+  if (!cluster_ok(C)) return cudaErrorInvalidValue;
+  const GLayout L = group_layout(w, C, full);
+  out[0] = L.bytes;
+  out[1] = 0;
+  if (!group_fits(w, L)) return cudaSuccess;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = group_config(1, C, L.bytes, nullptr, &attr);
+  cudaError_t e;
+  if (full) {
+    const FullGroupKern k = full_group_instance(C);
+    e = group_prepare(k, L.bytes, C);
+    if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(&out[1], k, &cfg);
+  } else {
+    const FrameGroupKern<S> k = frame_group_instance<S>(C);
+    e = group_prepare(k, L.bytes, C);
+    if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(&out[1], k, &cfg);
   }
-#undef PCTD_FRAME
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    out[1] = 0;
+  }
+  return cudaSuccess;
+}
+
+// K3 over B rows in groups of DG, a cluster of C blocks a group.
+template <typename S>
+int frame_decode_groups(const DecoderWeightsT<S>* w, int B, int phases, int C,
+                        const S* h_time, const S* sos_emb, int* pitch_idx,
+                        int* dur_bits, S* summary, int* lengths,
+                        void* stream) {
+  if (B <= 0 || phases < 1 || phases > (PH_ALL | PH_BARRIERS) ||
+      !cluster_ok(C))
+    return cudaErrorInvalidValue;
+  const GLayout L = group_layout(*w, C, false);
+  if (!group_fits(*w, L)) return cudaErrorInvalidValue;
+  const FrameGroupKern<S> k = frame_group_instance<S>(C);
+  cudaError_t e = group_prepare(k, L.bytes, C);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      group_config(cdiv(B, DG), C, L.bytes,
+                   static_cast<cudaStream_t>(stream), &attr);
+  e = cudaLaunchKernelEx(&cfg, k, *w, B, phases, h_time, sos_emb, pitch_idx,
+                         dur_bits, summary, lengths);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+// K4 over B rows in groups of DG, a cluster of C blocks a group.
+inline int full_decode_groups(const DecoderWeights* w, int B, int phases,
+                              int C, const float* h0, const float* gi_z,
+                              const float* token0, const float* sos_emb,
+                              int* grid_out, void* stream) {
+  if (B <= 0 || phases < 1 || phases > (PH_ALL | PH_BARRIERS) ||
+      !cluster_ok(C))
+    return cudaErrorInvalidValue;
+  const GLayout L = group_layout(*w, C, true);
+  if (!group_fits(*w, L)) return cudaErrorInvalidValue;
+  const FullGroupKern k = full_group_instance(C);
+  cudaError_t e = group_prepare(k, L.bytes, C);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      group_config(cdiv(B, DG), C, L.bytes,
+                   static_cast<cudaStream_t>(stream), &attr);
+  e = cudaLaunchKernelEx(&cfg, k, *w, B, phases, h0, gi_z, token0, sos_emb,
+                         grid_out);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// The float entry points are compiled here, the bf16 one of K3 in
+// The float entry points are compiled here, the bf16 ones of K3 in
 // decoder_bf16.cu, which includes this file: the two build in parallel.
+// pctd_frame_decode*, pctd_full_decode: the row-group kernels, in clusters
+// of `cluster` blocks (8 or 16), the phases of `phases` (PH_*; 31 all).
 extern "C" {
 
 #ifndef PCTD_DECODE_BF16
@@ -447,58 +1049,39 @@ const char* pctd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-int pctd_smem_bytes(const DecoderWeights* w, int rows_per_block) {
-  return (int)smem_bytes(*w, rows_per_block);
+int pctd_decode_info(const DecoderWeights* w, int full, int cluster,
+                     int* out) {
+  return group_info(*w, full != 0, cluster, out);
 }
 
-int pctd_frame_decode(const DecoderWeights* w, int B, int rows_per_block,
-                      const float* h_time, const float* sos_emb,
+int pctd_frame_decode(const DecoderWeights* w, int B, int phases,
+                      int cluster, const float* h_time, const float* sos_emb,
                       int* pitch_idx, int* dur_bits, float* summary,
                       int* lengths, void* stream) {
-  return frame_decode(w, B, rows_per_block, h_time, sos_emb, pitch_idx,
-                      dur_bits, summary, lengths, stream);
+  return frame_decode_groups(w, B, phases, cluster, h_time, sos_emb,
+                             pitch_idx, dur_bits, summary, lengths, stream);
 }
 
-int pctd_full_decode(const DecoderWeights* w, int B, int rows_per_block,
+int pctd_full_decode(const DecoderWeights* w, int B, int phases, int cluster,
                      const float* h0, const float* gi_z, const float* token0,
                      const float* sos_emb, int* grid_out, void* stream) {
-  const int R = rows_per_block;
-  if (B <= 0 || !(R == 1 || R == 2 || R == 4)) return cudaErrorInvalidValue;
-  const size_t bytes = smem_bytes(*w, R);
-  const dim3 grid((B + R - 1) / R);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaSuccess;
-  switch (R) {
-    case 1:
-      e = prepare(full_kernel<1>, bytes);
-      if (e == cudaSuccess)
-        full_kernel<1><<<grid, NT, bytes, st>>>(*w, B, h0, gi_z, token0,
-                                                sos_emb, grid_out);
-      break;
-    case 2:
-      e = prepare(full_kernel<2>, bytes);
-      if (e == cudaSuccess)
-        full_kernel<2><<<grid, NT, bytes, st>>>(*w, B, h0, gi_z, token0,
-                                                sos_emb, grid_out);
-      break;
-    default:
-      e = prepare(full_kernel<4>, bytes);
-      if (e == cudaSuccess)
-        full_kernel<4><<<grid, NT, bytes, st>>>(*w, B, h0, gi_z, token0,
-                                                sos_emb, grid_out);
-      break;
-  }
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
+  return full_decode_groups(w, B, phases, cluster, h0, gi_z, token0, sos_emb,
+                            grid_out, stream);
 }
 #else
-int pctd_frame_decode_bf16(const DecoderWeightsT<__nv_bfloat16>* w, int B,
-                           int rows_per_block, const __nv_bfloat16* h_time,
-                           const __nv_bfloat16* sos_emb, int* pitch_idx,
-                           int* dur_bits, __nv_bfloat16* summary,
-                           int* lengths, void* stream) {
-  return frame_decode(w, B, rows_per_block, h_time, sos_emb, pitch_idx,
-                      dur_bits, summary, lengths, stream);
+using bf16 = __nv_bfloat16;
+
+int pctd_decode_info_bf16(const DecoderWeightsT<bf16>* w, int cluster,
+                          int* out) {
+  return group_info(*w, false, cluster, out);
+}
+
+int pctd_frame_decode_bf16(const DecoderWeightsT<bf16>* w, int B, int phases,
+                           int cluster, const bf16* h_time,
+                           const bf16* sos_emb, int* pitch_idx, int* dur_bits,
+                           bf16* summary, int* lengths, void* stream) {
+  return frame_decode_groups(w, B, phases, cluster, h_time, sos_emb,
+                             pitch_idx, dur_bits, summary, lengths, stream);
 }
 #endif
 

@@ -5,7 +5,9 @@ grid.
 Replaces the Pallas kernel
 ``pctd_tpu/ops/pallas/full_decoder.py::_full_kernel`` (launched by
 ``decode_grid_fused``). The CUDA source is ``csrc/decoder.cu``
-(``full_kernel``), which shares K3's device functions for the slot chain and
+(``full_group_kernel``: a thread-block cluster decodes a group of 16 rows,
+the time GRU's units shared out over its blocks as K3's frame is), which
+shares K3's device functions for the frame projection, the slot chain and
 the summary; :func:`decode_grid_full_plain` is its plain PyTorch version,
 built on K3's plain pieces the same way. The JAX kernel's
 ``dur_width <= 7`` limit came from its TPU output tile and is gone. Both
@@ -52,10 +54,11 @@ def decode_grid_full_plain(fw: FoldedWeights, spec: PianoTreeSpec,
 
 def decode_grid_full(fw: FoldedWeights, spec: PianoTreeSpec,
                      h0: torch.Tensor, gi_z: torch.Tensor,
-                     token0: torch.Tensor, sos_emb: torch.Tensor
-                     ) -> torch.Tensor:
-    """K4 wrapper: launches ``full_kernel`` for CUDA tensors; a CPU ``h0``
-    takes :func:`decode_grid_full_plain`. Counts its launches in
+                     token0: torch.Tensor, sos_emb: torch.Tensor,
+                     cluster: int = 0) -> torch.Tensor:
+    """K4 wrapper: launches ``full_group_kernel`` for CUDA tensors; a CPU
+    ``h0`` takes :func:`decode_grid_full_plain`. ``cluster`` forces the
+    blocks a cluster (0: ``build.decode_plan``'s). Counts its launches in
     ``decode_grid_full.launches``."""
     if h0.device.type == "cpu":
         return decode_grid_full_plain(fw, spec, h0, gi_z, token0, sos_emb)
@@ -71,7 +74,7 @@ def decode_grid_full(fw: FoldedWeights, spec: PianoTreeSpec,
                         1 + spec.dur_width), dtype=torch.int32,
                        device=h0.device)
     build.launch(build.FULL_ENTRY[torch.float32], fw, dims, B,
-                 [h0, gi_z, token0, sos_emb, grid])
+                 [h0, gi_z, token0, sos_emb, grid], cluster=cluster)
     decode_grid_full.launches += 1
     return grid
 

@@ -184,11 +184,13 @@ class Trainer:
         return _mean(rows)
 
     def eval_generator(self) -> torch.Generator:
-        """The generator of an eval at the current step: seeded from the run
-        seed, :data:`EVAL_SEED` and the step count, so it never repeats the
-        train stream (seeded with the run seed alone)."""
+        """The generator of an eval: seeded from the run seed and
+        :data:`EVAL_SEED` alone, so every eval draws the same noise (as the
+        JAX trainer's ``fold_in(fold_in(state.key, 0x5EED), i)``, whose key
+        never changes) and none repeats the train stream (seeded with the
+        run seed alone)."""
         return torch.Generator(device=self.device).manual_seed(
-            self.tcfg.seed + EVAL_SEED * (1 + self.step_count))
+            self.tcfg.seed + EVAL_SEED)
 
     def eval_epoch(self) -> Dict[str, float]:
         """Mean metrics over the val batches (inf when there are none, so an

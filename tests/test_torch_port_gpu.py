@@ -859,3 +859,176 @@ def test_k2a_refuses_what_the_kernel_cannot_take(cuda):
     with pytest.raises(TypeError):
         _k2a(cw, spec, inp, lens, st,
              dict(cots, d_summ=cots["d_summ"].to(torch.bfloat16)))
+
+
+# --- row-group K3/K4: ragged batches, both cluster sizes, bits, refusals ----
+
+def _group_case(width, B, dtype, seed):
+    """Weights (folded in ``dtype``) and one frame's time hidden and sos
+    embedding, and the K4 inputs of random z, at ``width``."""
+    import dataclasses
+
+    from pctd_tpu_torch.utils.precision import cast_params
+
+    cfg = tiny_model_config() if width == "tiny" else ModelConfig()
+    cuda = torch.device("cuda")
+    params, fw = _model(cfg, cuda, eos_bias=0.0)
+    dec = params["dec"]
+    if dtype == torch.bfloat16:
+        cfg = dataclasses.replace(cfg, compute_dtype="bfloat16")
+        dec = cast_params(dec, dtype)
+        fw = ar_decoder.folded_frame_weights(dec, cfg)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    h = (torch.randn(B, cfg.dec_time_hidden, device=cuda, generator=g)
+         * 0.6).to(dtype)
+    sos = ptd.decode_inputs(dec, cfg, torch.zeros(
+        B, cfg.z_dim, device=cuda, dtype=dtype)).sos_emb
+    z = torch.randn(B, cfg.z_dim, device=cuda, generator=g)
+    return cfg, fw, h, sos, ptd.decode_inputs(params["dec"], cfg, z)
+
+
+def _check_frame(cfg, fw, h, sos, got):
+    """K3's outputs against its plain version: decisions and lengths agree
+    on >= 0.999 and the summary within 1e-4 on agreeing rows (bf16: every
+    row's first differing decision a near-tie, <= 1e-2 of the plain logits,
+    and the summary within 1e-2 x (1 + max|plain|))."""
+    spec = cfg.pianotree
+    want = ar_decoder.frame_decode_plain(fw, spec, h, sos)
+    for i in (0, 1, 3):
+        assert got[i].dtype == torch.int32
+        assert (got[i] == want[i]).float().mean().item() >= AGREE
+    dec = lambda o: torch.cat([o[0][..., None], o[1]], -1)
+    rows = (dec(got) == dec(want)).flatten(1).all(1) & (got[3] == want[3])
+    a, b = got[2][rows].float(), want[2][rows].float()
+    if fw.w_hh.dtype == torch.float32:
+        assert (a - b).abs().max().item() <= 1e-4
+        return
+    if not rows.all():
+        hid, gi = ar_decoder.frame_projection(fw, h)
+        *_, pl, dl = ar_decoder.slot_chain_plain(fw, spec, hid, gi,
+                                                 logits=True)
+        margins = _first_difference_margins(
+            dec(got), dec(want),
+            types.SimpleNamespace(pitch_logits=pl, dur_logits=dl))
+        assert margins.max().item() <= 1e-2
+    assert (a - b).abs().max().item() <= 1e-2 * (1.0 + b.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cluster", [8, 16])
+@pytest.mark.parametrize("B", [1, 37, 300])
+@pytest.mark.parametrize("width", ["tiny", "canonical"])
+def test_group_frame_kernel_matches_plain(cuda, width, B, cluster, dtype):
+    """The row-group K3 against its plain version at ragged batches (the
+    last group padded: 1, 37 and 300 rows) in clusters of 8 and of 16."""
+    cfg, fw, h, sos, _ = _group_case(width, B, dtype, seed=B)
+    got = ar_decoder.frame_decode(fw, cfg.pianotree, h, sos, cluster=cluster)
+    assert got[2].dtype == dtype
+    _check_frame(cfg, fw, h, sos, got)
+
+
+@pytest.mark.parametrize("cluster", [8, 16])
+@pytest.mark.parametrize("width,B", [("tiny", 1), ("tiny", 37),
+                                     ("tiny", 300), ("canonical", 1),
+                                     ("canonical", 37)])
+def test_group_full_kernel_matches_plain(cuda, width, B, cluster):
+    """The row-group K4 against its plain version at ragged batches, in
+    clusters of 8 and of 16."""
+    cfg, fw, _, _, inputs = _group_case(width, B, torch.float32, seed=B)
+    got = full_decoder.decode_grid_full(fw, cfg.pianotree, *inputs,
+                                        cluster=cluster)
+    want = full_decoder.decode_grid_full_plain(fw, cfg.pianotree, *inputs)
+    assert got.shape == want.shape == (B, 32, 15, 6)
+    assert (got == want).float().mean().item() >= AGREE
+
+
+@pytest.mark.parametrize("kernel", ["K3", "K3 bf16", "K4"])
+@pytest.mark.parametrize("B", [128, 512])
+def test_group_kernels_are_bit_identical_across_launches(cuda, kernel, B):
+    """The same inputs give the same bits: every sum runs in a fixed order
+    (no atomics), in the plan's cluster size."""
+    dtype = torch.bfloat16 if kernel == "K3 bf16" else torch.float32
+    cfg, fw, h, sos, inputs = _group_case("canonical", B, dtype, seed=9)
+    spec = cfg.pianotree
+    for _ in range(2 if kernel == "K4" else 5):
+        if kernel == "K4":
+            a = [full_decoder.decode_grid_full(fw, spec, *inputs)]
+            b = [full_decoder.decode_grid_full(fw, spec, *inputs)]
+        else:
+            a = ar_decoder.frame_decode(fw, spec, h, sos)
+            b = ar_decoder.frame_decode(fw, spec, h, sos)
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
+def test_group_phases_alone_and_together(cuda):
+    """Each timing phase launches alone; the phases of a decode, launched
+    together, give the bits of the wrapper's launch."""
+    from pctd_tpu_torch.ops.kernels import build
+
+    cfg, fw, h, sos, inputs = _group_case("canonical", 37, torch.float32, 3)
+    spec = cfg.pianotree
+    dims = build.decoder_dims(fw, spec)
+    B, S, W = 37, spec.max_simu_note - 1, spec.dur_width
+    out = lambda: [torch.empty((B, S), dtype=torch.int32, device=cuda),
+                   torch.empty((B, S, W), dtype=torch.int32, device=cuda),
+                   torch.empty((B, 2 * dims.EH), device=cuda),
+                   torch.empty((B,), dtype=torch.int32, device=cuda)]
+    for name, bit in build.DECODE_PHASES.items():
+        if name != "time":
+            build.launch(build.FRAME_ENTRY[torch.float32], fw, dims, B,
+                         [h, sos, *out()], phases=bit)
+        grid = torch.empty((B, spec.num_step, S, 1 + W), dtype=torch.int32,
+                           device=cuda)
+        build.launch(build.FULL_ENTRY[torch.float32], fw, dims, B,
+                     [*inputs, grid], phases=bit)
+    torch.cuda.synchronize()
+    together = out()
+    build.launch(build.FRAME_ENTRY[torch.float32], fw, dims, B,
+                 [h, sos, *together], phases=build.PHASES_ALL)
+    for a, b in zip(together, ar_decoder.frame_decode(fw, spec, h, sos)):
+        assert torch.equal(a, b)
+
+
+def test_group_kernels_refuse_what_they_cannot_take(cuda):
+    """A cluster size the kernels do not take (only 8 and 16), or widths
+    whose blocks' shared memory would not fit (a 4096-wide time hidden:
+    16 rows of it alone are 256 KiB), refuse the launch; so do bf16
+    weights for K4, widths not a multiple of 4, weights that do not start
+    16 bytes aligned, and tensors of another dtype than the weights'."""
+    import dataclasses
+
+    cfg, fw, h, sos, inputs = _group_case("canonical", 5, torch.float32, 1)
+    spec = cfg.pianotree
+    for cluster in (3, 32, 2, 4):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            ar_decoder.frame_decode(fw, spec, h, sos, cluster=cluster)
+    for cluster in (2, 4):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            full_decoder.decode_grid_full(fw, spec, *inputs, cluster=cluster)
+    wide = dataclasses.replace(tiny_model_config(), dec_time_hidden=4096)
+    _, fww = _model(wide, cuda)
+    hw = torch.zeros(2, 4096, device=cuda)
+    sw = torch.zeros(2, wide.note_emb_size, device=cuda)
+    for cluster in (8, 16):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            ar_decoder.frame_decode(fww, wide.pianotree, hw, sw,
+                                    cluster=cluster)
+    with pytest.raises(RuntimeError, match="no cluster size"):
+        ar_decoder.frame_decode(fww, wide.pianotree, hw, sw)
+    shifted = torch.empty(fw.w_hh.numel() + 1, device=cuda)[1:]
+    shifted.copy_(fw.w_hh.flatten())
+    with pytest.raises(ValueError, match="aligned"):
+        ar_decoder.frame_decode(fw._replace(w_hh=shifted.view_as(fw.w_hh)),
+                                spec, h, sos)
+    _, fwb, hb, sosb, _ = _group_case("canonical", 5, torch.bfloat16, 1)
+    with pytest.raises(TypeError):
+        full_decoder.decode_grid_full(fwb, spec, *inputs)
+    with pytest.raises(TypeError):
+        ar_decoder.frame_decode(fwb, spec, h, sos)
+    odd = dataclasses.replace(tiny_model_config(), dec_time_hidden=18)
+    params, fwo = _model(odd, cuda)
+    with pytest.raises(ValueError, match="% 4"):
+        ar_decoder.frame_decode(
+            fwo, odd.pianotree, torch.zeros(2, 18, device=cuda),
+            torch.zeros(2, odd.note_emb_size, device=cuda))

@@ -89,7 +89,8 @@ def test_empty_train_epoch_reports_zeros():
 
 def test_eval_noise_is_apart_from_the_train_stream():
     """At step 0 the eval generator draws other latent noise and coins than
-    the train step would; and an eval at a later step draws others again."""
+    the train step would; and an eval at a later step draws the same ones
+    again (the JAX trainer's eval key never changes)."""
     run = trainer.Trainer(TINY, tcfg.TrainConfig(batch_size=2), None,
                           device="cpu", params=tdv.init_params(
                               TINY, seed=4, device="cpu"))
@@ -103,7 +104,22 @@ def test_eval_noise_is_apart_from_the_train_stream():
     coins = lambda n: torch.cat([n.coins1, n.coins2.flatten(), n.coins3])
     assert not torch.equal(coins(train), coins(eval0))
     run.step_count = 1
-    assert not torch.equal(draw(run.eval_generator()).eps_chd, eval0.eps_chd)
+    assert torch.equal(draw(run.eval_generator()).eps_chd, eval0.eps_chd)
+
+
+def test_eval_metrics_do_not_depend_on_the_step():
+    """Two evals of the same params at different step counts give equal
+    metrics: the eval noise is drawn from the same seed each time (the
+    schedules held at their end values, so only the noise could differ)."""
+    _, val_b = _loaders()
+    run = trainer.Trainer(
+        TINY, tcfg.TrainConfig(batch_size=2, eval_fixed_schedule=True),
+        None, val_b, device="cpu",
+        params=tdv.init_params(TINY, seed=4, device="cpu"))
+    first = run.eval_epoch()
+    run.step_count = 7
+    assert run.eval_epoch() == first
+    assert all(np.isfinite(v) for v in first.values())
 
 
 #: bf16 step metrics vs JAX: step 1 at the bf16 loss parity's 1.4e-4; step
