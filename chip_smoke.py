@@ -7,7 +7,9 @@ Builds the CUDA kernels from the sources in this checkout and holds each
 against its plain PyTorch version on the card: the decode kernels K3 and
 K4 (row groups in thread-block clusters, at B = 1, 37, 128 and 512 in
 clusters of 8 and of 16, the same bits over two launches), the
-train-frame forward K1 and its backward K2 (K2a, the reverse chain
+train-frame forward K1 (row groups in thread-block clusters, its chain
+weights streamed from packed panels; the same bits over two launches in
+each mode and storage type) and its backward K2 (K2a, the reverse chain
 in three kernels, and K2b, the weight-gradient reduction), K1 and K2a in
 both their modes (CE fused in, and logits out), and K3, K1, K2a and K2b in
 both storage types (float32 and bfloat16). K2a is also held alone against
@@ -37,7 +39,12 @@ kernels in the profiled steps. The phase "timing" times the row-group K3
 (both storage types) and K4 queued behind a sleep kernel (the per-row
 kernels they replaced are timed from a checkout of the parent commit by
 ``pctd_tpu_torch/tools/decode_by_rows.py``); the phase "K3/K4 by phase"
-times them whole and by phase at both cluster sizes.
+times them whole and by phase at both cluster sizes. The phase "K1 by
+phase" times the row-group K1 whole (at both cluster sizes) and by phase
+at B=128 and 512 in both storage types and modes with every teacher coin
+0, measures one SM's bulk-copy rate from L2 (``csrc/l2_stream.cu``), and,
+given ``--parent-k1`` (the JSON line of ``tools/k1_by_rows.py`` run on a
+checkout of the per-row K1), prints the per-row times beside.
 Prints one line per phase with its seconds, a ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``. Exits nonzero,
 printing no result, without a CUDA card or when any phase fails. Imports
@@ -140,6 +147,10 @@ K2A_REPS = 10          # launches a K2a timing averages
 K2A_F64_TOL = 1e-5
 K2A_GATE_B = (128, 512)
 K2A_CLUSTERS = (8, 16)  # the note chain's cluster sizes, timed beside
+K1_REPS = 10            # launches a K1 timing averages
+# K1 vs plain: the plan's row groups (37: clusters of 16; 128: of 8) and
+# per-row kernel (512: 4 rows a block)
+K1_B = (128, 37, 512)
 
 
 class PhaseFailed(RuntimeError):
@@ -300,6 +311,66 @@ def k1_rows(cw, spec, inp):
     return rows, got, want
 
 
+def k1_same_bits(fn) -> bool:
+    """Whether two calls of a K1 wrapper give the same bits in every output,
+    the stash included."""
+    flat = lambda out: [t for o in out if o is not None
+                        for t in (o if isinstance(o, tuple) else (o,))]
+    a, b = flat(fn()), flat(fn())
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def k1_by_phase(cw, spec, inp, B: int, logits: bool) -> dict:
+    """K1 on one frame case (coins as given), queued behind a sleep kernel:
+    the plan's pick, the row groups whole at 8 and 16 blocks a cluster,
+    the per-row kernel at 4 rows a block, and each phase of
+    ``build.K1_PHASES`` of the row groups alone at 8 blocks a cluster (a
+    phase alone reads zeros where the ones before it would have written),
+    with its stash: {variant: (ms, queued)}."""
+    d = tf.dims_of(cw, spec)
+    dev, dt = inp["frame_h"].device, cw.w_hh.dtype
+    S, W = d.K - 1, d.W
+    i32 = dict(dtype=torch.int32, device=dev)
+    common = [torch.empty(B, 2 * d.EH, dtype=dt, device=dev),
+              torch.empty(B, **i32), torch.empty(B, S, 1 + W, **i32)]
+    ins = [inp["coins"], inp["frame_h"], inp["x_emb"]]
+    if logits:
+        tensors = [*ins, torch.empty(B, S, d.P, dtype=dt, device=dev),
+                   torch.empty(B, S, W, 2, dtype=dt, device=dev), *common]
+    else:
+        tensors = [*ins, inp["gt_pitch"], inp["gt_dur"],
+                   torch.empty(B, 1 + W, device=dev), *common]
+    st = tf.new_stash(d, B, dev, dt)
+    plan = build.k1_plan_on_card(cw, d, B, dev)
+    pick = f"C={plan.C}" if plan.C else f"R={plan.R}"
+    variants = {f"plan ({pick})": (build.K1_ALL, plan.C, plan.R),
+                **{f"groups C={c}": (build.K1_ALL, c, 0)
+                   for c in build.DECODE_CLUSTERS},
+                "per-row R=4": (build.K1_ALL, 0, 4),
+                **{n: (b, 8, 0) for n, b in build.K1_PHASES.items()}}
+    return {name: queued_ms(lambda ph=ph, c=c, r=r: build.launch_train_fwd(
+        cw, d, B, tensors, st, logits=logits, phases=ph, cluster=c, rows=r),
+        K1_REPS) for name, (ph, c, r) in variants.items()}
+
+
+def l2_stream_rates(dev, panel: int = 600 * 1024) -> dict:
+    """One SM's bulk-copy rate from L2 into shared memory (GB/s a block,
+    ``csrc/l2_stream.cu``): 4 stages of 16 KB in flight, as K1's ring, one
+    block alone and a block on every SM (8 distinct panels of ``panel``
+    bytes, as K1's clusters of 8 read), 20 passes each."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    src = torch.zeros(8 * panel // 4, device=dev)
+    out = {}
+    for blocks in (1, sms):
+        sink = torch.empty(blocks * 256, device=dev)
+        ms, ok = queued_ms(lambda: build.launch_l2_stream(
+            src, blocks, panel, 8, 16384, 4, 20, sink), 3)
+        check(ok, "L2 stream probe: the host did not enqueue the timed calls "
+              "within the sleep kernel")
+        out[f"blocks={blocks}"] = panel * 20 / (ms * 1e-3) / 1e9
+    return out
+
+
 def k2_grads(cw, spec, inp, g_nums, g_summ, plain: bool):
     """Gradients of sum(g_nums * nums) + sum(g_summ * summary) with respect to
     the 24 weights, frame_h and x_emb: through K1/K2 or autograd of the plain
@@ -364,10 +435,10 @@ def launch_dtypes():
     stored = lambda st: [t for n, t in zip(tf.Stash._fields, st)
                          if n not in f32]
 
-    def fwd(cw, d, batch, tensors, stash, rows=0, logits=False):
+    def fwd(cw, d, batch, tensors, stash, logits=False, **kw):
         seen[("K1", frozenset(str(t.dtype) for t in [*cw, *tensors[1:3]]))] \
             += 1
-        return kernel_routes[0](cw, d, batch, tensors, stash, rows, logits)
+        return kernel_routes[0](cw, d, batch, tensors, stash, logits, **kw)
 
     def bwd(cw, d, batch, tensors, stash, cot, logits=False, **kw):
         cots = tensors[2:5] if logits else tensors[5:6]
@@ -638,7 +709,7 @@ def profile_call(fn, what: str) -> dict:
         us = e.time_range.elapsed_us()
         spans.append((e.time_range.start, e.time_range.end))
         n = e.name
-        key = ("K1" if "train_fwd_kernel" in n else
+        key = ("K1" if "train_fwd" in n else
                "K2a" if "train_bwd_" in n else
                "K2b" if "wgrad_" in n else
                "K3" if "frame_kernel" in n else
@@ -1022,6 +1093,9 @@ def agreement(a, b) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--parent-k1", default="",
+                    help="JSON line of tools/k1_by_rows.py run on a checkout "
+                         "of the per-row K1, printed beside the new K1")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this test runs on the card",
@@ -1076,6 +1150,16 @@ def main() -> int:
                        r"_kernelI\w+?)EE.*\n.*\n\s*(.*spill loads)\n.*?(Used "
                        r"\d+ registers[^\n]*)", log)}
     print(f"  row-group K3/K4 registers: {decode_regs}")
+    k1_regs = {m.group(1): f"{m.group(3)}; {m.group(2)}"
+               for m in re.finditer(
+                   r"Compiling entry function '\S*?(train_fwd_group_kernel"
+                   r"I\w+?)EE.*\n.*\n\s*(.*spill loads)\n.*?(Used \d+ "
+                   r"registers[^\n]*)", log)}
+    print(f"  row-group K1 registers: {k1_regs}")
+    check(len(k1_regs) == 4, f"row-group K1: {len(k1_regs)} of its 4 "
+          "instances (2 cluster sizes x 2 storage types) in the build report")
+    k1_sass = sass_sizes(build.build()[0], r"train_fwd_group_kernel")
+    print(f"  row-group K1 SASS instructions: {k1_sass}")
     decode_sass = sass_sizes(build.build()[0], r"(?:frame|full)_group_kernel")
     print(f"  row-group K3/K4 SASS instructions: {decode_sass}")
     check(len(decode_regs) == 6, f"row-group K3/K4: {len(decode_regs)} of "
@@ -1090,10 +1174,18 @@ def main() -> int:
     fw = fw_of(params)
     dims = build.decoder_dims(fw, spec)
     cw0 = tf.core_weights(params["dec"], cfg)
-    tw = build.train_weights(cw0, tf.dims_of(cw0, spec))
-    for r in (1, 2, 4):
-        print(f"  shared memory, {r} row(s) a block: K1 "
-              f"{lib.pctd_train_smem_bytes(ctypes.byref(tw), r)} B")
+    d0 = tf.dims_of(cw0, spec)
+    tw = build.train_weights(cw0, d0)
+    k1_smem = {}
+    for dt in (torch.float32, BF16):
+        cwd = tf.CoreWeights(*(w.detach().to(dt) for w in cw0))
+        for C in build.DECODE_CLUSTERS:
+            info = build.k1_info(cwd, d0, C, dev)
+            lay = tf.panel_layout(d0, C, dt)
+            k1_smem[f"{dt} C={C}"] = info
+            print(f"  row-group K1 {dt} at {C} blocks a cluster: shared "
+                  f"memory {info[0]} B, {info[1]} clusters at once; panels "
+                  f"{lay.size * cwd.w_hh.element_size()} B")
     for C in build.DECODE_CLUSTERS:
         print(f"  row-group K3 / K4 at {C} blocks a cluster (shared memory "
               f"B, clusters at once): "
@@ -1248,7 +1340,7 @@ def main() -> int:
     t0 = time.perf_counter()
     k1_err, k1_agree = 0.0, 1.0
     for wname, (p, _) in weight_sets.items():
-        for B in (128, 37):
+        for B in K1_B:
             cw, inp = frame_case(p, cfg, B, gen)
             with torch.no_grad():
                 rows, got, want = k1_rows(cw, spec, inp)
@@ -1261,11 +1353,14 @@ def main() -> int:
                        for k, v in inp.items()}
                 nums = rel_err(tf.frame_fwd(cw, spec, **sub, stash=False)[0],
                                tf.frame_recon_plain(cw, spec, **sub).nums)
+                same = k1_same_bits(lambda: tf.frame_fwd(cw, spec, **inp,
+                                                         stash=True))
             hist = torch.bincount(got[2].long(), minlength=16).tolist()
             print(f"  K1 {wname} B={B}: decisions agree on {ag:.6f} of "
                   f"rows; on those nums rel err {nums:.3g}, summary "
-                  f"max|err| {summ:.3g}, hs max|err| {hs:.3g}; lengths "
-                  f"{hist}")
+                  f"max|err| {summ:.3g}, hs max|err| {hs:.3g}; two launches "
+                  f"bit-identical (stash included): {same}; lengths {hist}")
+            check(same, f"K1 {wname} B={B}: two launches differ")
             check(nums <= NUMS_RTOL, f"K1 {wname} B={B} nums {nums}")
             check(max(summ, hs) <= STATE_ATOL,
                   f"K1 {wname} B={B} summary/hs {summ} {hs}")
@@ -1318,7 +1413,10 @@ def main() -> int:
                 pitch, dur, summ, lens, decisions, _ = tf.frame_core_fwd(
                     cw, spec, **core_inputs(inp), stash=False)
                 want = tf.frame_core_plain(cw, spec, **core_inputs(inp))
+                same = k1_same_bits(lambda: tf.frame_core_fwd(
+                    cw, spec, **core_inputs(inp), stash=True))
             torch.cuda.synchronize()
+            check(same, f"K1 logits out {wname} B={B}: two launches differ")
             plain_dec = core_decisions(want.pitch_logits, want.dur_logits)
             bad = int((decisions != plain_dec).flatten(1).any(1).sum())
             check(bad == 0, f"K1 logits out {wname} B={B}: decisions differ "
@@ -1341,7 +1439,8 @@ def main() -> int:
             hist = torch.bincount(lens.long(), minlength=16).tolist()
             print(f"  K1 logits out {wname} B={B}: decisions and lengths "
                   f"equal the plain version's on every row, and the "
-                  f"logits' argmaxes; max|err| " + ", ".join(errs)
+                  f"logits' argmaxes; two launches bit-identical (stash "
+                  f"included); max|err| " + ", ".join(errs)
                   + f"; lengths {hist}")
     phase("K1 logits out vs plain", t0)
 
@@ -1392,7 +1491,7 @@ def main() -> int:
     pooled = collections.Counter()
     with launch_dtypes() as seen:
         for wname, (p, _) in weight_sets.items():
-            for B in (128, 37):
+            for B in K1_B:
                 cw, inp = to_bf16(*frame_case(p, cfg, B, gen))
                 with torch.no_grad():
                     # loss mode
@@ -1404,7 +1503,14 @@ def main() -> int:
                         cw, spec, **core_inputs(inp), stash=False)
                     want_l = tf.frame_core_plain(cw, spec,
                                                  **core_inputs(inp))
+                    same = (k1_same_bits(lambda: tf.frame_fwd(
+                        cw, spec, **inp, stash=True)), k1_same_bits(
+                        lambda: tf.frame_core_fwd(cw, spec,
+                                                  **core_inputs(inp),
+                                                  stash=True)))
                 torch.cuda.synchronize()
+                check(all(same), f"K1 bf16 {wname} B={B}: two launches "
+                      f"differ (loss, logits out: {same})")
                 check(got[1].dtype == BF16 and pitch.dtype == BF16
                       and dur.dtype == BF16 and summ_l.dtype == BF16,
                       "K1 bf16 outputs are not bf16")
@@ -1467,7 +1573,8 @@ def main() -> int:
                 hist = torch.bincount(got[2].long(), minlength=16).tolist()
                 print(f"  K1 bf16 {wname} B={B}: " + "; ".join(stats)
                       + "; on agreeing rows max|err| " + ", ".join(errs)
-                      + f"; lengths {hist}")
+                      + f"; two launches bit-identical in both modes; "
+                      f"lengths {hist}")
     pool_slots = pooled["slots_agree"] / pooled["slots"]
     pool_lens = pooled["len_agree"] / pooled["rows"]
     print(f"  K1 bf16, all cases: decided slots agree {pool_slots:.6f} of "
@@ -2030,8 +2137,10 @@ def main() -> int:
 
     W, EH2 = spec.dur_width, 2 * cfg.dec_emb_hidden
     k2a_autograd = {}
+    k1_queued = []
     for B in (128, 512):
         cw, inp = frame_case(params, cfg, B, gen)
+        inp["coins"].zero_()    # training's steady state: every coin 0
         d = tf.dims_of(cw, spec)
         fwd = lambda: tf.frame_fwd(cw, spec, **inp, stash=True)
         _, _, lens, _, st = fwd()
@@ -2040,7 +2149,7 @@ def main() -> int:
         bwd = lambda: tf.frame_bwd(cw, spec, inp["frame_h"], inp["coins"],
                                    inp["gt_pitch"], inp["gt_dur"], lens, st,
                                    d_nums, d_summ)
-        k1 = cuda_ms(fwd, 10)
+        k1, q1 = queued_ms(fwd, K1_REPS)
         k2a = queued_ms(bwd, K2A_REPS)[0]
         with torch.no_grad():
             k1p = cuda_ms(lambda: tf.frame_recon_plain(cw, spec, **inp), 2)
@@ -2059,7 +2168,7 @@ def main() -> int:
         bwd_lo = lambda: tf.frame_core_bwd(cw, spec, inp["frame_h"],
                                            inp["coins"], lens_lo, st_lo,
                                            *cots_lo)
-        k1l = cuda_ms(fwd_lo, 10)
+        k1l, q2 = queued_ms(fwd_lo, K1_REPS)
         k2al = queued_ms(bwd_lo, K2A_REPS)[0]
         with torch.no_grad():
             k1lp = cuda_ms(lambda: tf.frame_core_plain(
@@ -2090,7 +2199,7 @@ def main() -> int:
                                      inpb["coins"], inpb["gt_pitch"],
                                      inpb["gt_dur"], lens_b, st_b, d_nums,
                                      d_summ_b)
-        k1b = cuda_ms(fwd_b, 10)
+        k1b, q3 = queued_ms(fwd_b, K1_REPS)
         k2ab = queued_ms(bwd_b, K2A_REPS)[0]
         with torch.no_grad():
             k1bp = cuda_ms(lambda: tf.frame_recon_plain(cwb, spec, **inpb), 2)
@@ -2109,7 +2218,8 @@ def main() -> int:
         bwd_lb = lambda: tf.frame_core_bwd(cwb, spec, inpb["frame_h"],
                                            inpb["coins"], lens_lb, st_lb,
                                            *cots_lb)
-        k1blo = cuda_ms(fwd_lb, 10)
+        k1blo, q4 = queued_ms(fwd_lb, K1_REPS)
+        k1_queued.append(q1 and q2 and q3 and q4)
         k2ablo = queued_ms(bwd_lb, K2A_REPS)[0]
         with torch.no_grad():
             k1blp = cuda_ms(lambda: tf.frame_core_plain(
@@ -2146,6 +2256,8 @@ def main() -> int:
                   f"{rates[name.replace(' logits', '')]}), {bms / ms:.3%} "
                   "of it")
         del st, st_lo, st_b, st_lb
+    check(all(k1_queued), "K1: the host did not enqueue the timed calls "
+          "within the sleep kernel")
     opt_ms = optimizer_ms(trainer, 5)
     print(f"  optimizer step (clip + Adam, all parameters): {opt_ms:.3f} ms")
     profile = profile_step(trainer)
@@ -2174,6 +2286,51 @@ def main() -> int:
                                            if n != "trainer"}
                      for k, r in bf16_runs.items()}
     phase("timing", t0)
+
+    # 10a. K1 by phase: the row-group K1 whole (the plan's cluster size and
+    # the other) and each phase alone, queued behind a sleep kernel, at
+    # B=128 and 512 in both storage types and modes, every coin 0; one SM's
+    # bulk-copy rate from L2 (the floor under K1's weight ring); and the
+    # parent's per-row K1 (tools/k1_by_rows.py on the parent's checkout)
+    # beside, where its JSON is given
+    t0 = time.perf_counter()
+    k1_phases = {}
+    for B in (128, 512):
+        cw, inp = frame_case(params, cfg, B, gen)
+        inp["coins"].zero_()
+        for bf16 in (False, True):
+            cwx, inpx = to_bf16(cw, inp) if bf16 else (cw, inp)
+            for logits in (False, True):
+                key = (f"{'bf16' if bf16 else 'f32'} "
+                       f"{'logits' if logits else 'loss'} B={B}")
+                r = k1_by_phase(cwx, spec, inpx, B, logits)
+                check(all(q for _, q in r.values()), f"K1 {key}: the host did "
+                      "not enqueue the timed calls within the sleep kernel")
+                k1_phases[key] = {k: ms for k, (ms, _) in r.items()}
+                print(f"  K1 {key} (ms a launch, queued): " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in k1_phases[key].items()))
+    k1_stream = l2_stream_rates(dev)
+    print("  L2 -> shared memory by bulk copies, 4 stages of 16 KB: "
+          + ", ".join(f"{k} {v:.1f} GB/s a block" for k, v in
+                      k1_stream.items()))
+    parent_k1 = {}
+    if args.parent_k1:
+        with open(args.parent_k1) as f:
+            parent_k1 = json.loads(f.read().strip().splitlines()[-1])
+        for key, res in parent_k1.items():
+            if key.startswith(("f32", "bf16")) and "coins=zero" in key:
+                mine = k1_phases.get(key.replace(" coins=zero", ""), {})
+                new_ms = next((v for k, v in mine.items() if "plan" in k),
+                              None)
+                # the parent's plan: 1 row a block at B=128, 4 at B=512
+                was = res["R=1" if "B=128" in key else "R=4"][0]
+                print(f"  parent's per-row K1 {key}: " + ", ".join(
+                    f"{k} {v[0]:.4f}" for k, v in res.items())
+                    + (f"; this K1 (plan) {new_ms:.4f} ms, the parent's "
+                       f"plan / this {was / new_ms:.3f}x" if new_ms else ""))
+    training["k1_by_phase_ms"] = k1_phases
+    training["l2_stream_gbs"] = k1_stream
+    phase("K1 by phase", t0)
 
     # 10b. K2b by task: its time on each reduction alone and on all of them,
     # its gates (f64 reference, bf16 ulps, with a control that each must
@@ -2428,7 +2585,7 @@ def main() -> int:
                                                   else "frame")}})
     tsrc = "pctd_tpu_torch/ops/kernels/csrc/train_frame.cu"
     for key, name, fn, err, tol in (
-            ("K1", "K1 train_fwd_kernel",
+            ("K1", "K1 train_fwd_group_kernel",
              "pctd_tpu/ops/pallas/train_frame.py:289", k1_err,
              f"decisions agree on >= {AGREE} of rows; on those, nums rel "
              f"err <= {NUMS_RTOL}, summary and hs max|err| <= {STATE_ATOL}"),
@@ -2442,7 +2599,7 @@ def main() -> int:
              "pctd_tpu/ops/pallas/train_frame.py:736", max(k2b_err, k2bl_err),
              f"24 weight grads max|err| <= {GRAD_TOL} x (1 + max|plain|) "
              "vs autograd of the plain version, in both modes"),
-            ("K1 logits", "K1 train_fwd_kernel (logits out)",
+            ("K1 logits", "K1 train_fwd_group_kernel (logits out)",
              "pctd_tpu/ops/pallas/train_frame.py:289", k1l_err,
              "decisions and lengths equal the plain version's on every row "
              "and the logits' argmaxes; logits and summary max|err| <= "
@@ -2467,7 +2624,7 @@ def main() -> int:
     b_fused_l = bf16_runs["fused"]["launches"]
     b_lo_l = bf16_runs["logits out"]["launches"]
     for key, name, fn, err, launches_, tol in (
-            ("K1 bf16", "K1 train_fwd_kernel (bf16)",
+            ("K1 bf16", "K1 train_fwd_group_kernel (bf16)",
              "pctd_tpu/ops/pallas/train_frame.py:289", k1b_err,
              b_fused_l["K1"],
              f"every row's first differing decision a near-tie (margin <= "
@@ -2487,7 +2644,8 @@ def main() -> int:
              b_fused_l["K2b"] + b_lo_l["K2b"],
              f"24 weight grads max|err| <= {BF16_GRAD_TOL} x (1 + "
              "max|plain|) vs autograd of the plain version, both modes"),
-            ("K1 bf16 logits", "K1 train_fwd_kernel (bf16, logits out)",
+            ("K1 bf16 logits",
+             "K1 train_fwd_group_kernel (bf16, logits out)",
              "pctd_tpu/ops/pallas/train_frame.py:289", k1bl_err,
              b_lo_l["K1"],
              f"as K1 bf16; the logits' argmaxes equal the decisions; on "
@@ -2507,6 +2665,37 @@ def main() -> int:
                      "library_ms": None, "batch": 128,
                      "ms_b512": timing[512][key][0],
                      "plain_ms_b512": timing[512][key][1]})
+    # K1: timed queued behind a sleep kernel with every coin 0, by phase,
+    # the plan, and the parent's per-row K1 where given
+    for row in rows:
+        if row["name"].startswith("K1"):
+            bf16 = "bf16" in row["name"]
+            mode = "logits" if "logits" in row["name"] else "loss"
+            key = f"{'bf16' if bf16 else 'f32'} {mode}"
+            dt = BF16 if bf16 else torch.float32
+            row.update({
+                "ms_source": "CUDA events over launches queued behind a "
+                             "sleep kernel (device time, host launch "
+                             "hidden), every teacher coin 0",
+                "bound_ms_b512": timing[512][row["name"].split()[0] + (
+                    " bf16" if bf16 else "") + (
+                    " logits" if mode == "logits" else "")][2],
+                "by_phase_ms": k1_phases[f"{key} B=128"],
+                "by_phase_ms_b512": k1_phases[f"{key} B=512"],
+                "plan": build.k1_plan_on_card(
+                    tf.CoreWeights(*(w.detach().to(dt) for w in cw0)), d0,
+                    128, dev)._asdict(),
+                "shared_memory": {k: v for k, v in k1_smem.items()
+                                  if k.startswith(str(dt))},
+                "registers": {k: v for k, v in k1_regs.items()
+                              if ("bfloat16" in k) == bf16},
+                "sass_instructions": k1_sass,
+                "l2_stream_gbs_a_block": k1_stream,
+                "parent_per_row_ms": {
+                    k: {r: v[0] for r, v in res.items()}
+                    for k, res in parent_k1.items()
+                    if k.startswith(key) and "coins=zero" in k} or None,
+                "same_bits_over_two_launches": True})
     # K2a: timed queued behind a sleep kernel, its plain version
     # frame_bwd_plain (autograd of the plain frame beside it), its bound at
     # the fastest f32-accurate product rate

@@ -1,5 +1,6 @@
 """Build and bind the CUDA kernels (decode: K3, K4; training: K1, K2; and
-``csrc/mma_peak.cu``, the tensor-core issue-rate probe of K2b's ceilings).
+the probes ``csrc/mma_peak.cu``, the tensor-core issue rate that bounds K2b,
+and ``csrc/l2_stream.cu``, the bulk-copy rate from L2 that feeds K1).
 
 At first use on the card, ``nvcc`` compiles every ``csrc/*.cu`` to an object,
 one compiler process per source, all started together, and links them into
@@ -62,6 +63,13 @@ class TrainWeightsC(ctypes.Structure):
 
 
 TrainStashC = _pointers("TrainStashC", tf.Stash._fields)
+
+
+class K1PanelsC(ctypes.Structure):
+    """``K1PanelsT`` of ``csrc/train_frame.cu``: the panel buffer and its
+    :class:`train_frame.PanelLayout` offsets."""
+    _fields_ = ([("base", ctypes.c_void_p)]
+                + [(f, ctypes.c_int) for f in tf.PanelLayout._fields[:-1]])
 TrainCotangentsC = _pointers("TrainCotangentsC", tf.Cotangents._fields)
 
 
@@ -162,12 +170,14 @@ def library() -> ctypes.CDLL:
         tw = ctypes.POINTER(TrainWeightsC)
         stash = ctypes.POINTER(TrainStashC)
         cot = ctypes.POINTER(TrainCotangentsC)
+        pn = ctypes.POINTER(K1PanelsC)
         for sfx in TRAIN_SUFFIX.values():     # the same C signature per dtype
             for name, argtypes in (
-                    ("pctd_train_fwd", [tw, i32, i32] + [ptr] * 9
-                     + [stash, ptr]),
-                    ("pctd_train_fwd_logits", [tw, i32, i32] + [ptr] * 8
-                     + [stash, ptr]),
+                    ("pctd_train_fwd", [tw, pn, i32, i32, i32, i32]
+                     + [ptr] * 9 + [stash, ptr]),
+                    ("pctd_train_fwd_logits", [tw, pn, i32, i32, i32, i32]
+                     + [ptr] * 8 + [stash, ptr]),
+                    ("pctd_train_fwd_info", [tw, i32, out]),
                     ("pctd_train_bwd", [tw, i32, i32, i32] + [ptr] * 9
                      + [stash, cot, ptr]),
                     ("pctd_train_bwd_logits", [tw, i32, i32, i32]
@@ -176,13 +186,14 @@ def library() -> ctypes.CDLL:
                                           ptr])):
                 fn = getattr(lib, name + sfx)
                 fn.argtypes, fn.restype = argtypes, i32
-        lib.pctd_train_smem_bytes.argtypes = [tw, i32]
-        lib.pctd_train_smem_bytes.restype = i32
         lib.pctd_train_bwd_smem_bytes.argtypes = [tw, i32, i32, i32, out,
                                                   out]
         lib.pctd_train_bwd_smem_bytes.restype = i32
         lib.pctd_mma_peak.argtypes = [i32, i32, i32, i32, ptr, ptr]
         lib.pctd_mma_peak.restype = i32
+        lib.pctd_l2_stream.argtypes = [ptr, i32, ctypes.c_longlong, i32,
+                                       i32, i32, i32, ptr, ptr]
+        lib.pctd_l2_stream.restype = i32
         _LIB.append(lib)
     return _LIB[0]
 
@@ -243,22 +254,6 @@ def check_inputs(fw: FoldedWeights, device: torch.device,
     return dtype
 
 
-#: a block's time with R rows, relative to one row, of the per-row frame
-#: kernels (K1, and the per-row K4 it was measured on: canonical width,
-#: B=128, on an H100 SXM at 700 W, 53.5, 55.8 and 79.2 ms).
-BLOCK_COST = {1: 1.0, 2: 1.04, 4: 1.48}
-
-
-def rows_per_block(batch: int, sms: int) -> int:
-    """Batch rows a per-row block takes (1, 2 or 4). One block runs per SM
-    (its registers fill the SM), so the kernel takes waves of ``sms``
-    blocks; more rows a block means fewer waves but a slower block. Picks
-    the R with the least (waves x block cost)."""
-    cdiv = lambda a, b: -(-a // b)
-    return min(BLOCK_COST,
-               key=lambda r: cdiv(cdiv(batch, r), sms) * BLOCK_COST[r])
-
-
 #: rows of a decode group: one cluster of the row-group K3/K4 decodes them,
 #: so that each weight read from L2 serves this many rows
 DECODE_G = 16
@@ -305,6 +300,66 @@ def decode_plan(batch: int, sms: int, clusters_at_once=None) -> DecodePlan:
     C = sizes[0] if groups <= at_once[sizes[0]] else sizes[-1]
     return DecodePlan(G=DECODE_G, C=C, groups=groups,
                       waves=-(-groups // at_once[C]))
+
+
+#: K1's time a wave in ms, f32 loss mode at B=128 on an NVIDIA H100 80GB
+#: HBM3 at 700 W (``chip_smoke.py`` phase "K1 by phase" and
+#: ``tools/k1_by_rows.py``; PERF.md §6): the row groups at 8 blocks a
+#: cluster (one wave of 8 clusters) and at 16 (two waves, halved), the
+#: per-row kernel at 1, 2 and 4 rows a block (one wave, a block an SM)
+K1_WAVE_MS = {("group", 8): 1.011, ("group", 16): 0.784, ("rows", 1): 1.504,
+              ("rows", 2): 1.589, ("rows", 4): 2.131}
+#: the phases of a K1 launch (bits of ``launch_train_fwd``'s ``phases``):
+#: the frame projection, the note chain (the ring's products, the note-GRU
+#: steps, the pitch argmax and the next token; three cluster barriers a
+#: slot), the owned rows' duration chains, the summary, and, for timing
+#: only, the chain's cluster barriers alone; a phase alone reads zeros
+#: where the phases before it would have written
+K1_PHASES = {"proj": 1, "note": 2, "dur": 4, "summary": 8, "barriers": 32}
+K1_ALL = 15
+
+
+class K1Plan(NamedTuple):
+    """How K1 covers a batch: row groups, ``units`` groups of
+    :data:`DECODE_G` rows in clusters of ``C`` blocks (``R`` = 0), or the
+    per-row kernel, ``units`` blocks of ``R`` rows (``C`` = 0); in
+    ``waves`` rounds of what the card holds at once; ``ms`` the estimate
+    from the measured wave times."""
+    C: int
+    R: int
+    units: int
+    waves: int
+    ms: float
+
+
+def k1_plan(batch: int, sms: int, clusters_at_once=None,
+            wave_ms=None) -> K1Plan:
+    """The plan of a K1 launch for ``batch`` rows: the row groups at the
+    cluster size, or the per-row kernel at the rows a block, with the least
+    waves x measured wave time (``wave_ms``, :data:`K1_WAVE_MS` by
+    default). ``clusters_at_once`` maps each cluster size to the clusters
+    the card holds at once (K1's occupancy query on the card; by default
+    ``sms // C``), a size that fits none is never taken; the per-row kernel
+    runs a block an SM. Ties go to the row groups, then to the larger
+    cluster."""
+    if batch < 1:
+        raise ValueError(f"empty batch: {batch}")
+    at_once = dict(clusters_at_once or {c: sms // c for c in DECODE_CLUSTERS})
+    wave_ms = wave_ms or K1_WAVE_MS
+    cdiv = lambda a, b: -(-a // b)
+    groups = cdiv(batch, DECODE_G)
+    cands = []
+    for c in DECODE_CLUSTERS:
+        if at_once.get(c, 0) > 0:
+            w = cdiv(groups, at_once[c])
+            cands.append((w * wave_ms[("group", c)], 0, -c,
+                          K1Plan(c, 0, groups, w, w * wave_ms[("group", c)])))
+    for r in (1, 2, 4):
+        blocks = cdiv(batch, r)
+        w = cdiv(blocks, sms)
+        cands.append((w * wave_ms[("rows", r)], 1, r,
+                      K1Plan(0, r, blocks, w, w * wave_ms[("rows", r)])))
+    return min(cands, key=lambda x: x[:3])[3]
 
 
 _INFO: dict = {}
@@ -392,29 +447,65 @@ def _call(name: str, device: torch.device, *args) -> None:
                            f"{lib.pctd_error_string(rc).decode()}")
 
 
-def _train_rows(batch: int, device: torch.device) -> int:
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return rows_per_block(batch, sms)
-
-
 def train_weights(cw, d) -> TrainWeightsC:
     return TrainWeightsC(*(_ptr(t) for t in cw), *d)
 
 
+def k1_info(cw, d, C: int, device: torch.device) -> Tuple[int, int]:
+    """(shared memory bytes a block, clusters the card holds at once; 0
+    where K1 does not take these widths at C) of the row-group K1 in the
+    weights' dtype at ``C`` blocks a cluster; cached by dtype and shapes."""
+    key = ("K1", cw.w_hh.dtype, C, d, device)
+    if key not in _INFO:
+        lib = library()
+        out = (ctypes.c_int * 2)()
+        name = train_entry("pctd_train_fwd_info", cw.w_hh.dtype)
+        with torch.cuda.device(device):
+            rc = getattr(lib, name)(ctypes.byref(train_weights(cw, d)), C,
+                                    out)
+        if rc != 0:
+            raise RuntimeError(f"{name}: "
+                               f"{lib.pctd_error_string(rc).decode()}")
+        _INFO[key] = (out[0], out[1])
+    return _INFO[key]
+
+
+def k1_plan_on_card(cw, d, batch: int, device: torch.device) -> K1Plan:
+    """:func:`k1_plan` with the card's SM count and K1's occupancy."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return k1_plan(batch, sms, {c: k1_info(cw, d, c, device)[1]
+                                for c in DECODE_CLUSTERS})
+
+
 def launch_train_fwd(cw, d, batch: int, tensors: Sequence[torch.Tensor],
-                     stash, rows: int = 0, logits: bool = False) -> None:
+                     stash, logits: bool = False, phases: int = K1_ALL,
+                     cluster: int = 0, rows: int = 0) -> None:
     """Launch K1 in loss mode (``pctd_train_fwd``) or, with ``logits``, in
     logits-out mode (``pctd_train_fwd_logits``), in the weights' dtype
-    (``_bf16`` entry points for bfloat16); ``stash`` None skips the
-    stash."""
+    (``_bf16`` entry points for bfloat16): the row groups in clusters of
+    ``cluster`` blocks on the panels of ``train_frame.panels``, the phases
+    of ``phases`` (:data:`K1_PHASES`; all by default), or the per-row
+    kernel with ``rows`` rows a block; with neither given, what
+    :func:`k1_plan_on_card` picks. ``stash`` None skips the stash."""
     device = tensors[0].device
+    for n in ("w_t2n", "w_ih_frame", "w_hh"):   # the projection's vector loads
+        if getattr(cw, n).data_ptr() % 16:
+            raise ValueError(f"weight {n} is not 16-byte aligned")
+    if not cluster and not rows:
+        plan = k1_plan_on_card(cw, d, batch, device)
+        cluster, rows = plan.C, plan.R
+    pn = K1PanelsC()
+    if not rows:
+        buf = tf.panels(cw, d, cluster)
+        lay = tf.panel_layout(d, cluster, cw.w_hh.dtype)
+        pn = K1PanelsC(buf.data_ptr(), lay.pstride, lay.o_tok, lay.o_h,
+                       lay.o_sih, lay.o_shh, lay.o_wdc, lay.o_west)
     st = None if stash is None else ctypes.byref(
         TrainStashC(*(_ptr(t) for t in stash)))
     name = train_entry("pctd_train_fwd_logits" if logits else
                        "pctd_train_fwd", cw.w_hh.dtype)
-    _call(name, device, ctypes.byref(train_weights(cw, d)),
-          batch, rows or _train_rows(batch, device),
-          *(_ptr(t) for t in tensors), st)
+    _call(name, device, ctypes.byref(train_weights(cw, d)), ctypes.byref(pn),
+          batch, phases, cluster, rows, *(_ptr(t) for t in tensors), st)
 
 
 #: K2a's phases, the bits of ``launch_train_bwd``'s ``phases``: the slot
@@ -465,3 +556,15 @@ def launch_mma_peak(bf16: bool, blocks: int, threads: int, iters: int,
     elements) keeps the results live."""
     _call("pctd_mma_peak", out.device, int(bf16), blocks, threads, iters,
           _ptr(out))
+
+
+def launch_l2_stream(src: torch.Tensor, blocks: int, nbytes: int,
+                     panels: int, stage: int, stages: int, reps: int,
+                     out: torch.Tensor) -> None:
+    """Launch ``csrc/l2_stream.cu``'s probe: ``blocks`` blocks each stream
+    panel ``b % panels`` of ``src`` (``nbytes`` each) ``reps`` times
+    through ``stages`` shared-memory stages of ``stage`` bytes by bulk
+    async copies; ``out`` (f32, blocks x 256 elements) keeps the reads
+    live."""
+    _call("pctd_l2_stream", src.device, _ptr(src), blocks, nbytes, panels,
+          stage, stages, reps, _ptr(out))

@@ -1,7 +1,7 @@
 // Device helpers shared by the decode kernels (decoder.cu) and the
 // train-frame kernels (train_frame.cu): block size, GRU gate math, the
 // storage-type conversions and the f32 matrix-vector products over a
-// block's batch rows.
+// block's batch rows (K1's per-row kernel).
 //
 // Storage types: float, or __nv_bfloat16 for the train-frame kernels' bf16
 // mode. A bf16 value converts to f32 exactly and a product of two bf16

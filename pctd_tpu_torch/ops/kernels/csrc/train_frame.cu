@@ -2,7 +2,7 @@
 // two storage types (float and bf16): K1 in f32 arithmetic on CUDA cores,
 // K2a and K2b in f32-accurate products on the tensor cores.
 //
-// train_fwd_kernel (K1) replaces pctd_tpu/ops/pallas/train_frame.py::
+// train_fwd_group_kernel (K1) replaces pctd_tpu/ops/pallas/train_frame.py::
 //   _fwd_kernel: one frame's 15 note-GRU slots (pitch head and argmax,
 //   5-step duration GRU with argmax feedback, predicted-note embedding,
 //   teacher-coin token select) and the masked bi-GRU summary of the
@@ -10,14 +10,41 @@
 //   logits-out mode (the JAX package's frame_core) it writes the pitch and
 //   duration logits instead and reads no target. On the gradient path it
 //   writes every activation the backward reads (TrainStash). What bounds
-//   it: a chain of small dependent matrix-vector products, ~45 MFLOP a row
-//   over ~30 MB of weights that every block reads from L2 (an argmax
-//   follows, so its products stay f32 FMA). What the design does: a block
-//   owns R batch rows (1, 2 or 4) and keeps per-row state in shared memory,
-//   as K3 does, reusing decoder.cu's matvec. Where the Pallas backward
-//   rebuilt the forward from a stash of slot hiddens, the H100's 80 GB lets
-//   K1 write every gate and decision it computed (~90 MB a frame at B=128),
-//   so K2 recomputes nothing and never re-decides an argmax.
+//   it: a chain of small dependent products, ~45 MFLOP a row over ~30 MB
+//   of weights (an argmax follows, so its products stay f32 FMA); a block
+//   that streams every weight for its own few rows is bound by that L2
+//   stream (the per-row kernel this one replaced, PERF.md), and a row group
+//   by its serial chain. What the design does, along the JAX forward's
+//   phases (_run_forward, _summary_fwd): a thread-block cluster of C blocks
+//   (8 or 16; or the per-row kernel below where the groups would run in
+//   waves: build.k1_plan, by measured wave times) takes a group of DG = 16
+//   rows, each block a share of every product's columns in whole quads
+//   (group.cuh), so one weight read serves the group. The projection (h0,
+//   gi_frame, the first hidden gates) reads its weights from L2 once for
+//   the group. The slot chain's weights never depend on the chain, so they
+//   are packed once a train step into one contiguous panel a block
+//   (train_frame.py: pack_panels) and stream through a ring of
+//   shared-memory stages by bulk async copies completing on mbarriers: one
+//   thread issues the copies up to K1_STAGES chunks ahead of the products,
+//   which read the weights from shared memory; the next slot's first
+//   chunks land while the cluster exchanges a slot's results. A slot: the
+//   token product (tok @ w_ih_tok) and the note-GRU step on the block's
+//   units (h into every block, a cluster barrier), the hidden product h @
+//   [w_pitch | w_dhid[:NH] | w_hh] (pitch logits and dur-hidden shares to
+//   the row's owner block r % C, the next hidden gates kept, a barrier),
+//   then the owner's pitch argmax and CE, est @ w_dhid[NH:] and the 5-step
+//   duration chain ([w_dout | w_dhh] and w_dhid[NH:] staged in shared
+//   memory, an output a thread), and the next token (the predicted note's
+//   embedding or, where the slot's coin says so, the ground truth) and the
+//   decisions into every block (a barrier). The summary then computes the
+//   input projections of all K slots first (hoisted, as _summary_fwd does)
+//   and runs its 16 steps on we_hh alone, each block's summary weights
+//   staged.
+//   Products are f32 FMA in a fixed order (no atomics: the same bits on
+//   every launch). Where the Pallas backward rebuilt the forward from a
+//   stash of slot hiddens, the H100's 80 GB lets K1 write every gate and
+//   decision it computed (~90 MB a frame at B=128), so K2 recomputes
+//   nothing and never re-decides an argmax.
 //
 // K2a (train_bwd_slots_kernel, train_bwd_chain_kernel,
 //   train_bwd_proj_kernel) replaces _bwd_kernel's hand-written VJP,
@@ -107,6 +134,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "group.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -136,6 +164,24 @@ struct TrainStashT {
 struct TrainCotangents {
   float *d_gi, *d_gh, *d_est, *d_hd0, *d_gid, *d_ghd, *d_log, *d_sos, *d_emb,
       *d_sgi, *d_sgh, *dh0, *d_gif;
+};
+
+// The weight panels of K1 (train_frame.py: panel_layout, pack_panels), in
+// the storage type, elements from `base`. Block c of a cluster of C reads
+// the panel at c * pstride: its columns of every chain product, each
+// k-major (a row of k holds the block's columns, contiguous):
+//   o_tok: w_ih_tok (E, 3U), its U note units' [r | z | n] columns;
+//   o_h:   [w_pitch (Pc of pad4(P), zero past P) | w_dhid[:NH] (Dc) |
+//          w_hh (3U)] (NH, Pc + Dc + 3U);
+//   o_sih, o_shh: we_ih[d] (E, 3SU) and we_hh[d] (EH, 3SU), its SU summary
+//          units of direction d (blocks [0, C/2) forward, the rest backward);
+// and once for all blocks: o_wdc: [w_dout | w_dhh] (DH, 2 + 3DH); o_west:
+// w_dhid[NH:] (P, DH). Every section starts 128 bytes aligned.
+// Field order matches K1PanelsC (build.py).
+template <typename T>
+struct K1PanelsT {
+  const T* base;
+  int pstride, o_tok, o_h, o_sih, o_shh, o_wdc, o_west;
 };
 
 // Field order matches WgradTaskC (build.py): a WgradTask (train_frame.py),
@@ -236,8 +282,1057 @@ __device__ __forceinline__ float lse2(float a, float b) {
 }
 
 // ---------------------------------------------------------------------------
-// K1: forward
+// K1: forward, a row group a thread-block cluster
 // ---------------------------------------------------------------------------
+
+constexpr int K1_STAGES = 2;           // the weight ring's stages
+constexpr int K1_CONS = NT - 32;    // product threads: all warps but one
+constexpr int K1_STAGE_MAX = 65536;    // bytes of a stage at most
+constexpr int KPR = 4;                 // rows of a product unit
+constexpr int K1_GI = 2;               // gate items a thread: DG U <= 2 NT
+
+// The shares of block c of a cluster of C (part: whole quads).
+struct K1Share {
+  int j0, U, p0, Pc, d0, Dc, n1, n2, d, e0, SU;
+};
+
+template <typename T>
+__host__ __device__ inline K1Share k1_share(const TrainWeightsT<T>& w, int C,
+                                            int c) {
+  K1Share h;
+  const int Pp = pad4(w.P), Cd = C / 2;
+  h.j0 = part(w.NH, C, c);
+  h.U = part(w.NH, C, c + 1) - h.j0;
+  h.p0 = part(Pp, C, c);
+  h.Pc = part(Pp, C, c + 1) - h.p0;
+  h.d0 = part(w.DH, C, c);
+  h.Dc = part(w.DH, C, c + 1) - h.d0;
+  h.n1 = 3 * h.U;
+  h.n2 = h.Pc + h.Dc + 3 * h.U;
+  h.d = c / Cd;
+  h.e0 = part(w.EH, Cd, c - h.d * Cd);
+  h.SU = part(w.EH, Cd, c - h.d * Cd + 1) - h.e0;
+  return h;
+}
+
+// Shared memory of a K1 block, offsets in bytes. Kept for the whole launch:
+// the mbarriers (ring full and empty, the staged constants, the summary's
+// weights), the group's decisions and lengths, the owned rows' CE sums,
+// w_emb's bit rows with b_emb, the biases the products' epilogues add
+// (b_pitch, this block's b_hh, b_dhid, its be_ih and be_hh), the owned
+// rows' targets, the coins and dur_sos. The chain region, written by other
+// blocks in hf, tok, Y: the group's note hidden and next token, the owned
+// rows' slot logits and dur-hidden shares; this block's hidden gates,
+// token products and hidden products; the owned rows' duration state;
+// then frame_h (the projection only), over it w_dcomb and w_dhid[NH:] in T
+// and the weight ring. The summary region reuses the chain region after
+// the chain's last cluster barrier: the direction's two hidden planes
+// (written by other blocks), the hoisted input projections of all K slots,
+// a slot's embeddings, the step's hidden gates, and this block's summary
+// weights in T.
+struct K1Layout {
+  int C, nro, U, SU, n2, Pp, lN2;
+  int lTH, lNH, lE, lU3, lYr, lDH, lDH3, lDC, lEH, lS3;
+  int b_mbar, b_pitch, b_bits, b_own, b_len, b_nll, b_emb, b_bias, b_tgt,
+      b_chain;
+  int o_hf, o_tok, o_gh, o_acc, o_ys, o_Y, o_gid, o_bdc, o_hd, o_X, o_red,
+      o_fh,
+      o_wdc, o_west, o_ring;
+  int o_hsd, o_gis, o_xs, o_sgo, o_ws;
+  int stage, bytes;
+};
+
+__host__ __device__ inline int align128(int x) { return (x + 127) & ~127; }
+
+template <typename T>
+__host__ __device__ inline K1Layout k1_layout(const TrainWeightsT<T>& w,
+                                              int C) {
+  K1Layout L;
+  const int S = w.K - 1, ts = (int)sizeof(T), DC = 2 + 3 * w.DH;
+  L.C = C;
+  L.nro = DG / C;
+  L.Pp = pad4(w.P);
+  L.U = 4 * cdiv(w.NH / 4, C);
+  L.SU = 4 * cdiv(w.EH / 4, C / 2);
+  L.n2 = 4 * cdiv(L.Pp / 4, C) + 4 * cdiv(w.DH / 4, C) + 3 * L.U;
+  L.lTH = pad4(w.TH);
+  L.lNH = pad4(w.NH);
+  L.lE = pad4(w.E);
+  L.lU3 = pad4(3 * L.U);
+  L.lDH = pad4(w.DH);
+  L.lDH3 = pad4(3 * w.DH);
+  L.lDC = pad4(DC);
+  L.lYr = L.Pp + L.lDH;
+  L.lEH = pad4(w.EH);
+  L.lS3 = pad4(3 * L.SU);
+  L.lN2 = pad4(L.n2);
+  int b = 0;
+  L.b_mbar = b;  b += 8 * (2 * K1_STAGES + 2);
+  L.b_own = b;   b += 4 * L.nro * (1 + w.W);
+  L.b_len = b;   b += 4 * DG;
+  L.b_nll = b;   b += 4 * L.nro * 8;
+  L.b_emb = b;   b += 4 * (w.W + 1) * L.lE;
+  L.b_bias = b;  b += 4 * (L.Pp + L.lU3 + L.lDH + 2 * L.lS3);
+  L.b_tgt = b;   b += 4 * (L.nro * S * (1 + w.W) + w.K + pad4(w.W));
+  L.b_pitch = b; b += 2 * DG * S;
+  L.b_bits = b;  b += DG * S * w.W;
+  L.b_chain = b = align128(b);
+  L.o_hf = b;   b += 4 * DG * L.lNH;
+  L.o_tok = b;  b += 4 * DG * L.lE;
+  L.o_gh = b;   b += 4 * DG * L.lU3;
+  L.o_acc = b;  b += 4 * DG * L.lU3;
+  L.o_ys = b;   b += 4 * DG * L.lN2;
+  L.o_Y = b;    b += 4 * L.nro * L.lYr;
+  L.o_gid = b;  b += 4 * 3 * L.lDH3;
+  L.o_bdc = b;  b += 4 * L.lDC;
+  L.o_hd = b;   b += 4 * L.nro * L.lDH;
+  L.o_X = b;    b += 4 * L.nro * L.lDC;
+  L.o_red = b;  b += 4 * L.nro * NT;
+  L.o_fh = L.o_wdc = b = align128(b);
+  b = align128(b + ts * w.DH * DC);
+  L.o_west = b;
+  b = align128(b + ts * w.P * w.DH);
+  L.o_ring = b;
+  const int fh_end = L.o_fh + 4 * DG * L.lTH;
+  int stage = (DEC_MAX_SMEM - b) / K1_STAGES & ~127;
+  L.stage = stage < K1_STAGE_MAX ? stage : K1_STAGE_MAX;
+  int chain_end = imax2(b + K1_STAGES * L.stage, fh_end);
+  b = L.b_chain;
+  L.o_hsd = b;  b += 4 * 2 * DG * L.lEH;
+  L.o_gis = b;  b += 4 * w.K * DG * L.lS3;
+  L.o_xs = b;   b += 4 * DG * L.lE;
+  L.o_sgo = b;  b += 4 * DG * L.lS3;
+  L.o_ws = b = align128(b);
+  b += ts * imax2(w.E, w.EH) * 3 * L.SU;
+  L.bytes = imax2(chain_end, b);
+  return L;
+}
+
+// What K1's row-group kernel takes beyond the cluster size (8 or 16): a
+// block's shared memory fits, the ring holds 4 rows of the widest
+// product, the products' units fit the product threads, an owned row's
+// duration units and embedding fit a block, a summary step's embeddings
+// fit XI a thread, the gate items K1_GI a thread. The wrapper checks that
+// TH, NH, DH, E, EH are multiples of 4.
+template <typename T>
+__host__ __device__ inline bool k1_fits(const TrainWeightsT<T>& w,
+                                        const K1Layout& L) {
+  const int ts = (int)sizeof(T), RH = DG / KPR;
+  return L.bytes <= DEC_MAX_SMEM && L.stage >= 4 * L.n2 * ts &&
+         L.stage >= 4 * 3 * L.U * ts && RH * (L.n2 / PJ) <= K1_CONS &&
+         RH * (3 * L.SU / PJ) <= NT && RH * (3 * L.U / PJ) <= NT &&
+         L.nro * w.DH <= NT && L.nro * w.E <= NT && DG * w.E <= XI * NT &&
+         DG * L.U <= K1_GI * NT;
+}
+
+// ---- mbarriers and bulk copies (the weight ring)
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* b, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(b)),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(b))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(unsigned long long* b,
+                                            int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(b)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* b,
+                                          int parity) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(b)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// bytes (a multiple of 16, both ends 16 bytes aligned) from global memory
+// into this block's shared memory, completing on mbarrier b
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          int bytes, unsigned long long* b) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(b))
+      : "memory");
+}
+
+// earlier generic accesses of shared memory before later async-proxy
+// writes into it
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// v into element p of the shared memory of block `rank` of the cluster
+// (32-bit shared::cluster addresses; float, short or unsigned char)
+__device__ __forceinline__ unsigned remote(const void* p, int rank) {
+  unsigned a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a)
+               : "r"(smem_u32(p)), "r"(rank));
+  return a;
+}
+__device__ __forceinline__ void st_remote(float* p, int rank, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(remote(p, rank)),
+               "f"(v)
+               : "memory");
+}
+__device__ __forceinline__ void st_remote(short* p, int rank, short v) {
+  asm volatile("st.shared::cluster.u16 [%0], %1;\n" ::"r"(remote(p, rank)),
+               "h"(v)
+               : "memory");
+}
+__device__ __forceinline__ void st_remote(unsigned char* p, int rank,
+                                          unsigned char v) {
+  asm volatile("st.shared::cluster.u8 [%0], %1;\n" ::"r"(remote(p, rank)),
+               "r"((unsigned)v)
+               : "memory");
+}
+// v into element p of every block of ranks [r0, r0 + n) of the cluster
+__device__ __forceinline__ void push_ranks(int r0, int n, float* p,
+                                           float v) {
+  const unsigned a = smem_u32(p);
+  for (int cc = r0; cc < r0 + n; ++cc) {
+    unsigned ra;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+                 : "=r"(ra)
+                 : "r"(a), "r"(cc));
+    asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(ra), "f"(v)
+                 : "memory");
+  }
+}
+
+// ---- products on weights in shared memory
+
+// a thread's unit of a product of n columns over the DG rows: KPR rows x PJ
+// columns, its k-quads dealt round robin to the unit's sl lanes. Lane slice
+// s = lane / per_warp, so that the 8 lanes of a quarter warp read 8
+// neighbouring column quads of one weight row: one conflict-free read.
+struct Unit {
+  int sl, s, per_warp, r0, c0;
+  bool live;
+};
+
+__device__ __forceinline__ Unit unit_of(int n, int threads) {
+  const int t = threadIdx.x, lane = t & 31;
+  const int nq = (DG / KPR) * (n / PJ);
+  int sl = 1;
+  while (sl < 8 && nq * sl * 2 <= threads) sl *= 2;
+  Unit u;
+  u.sl = sl;
+  u.per_warp = 32 / sl;
+  u.s = lane / u.per_warp;
+  const int p = (t >> 5) * u.per_warp + lane % u.per_warp;
+  const int Q = imax2(n / PJ, 1);
+  u.live = t < threads && p < nq;
+  u.r0 = u.live ? p / Q * KPR : 0;
+  u.c0 = u.live ? PJ * (p - p / Q * Q) : 0;
+  return u;
+}
+
+__device__ __forceinline__ float4 sm4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 sm4(const __nv_bfloat16* p) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(v.x << 16),
+                     __uint_as_float(v.x & 0xffff0000u),
+                     __uint_as_float(v.y << 16),
+                     __uint_as_float(v.y & 0xffff0000u));
+}
+
+// acc[r][j] += sum over the unit's k-quads of x[r0 + r][k0 + k] W[k][c0 + j],
+// k < rows (a multiple of 4); W (rows, n) in shared memory, x row stride
+// ldx. Each thread sums its quads in order.
+template <typename T>
+__device__ __forceinline__ void unit_fma(const T* W, int n, int rows,
+                                         const float* x, int ldx, int k0,
+                                         const Unit& u,
+                                         float (&acc)[KPR][PJ]) {
+  if (!u.live) return;
+  const T* wc = W + u.c0;
+  const float* xr = x + u.r0 * ldx + k0;
+  for (int k = 4 * u.s; k < rows; k += 4 * u.sl) {
+    float4 wv[4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wv[kk] = sm4(wc + (k + kk) * n);
+#pragma unroll
+    for (int r = 0; r < KPR; ++r) {
+      const float4 a = *reinterpret_cast<const float4*>(xr + r * ldx + k);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        acc[r][0] = fmaf(av[kk], wv[kk].x, acc[r][0]);
+        acc[r][1] = fmaf(av[kk], wv[kk].y, acc[r][1]);
+        acc[r][2] = fmaf(av[kk], wv[kk].z, acc[r][2]);
+        acc[r][3] = fmaf(av[kk], wv[kk].w, acc[r][3]);
+      }
+    }
+  }
+}
+
+// the unit's lanes' sums meet (xor shuffles: every lane ends with the same
+// bits); lane slice 0 hands each of its KPR x PJ outputs to out(r, col, v).
+// Every lane of the warp calls it.
+template <typename F>
+__device__ __forceinline__ void unit_finish(const Unit& u,
+                                            float (&acc)[KPR][PJ], F&& out) {
+  for (int off = u.per_warp; off < 32; off <<= 1)
+#pragma unroll
+    for (int r = 0; r < KPR; ++r)
+#pragma unroll
+      for (int j = 0; j < PJ; ++j)
+        acc[r][j] += __shfl_xor_sync(0xffffffffu, acc[r][j], off);
+  if (u.live && u.s == 0) {
+#pragma unroll
+    for (int r = 0; r < KPR; ++r)
+#pragma unroll
+      for (int j = 0; j < PJ; ++j) out(u.r0 + r, u.c0 + j, acc[r][j]);
+  }
+}
+
+// A product whose weights (in, n) are staged whole in shared memory, over
+// all the block's threads; ends synchronized.
+template <typename T, typename F>
+__device__ __forceinline__ void staged_product(const T* W, int n, int in,
+                                               const float* x, int ldx,
+                                               F&& out) {
+  const Unit u = unit_of(n, NT);
+  float acc[KPR][PJ];
+#pragma unroll
+  for (int r = 0; r < KPR; ++r)
+#pragma unroll
+    for (int j = 0; j < PJ; ++j) acc[r][j] = 0.0f;
+  unit_fma(W, n, in, x, ldx, 0, u, acc);
+  unit_finish(u, acc, out);
+  __syncthreads();
+}
+
+// X[ro] = hd[ro] @ Wd + bd for the NRO owned rows (Wd (DH, DC) and bd in
+// shared memory): a thread an output, its k dealt to 4 accumulators (k %
+// 4) summed in order at the end, so that the dependent chain is DH / 4
+// long; no partial sums cross threads. Every thread calls it; it ends
+// synchronized.
+template <int NRO, typename T>
+__device__ __forceinline__ void dur_step(const T* Wd, const float* bd,
+                                         int DH, int DC, const float* hd,
+                                         int lDH, float* X, int lDC) {
+  for (int q = threadIdx.x; q < NRO * DC; q += NT) {
+    const int ro = q / DC, j = q - ro * DC;
+    const float* h = hd + ro * lDH;
+    float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    int k = 0;
+#pragma unroll 4
+    for (; k + 4 <= DH; k += 4)
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        a[u] = fmaf(h[k + u], to_f(Wd[(k + u) * DC + j]), a[u]);
+    for (; k < DH; ++k) a[0] = fmaf(h[k], to_f(Wd[k * DC + j]), a[0]);
+    X[ro * lDC + j] = ((a[0] + a[1]) + (a[2] + a[3])) + bd[j];
+  }
+  __syncthreads();
+}
+
+// The weight ring: this block's panel streams through K1_STAGES stages of
+// `stage` bytes, chunk i (whole k-rows of one product) into stage i %
+// K1_STAGES. A slot's chunks: P1 (the token product, w_ih_tok), then P2
+// (the hidden product, [w_pitch | w_dhid[:NH] | w_hh]), the same panels
+// every slot. full[s] completes when a chunk has landed, empty[s] when the
+// product warps have read it. One thread (lane 0 of the last warp) issues the
+// bulk copies: up to K1_STAGES chunks ahead of the products, so that the
+// next slot's first chunks land while the cluster exchanges this slot's
+// results and runs its duration chains.
+template <typename T>
+struct Ring {
+  char* stages;
+  unsigned long long *full, *empty;
+  const T* panel;
+  int stage, n1, kt1, nc1, n2, kt2, nc2, E, NH, o_tok, o_h;
+  int total, next, issued;
+};
+
+template <typename T>
+__device__ __forceinline__ void ring_issue(Ring<T>& rg, int upto) {
+  if (upto > rg.total) upto = rg.total;
+  const int cps = rg.nc1 + rg.nc2;
+  for (; rg.issued < upto; ++rg.issued) {
+    const int i = rg.issued, s = i % K1_STAGES, j = i % cps;
+    if (i >= K1_STAGES) mbar_wait(rg.empty + s, (i / K1_STAGES - 1) & 1);
+    const T* src;
+    int bytes;
+    if (j < rg.nc1) {
+      const int k0 = j * rg.kt1;
+      src = rg.panel + rg.o_tok + (size_t)k0 * rg.n1;
+      bytes = min(rg.kt1, rg.E - k0) * rg.n1 * (int)sizeof(T);
+    } else {
+      const int k0 = (j - rg.nc1) * rg.kt2;
+      src = rg.panel + rg.o_h + (size_t)k0 * rg.n2;
+      bytes = min(rg.kt2, rg.NH - k0) * rg.n2 * (int)sizeof(T);
+    }
+    fence_async_shared();
+    mbar_expect(rg.full + s, bytes);
+    bulk_load(rg.stages + (size_t)s * rg.stage, src, bytes, rg.full + s);
+  }
+}
+
+// Product P1 (which = 1) or P2 (2) of a slot from the ring, x (DG rows,
+// stride ldx) in shared memory; outputs to out(r, col, v). Every thread
+// calls it; it ends synchronized.
+template <typename T, typename F>
+__device__ __forceinline__ void ring_product(Ring<T>& rg, int which,
+                                             const float* x, int ldx,
+                                             F&& out) {
+  const int n = which == 1 ? rg.n1 : rg.n2;
+  const int nc = which == 1 ? rg.nc1 : rg.nc2;
+  const int kt = which == 1 ? rg.kt1 : rg.kt2;
+  const int in = which == 1 ? rg.E : rg.NH;
+  const int first = rg.next, warp = threadIdx.x >> 5,
+            lane = threadIdx.x & 31;
+  rg.next += nc;
+  if (warp < K1_CONS / 32) {
+    const Unit u = unit_of(n, K1_CONS);
+    float acc[KPR][PJ];
+#pragma unroll
+    for (int r = 0; r < KPR; ++r)
+#pragma unroll
+      for (int j = 0; j < PJ; ++j) acc[r][j] = 0.0f;
+    for (int j = 0; j < nc; ++j) {
+      const int i = first + j, s = i % K1_STAGES;
+      mbar_wait(rg.full + s, (i / K1_STAGES) & 1);
+      const int k0 = j * kt;
+      unit_fma(reinterpret_cast<const T*>(rg.stages + (size_t)s * rg.stage),
+               n, min(kt, in - k0), x, ldx, k0, u, acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(rg.empty + s);
+    }
+    unit_finish(u, acc, out);
+  } else if (lane == 0) {
+    ring_issue(rg, first + nc + K1_STAGES);
+  }
+  __syncthreads();
+}
+
+// phases of a K1 launch (build.K1_PHASES): the frame projection, the note
+// chain (the token and hidden products from the ring, the note-GRU step,
+// the pitch argmax and CE, the next token; three cluster barriers a
+// slot), the owned rows' dur-hidden init and duration chains, the summary,
+// and for timing only the chain's cluster barriers alone. A phase launched
+// alone reads zeros where the ones before it would have written.
+constexpr int K1_ALL = PH_PROJ | PH_NOTE | PH_DUR | PH_SUMM;
+
+// K1 replaces pctd_tpu/ops/pallas/train_frame.py::_fwd_kernel (see the note
+// at the top): the frame of a group of DG rows in a cluster of C blocks,
+// NRO = DG / C owned rows a block (row r: block r % C).
+template <int NRO, typename T>
+__global__ void __launch_bounds__(NT, 1)
+train_fwd_group_kernel(TrainWeightsT<T> w, K1PanelsT<T> pn, int B,
+                       int phases, const int* __restrict__ coins,
+                       const T* __restrict__ frame_h,
+                       const T* __restrict__ x_emb,
+                       const int* __restrict__ gt_pitch,
+                       const int* __restrict__ gt_dur,
+                       float* __restrict__ nums_rows,
+                       T* __restrict__ pitch_logits,
+                       T* __restrict__ dur_logits, T* __restrict__ summary,
+                       int* __restrict__ lengths, int* __restrict__ decisions,
+                       TrainStashT<T> st, int stash, int logits) {
+  // loss mode (logits == 0): gt_pitch, gt_dur -> nums_rows (B, 1+W);
+  // logits out: pitch_logits (B, K-1, P) and dur_logits (B, K-1, W, 2),
+  // batch-major, and the targets are not read.
+  extern __shared__ float4 smem4[];
+  char* sb = reinterpret_cast<char*>(smem4);
+  cg::cluster_group cl = cg::this_cluster();
+  const int C = cl.num_blocks(), c = cl.block_rank(), t = threadIdx.x;
+  const int warp = t >> 5, lane = t & 31;
+  const K1Layout L = k1_layout(w, C);
+  const K1Share h = k1_share(w, C, c);
+  const int row0 = blockIdx.x / C * DG, nrows = min(DG, B - row0);
+  const int TH = w.TH, NH = w.NH, NH3 = 3 * w.NH, DH = w.DH, DH3 = 3 * w.DH,
+            DC = 2 + 3 * w.DH, E = w.E, EH = w.EH, P = w.P, W = w.W,
+            K = w.K, S = w.K - 1;
+  const int j0 = h.j0, U = h.U;
+  const bool note = phases & PH_NOTE, dur = phases & PH_DUR;
+  unsigned long long* mb =
+      reinterpret_cast<unsigned long long*>(sb + L.b_mbar);
+  unsigned long long *cbar = mb + 2 * K1_STAGES, *sbar = cbar + 1;
+  int* own = reinterpret_cast<int*>(sb + L.b_own);     // [NRO][1 + W]
+  int* len = reinterpret_cast<int*>(sb + L.b_len);     // [DG]
+  float* nll = reinterpret_cast<float*>(sb + L.b_nll);  // [NRO][8]
+  float* emb = reinterpret_cast<float*>(sb + L.b_emb);  // bit rows, b_emb
+  float* bia = reinterpret_cast<float*>(sb + L.b_bias);  // b_pitch
+  float *bhh = bia + L.Pp, *bdh = bhh + L.lU3, *bsi = bdh + L.lDH,
+        *bsh = bsi + L.lS3;
+  int* tgt = reinterpret_cast<int*>(sb + L.b_tgt);  // [NRO][S][1 + W]
+  int* coins_s = tgt + NRO * S * (1 + W);           // [K]: slot k's
+  float* dsos = reinterpret_cast<float*>(coins_s + K);  // dur_sos
+  short* pitch = reinterpret_cast<short*>(sb + L.b_pitch);  // [DG][S]
+  unsigned char* bits = reinterpret_cast<unsigned char*>(sb + L.b_bits);
+  float* hf = reinterpret_cast<float*>(sb + L.o_hf);
+  float* tok = reinterpret_cast<float*>(sb + L.o_tok);
+  float* gh = reinterpret_cast<float*>(sb + L.o_gh);
+  float* acc = reinterpret_cast<float*>(sb + L.o_acc);
+  float* ys = reinterpret_cast<float*>(sb + L.o_ys);
+  float* Y = reinterpret_cast<float*>(sb + L.o_Y);
+  float* gid = reinterpret_cast<float*>(sb + L.o_gid);
+  float* bdc = reinterpret_cast<float*>(sb + L.o_bdc);
+  float* hd = reinterpret_cast<float*>(sb + L.o_hd);
+  float* X = reinterpret_cast<float*>(sb + L.o_X);
+  float* red = reinterpret_cast<float*>(sb + L.o_red);
+  float* fh = reinterpret_cast<float*>(sb + L.o_fh);
+  const T* wdc = reinterpret_cast<const T*>(sb + L.o_wdc);
+  const T* west = reinterpret_cast<const T*>(sb + L.o_west);
+  // stash row (slot k, group row r) -> index (k * B + row0 + r)
+  auto srow = [&](int k, int r) { return (size_t)k * B + row0 + r; };
+  const T* panel = pn.base + (size_t)c * pn.pstride;
+
+  // ---- init: barriers, zeros, the constants of the serial steps, frame_h
+  if (t == 0) {
+    for (int s = 0; s < K1_STAGES; ++s) {
+      mbar_init(mb + s, 1);
+      mbar_init(mb + K1_STAGES + s, K1_CONS / 32);
+    }
+    mbar_init(cbar, 1);
+    mbar_init(sbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int i = t; i < (L.o_gid - L.o_hf) / 4; i += NT) hf[i] = 0.0f;
+  for (int i = t; i < NRO * (1 + W); i += NT) own[i] = 0;
+  for (int i = t; i < NRO * 8; i += NT) nll[i] = 0.0f;
+  for (int i = t; i < DG * S; i += NT) pitch[i] = 0;
+  for (int i = t; i < DG * S * W; i += NT) bits[i] = 0;
+  for (int i = t; i < (W + 1) * E; i += NT) {
+    const int q = i / E, e = i - q * E;
+    emb[q * L.lE + e] = ldg_f(q < W ? w.w_emb + (size_t)(P + q) * E + e
+                                    : w.b_emb + e);
+  }
+  for (int i = t; i < DH3; i += NT) {
+    // the dur GRU's gi rows: dur_sos @ w_dih + b_dih (f32), and the
+    // feedback rows w_dih[b] + b_dih, a sum of two values of T
+    float v = 0.0f;
+    for (int q = 0; q < W; ++q)
+      v = fmaf(ldg_f(w.dur_sos + q), ldg_f(w.w_dih + q * DH3 + i), v);
+    const float bi = ldg_f(w.b_dih + i);
+    gid[i] = v + bi;
+    gid[L.lDH3 + i] = round_to<T>(ldg_f(w.w_dih + i) + bi);
+    gid[2 * L.lDH3 + i] = round_to<T>(ldg_f(w.w_dih + DH3 + i) + bi);
+  }
+  for (int i = t; i < DC; i += NT)
+    bdc[i] = ldg_f(i < 2 ? w.b_dout + i : w.b_dhh + i - 2);
+  for (int i = t; i < L.Pp; i += NT)
+    bia[i] = i < P ? ldg_f(w.b_pitch + i) : 0.0f;
+  for (int i = t; i < 3 * U; i += NT) {
+    const int g = i / U;
+    bhh[i] = ldg_f(w.b_hh + g * NH + j0 + i - g * U);
+  }
+  for (int i = t; i < DH; i += NT) bdh[i] = ldg_f(w.b_dhid + i);
+  for (int i = t; !logits && i < NRO * S * (1 + W); i += NT) {
+    const int ro = i / (S * (1 + W)), q = i - ro * S * (1 + W);
+    const int r = c + C * ro, k = q / (1 + W), f = q - k * (1 + W);
+    tgt[i] = r >= nrows ? 0
+             : f == 0   ? gt_pitch[(size_t)(row0 + r) * S + k]
+                        : gt_dur[((size_t)(row0 + r) * S + k) * W + f - 1];
+  }
+  for (int i = t; i < K; i += NT) coins_s[i] = i >= 1 ? coins[i - 1] : 0;
+  for (int i = t; i < W; i += NT) dsos[i] = ldg_f(w.dur_sos + i);
+  for (int i = t; i < 3 * h.SU; i += NT) {
+    const int g = i / h.SU, o = h.d * 3 * EH + g * EH + h.e0 + i - g * h.SU;
+    bsi[i] = ldg_f(w.be_ih + o);
+    bsh[i] = ldg_f(w.be_hh + o);
+  }
+  for (int idx = t; idx < DG * TH; idx += NT) {
+    const int r = idx / TH, j = idx - r * TH;
+    fh[r * L.lTH + j] =
+        r < nrows ? to_f(frame_h[(size_t)(row0 + r) * TH + j]) : 0.0f;
+  }
+  for (int idx = t; idx < DG * E; idx += NT) {
+    const int r = idx / E, e = idx - r * E;
+    const T v = r < nrows ? x_emb[(size_t)(row0 + r) * K * E + e]
+                          : from_f<T>(0.0f);
+    tok[r * L.lE + e] = to_f(v);
+    if (stash && r < nrows && r % C == c) {
+      st.tok[srow(0, r) * E + e] = v;
+      st.pred[srow(0, r) * E + e] = v;
+    }
+  }
+  __syncthreads();
+  cl.sync();   // every block's barriers and zeros before any push
+
+  // the ring over this block's panel
+  Ring<T> rg;
+  rg.stages = sb + L.o_ring;
+  rg.full = mb;
+  rg.empty = mb + K1_STAGES;
+  rg.panel = panel;
+  rg.stage = L.stage;
+  rg.E = E;
+  rg.NH = NH;
+  rg.o_tok = pn.o_tok;
+  rg.o_h = pn.o_h;
+  rg.n1 = h.n1;
+  rg.n2 = h.n2;
+  rg.kt1 = h.n1 ? min(pad4(E), L.stage / (h.n1 * (int)sizeof(T)) & ~3) : 1;
+  rg.kt2 = min(pad4(NH), L.stage / (h.n2 * (int)sizeof(T)) & ~3);
+  rg.nc1 = h.n1 ? cdiv(E, rg.kt1) : 0;
+  rg.nc2 = h.n2 ? cdiv(NH, rg.kt2) : 0;
+  rg.total = note ? S * (rg.nc1 + rg.nc2) : 0;
+  rg.next = rg.issued = 0;
+
+  // this thread's gate items (r, u) = idx / U, idx % U: their gi_frame
+  float gf[K1_GI][3];
+#pragma unroll
+  for (int i = 0; i < K1_GI; ++i) gf[i][0] = gf[i][1] = gf[i][2] = 0.0f;
+
+  // ---- projection: h0 and gi_frame of this block's units, then the first
+  // hidden gates; its weights are read once from L2 for the group
+  if (phases & PH_PROJ) {
+    Seg<T> sg[4];
+    sg[0] = seg(w.w_t2n + j0, w.b_t2n + j0, NH, U, TH, fh, L.lTH, gh, L.lU3);
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+      sg[1 + g] = seg(w.w_ih_frame + g * NH + j0, w.b_ih + g * NH + j0, NH3,
+                      U, TH, fh, L.lTH, acc + g * U, L.lU3);
+    group_product(sg);
+  }
+  // frame_h is read: the constants and the ring's first chunks come in
+  if (t == NT - 32) {
+    fence_async_shared();
+    // (the panel pads each section to 128 bytes: whole 16-byte copies)
+    const int b1 = (DH * DC * (int)sizeof(T) + 15) & ~15,
+              b2 = (P * DH * (int)sizeof(T) + 15) & ~15;
+    mbar_expect(cbar, b1 + b2);
+    bulk_load(sb + L.o_wdc, pn.base + pn.o_wdc, b1, cbar);
+    bulk_load(sb + L.o_west, pn.base + pn.o_west, b2, cbar);
+    ring_issue(rg, K1_STAGES);
+  }
+  if (phases & PH_PROJ) {
+#pragma unroll
+    for (int i = 0; i < K1_GI; ++i) {
+      const int idx = t + i * NT, r = idx / imax2(U, 1), u = idx - r * U;
+      if (idx >= DG * U) continue;
+      const float* a = acc + r * L.lU3;
+      gf[i][0] = a[u];
+      gf[i][1] = a[U + u];
+      gf[i][2] = a[2 * U + u];
+      const float h0 = round_to<T>(gh[r * L.lU3 + u]);
+      push_ranks(0, C, hf + r * L.lNH + j0 + u, h0);
+      if (stash && r < nrows) st.hs[srow(0, r) * NH + j0 + u] = from_f<T>(h0);
+    }
+    cl.sync();
+    Seg<T> sg[3];
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+      sg[g] = seg(w.w_hh + g * NH + j0, w.b_hh + g * NH + j0, NH3, U, NH, hf,
+                  L.lNH, gh + g * U, L.lU3);
+    group_product(sg);
+  }
+  cl.sync();   // every block has read h0 before the first slot's h comes
+  mbar_wait(cbar, 0);
+
+  // ---- the slot chain
+  if (phases & PH_BARRIERS) {
+    for (int k = 1; k < K; ++k) {
+      cl.sync();
+      cl.sync();
+      cl.sync();
+    }
+  }
+  for (int k = 1; k < K; ++k) {
+    if (note) {
+      // P1: this block's columns of tok @ w_ih_tok
+      ring_product(rg, 1, tok, L.lE, [&](int r, int col, float v) {
+        acc[r * L.lU3 + col] = v;
+      });
+      // the note-GRU step on this block's units, h into every block
+#pragma unroll
+      for (int i = 0; i < K1_GI; ++i) {
+        const int idx = t + i * NT, r = idx / imax2(U, 1), u = idx - r * U;
+        if (idx >= DG * U) continue;
+        const float* a = acc + r * L.lU3;
+        const float* g = gh + r * L.lU3;
+        const float ir = gf[i][0] + a[u], iz = gf[i][1] + a[U + u],
+                    in_ = gf[i][2] + a[2 * U + u];
+        const float rr = sigmoid_(ir + g[u]);
+        const float zz = sigmoid_(iz + g[U + u]);
+        const float nn = tanhf(in_ + rr * g[2 * U + u]);
+        const int j = j0 + u;
+        const float hv = hf[r * L.lNH + j];
+        const float hnew = round_to<T>((1.0f - zz) * nn + zz * hv);
+        push_ranks(0, C, hf + r * L.lNH + j, hnew);
+        if (stash && r < nrows) {
+          float* ngp = st.ng + srow(k - 1, r) * 4 * NH;
+          ngp[j] = rr;
+          ngp[NH + j] = zz;
+          ngp[2 * NH + j] = nn;
+          ngp[3 * NH + j] = g[2 * U + u];
+          st.hs[srow(k, r) * NH + j] = from_f<T>(hnew);
+        }
+      }
+      cl.sync();
+      // P2: this block's columns of h @ [w_pitch | w_dhid[:NH] | w_hh] into
+      // ys, then over every thread: the pitch logits and the dur-hidden
+      // shares to the rows' owners (and the stash, the logits out), the
+      // next hidden gates kept
+      ring_product(rg, 2, hf, L.lNH, [&](int r, int col, float v) {
+        ys[r * L.lN2 + col] = v;
+      });
+      for (int idx = t; idx < DG * h.n2; idx += NT) {
+        const int r = idx / h.n2, col = idx - r * h.n2;
+        const float v = ys[r * L.lN2 + col];
+        if (col < h.Pc) {
+          const int p = h.p0 + col;
+          if (p >= P) continue;
+          const float y = round_to<T>(v + bia[p]);
+          st_remote(Y + (r / C) * L.lYr + p, r % C, y);
+          if (r < nrows) {
+            if (stash) st.est[srow(k - 1, r) * P + p] = from_f<T>(y);
+            if (logits)
+              pitch_logits[((size_t)(row0 + r) * S + k - 1) * P + p] =
+                  from_f<T>(y);
+          }
+        } else if (col < h.Pc + h.Dc) {
+          st_remote(Y + (r / C) * L.lYr + L.Pp + h.d0 + col - h.Pc, r % C,
+                    v);
+        } else {
+          const int q = col - h.Pc - h.Dc;
+          gh[r * L.lU3 + q] = v + bhh[q];
+        }
+      }
+      cl.sync();
+    }
+    // ---- the owned rows r = c + C ro: pitch argmax and CE (warp ro)
+    if (note && warp < NRO) {
+      const int ro = warp, r = c + C * ro;
+      const float* y = Y + ro * L.lYr;
+      float best = -INFINITY;
+      int bi = P;
+      for (int j = lane; j < P; j += 32) {
+        const float v = y[j];
+        if (v > best) {
+          best = v;
+          bi = j;
+        }
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        const float ob = __shfl_down_sync(0xffffffffu, best, off);
+        const int oi = __shfl_down_sync(0xffffffffu, bi, off);
+        if (ob > best || (ob == best && oi < bi)) {
+          best = ob;
+          bi = oi;
+        }
+      }
+      bi = __shfl_sync(0xffffffffu, bi, 0);
+      const float lse = logits ? 0.0f : warp_lse(y, P, lane);
+      if (lane == 0) {
+        if (bi >= P) bi = 0;
+        own[ro * (1 + W)] = bi;
+        if (!logits && r < nrows) {
+          const int gt = tgt[(ro * S + k - 1) * (1 + W)];
+          if (gt != w.pitch_pad) nll[ro * 8] += lse - y[gt];
+        }
+      }
+    }
+    __syncthreads();
+    // the next token's embedding row and teacher row, loaded ahead of the
+    // duration chains: thread t < NRO E holds element e of owned row ro
+    const int er = t / imax2(E, 1), ee = t - er * E;
+    const bool emb_mine = note && t < NRO * E;
+    const int erow = c + C * er;
+    const int coin = k < K - 1 && coins_s[k] != 0;
+    float pe = 0.0f, xe = 0.0f;
+    if (emb_mine) {
+      pe = ldg_f(w.w_emb + (size_t)own[er * (1 + W)] * E + ee);
+      if (coin && erow < nrows)
+        xe = ldg_f(x_emb + ((size_t)(row0 + erow) * K + k) * E + ee);
+    }
+    if (dur) {
+      // dur-hidden init: hd0 = [h | est] @ w_dhid + b_dhid, the h share
+      // from the blocks' P2 columns, est @ w_dhid[NH:] here in k-slices
+      const int n = NRO * DH;
+      int ns = NT / imax2(n, 1);
+      ns = ns > 8 ? 8 : (ns < 1 ? 1 : ns);
+      const int chunk = cdiv(P, ns);
+      for (int q = t; q < ns * n; q += NT) {
+        const int sl = q / n, o = q - sl * n, ro = o / DH, j = o - ro * DH;
+        const int k0 = sl * chunk, k1 = min(P, k0 + chunk);
+        const float* y = Y + ro * L.lYr;
+        float a = 0.0f;
+        for (int i = k0; i < k1; ++i)
+          a = fmaf(y[i], to_f(west[i * DH + j]), a);
+        red[q] = a;
+      }
+      __syncthreads();
+      const bool mine = t < NRO * DH;
+      const int ro = t / imax2(DH, 1), j = t - ro * DH, r = c + C * ro;
+      float gs[3], g0[3], g1[3];
+#pragma unroll
+      for (int g = 0; g < 3; ++g) {
+        gs[g] = mine ? gid[g * DH + j] : 0.0f;
+        g0[g] = mine ? gid[L.lDH3 + g * DH + j] : 0.0f;
+        g1[g] = mine ? gid[2 * L.lDH3 + g * DH + j] : 0.0f;
+      }
+      if (mine) {
+        float v = 0.0f;
+        for (int sl = 0; sl < ns; ++sl) v += red[sl * n + t];
+        v = round_to<T>(v + Y[ro * L.lYr + L.Pp + j] + bdh[j]);
+        hd[ro * L.lDH + j] = v;
+        if (stash && r < nrows)
+          st.hd[(srow(k - 1, r) * (W + 1)) * DH + j] = from_f<T>(v);
+      }
+      __syncthreads();
+      // its hidden gates, then W steps of the duration GRU with the argmax
+      // bit fed back (w_dcomb = [w_dout | w_dhh] staged)
+      dur_step<NRO>(wdc, bdc, DH, DC, hd, L.lDH, X, L.lDC);
+      // each unit's thread decides the step's bit from the rounded logits
+      // itself (no barrier); unit 0's thread keeps it and its CE
+      int b = 0;
+      for (int ws = 0; ws < W; ++ws) {
+        if (mine) {
+          const float* x = X + ro * L.lDC;
+          const float* gi = ws == 0 ? gs : (b ? g1 : g0);
+          const float* g = x + 2;
+          const float rr = sigmoid_(gi[0] + g[j]);
+          const float zz = sigmoid_(gi[1] + g[DH + j]);
+          const float nn = tanhf(gi[2] + rr * g[2 * DH + j]);
+          const float hv = hd[ro * L.lDH + j];
+          const float hnew = round_to<T>((1.0f - zz) * nn + zz * hv);
+          hd[ro * L.lDH + j] = hnew;
+          if (stash && r < nrows) {
+            const size_t q = srow(k - 1, r) * W + ws;
+            float* dgp = st.dg + q * 4 * DH;
+            dgp[j] = rr;
+            dgp[DH + j] = zz;
+            dgp[2 * DH + j] = nn;
+            dgp[3 * DH + j] = g[2 * DH + j];
+            st.hd[(srow(k - 1, r) * (W + 1) + ws + 1) * DH + j] =
+                from_f<T>(hnew);
+            if (j < W)
+              st.dtok[q * W + j] = from_f<T>(ws == 0 ? dsos[j]
+                                                     : (j == b ? 1.0f : 0.0f));
+          }
+        }
+        __syncthreads();
+        dur_step<NRO>(wdc, bdc, DH, DC, hd, L.lDH, X, L.lDC);
+        if (mine) {
+          const float* x = X + ro * L.lDC;
+          const float l0 = round_to<T>(x[0]), l1 = round_to<T>(x[1]);
+          b = l1 > l0 ? 1 : 0;
+          if (j == 0) {
+            own[ro * (1 + W) + 1 + ws] = b;
+            if (r < nrows) {
+              if (logits) {
+                T* o = dur_logits +
+                       (((size_t)(row0 + r) * S + k - 1) * W + ws) * 2;
+                o[0] = from_f<T>(l0);
+                o[1] = from_f<T>(l1);
+              } else {
+                const int gt = tgt[(ro * S + k - 1) * (1 + W) + 1 + ws];
+                if (gt != w.dur_pad)
+                  nll[ro * 8 + 1 + ws] += lse2(l0, l1) - (gt ? l1 : l0);
+              }
+              if (stash) {
+                T* dl = st.dlog + (srow(k - 1, r) * W + ws) * 2;
+                dl[0] = from_f<T>(l0);
+                dl[1] = from_f<T>(l1);
+              }
+            }
+          }
+        }
+      }
+      __syncthreads();
+    }
+    if (note) {
+      // the predicted note's embedding (a row select of the one-hot
+      // product), the coin's pick of the next token into every block, the
+      // decisions into every block
+      if (emb_mine) {
+        const int* o = own + er * (1 + W);
+        float v = pe;
+        for (int ws = 0; ws < W; ++ws)
+          if (o[1 + ws]) v += emb[ws * L.lE + ee];
+        v = round_to<T>(v + emb[W * L.lE + ee]);
+        const float nt = coin ? (erow < nrows ? xe : 0.0f) : v;
+        if (k < K - 1) push_ranks(0, C, tok + erow * L.lE + ee, nt);
+        if (stash && erow < nrows) {
+          st.pred[srow(k, erow) * E + ee] = from_f<T>(v);
+          if (k < K - 1) st.tok[srow(k, erow) * E + ee] = from_f<T>(nt);
+        }
+      }
+      for (int i = t; i < NRO * C * (1 + W); i += NT) {
+        const int ro = i / (C * (1 + W)), q = i - ro * C * (1 + W);
+        const int cc = q / (1 + W), f = q - cc * (1 + W), r = c + C * ro;
+        const int v = own[ro * (1 + W) + f];
+        if (f == 0)
+          st_remote(pitch + r * S + k - 1, cc, static_cast<short>(v));
+        else
+          st_remote(bits + (r * S + k - 1) * W + f - 1, cc,
+                    static_cast<unsigned char>(v));
+      }
+      if (stash) {
+        for (int i = t; i < NRO * (P + W); i += NT) {
+          const int ro = i / (P + W), j = i - ro * (P + W), r = c + C * ro;
+          if (r >= nrows) continue;
+          const int* o = own + ro * (1 + W);
+          st.emb_in[srow(k - 1, r) * (P + W) + j] = from_f<T>(
+              j < P ? (j == o[0] ? 1.0f : 0.0f) : (float)o[1 + j - P]);
+        }
+      }
+      cl.sync();
+    }
+  }
+
+  // ---- lengths: the first slot that decided eos, else K - 1
+  for (int r = t; r < DG; r += NT) {
+    int l = 0;
+    for (int k = 1; k < K && !l; ++k)
+      if (pitch[r * S + k - 1] == w.eos) l = k;
+    len[r] = l ? l : K - 1;
+  }
+  for (int i = t; i < NRO * S * (1 + W); i += NT) {
+    const int ro = i / (S * (1 + W)), q = i - ro * S * (1 + W);
+    const int r = c + C * ro, k = q / (1 + W), f = q - k * (1 + W);
+    if (r < nrows)
+      decisions[(size_t)(row0 + r) * S * (1 + W) + q] =
+          f == 0 ? pitch[r * S + k] : bits[(r * S + k) * W + f - 1];
+  }
+  for (int i = t; !logits && i < NRO * (1 + W); i += NT) {
+    const int ro = i / (1 + W), q = i - ro * (1 + W), r = c + C * ro;
+    if (r < nrows)
+      nums_rows[(size_t)(row0 + r) * (1 + W) + q] = nll[ro * 8 + q];
+  }
+  __syncthreads();
+  for (int ro = t; ro < NRO; ro += NT) {
+    const int r = c + C * ro;
+    if (r < nrows) lengths[row0 + r] = len[r];
+  }
+
+  // ---- the masked bi-GRU over pred: blocks [0, C/2) forward, the rest
+  // backward, SU units each; the input projections of all K slots first
+  // (hoisted, as _summary_fwd does), then K steps on we_hh alone; step k
+  // runs slot k forward, K-1-k backward
+  if (phases & PH_SUMM) {
+    const int Cd = C / 2, d = h.d, e0 = h.e0, SU = h.SU, n3 = 3 * SU;
+    float* hsd = reinterpret_cast<float*>(sb + L.o_hsd);
+    float* gis = reinterpret_cast<float*>(sb + L.o_gis);
+    float* xs = reinterpret_cast<float*>(sb + L.o_xs);
+    float* sgo = reinterpret_cast<float*>(sb + L.o_sgo);
+    T* wsm = reinterpret_cast<T*>(sb + L.o_ws);
+    const int plane = DG * L.lEH;
+    if (t == 0 && n3) {
+      fence_async_shared();
+      mbar_expect(sbar, E * n3 * (int)sizeof(T));
+      bulk_load(wsm, panel + pn.o_sih, E * n3 * (int)sizeof(T), sbar);
+    }
+    for (int i = t; i < plane; i += NT) hsd[i] = 0.0f;
+    // slot k's embeddings: x_emb[:, 0] for slot 0, else the predicted
+    // note's, as the chain computed them; gather() loads the pitch rows of
+    // slot k ahead, behind the product of the slot before
+    float nx[XI];
+    auto gather = [&](int k) {
+#pragma unroll
+      for (int i = 0; i < XI; ++i) {
+        const int idx = t + i * NT, r = idx / E, e = idx - r * E;
+        nx[i] = 0.0f;
+        if (idx >= DG * E) continue;
+        if (k == 0)
+          nx[i] = r < nrows ? ldg_f(x_emb + (size_t)(row0 + r) * K * E + e)
+                            : 0.0f;
+        else
+          nx[i] = ldg_f(w.w_emb + (size_t)pitch[r * S + k - 1] * E + e);
+      }
+    };
+    auto finish = [&](int k) {
+#pragma unroll
+      for (int i = 0; i < XI; ++i) {
+        const int idx = t + i * NT, r = idx / E, e = idx - r * E;
+        if (idx >= DG * E) continue;
+        float v = nx[i];
+        if (k != 0) {
+          const int q = r * S + k - 1;
+          for (int ws = 0; ws < W; ++ws)
+            if (bits[q * W + ws]) v += emb[ws * L.lE + e];
+          v = round_to<T>(v + emb[W * L.lE + e]);
+        }
+        xs[r * L.lE + e] = v;
+      }
+    };
+    if (n3) mbar_wait(sbar, 0);
+    gather(0);
+    for (int k = 0; k < K; ++k) {
+      finish(k);
+      __syncthreads();
+      if (k + 1 < K) gather(k + 1);
+      float* out = gis + k * DG * L.lS3;
+      staged_product(wsm, n3, E, xs, L.lE, [&](int r, int col, float v) {
+        out[r * L.lS3 + col] = v + bsi[col];
+      });
+    }
+    if (t == 0 && n3) {
+      fence_async_shared();
+      mbar_expect(sbar, EH * n3 * (int)sizeof(T));
+      bulk_load(wsm, panel + pn.o_shh, EH * n3 * (int)sizeof(T), sbar);
+    }
+    cl.sync();   // every block's plane 0 is zero before the first push
+    if (n3) mbar_wait(sbar, 1);
+    for (int k = 0; k < K; ++k) {
+      const int slot = d == 0 ? k : K - 1 - k;
+      const float* hin = hsd + (k & 1) * plane;
+      float* hout = hsd + ((k + 1) & 1) * plane;
+      staged_product(wsm, n3, EH, hin, L.lEH, [&](int r, int col, float v) {
+        sgo[r * L.lS3 + col] = v + bsh[col];
+      });
+      for (int idx = t; idx < DG * SU; idx += NT) {
+        const int r = idx / SU, u = idx - r * SU, e = e0 + u;
+        const float* gi_ = gis + slot * DG * L.lS3 + r * L.lS3;
+        const float* gh_ = sgo + r * L.lS3;
+        const float hp = hin[r * L.lEH + e];
+        const float rr = sigmoid_(gi_[u] + gh_[u]);
+        const float zz = sigmoid_(gi_[SU + u] + gh_[SU + u]);
+        const float nn = tanhf(gi_[2 * SU + u] + rr * gh_[2 * SU + u]);
+        const float hn =
+            slot < len[r] ? round_to<T>((1.0f - zz) * nn + zz * hp) : hp;
+        push_ranks(d * Cd, Cd, hout + r * L.lEH + e, hn);
+        if (stash && r < nrows) {
+          const size_t q = (size_t)d * K + k;
+          st.sh[(q * B + row0 + r) * EH + e] = from_f<T>(hp);
+          float* sgp = st.sg + (q * B + row0 + r) * 4 * EH;
+          sgp[e] = rr;
+          sgp[EH + e] = zz;
+          sgp[2 * EH + e] = nn;
+          sgp[3 * EH + e] = gh_[2 * SU + u];
+        }
+      }
+      cl.sync();
+    }
+    const float* hfin = hsd + (K & 1) * plane;
+    for (int idx = t; idx < nrows * SU; idx += NT) {
+      const int r = idx / SU, e = e0 + idx - r * SU;
+      summary[(size_t)(row0 + r) * 2 * EH + d * EH + e] =
+          from_f<T>(hfin[r * L.lEH + e]);
+    }
+  }
+  cl.sync();  // no block leaves while another may write into its memory
+}
+
+// ---- K1 per row
 
 struct FwdLayout {
   int lTH, l3NH, lHX, lE, lDH, l3DH, lHS, l3EH, lPR;
@@ -285,6 +1380,10 @@ __host__ inline size_t fwd_smem_bytes(const TrainWeightsT<T>& w, int R) {
   return sizeof(float) * (size_t)L.n_floats + sizeof(int) * (size_t)L.n_ints;
 }
 
+// K1 per row: a block owns R batch rows (1, 2 or 4) and streams every
+// weight from L2 for them, its state in shared memory (matvec). The plan
+// (build.k1_plan) takes it where the row groups would run in waves: at
+// B=512, four rows a block in one wave beat three waves of row groups.
 template <int R, typename T>
 __global__ void __launch_bounds__(NT, 1)
 train_fwd_kernel(TrainWeightsT<T> w, int B, const int* __restrict__ coins,
@@ -1755,9 +2854,9 @@ cudaError_t prepare_train(Kern kern, size_t bytes) {
                               (int)bytes);
 }
 
-// K1 in either mode (see train_fwd_kernel).
+// K1 per row in either mode (see train_fwd_kernel).
 template <typename T>
-cudaError_t train_fwd(const TrainWeightsT<T>* w, int B, int R,
+cudaError_t train_fwd_rows(const TrainWeightsT<T>* w, int B, int R,
                       const int* coins, const T* frame_h, const T* x_emb,
                       const int* gt_pitch, const int* gt_dur,
                       float* nums_rows, T* pitch_logits, T* dur_logits,
@@ -1784,6 +2883,76 @@ cudaError_t train_fwd(const TrainWeightsT<T>* w, int B, int R,
     default: PCTD_FWD(4) break;
   }
 #undef PCTD_FWD
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+// K1's instance for cluster size C (16 or 8; rows owned a block: 16 / C)
+template <typename T>
+using K1Kern = void (*)(TrainWeightsT<T>, K1PanelsT<T>, int, int,
+                        const int*, const T*, const T*, const int*,
+                        const int*, float*, T*, T*, T*, int*, int*,
+                        TrainStashT<T>, int, int);
+
+template <typename T>
+K1Kern<T> k1_instance(int C) {
+  return C == 16 ? train_fwd_group_kernel<1, T> : train_fwd_group_kernel<2, T>;
+}
+
+// {shared memory bytes, clusters of C blocks the card holds at once (0 if
+// it cannot say or the kernel does not take these widths)} of K1
+template <typename T>
+cudaError_t k1_info(const TrainWeightsT<T>& w, int C, int* out) {
+  if (!cluster_ok(C)) return cudaErrorInvalidValue;
+  const K1Layout L = k1_layout(w, C);
+  out[0] = L.bytes;
+  out[1] = 0;
+  if (!k1_fits(w, L)) return cudaSuccess;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = group_config(1, C, L.bytes, nullptr, &attr);
+  const K1Kern<T> k = k1_instance<T>(C);
+  cudaError_t e = group_prepare(k, L.bytes, C);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(&out[1], k, &cfg);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    out[1] = 0;
+  }
+  return cudaSuccess;
+}
+
+// K1 in either mode over B rows: with R = 0, in groups of DG, a cluster
+// of C blocks a group, the phases of `phases` (K1_ALL all); with R > 0,
+// the per-row kernel, R rows a block (pn, phases and C unused).
+template <typename T>
+cudaError_t train_fwd(const TrainWeightsT<T>* w, const K1PanelsT<T>* pn,
+                      int B, int phases, int C, int R, const int* coins,
+                      const T* frame_h, const T* x_emb, const int* gt_pitch,
+                      const int* gt_dur, float* nums_rows, T* pitch_logits,
+                      T* dur_logits, T* summary, int* lengths,
+                      int* decisions, const TrainStashT<T>* stash, int logits,
+                      void* stream) {
+  if (R > 0)
+    return train_fwd_rows(w, B, R, coins, frame_h, x_emb, gt_pitch, gt_dur,
+                          nums_rows, pitch_logits, dur_logits, summary,
+                          lengths, decisions, stash, logits, stream);
+  if (B <= 0 || !pn || phases < 1 || phases > (K1_ALL | PH_BARRIERS) ||
+      !cluster_ok(C))
+    return cudaErrorInvalidValue;
+  const K1Layout L = k1_layout(*w, C);
+  if (!k1_fits(*w, L)) return cudaErrorInvalidValue;
+  const K1Kern<T> k = k1_instance<T>(C);
+  cudaError_t e = group_prepare(k, L.bytes, C);
+  if (e != cudaSuccess) return e;
+  TrainStashT<T> st = {};
+  if (stash) st = *stash;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      group_config(cdiv(B, DG), C, L.bytes,
+                   static_cast<cudaStream_t>(stream), &attr);
+  e = cudaLaunchKernelEx(&cfg, k, *w, *pn, B, phases, coins, frame_h, x_emb,
+                         gt_pitch, gt_dur, nums_rows, pitch_logits,
+                         dur_logits, summary, lengths, decisions, st,
+                         stash != nullptr ? 1 : 0, logits);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -1963,31 +3132,39 @@ cudaError_t train_wgrad(const WgradTaskT<T>* tasks, int n_tasks,
 }  // namespace
 
 // The C entry points: one per kernel, mode and storage type (suffix _bf16
-// for bfloat16; float otherwise). K1's shared memory does not depend on
-// the storage type (a block keeps its state in f32); K2a's slot-row kernel
-// stages w_dhh in it, and the sizes reported are float's.
+// for bfloat16; float otherwise). K1 stages weights in its storage type
+// and reports its own sizes per type; K2a's slot-row kernel stages w_dhh in
+// it, and the sizes reported are float's.
 #define PCTD_TRAIN_ENTRIES(T, SFX)                                           \
-  /* K1, loss mode: CE numerators per row. */                                \
-  int pctd_train_fwd##SFX(const TrainWeightsT<T>* w, int B,                  \
-                          int rows_per_block, const int* coins,              \
-                          const T* frame_h, const T* x_emb,                  \
+  /* K1, loss mode: CE numerators per row; rows > 0: the per-row kernel */  \
+  int pctd_train_fwd##SFX(const TrainWeightsT<T>* w, const K1PanelsT<T>* pn, \
+                          int B, int phases, int cluster, int rows,          \
+                          const int* coins, const T* frame_h,                \
+                          const T* x_emb,                                    \
                           const int* gt_pitch, const int* gt_dur,            \
                           float* nums_rows, T* summary, int* lengths,        \
                           int* decisions, const TrainStashT<T>* stash,       \
                           void* stream) {                                    \
-    return train_fwd<T>(w, B, rows_per_block, coins, frame_h, x_emb,         \
-                        gt_pitch, gt_dur, nums_rows, nullptr, nullptr,       \
+    return train_fwd<T>(w, pn, B, phases, cluster, rows, coins, frame_h,     \
+                        x_emb, gt_pitch, gt_dur, nums_rows, nullptr, nullptr,\
                         summary, lengths, decisions, stash, 0, stream);      \
   }                                                                          \
   /* K1, logits out. */                                                      \
   int pctd_train_fwd_logits##SFX(                                            \
-      const TrainWeightsT<T>* w, int B, int rows_per_block,                  \
-      const int* coins, const T* frame_h, const T* x_emb, T* pitch_logits,   \
-      T* dur_logits, T* summary, int* lengths, int* decisions,               \
-      const TrainStashT<T>* stash, void* stream) {                           \
-    return train_fwd<T>(w, B, rows_per_block, coins, frame_h, x_emb,         \
-                        nullptr, nullptr, nullptr, pitch_logits, dur_logits, \
-                        summary, lengths, decisions, stash, 1, stream);      \
+      const TrainWeightsT<T>* w, const K1PanelsT<T>* pn, int B, int phases,  \
+      int cluster, int rows, const int* coins, const T* frame_h,             \
+      const T* x_emb, T* pitch_logits, T* dur_logits, T* summary,            \
+      int* lengths, int* decisions, const TrainStashT<T>* stash,             \
+      void* stream) {                                                        \
+    return train_fwd<T>(w, pn, B, phases, cluster, rows, coins, frame_h,     \
+                        x_emb, nullptr, nullptr, nullptr, pitch_logits,      \
+                        dur_logits, summary, lengths, decisions, stash, 1,   \
+                        stream);                                             \
+  }                                                                          \
+  /* K1's shared memory a block and clusters at once (out[2]). */            \
+  int pctd_train_fwd_info##SFX(const TrainWeightsT<T>* w, int cluster,       \
+                               int* out) {                                   \
+    return k1_info<T>(*w, cluster, out);                                     \
   }                                                                          \
   /* K2a, loss mode: the CE cotangents from the targets and d_nums. */     \
   int pctd_train_bwd##SFX(const TrainWeightsT<T>* w, int B, int phases,      \
@@ -2024,11 +3201,6 @@ cudaError_t train_wgrad(const WgradTaskT<T>* tasks, int n_tasks,
 extern "C" {
 
 #ifndef PCTD_TRAIN_BF16
-// K1's shared memory a block with rows_per_block rows.
-int pctd_train_smem_bytes(const TrainWeightsT<float>* w, int rows_per_block) {
-  return (int)fwd_smem_bytes(*w, rows_per_block);
-}
-
 // K2a's: kernel 0 the slot rows, 1 the chains (in clusters of `cluster`
 // blocks; 0, the size the launch at batch B takes, in cluster_taken), 2
 // the projections; for the chains also how many such clusters the card

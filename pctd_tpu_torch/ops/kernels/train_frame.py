@@ -10,13 +10,17 @@ it emits the pitch and duration logits, and the backward takes their
 cotangents from the caller's loss. The CUDA source is
 ``csrc/train_frame.cu``:
 
-- ``train_fwd_kernel`` (K1): per batch row, the 15 note-GRU slots with the
-  pitch head and argmax, the 5-step duration GRU with argmax feedback, the
+- ``train_fwd_group_kernel`` (K1): the 15 note-GRU slots with the pitch
+  head and argmax, the 5-step duration GRU with argmax feedback, the
   predicted-note embedding and the teacher-coin token select, the masked
   bi-GRU summary of the predicted notes, and the masked-CE numerators
-  (loss mode) or the logits (logits out). On the gradient path it also
-  writes every activation the backward needs (the stash, :class:`Stash`),
-  so K2 recomputes nothing and replays no argmax.
+  (loss mode) or the logits (logits out), for a group of 16 rows in a
+  thread-block cluster, its chain weights streamed from panels packed
+  once per weights (:func:`pack_panels`, cached by :func:`panels`); where
+  the row groups would run in more waves than pay (B=512), the per-row
+  ``train_fwd_kernel`` (the plan: ``build.k1_plan``). On the gradient
+  path it also writes every activation the backward needs (the stash,
+  :class:`Stash`), so K2 recomputes nothing and replays no argmax.
 - K2a, the reverse chain in the phases of the JAX backward, three kernels:
   ``train_bwd_slots_kernel`` (2b: the logit cotangents, computed from the
   targets in loss mode or given in logits-out mode, the duration chains
@@ -56,6 +60,7 @@ from __future__ import annotations
 
 import collections
 import functools
+import weakref
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
@@ -792,6 +797,214 @@ def wgrad(tasks) -> None:
                        [plan.ws_off[k] for k in plan.order])
 
 
+#: the cluster sizes K1 takes (``cluster_ok`` in ``csrc/group.cuh``)
+K1_CLUSTERS = (16, 8)
+#: the weights K1's panels hold, in the order :func:`panel_index` lists them
+PANEL_FIELDS = ("w_ih_tok", "w_pitch", "w_dhid", "w_hh", "we_ih", "we_hh",
+                "w_dout", "w_dhh")
+
+
+def _part(n: int, C: int, c: int) -> int:
+    """First index of share c when n items (a multiple of 4) are cut into C
+    shares of whole quads (``part`` in ``csrc/group.cuh``)."""
+    return 4 * ((n // 4) * c // C)
+
+
+def _pad4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+class K1Share(NamedTuple):
+    """Block c's shares of a K1 cluster of C (``k1_share`` in
+    ``csrc/train_frame.cu``): its note units [j0, j0 + U), pitch columns
+    [p0, p0 + Pc) of pad4(P), dur-hidden columns [d0, d0 + Dc), and its
+    summary units [e0, e0 + SU) of direction ``d``."""
+    j0: int
+    U: int
+    p0: int
+    Pc: int
+    d0: int
+    Dc: int
+    d: int
+    e0: int
+    SU: int
+
+
+def k1_share(d: Dims, C: int, c: int) -> K1Share:
+    Pp, Cd = _pad4(d.P), C // 2
+    sd, cc = c // Cd, c % Cd
+    j0, p0, d0, e0 = (_part(d.NH, C, c), _part(Pp, C, c), _part(d.DH, C, c),
+                      _part(d.EH, Cd, cc))
+    return K1Share(j0, _part(d.NH, C, c + 1) - j0, p0,
+                   _part(Pp, C, c + 1) - p0, d0, _part(d.DH, C, c + 1) - d0,
+                   sd, e0, _part(d.EH, Cd, cc + 1) - e0)
+
+
+class PanelLayout(NamedTuple):
+    """K1's panel buffer (``K1PanelsT`` in ``csrc/train_frame.cu``), in
+    elements of the storage dtype: block c's panel at ``c * pstride`` with
+    its sections at ``o_tok`` (w_ih_tok, (E, 3U)), ``o_h`` ([w_pitch |
+    w_dhid[:NH] | w_hh], (NH, Pc + Dc + 3U)), ``o_sih`` and ``o_shh``
+    (we_ih[d] (E, 3SU), we_hh[d] (EH, 3SU)), each k-major; then, once,
+    [w_dout | w_dhh] (DH, 2 + 3DH) at ``o_wdc`` and w_dhid[NH:] (P, DH) at
+    ``o_west``. Every section starts 128 bytes aligned (the kernel's bulk
+    copies take whole 16 bytes at 16-byte addresses)."""
+    pstride: int
+    o_tok: int
+    o_h: int
+    o_sih: int
+    o_shh: int
+    o_wdc: int
+    o_west: int
+    size: int
+
+
+def panel_layout(d: Dims, C: int, dtype: torch.dtype) -> PanelLayout:
+    """Where K1's panels for clusters of C blocks sit; raises unless C is
+    a cluster size K1 takes and every width K1 cuts into shares is whole
+    quads (TH, NH, DH, E, EH multiples of 4)."""
+    if C not in K1_CLUSTERS:
+        raise ValueError(f"K1 takes clusters of {K1_CLUSTERS} blocks, got "
+                         f"{C}")
+    for n in ("TH", "NH", "DH", "E", "EH"):
+        if getattr(d, n) % 4:
+            raise ValueError(f"K1 panels need {n} % 4 == 0, got "
+                             f"{getattr(d, n)}")
+    al = 128 // torch.empty(0, dtype=dtype).element_size()
+    up = lambda n: -(-n // al) * al
+    sh = [k1_share(d, C, c) for c in range(C)]
+    s1 = max(d.E * 3 * s.U for s in sh)
+    s2 = max(d.NH * (s.Pc + s.Dc + 3 * s.U) for s in sh)
+    s3 = max(d.E * 3 * s.SU for s in sh)
+    s4 = max(d.EH * 3 * s.SU for s in sh)
+    o_h = up(s1)
+    o_sih = o_h + up(s2)
+    o_shh = o_sih + up(s3)
+    pstride = o_shh + up(s4)
+    o_wdc = C * pstride
+    o_west = o_wdc + up(d.DH * (2 + 3 * d.DH))
+    return PanelLayout(pstride, 0, o_h, o_sih, o_shh, o_wdc, o_west,
+                       o_west + up(d.P * d.DH))
+
+
+@functools.lru_cache(maxsize=None)
+def panel_index(d: Dims, C: int, dtype: torch.dtype):
+    """For each weight of :data:`PANEL_FIELDS`, (its shape, the panel
+    buffer's indices, the weight's flat indices) of every element K1's
+    panels hold (int64 CPU tensors): the map :func:`pack_panels` writes and
+    :func:`unpack_panels` reads. Every element of every field appears once
+    (w_pitch's padding columns are left zero)."""
+    lay = panel_layout(d, C, dtype)
+    NH, DH, E, EH, P = d.NH, d.DH, d.E, d.EH, d.P
+    shapes = {"w_ih_tok": (E, 3 * NH), "w_pitch": (NH, P),
+              "w_dhid": (NH + P, DH), "w_hh": (NH, 3 * NH),
+              "we_ih": (2, E, 3 * EH), "we_hh": (2, EH, 3 * EH),
+              "w_dout": (DH, 2), "w_dhh": (DH, 3 * DH)}
+    dst = {f: [] for f in PANEL_FIELDS}
+    src = {f: [] for f in PANEL_FIELDS}
+
+    def put(field, at, rows, cols, ld, off=0):
+        """rows x cols of ``field`` (flat row stride ld, element ``off`` +
+        r ld + col) into the buffer at ``at``, k-major, len(cols) a row."""
+        r = torch.arange(rows)[:, None]
+        col = torch.as_tensor(cols, dtype=torch.long)[None, :]
+        n = col.shape[1]
+        dst[field].append((at + r * n + torch.arange(n)[None, :]).flatten())
+        src[field].append((off + r * ld + col).flatten())
+
+    for c in range(C):
+        s = k1_share(d, C, c)
+        base = c * lay.pstride
+        units = [g * NH + s.j0 + u for g in range(3) for u in range(s.U)]
+        put("w_ih_tok", base + lay.o_tok, E, units, 3 * NH)
+        n2 = s.Pc + s.Dc + 3 * s.U
+        at = base + lay.o_h
+        pitch = [p for p in range(s.p0, s.p0 + s.Pc) if p < P]
+        r = torch.arange(NH)[:, None]
+        dst["w_pitch"].append((at + r * n2 + torch.tensor(
+            [p - s.p0 for p in pitch], dtype=torch.long)[None, :]).flatten())
+        src["w_pitch"].append((r * P + torch.tensor(
+            pitch, dtype=torch.long)[None, :]).flatten())
+        dh = torch.arange(s.d0, s.d0 + s.Dc)
+        dst["w_dhid"].append((at + r * n2 + s.Pc + torch.arange(s.Dc)[None, :]
+                              ).flatten())
+        src["w_dhid"].append((r * DH + dh[None, :]).flatten())
+        dst["w_hh"].append((at + r * n2 + s.Pc + s.Dc
+                            + torch.arange(3 * s.U)[None, :]).flatten())
+        src["w_hh"].append((r * 3 * NH + torch.tensor(
+            units, dtype=torch.long)[None, :]).flatten())
+        sunits = [g * EH + s.e0 + u for g in range(3) for u in range(s.SU)]
+        put("we_ih", base + lay.o_sih, E, sunits, 3 * EH, s.d * E * 3 * EH)
+        put("we_hh", base + lay.o_shh, EH, sunits, 3 * EH,
+            s.d * EH * 3 * EH)
+    DC = 2 + 3 * DH
+    r = torch.arange(DH)[:, None]
+    dst["w_dout"].append((lay.o_wdc + r * DC + torch.arange(2)[None, :]
+                          ).flatten())
+    src["w_dout"].append((r * 2 + torch.arange(2)[None, :]).flatten())
+    dst["w_dhh"].append((lay.o_wdc + r * DC + 2
+                         + torch.arange(3 * DH)[None, :]).flatten())
+    src["w_dhh"].append((r * 3 * DH + torch.arange(3 * DH)[None, :]
+                         ).flatten())
+    dst["w_dhid"].append(lay.o_west + torch.arange(P * DH))
+    src["w_dhid"].append(NH * DH + torch.arange(P * DH))
+    return tuple((f, shapes[f], torch.cat(dst[f]), torch.cat(src[f]))
+                 for f in PANEL_FIELDS)
+
+
+def pack_panels(cw: CoreWeights, d: Dims, C: int) -> torch.Tensor:
+    """K1's panel buffer (:class:`PanelLayout`) for clusters of C blocks,
+    on the weights' device in their dtype: each block's columns of the
+    chain products k-major, the duration weights once. A pure layout
+    change: every element is a weight's bits."""
+    dt, dev = cw.w_hh.dtype, cw.w_hh.device
+    lay = panel_layout(d, C, dt)
+    buf = torch.zeros(lay.size, dtype=dt, device=dev)
+    for field, shape, dst, src in panel_index(d, C, dt):
+        w = getattr(cw, field).detach()
+        if tuple(w.shape) != shape:
+            raise ValueError(f"{field} has shape {tuple(w.shape)}, expected "
+                             f"{shape}")
+        buf[dst.to(dev)] = w.reshape(-1)[src.to(dev)]
+    return buf
+
+
+def unpack_panels(buf: torch.Tensor, d: Dims, C: int) -> dict:
+    """The weights of :data:`PANEL_FIELDS` read back from a panel buffer
+    (the inverse of :func:`pack_panels`); an element no panel holds stays
+    NaN."""
+    out = {}
+    for field, shape, dst, src in panel_index(d, C, buf.dtype):
+        w = torch.full(shape, float("nan"), dtype=buf.dtype)
+        w.view(-1)[src] = buf.cpu()[dst]
+        out[field] = w
+    return out
+
+
+_PANELS: dict = {}
+
+
+def panels(cw: CoreWeights, d: Dims, C: int) -> torch.Tensor:
+    """:func:`pack_panels`, cached: a train step's 32 frames and its eval
+    reuse one packing while the weights are the same tensors at the same
+    version (an in-place update bumps it; new tensors, as a bf16 cast each
+    step makes, miss). Counts its packings in ``panels.packs``."""
+    srcs = [getattr(cw, f) for f in PANEL_FIELDS]
+    key = (C, srcs[0].dtype, srcs[0].device, d)
+    versions = tuple(t._version for t in srcs)
+    hit = _PANELS.get(key)
+    if hit is not None and hit[1] == versions and all(
+            r() is t for r, t in zip(hit[0], srcs)):
+        return hit[2]
+    buf = pack_panels(cw, d, C)
+    _PANELS[key] = ([weakref.ref(t) for t in srcs], versions, buf)
+    panels.packs += 1
+    return buf
+
+
+panels.packs = 0
+
+
 def _check(cw: CoreWeights, d: Dims, dev, B: int, named) -> None:
     """Raise unless the weights (one dtype of :data:`DTYPES`) and the
     ``named`` (name, tensor, shape, dtype) inputs are contiguous tensors of
@@ -823,12 +1036,16 @@ def _check(cw: CoreWeights, d: Dims, dev, B: int, named) -> None:
 
 
 def frame_fwd(cw: CoreWeights, spec: PianoTreeSpec, frame_h, x_emb, coins,
-              gt_pitch, gt_dur, stash: bool):
-    """K1 wrapper (CUDA tensors only): launches ``train_fwd_kernel`` in
-    the weights' dtype (frame_h and x_emb in it too). Returns (nums (1+W,)
+              gt_pitch, gt_dur, stash: bool, cluster: int = 0,
+              rows: int = 0):
+    """K1 wrapper (CUDA tensors only): launches ``train_fwd_group_kernel``
+    (or the per-row ``train_fwd_kernel``, as the plan picks) in the
+    weights' dtype (frame_h and x_emb in it too). Returns (nums (1+W,)
     f32, summary (B, 2EH), lengths (B,) i32, decisions (B, K-1, 1+W) i32
-    [pitch | bits], the :class:`Stash` or None). Counts its launches in
-    ``frame_fwd.launches``."""
+    [pitch | bits], the :class:`Stash` or None). ``cluster`` (8 or 16) forces
+    the row groups at that cluster size, ``rows`` (1, 2 or 4) the per-row
+    kernel at that many rows a block; neither: the plan's
+    (``build.k1_plan``). Counts its launches in ``frame_fwd.launches``."""
     from pctd_tpu_torch.ops.kernels import build
 
     d = dims_of(cw, spec)
@@ -846,7 +1063,8 @@ def frame_fwd(cw: CoreWeights, spec: PianoTreeSpec, frame_h, x_emb, coins,
     st = new_stash(d, B, dev, dt) if stash else None
     build.launch_train_fwd(cw, d, B, [coins, frame_h, x_emb, gt_pitch,
                                       gt_dur, nums_rows, summary, lengths,
-                                      decisions], st)
+                                      decisions], st, cluster=cluster,
+                           rows=rows)
     frame_fwd.launches += 1
     # the per-row CE partials meet here, summed over rows in f32
     return nums_rows.sum(0), summary, lengths, decisions, st
@@ -963,11 +1181,12 @@ def frame_recon(cw: CoreWeights, spec: PianoTreeSpec, frame_h: torch.Tensor,
 
 
 def frame_core_fwd(cw: CoreWeights, spec: PianoTreeSpec, frame_h, x_emb,
-                   coins, stash: bool):
-    """K1 wrapper in logits-out mode (CUDA tensors only): launches
-    ``train_fwd_kernel`` with no targets. Returns (pitch logits (B, K-1, P),
-    dur logits (B, K-1, W, 2), summary (B, 2EH), lengths (B,) i32, decisions
-    (B, K-1, 1+W) i32 [pitch | bits], the :class:`Stash` or None). Counts its
+                   coins, stash: bool, cluster: int = 0, rows: int = 0):
+    """K1 wrapper in logits-out mode (CUDA tensors only): launches K1 (as
+    :func:`frame_fwd` does) with no targets. Returns (pitch logits
+    (B, K-1, P), dur logits (B, K-1, W, 2), summary (B, 2EH), lengths (B,)
+    i32, decisions (B, K-1, 1+W) i32 [pitch | bits], the :class:`Stash` or
+    None). ``cluster`` and ``rows`` as in :func:`frame_fwd`. Counts its
     launches in ``frame_core_fwd.launches``."""
     from pctd_tpu_torch.ops.kernels import build
 
@@ -986,7 +1205,7 @@ def frame_core_fwd(cw: CoreWeights, spec: PianoTreeSpec, frame_h, x_emb,
     st = new_stash(d, B, dev, dt) if stash else None
     build.launch_train_fwd(cw, d, B, [coins, frame_h, x_emb, pitch, dur,
                                       summary, lengths, decisions], st,
-                           logits=True)
+                           logits=True, cluster=cluster, rows=rows)
     frame_core_fwd.launches += 1
     return pitch, dur, summary, lengths, decisions, st
 

@@ -64,18 +64,6 @@ def test_wrappers_take_plain_version_on_cpu_without_counting():
             full_decoder.decode_grid_full.launches) == before
 
 
-
-
-@pytest.mark.parametrize("batch,rows", [(1, 1), (128, 1), (256, 2),
-                                        (300, 4), (512, 4)])
-def test_rows_per_block_fills_the_card_in_fewest_waves(batch, rows):
-    """Serving chunks of 128 rows take one row a block (128 blocks on 132
-    SMs); larger batches trade slower blocks for fewer waves."""
-    from pctd_tpu_torch.ops.kernels.build import rows_per_block
-
-    assert rows_per_block(batch, sms=132) == rows
-
-
 def test_ctypes_struct_matches_the_cuda_struct():
     """build.DecoderWeightsC must list DecoderWeights' fields of
     csrc/decoder.cu in the same order, or the kernels read the wrong

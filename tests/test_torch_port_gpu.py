@@ -1032,3 +1032,205 @@ def test_group_kernels_refuse_what_they_cannot_take(cuda):
         ar_decoder.frame_decode(
             fwo, odd.pianotree, torch.zeros(2, 18, device=cuda),
             torch.zeros(2, odd.note_emb_size, device=cuda))
+
+
+# --- K1's row groups: ragged groups, both cluster sizes, coins, bits --------
+
+def _k1_case(B, seed, eos_bias, coins, dtype=torch.float32,
+             width="canonical"):
+    """Canonical-width K1 weights (no grad) and one frame's inputs, the
+    coins all 0 (training's steady state), all 1 or mixed."""
+    from pctd_tpu_torch.utils.precision import cast_params
+
+    cfg = tiny_model_config() if width == "tiny" else ModelConfig()
+    cuda = torch.device("cuda")
+    dec, inp = _frame_case(cfg, cuda, B, seed, eos_bias)
+    if coins != "mixed":
+        inp["coins"] = torch.full_like(inp["coins"], int(coins == "one"))
+    if dtype == torch.bfloat16:
+        dec = cast_params(dec, dtype)
+        inp = {k: (v.to(dtype) if v.is_floating_point() else v)
+               for k, v in inp.items()}
+    cw = train_frame.CoreWeights(
+        *(w.detach().contiguous() for w in train_frame.core_weights(dec, cfg)))
+    return cfg, cw, inp
+
+
+def _k1_both_modes(cw, spec, inp, cluster):
+    """K1 with its stash in loss mode and in logits-out mode, flat."""
+    loss = train_frame.frame_fwd(cw, spec, **inp, stash=True,
+                                 cluster=cluster)
+    core = train_frame.frame_core_fwd(cw, spec, **_core_inputs(inp),
+                                      stash=True, cluster=cluster)
+    return [*loss[:4], *loss[4], *core[:5], *core[5]]
+
+
+@pytest.mark.parametrize("coins,eos_bias", [("zero", 0.1), ("mixed", None),
+                                            ("mixed", 0.1), ("one", 0.1)])
+@pytest.mark.parametrize("cluster", [8, 16])
+@pytest.mark.parametrize("B", [1, 17, 37, 128, 300])
+def test_k1_group_kernel_matches_plain(cuda, B, cluster, coins, eos_bias):
+    """The row-group K1 against its plain version in both modes at ragged
+    and full groups (B = 1, 17, 37: one to three groups, the last part
+    empty; 300: more groups than the card holds at once): decisions on
+    >= 0.999 of rows (or, where a small batch falls short, each differing
+    row's first difference a near-tie), lengths, the summary, hs and the
+    logits within 1e-4 (x (1 + max|plain|) for logits), the CE numerators
+    within 1e-5 on the agreeing rows; two launches give the same bits,
+    stash included."""
+    cfg, cw, inp = _k1_case(B, seed=B + cluster, eos_bias=eos_bias,
+                            coins=coins)
+    spec = cfg.pianotree
+    with torch.no_grad():
+        got = _k1_both_modes(cw, spec, inp, cluster)
+        again = _k1_both_modes(cw, spec, inp, cluster)
+        want = train_frame.frame_recon_plain(cw, spec, **inp)
+        want_l = train_frame.frame_core_plain(cw, spec, **_core_inputs(inp))
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    n_st = len(train_frame.Stash._fields)
+    nums, summ, lens, dec = got[:4]
+    st = train_frame.Stash(*got[4:4 + n_st])
+    pitch, dur, summ_l, lens_l, dec_l = got[4 + n_st:9 + n_st]
+    want_dec = torch.cat([want.pitch[..., None], want.bits], -1)
+    rows = (dec == want_dec).flatten(1).all(1) & (lens == want.lengths)
+    # f32 sums in another order than the plain version's flip only
+    # near-ties: in a batch too small for the 0.999 bar, every differing
+    # row's first difference must be within 1e-5 of a tie of the plain
+    # logits
+    margins = _first_difference_margins(dec, want_dec, want_l)
+    assert rows.float().mean().item() >= AGREE or (
+        margins.max().item() <= 1e-5), margins
+    assert torch.equal(dec, dec_l) and torch.equal(lens, lens_l)
+    assert torch.equal(pitch.argmax(-1).to(torch.int32), dec[..., 0])
+    if not rows.any():
+        return
+    assert (summ - want.summary).abs()[rows].max().item() <= 1e-4
+    assert (st.hs - want.hs).abs()[:, rows].max().item() <= 1e-4
+    for a, b in ((pitch, want_l.pitch_logits), (dur, want_l.dur_logits),
+                 (summ_l, want_l.summary)):
+        assert (a - b)[rows].abs().max().item() <= 1e-4 * (
+            1.0 + b.abs().max().item())
+    sub = {k: (v if k == "coins" else v[rows]) for k, v in inp.items()}
+    with torch.no_grad():
+        nums = train_frame.frame_fwd(cw, spec, **sub, stash=False,
+                                     cluster=cluster)[0]
+        want_nums = train_frame.frame_recon_plain(cw, spec, **sub).nums
+    rel = (nums - want_nums).abs() / want_nums.abs().clamp(min=1e-30)
+    assert rel.max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("cluster", [8, 16])
+@pytest.mark.parametrize("B", [1, 37, 300])
+def test_k1_group_kernel_bf16_matches_plain(cuda, B, cluster):
+    """bf16: each row's first differing decision a near-tie of the plain
+    logits, decided slots >= 0.99, lengths >= 0.99; two launches give the
+    same bits."""
+    cfg, cw, inp = _k1_case(B, seed=3 * B + cluster, eos_bias=0.1,
+                            coins="zero", dtype=torch.bfloat16)
+    spec = cfg.pianotree
+    with torch.no_grad():
+        got = _k1_both_modes(cw, spec, inp, cluster)
+        again = _k1_both_modes(cw, spec, inp, cluster)
+        want = train_frame.frame_core_plain(cw, spec, **_core_inputs(inp))
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    dec, lens = got[3], got[2]
+    want_dec = torch.cat([
+        want.pitch_logits.argmax(-1, keepdim=True).to(torch.int32),
+        (want.dur_logits[..., 1] > want.dur_logits[..., 0]).to(torch.int32)],
+        -1)
+    slots = (dec == want_dec).all(-1)
+    assert slots.float().mean().item() >= 0.99
+    assert (lens == want.lengths).float().mean().item() >= 0.99
+    margins = _first_difference_margins(dec, want_dec, want)
+    assert len(margins) == 0 or margins.max().item() <= 1e-2
+
+
+def test_k1_phases_alone_and_together(cuda):
+    """Each timing phase of K1 launches alone at both cluster sizes; the
+    phases launched together give the bits of the wrapper's launch."""
+    from pctd_tpu_torch.ops.kernels import build
+
+    cfg, cw, inp = _k1_case(37, seed=5, eos_bias=0.1, coins="zero")
+    spec = cfg.pianotree
+    d = train_frame.dims_of(cw, spec)
+    B, S, W = 37, spec.max_simu_note - 1, spec.dur_width
+    i32 = dict(dtype=torch.int32, device=cuda)
+
+    def outs():
+        return [torch.empty(B, 1 + W, device=cuda),
+                torch.empty(B, 2 * d.EH, device=cuda),
+                torch.empty(B, **i32), torch.empty(B, S, 1 + W, **i32)]
+    ins = [inp[k] for k in ("coins", "frame_h", "x_emb", "gt_pitch",
+                            "gt_dur")]
+    for cluster in (8, 16):
+        for bit in build.K1_PHASES.values():
+            build.launch_train_fwd(cw, d, B, [*ins, *outs()], None,
+                                   phases=bit, cluster=cluster)
+    torch.cuda.synchronize()
+    together = outs()
+    build.launch_train_fwd(cw, d, B, [*ins, *together], None)
+    with torch.no_grad():
+        want = train_frame.frame_fwd(cw, spec, **inp, stash=False)
+    assert torch.equal(together[0].sum(0), want[0])
+    for a, b in zip(together[1:], want[1:4]):
+        assert torch.equal(a, b)
+
+
+def test_k1_refuses_what_it_cannot_take(cuda):
+    """A cluster size K1 does not take, widths whose blocks' shared memory
+    would not fit (a 4096-wide notes GRU), and weights that do not start
+    16 bytes aligned refuse the launch."""
+    import dataclasses
+
+    cfg, cw, inp = _k1_case(5, seed=1, eos_bias=None, coins="zero")
+    spec = cfg.pianotree
+    for cluster in (2, 4, 32):
+        with pytest.raises(ValueError, match="clusters"):
+            train_frame.frame_fwd(cw, spec, **inp, stash=False,
+                                  cluster=cluster)
+    wide = dataclasses.replace(tiny_model_config(), dec_notes_hidden=4096)
+    dec, inw = _frame_case(wide, cuda, 2, 1)
+    cww = train_frame.CoreWeights(*(w.detach().contiguous()
+                                    for w in train_frame.core_weights(dec,
+                                                                      wide)))
+    for cluster in (8, 16):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            train_frame.frame_fwd(cww, wide.pianotree, **inw, stash=False,
+                                  cluster=cluster)
+    shifted = torch.empty(cw.w_t2n.numel() + 1, device=cuda)[1:]
+    shifted.copy_(cw.w_t2n.flatten())
+    with pytest.raises(ValueError, match="aligned"):
+        train_frame.frame_fwd(cw._replace(w_t2n=shifted.view_as(cw.w_t2n)),
+                              spec, **inp, stash=False)
+
+
+@pytest.mark.parametrize("rows", [1, 2, 4])
+@pytest.mark.parametrize("B", [37, 300])
+def test_k1_per_row_kernel_matches_plain(cuda, B, rows):
+    """K1's per-row kernel (the plan's pick where the row groups would run
+    in waves) against the plain version in both modes: decisions on >=
+    0.999 of rows (or each differing row's first difference a near-tie),
+    the summary within 1e-4 on the agreeing rows; two launches give the
+    same bits."""
+    cfg, cw, inp = _k1_case(B, seed=7 * B + rows, eos_bias=0.1,
+                            coins="mixed")
+    spec = cfg.pianotree
+    run = lambda: [*train_frame.frame_fwd(cw, spec, **inp, stash=True,
+                                          rows=rows)[:4],
+                   *train_frame.frame_core_fwd(cw, spec, **_core_inputs(inp),
+                                               stash=False, rows=rows)[:5]]
+    with torch.no_grad():
+        got, again = run(), run()
+        want = train_frame.frame_recon_plain(cw, spec, **inp)
+        want_l = train_frame.frame_core_plain(cw, spec, **_core_inputs(inp))
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    dec = torch.cat([want.pitch[..., None], want.bits], -1)
+    rows_ok = (got[3] == dec).flatten(1).all(1) & (got[2] == want.lengths)
+    margins = _first_difference_margins(got[3], dec, want_l)
+    assert rows_ok.float().mean().item() >= AGREE or (
+        margins.max().item() <= 1e-5), margins
+    assert torch.equal(got[3], got[8]) and torch.equal(got[2], got[7])
+    assert (got[1] - want.summary).abs()[rows_ok].max().item() <= 1e-4
