@@ -44,7 +44,16 @@ phase" times the row-group K1 whole (at both cluster sizes) and by phase
 at B=128 and 512 in both storage types and modes with every teacher coin
 0, measures one SM's bulk-copy rate from L2 (``csrc/l2_stream.cu``), and,
 given ``--parent-k1`` (the JSON line of ``tools/k1_by_rows.py`` run on a
-checkout of the per-row K1), prints the per-row times beside.
+checkout of the per-row K1), prints the per-row times beside. The
+training run: the train CLI (``pctd_tpu_torch.cli.train``) in this process
+for two epochs of 9 steps at B=128 on 8 synthetic songs (launch counts,
+epoch lines, checkpoints, ``metrics.csv`` rows, a profile trace), a run
+resumed from a checkpoint against two uninterrupted runs (the same bits),
+the evaluate CLI on the run's checkpoint against the plain frames, the
+pianotree texture encoder (its detrend on the card against the numpy copy,
+three steps, step 1 against the plain path) and the automatic
+accumulation's step envelope (the bytes of an f32 step at B=128 and 512,
+against the committed ``train.trainer.STEP_ENVELOPE``).
 Prints one line per phase with its seconds, a ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``. Exits nonzero,
 printing no result, without a CUDA card or when any phase fails. Imports
@@ -58,25 +67,36 @@ import contextlib
 import copy
 import ctypes
 import dataclasses
+import io
+import itertools
 import json
+import os
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from pctd_tpu_torch.config import ModelConfig, TrainConfig
+from pctd_tpu_torch.cli import evaluate as cli_evaluate
+from pctd_tpu_torch.cli import train as cli_train
+from pctd_tpu_torch.config import DataConfig, ModelConfig, TrainConfig
+from pctd_tpu_torch.data.detrend import detrend_pianotree_batch
 from pctd_tpu_torch.data.loaders import SegmentCorpus, make_loaders
+from pctd_tpu_torch.data.synthetic import synthetic_corpora
 from pctd_tpu_torch.models import disentangle_vae as dv
 from pctd_tpu_torch.models import pianotree_decoder as ptd
+from pctd_tpu_torch.models import texture_encoder as txt_enc
 from pctd_tpu_torch.models.sampler import Sampler
 from pctd_tpu_torch.ops.kernels import ar_decoder, build, full_decoder
 from pctd_tpu_torch.ops.kernels import train_frame as tf
 from pctd_tpu_torch.train import trainer as tr
+from pctd_tpu_torch.train.logging import RunPaths
 from pctd_tpu_torch.train.optim import global_norm
+from pctd_tpu_torch.utils import device_mem
 from pctd_tpu_torch.utils.cuda_timing import cuda_ms, queued_ms
 from pctd_tpu_torch.utils.precision import cast_params
 
@@ -151,6 +171,17 @@ K1_REPS = 10            # launches a K1 timing averages
 # K1 vs plain: the plan's row groups (37: clusters of 16; 128: of 8) and
 # per-row kernel (512: 4 rows a block)
 K1_B = (128, 37, 512)
+# the training run (phase "training run"): the CLI's synthetic corpus of 8
+# songs at the default seed 3345 is 105 train / 15 val segments, 9 steps
+# of 128 an epoch and one val batch of 15 rows
+RUN_SONGS = 8
+RUN_EPOCHS = 2
+RUN_LOG_EVERY = 4
+RUN_STEPS = 9
+RESUME_STEPS = 4       # uninterrupted; the resumed run saves after 2
+PT_STEPS = 3           # pianotree-variant train steps
+ENVELOPE_B = (128, 512)  # the auto-accumulation envelope's two batches
+ENVELOPE_SHARE = 0.9   # of the card's memory
 
 
 class PhaseFailed(RuntimeError):
@@ -1090,6 +1121,326 @@ def agreement(a, b) -> float:
     return (a == b).float().mean().item()
 
 
+def captured(fn):
+    """``fn()``'s result and its standard output, which is printed too."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    print("\n".join("  | " + ln for ln in buf.getvalue().splitlines()))
+    return out, buf.getvalue()
+
+
+def step_footprint(trainer, batch) -> int:
+    """Bytes one train step needs: the trainer's params and Adam moments
+    plus the peak allocation the step adds (torch.cuda.
+    max_memory_allocated), so tensors of other phases do not count."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    state = sum(t.numel() * t.element_size()
+                for t in trainer.leaves + trainer.opt.mu + trainer.opt.nu)
+    return state + torch.cuda.max_memory_allocated() - before
+
+
+def training_run_phases(args, cfg, dev, counted, step_ms: float) -> dict:
+    """The phases of the training run: the train CLI (two epochs with
+    checkpoints, metric writers and a profile), a resumed run against
+    uninterrupted ones, the evaluate CLI on the run's checkpoint, the
+    pianotree texture encoder, and the automatic accumulation's envelope.
+    ``step_ms`` is ``Trainer.train_step``'s median from the phase
+    "training", printed beside the epoch loop's."""
+    spec = cfg.pianotree
+    T = spec.num_step
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="pctd_run_")
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+    fused_k = {"K1": tf.frame_fwd, "K2a": tf.frame_bwd,
+               "K2b": tf.weight_grads}
+    reset = lambda: [setattr(f, "launches", 0) for f in counted]
+
+    def launches_of(ks):
+        got = {k: f.launches for k, f in ks.items()}
+        others = {f.__name__: f.launches for f in counted
+                  if f not in ks.values()}
+        return got, others
+
+    # 9d. the training run through the CLI, in this process
+    t0 = time.perf_counter()
+    argv = ["--epochs", str(RUN_EPOCHS), "--batch-size", str(TRAIN_B),
+            "--synthetic-songs", str(RUN_SONGS), "--log-every",
+            str(RUN_LOG_EVERY), "--profile", "1", "--result-dir", tmp]
+    print(f"  python -m pctd_tpu_torch.cli.train {' '.join(argv)}")
+    reset()
+    result, text = captured(lambda: cli_train.main(argv))
+    torch.cuda.synchronize()
+    got, others = launches_of(fused_k)
+    steps = RUN_EPOCHS * RUN_STEPS
+    print(f"  launches in {RUN_EPOCHS} epochs ({steps} steps, "
+          f"{RUN_EPOCHS} eval batches): {got}; other frame and decode "
+          f"kernels {others}")
+    check(f"corpus: 105 train / 15 val segments (synthetic, {RUN_SONGS} "
+          "songs)" in text, "the CLI's corpus line")
+    for e in range(1, RUN_EPOCHS + 1):
+        check(f"Epoch: {e:02} |" in text, f"epoch line {e}")
+    check(got == {"K1": T * (steps + RUN_EPOCHS), "K2a": T * steps,
+                  "K2b": T * steps}, f"training-run launches {got}")
+    check(not any(others.values()),
+          f"the training run launched another kernel: {others}")
+    val_loss = result["val"]["loss"]
+    check(np.isfinite(val_loss) and val_loss > 0, f"val loss {val_loss}")
+    check(result["train_steps"] == RUN_STEPS,
+          f"steps an epoch: {result['train_steps']}")
+    run_dir, = [os.path.join(tmp, d) for d in os.listdir(tmp)
+                if d.startswith("result_")]
+    for tag in ("epoch", "valid", "final"):
+        check(os.path.isfile(os.path.join(run_dir, "models",
+                                          f"disvae_{tag}")),
+              f"checkpoint {tag}")
+    with open(os.path.join(run_dir, "final_metrics.json")) as f:
+        check(json.load(f)["val"]["loss"] == val_loss,
+              "final_metrics.json")
+    with open(os.path.join(run_dir, "writers", "metrics.csv")) as f:
+        rows = [ln.split(",")[:2] for ln in f.read().splitlines()[1:]]
+    want = ([["train", str(i)] for i in range(0, steps, RUN_LOG_EVERY)]
+            + [["val", str(i)] for i in range(0, RUN_EPOCHS,
+                                                RUN_LOG_EVERY)])
+    check(sorted(rows) == sorted(want), f"metrics.csv rows {rows}")
+    traces = os.listdir(os.path.join(run_dir, "profile"))
+    trace_mb = sum(os.path.getsize(os.path.join(run_dir, "profile", t))
+                   for t in traces) / 1e6
+    check(traces == ["train_steps_2_3.json"] and trace_mb > 0,
+          f"profile trace {traces}")
+    loop_ms = result["train_seconds"] / result["train_steps"] * 1e3
+    print(f"  epoch {RUN_EPOCHS}: {result['epoch_seconds']:.3f} s "
+          f"({result['train_seconds']:.3f} s of {RUN_STEPS} train steps, "
+          f"{loop_ms:.2f} ms a step in the epoch loop, host reads every "
+          f"{RUN_LOG_EVERY} steps; Trainer.train_step, which reads every "
+          f"step: {step_ms:.2f} ms); val loss {val_loss:.6f}; metrics.csv "
+          f"{len(rows)} rows; profile trace {trace_mb:.1f} MB")
+    out["run"] = {"epoch_seconds": result["epoch_seconds"],
+                  "train_seconds": result["train_seconds"],
+                  "steps": RUN_STEPS, "loop_step_ms": loop_ms,
+                  "train_step_ms": step_ms, "launches": got,
+                  "val_loss": val_loss}
+    phase("training run", t0)
+
+    # 9e. resume: 2 steps, a checkpoint, a fresh Trainer restored from it,
+    # 2 more steps, against two uninterrupted runs of 4
+    t0 = time.perf_counter()
+    dcfg = DataConfig()
+    train_c, val_c = synthetic_corpora(n_songs=RUN_SONGS, seed=dcfg.seed,
+                                       cfg=dcfg)
+    loader, _ = make_loaders(train_c, val_c, TRAIN_B, seed=args.seed)
+    batches = list(itertools.islice(loader.epoch(), RESUME_STEPS))
+    tcfg = TrainConfig(batch_size=TRAIN_B, accum_steps=1, seed=args.seed)
+    fresh = lambda **kw: tr.Trainer(cfg, tcfg, None, device=dev, **kw)
+    runs = []
+    for _ in range(2):
+        t = fresh()
+        for b in batches:
+            t.train_step(b)
+        runs.append(t)
+    half = fresh(run_paths=RunPaths(root="resume", with_date=False,
+                                    base_dir=tmp))
+    for b in batches[:2]:
+        half.train_step(b)
+    half.save_checkpoint("half")
+    resumed = fresh()
+    resumed.restore_checkpoint(half.run_paths.model_path(half.name, "half"))
+    for b in batches[2:]:
+        resumed.train_step(b)
+
+    def state(t):
+        return t.leaves + t.opt.mu + t.opt.nu
+
+    def diff(a, b):
+        """(largest |difference| of the states, of the step-4 metrics)."""
+        ds = max((x.detach() - y.detach()).abs().max().item()
+                 for x, y in zip(state(a), state(b)))
+        dm = max(abs(a.history[-1][k] - b.history[-1][k])
+                 for k in dv.METRIC_NAMES)
+        return ds, dm
+
+    same = lambda a, b: (all(torch.equal(x, y) for x, y in
+                             zip(state(a), state(b)))
+                         and a.history[-1] == b.history[-1]
+                         and a.grad_norms[-1] == b.grad_norms[-1]
+                         and a.opt.count == b.opt.count
+                         and a.step_count == b.step_count)
+    twice = same(*runs)
+    bits = same(resumed, runs[0])
+    spread, off = diff(*runs), diff(resumed, runs[0])
+    print(f"  two uninterrupted runs of {RESUME_STEPS} steps bit-identical: "
+          f"{twice} (max |diff| params+Adam {spread[0]:.3g}, step-4 metrics "
+          f"{spread[1]:.3g}); resumed (2 + save + restore + 2) vs "
+          f"uninterrupted bit-identical: {bits} (max |diff| {off[0]:.3g}, "
+          f"{off[1]:.3g}); step 4 loss {resumed.history[-1]['loss']!r} vs "
+          f"{runs[0].history[-1]['loss']!r}")
+    if twice:
+        check(bits, f"the resumed run differs from the uninterrupted one: "
+              f"{off}")
+    else:
+        check(off[0] <= spread[0] and off[1] <= spread[1],
+              f"the resumed run differs by {off}, more than two "
+              f"uninterrupted runs do: {spread}")
+    out["resume"] = {"uninterrupted_bit_identical": twice,
+                     "resumed_bit_identical": bits,
+                     "uninterrupted_max_diff": spread,
+                     "resumed_max_diff": off}
+    del runs, half, resumed
+    phase("resume", t0)
+
+    # 9f. the evaluate CLI on the run's final checkpoint, deterministic,
+    # through the kernels and through the plain frame path
+    t0 = time.perf_counter()
+    ck = os.path.join(run_dir, "models", "disvae_final")
+    ev_argv = ["--checkpoint", ck, "--deterministic", "--batch-size",
+               str(TRAIN_B), "--synthetic-songs", str(RUN_SONGS)]
+    print(f"  python -m pctd_tpu_torch.cli.evaluate {' '.join(ev_argv)}")
+    reset()
+    ev, _ = captured(lambda: cli_evaluate.main(ev_argv))
+    k1_eval = tf.frame_fwd.launches
+    with plain_frames():
+        ev_plain, _ = captured(lambda: cli_evaluate.main(ev_argv))
+    check(tf.frame_fwd.launches == k1_eval == T * ev["num_batches"],
+          f"evaluate K1 launches {k1_eval}, then {tf.frame_fwd.launches} "
+          "with the plain frames")
+    ev_err = max(rel(ev[k], ev_plain[k]) for k in dv.METRIC_NAMES)
+    print(f"  deterministic evaluate, kernels vs the plain frames: loss "
+          f"{ev['loss']!r} vs {ev_plain['loss']!r}; 11 metrics max rel err "
+          f"{ev_err:.3g}")
+    check(all(np.isfinite(ev[k]) for k in dv.METRIC_NAMES),
+          f"evaluate {ev}")
+    check(ev_err <= LOSS_RTOL, f"evaluate vs plain rel err {ev_err}")
+    out["evaluate"] = {"metrics": ev, "vs_plain_rel_err": ev_err}
+    phase("evaluate", t0)
+
+    # 9g. the pianotree texture encoder: its detrend on the card against
+    # the numpy copy, and training through K1/K2 with step 1 held against
+    # the plain path
+    t0 = time.perf_counter()
+    cfg_pt = dataclasses.replace(cfg, txt_encoder="pianotree")
+    idx = np.arange(TRAIN_B)
+    pr = torch.as_tensor(train_c.pr[idx % len(train_c)], device=dev)
+    chord = torch.as_tensor(train_c.chord[idx % len(train_c)], device=dev)
+    shift = torch.as_tensor(idx % 12 - 6, dtype=torch.int32, device=dev)
+    x, c, pr_mat, dt_x = tr.batch_features(pr, chord, shift, cfg_pt)
+    dt_np = detrend_pianotree_batch(x.cpu().numpy(), c.cpu().numpy())
+    exact = np.array_equal(dt_x.cpu().numpy(), dt_np)
+    print(f"  detrend on the card vs the numpy copy, B={TRAIN_B} over 12 "
+          f"shifts: equal {exact}")
+    check(exact, "the device detrend differs from the numpy copy")
+    pt_train, pt_val = make_loaders(train_c, val_c, TRAIN_B, seed=args.seed)
+    pt = tr.Trainer(cfg_pt, tcfg, pt_train, pt_val, device=dev)
+    first = next(make_loaders(train_c, val_c, TRAIN_B,
+                              seed=args.seed)[0].epoch())
+    fx = tr.batch_features(*pt._to_device(first), cfg_pt)
+    with plain_frames():
+        ref_m, ref_g = tr.loss_and_grads(
+            pt.params, cfg_pt, tcfg, 0,
+            torch.Generator(device=dev).manual_seed(tcfg.seed), *fx[:3],
+            1, fx[3])
+    ref_m = {k: v.item() for k, v in ref_m.items()}
+    ref_norm = global_norm(ref_g).item()
+    del ref_g
+    reset()
+    pt.train_steps(PT_STEPS)
+    pt_val_m = pt.eval_epoch()
+    torch.cuda.synchronize()
+    got, others = launches_of(fused_k)
+    n_val = len(pt_val)
+    print(f"  launches in {PT_STEPS} pianotree train steps + {n_val} eval "
+          f"batch(es): {got}; other kernels {others}")
+    check(got == {"K1": T * (PT_STEPS + n_val), "K2a": T * PT_STEPS,
+                  "K2b": T * PT_STEPS}, f"pianotree launches {got}")
+    check(not any(others.values()),
+          f"the pianotree path launched another kernel: {others}")
+    for i, m in enumerate(pt.history):
+        print(f"  step {i + 1}: loss {m['loss']:.6f} kl_rhy "
+              f"{m['kl_rhy']:.6f} grad norm {pt.grad_norms[i]:.6f} "
+              f"({pt.step_seconds[i] * 1e3:.1f} ms)")
+        check(all(np.isfinite(v) for v in m.values()),
+              f"pianotree step {i + 1} {m}")
+    check(all(np.isfinite(v) for v in pt_val_m.values()),
+          f"pianotree val {pt_val_m}")
+    pt_err = max(rel(pt.history[0][k], ref_m[k]) for k in dv.METRIC_NAMES)
+    pt_norm_err = rel(pt.grad_norms[0], ref_norm)
+    print(f"  step 1 vs the plain path on the card: loss "
+          f"{pt.history[0]['loss']!r} vs {ref_m['loss']!r}; 11 metrics max "
+          f"rel err {pt_err:.3g}; grad norm {pt.grad_norms[0]!r} vs "
+          f"{ref_norm!r} (rel err {pt_norm_err:.3g})")
+    check(pt_err <= LOSS_RTOL, f"pianotree step 1 rel err {pt_err}")
+    check(pt_norm_err <= NORM_RTOL,
+          f"pianotree step 1 grad norm rel err {pt_norm_err}")
+    pt_step_ms = float(np.median(pt.step_seconds[1:])) * 1e3
+    pt_prof = profile_call(lambda: pt.train_step(first), "pianotree step")
+    leaves = tr.param_list(pt.params["txt_enc"])
+
+    def encoder_fwd_bwd():
+        dist = txt_enc.apply_pianotree(pt.params["txt_enc"], fx[3],
+                                       txt_enc.lengths_from_detrended(fx[3]))
+        torch.autograd.grad((dist.mean.sum() + dist.std.sum()), leaves)
+
+    enc_prof = profile_call(encoder_fwd_bwd,
+                            "pianotree encoder forward + backward")
+    enc_ms = (enc_prof.get("device_busy_ms") if enc_prof["measured"]
+              else None)
+    print(f"  pianotree train step (median of steps 2..{PT_STEPS}): "
+          f"{pt_step_ms:.2f} ms; the encoder's device time, forward + "
+          f"backward at B={TRAIN_B}: {enc_ms} ms")
+    out["pianotree"] = {"step_ms_median_2_to_n": pt_step_ms,
+                        "step1_metric_rel_err": pt_err,
+                        "step1_grad_norm_rel_err": pt_norm_err,
+                        "launches": got, "profile": pt_prof,
+                        "encoder_device_ms": enc_ms}
+    del pt
+    phase("pianotree variant", t0)
+
+    # 9h. the automatic accumulation's envelope: the bytes of an f32 step
+    # (CE fused in) at two batch sizes, extrapolated to 90% of the card
+    t0 = time.perf_counter()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    envelopes = {}
+    for enc in ("conv", "pianotree"):
+        cfg_e = dataclasses.replace(cfg, txt_encoder=enc)
+        foot = {}
+        for B in ENVELOPE_B:
+            tcfg_e = TrainConfig(batch_size=B, accum_steps=1, seed=args.seed)
+            lb, _ = make_loaders(train_c, val_c, B, seed=args.seed)
+            t = tr.Trainer(cfg_e, tcfg_e, lb, device=dev)
+            it = t.batches()
+            t.train_step(next(it))          # first use: panels, caches
+            foot[B] = step_footprint(t, next(it))
+            del t, it
+        (b0, f0), (b1, f1) = sorted(foot.items())
+        slope = (f1 - f0) / (b1 - b0)
+        fixed = f0 - b0 * slope
+        env = int((ENVELOPE_SHARE * total - fixed) / slope) // 128 * 128
+        envelopes[enc] = {"footprint_bytes": foot, "bytes_a_segment": slope,
+                          "fixed_bytes": fixed, "envelope": env,
+                          "committed": tr.STEP_ENVELOPE[enc]}
+        print(f"  {enc}: an f32 step takes " + ", ".join(
+            f"{v / 1e9:.3f} GB at B={k}" for k, v in foot.items())
+            + f"; {slope / 1e6:.3f} MB a segment + {fixed / 1e9:.3f} GB; "
+            f"{ENVELOPE_SHARE:.0%} of {total} B holds B={env}; committed "
+            f"STEP_ENVELOPE {tr.STEP_ENVELOPE[enc]}")
+    for enc, e in envelopes.items():
+        check(e["committed"] <= e["envelope"], f"{enc}: the committed "
+              f"envelope {e['committed']} exceeds the measured "
+              f"{e['envelope']}")
+    auto = tr.auto_accum_steps(cfg, TrainConfig(batch_size=TRAIN_B), dev)
+    print(f"  card memory {total} B (device_mem.MEASURED_HBM "
+          f"{device_mem.MEASURED_HBM}); auto_accum_steps at B={TRAIN_B}: "
+          f"{auto}")
+    check(auto == 1, f"auto_accum_steps at B={TRAIN_B} is {auto}")
+    out["envelope"] = {"card_bytes": total, **envelopes}
+    phase("auto accumulation", t0)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1829,7 +2180,7 @@ def main() -> int:
     trainer = tr.Trainer(cfg, tcfg, train_b, val_b, device=dev)
     # the same loader again, for the first batch the trainer will take
     first = next(make_loaders(*corpora, TRAIN_B, seed=args.seed)[0].epoch())
-    x, c, pr_mat = tr.batch_features(*trainer._to_device(first), cfg)
+    x, c, pr_mat, _ = tr.batch_features(*trainer._to_device(first), cfg)
     k1_before = tf.frame_fwd.launches
     with plain_frames():
         ref_m, ref_g = tr.loss_and_grads(
@@ -2083,6 +2434,10 @@ def main() -> int:
     check(b_modes_err <= MODES_RTOL,
           f"bf16 logits-out vs fused step 1 metrics rel err {b_modes_err}")
     bf16_runs["logits out"]["step1_vs_fused_rel_err"] = b_modes_err
+
+    # 9d-9h. the training run: the train CLI, resume, the evaluate CLI,
+    # the pianotree texture encoder, the automatic accumulation
+    training_run = training_run_phases(args, cfg, dev, counted, step_ms)
 
     # 10. timing
     t0 = time.perf_counter()
@@ -2752,7 +3107,8 @@ def main() -> int:
     print(json.dumps({"serving": serving, "serving_bf16": serving_bf16,
                       "training": training,
                       "training_logits_out": training_lo,
-                      "training_bf16": training_bf16, "card": card}))
+                      "training_bf16": training_bf16,
+                      "training_run": training_run, "card": card}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}))

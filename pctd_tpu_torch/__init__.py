@@ -12,11 +12,16 @@ Layout mirrors ``pctd_tpu`` so each module's counterpart is easy to find:
 - ``pctd_tpu_torch.models``   chord/texture encoders, the chord decoder, the
                               PianoTree decoder, the latent-control API and
                               loss, and the fixed-batch ``Sampler``
-- ``pctd_tpu_torch.data``     on-device tensorize and the batch loaders
-- ``pctd_tpu_torch.train``    schedules, clip + Adam, train/eval steps and
-                              the ``Trainer``
+- ``pctd_tpu_torch.data``     the corpus pipeline (score, corpus, synthetic
+                              songs), on-device tensorize and detrend, and
+                              the batch loaders
+- ``pctd_tpu_torch.train``    schedules, clip + Adam, train/eval steps, the
+                              ``Trainer`` and its epoch loop, checkpoints and
+                              metric writers
+- ``pctd_tpu_torch.cli``      ``python -m pctd_tpu_torch.cli.train`` and
+                              ``...cli.evaluate``
 - ``pctd_tpu_torch.utils``    init distributions, the weight bridge from the
-                              JAX parameter tree, device selection
+                              JAX parameter tree, device selection and memory
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

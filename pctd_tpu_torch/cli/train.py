@@ -1,0 +1,130 @@
+"""Train the chord/texture-disentangled VAE on the card (the port's
+counterpart of the JAX package's ``train.py``).
+
+Defaults are the canonical configuration (conv texture encoder); pass
+``--variant pianotree`` for the PianoTree texture encoder. Without an npz
+corpus at ``--data-path`` a synthetic corpus is generated. Runs on
+``cuda`` unless ``--device cpu`` is given.
+
+Examples:
+    python -m pctd_tpu_torch.cli.train --epochs 6 --batch-size 128
+    python -m pctd_tpu_torch.cli.train --variant pianotree --synthetic-songs 40
+    python -m pctd_tpu_torch.cli.train --device cpu --epochs 1 --batch-size 8
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+from typing import Optional, Sequence
+
+import torch
+
+from pctd_tpu_torch.config import DataConfig, ModelConfig, TrainConfig
+from pctd_tpu_torch.data.loaders import make_loaders
+from pctd_tpu_torch.models.disentangle_vae import METRIC_NAMES
+from pctd_tpu_torch.train.logging import MetricWriters, RunPaths
+from pctd_tpu_torch.train.trainer import Trainer
+from pctd_tpu_torch.utils.device import resolve_device
+
+
+def load_corpora(data_path: str, synthetic_songs: int, dcfg: DataConfig):
+    """(train, val) corpora and a description of where they came from: the
+    npz corpus when ``data_path`` is a directory, else synthetic songs."""
+    if os.path.isdir(data_path):
+        from pctd_tpu_torch.data.corpus import prepare_dataset
+
+        return (*prepare_dataset(dcfg), f"npz at {data_path}")
+    from pctd_tpu_torch.data.synthetic import synthetic_corpora
+
+    return (*synthetic_corpora(n_songs=synthetic_songs, seed=dcfg.seed,
+                               cfg=dcfg),
+            f"synthetic, {synthetic_songs} songs")
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
+    ap.add_argument("--epochs", type=int, default=6)
+    ap.add_argument("--batch-size", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--beta", type=float, default=0.1)
+    ap.add_argument("--clip", type=float, default=1.0)
+    ap.add_argument("--seed", type=int, default=3345)
+    ap.add_argument("--variant", choices=["conv", "pianotree"],
+                    default="conv")
+    ap.add_argument("--name", default="disvae")
+    ap.add_argument("--data-path",
+                    default="data/POP09-PIANOROLL-4-bin-quantization")
+    ap.add_argument("--synthetic-songs", type=int, default=40,
+                    help="synthetic corpus size when no npz data exists")
+    ap.add_argument("--sched-horizon", type=float, default=1.0)
+    ap.add_argument("--log-every", type=int, default=16,
+                    help="write a step's metrics every N train steps (epoch "
+                         "means are summed on the device regardless)")
+    ap.add_argument("--eval-fixed-schedule", action="store_true",
+                    help="evaluate at the schedules' final tfr/beta values")
+    ap.add_argument("--result-dir", default=".")
+    ap.add_argument("--compute-dtype", choices=["float32", "bfloat16"],
+                    default="float32")
+    ap.add_argument("--fused-loss", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="fuse the reconstruction CE into the frame kernels "
+                         "(--no-fused-loss: logits out, scored apart)")
+    ap.add_argument("--accum-steps", type=int, default=0,
+                    help="gradient-accumulation microbatches a step (0 = "
+                         "auto: engage when the batch exceeds the card's "
+                         "measured step envelope)")
+    ap.add_argument("--profile", type=int, default=0, metavar="N",
+                    help="take a torch.profiler trace of N early steps")
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu")
+    return ap
+
+
+def main(argv: Optional[Sequence[str]] = None,
+         model_config: Optional[ModelConfig] = None) -> dict:
+    """Train as the flags say; ``model_config`` replaces the canonical
+    widths (the flags' variant, dtype and loss mode still apply). Returns
+    the last epoch's metrics, also written to ``<run>/final_metrics.json``."""
+    args = parser().parse_args(argv)
+    device = resolve_device(args.device)
+    mcfg = dataclasses.replace(model_config or ModelConfig(),
+                               txt_encoder=args.variant,
+                               compute_dtype=args.compute_dtype,
+                               fused_loss=args.fused_loss)
+    tcfg = TrainConfig(batch_size=args.batch_size, n_epoch=args.epochs,
+                       lr=args.lr, beta=args.beta, clip_norm=args.clip,
+                       seed=args.seed, sched_horizon=args.sched_horizon,
+                       eval_fixed_schedule=args.eval_fixed_schedule,
+                       accum_steps=args.accum_steps)
+    dcfg = DataConfig(data_path=args.data_path, seed=args.seed)
+    train_c, val_c, source = load_corpora(args.data_path,
+                                          args.synthetic_songs, dcfg)
+    print(f"corpus: {len(train_c)} train / {len(val_c)} val segments "
+          f"({source})")
+    tl, vl = make_loaders(train_c, val_c, args.batch_size, dcfg.shift_low,
+                          dcfg.shift_high, seed=args.seed)
+    paths = RunPaths(readme_fn=__file__, base_dir=args.result_dir)
+    writers = MetricWriters(METRIC_NAMES, paths.writer_path)
+    trainer = Trainer(mcfg, tcfg, tl, vl, device=device, name=args.name,
+                      run_paths=paths, writers=writers,
+                      log_every=args.log_every,
+                      profile_steps=((2, 2 + args.profile) if args.profile
+                                     else None))
+    print(f"device: {device}"
+          + (f" ({torch.cuda.get_device_name(device)})"
+             if device.type == "cuda" else ""))
+    try:
+        result = trainer.run()
+    finally:
+        writers.close()
+    with open(os.path.join(paths.log_path, "final_metrics.json"), "w") as f:
+        json.dump(result, f, indent=2)
+    print("Model saved.")
+    return result
+
+
+if __name__ == "__main__":
+    main()

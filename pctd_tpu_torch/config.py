@@ -3,7 +3,7 @@
 (``pctd_tpu/config.py``), kept here because the port may not import
 ``pctd_tpu``. Field names and defaults are the JAX package's, so a config
 can be rebuilt from the other package's ``dataclasses.asdict``.
-``DataConfig`` comes with the corpus pipeline.
+``DataConfig`` (the corpus settings) is a copy of the JAX package's too.
 """
 from __future__ import annotations
 
@@ -66,7 +66,11 @@ class ModelConfig:
     ``train.trainer.Trainer``, with the train-frame kernels K1/K2 in their
     bf16 mode on the card) and by ``disentangle_vae.encode``; the serving
     entry points (``decode_z``, ``decode_grid``, ``Sampler``) take float32
-    only."""
+    only.
+
+    ``txt_encoder`` is "conv" or "pianotree" (the PtvaeEncoder over the
+    detrended grid, ``ptenc_*`` widths) for training, ``encode`` and the
+    loss; the serving entry points take "conv" only."""
 
     chd_z_dim: int = 256
     txt_z_dim: int = 256
@@ -112,18 +116,23 @@ class ModelConfig:
 
 def check_config(cfg: ModelConfig, frame_decoder: Optional[str] = None
                  ) -> None:
-    """Raise unless the port runs ``cfg``: the conv texture encoder and a
-    ``compute_dtype`` of float32 or bfloat16. The decode entry points name
-    their ``frame_decoder``: ``"full"`` (the K4 kernel) decodes in float32
-    only, ``"frame"`` (the K3 kernel) in either dtype."""
-    if cfg.txt_encoder != "conv":
-        raise NotImplementedError(
-            f"texture encoder {cfg.txt_encoder!r}: the port runs 'conv'")
+    """Raise unless the port runs ``cfg``: a texture encoder of "conv" or
+    "pianotree" and a ``compute_dtype`` of float32 or bfloat16. The decode
+    entry points name their ``frame_decoder``: they serve the conv encoder
+    only; ``"full"`` (the K4 kernel) decodes in float32 only, ``"frame"``
+    (the K3 kernel) in either dtype."""
+    if cfg.txt_encoder not in ("conv", "pianotree"):
+        raise ValueError(f"texture encoder {cfg.txt_encoder!r}: the port "
+                         "runs 'conv' and 'pianotree'")
     if cfg.compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: the port "
                          "runs 'bfloat16' and 'float32'")
     if frame_decoder is None:
         return
+    if cfg.txt_encoder != "conv":
+        raise NotImplementedError(
+            f"texture encoder {cfg.txt_encoder!r}: the serving entry points "
+            "run 'conv' (the Sampler takes no detrended grid)")
     if frame_decoder not in ("full", "frame"):
         raise ValueError(f"frame_decoder must be 'full' or 'frame', "
                          f"got {frame_decoder!r}")
@@ -151,9 +160,10 @@ def tiny_model_config(**overrides) -> ModelConfig:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Training hyperparameters (the JAX package's ``TrainConfig``, same
-    fields and defaults). ``accum_steps=0`` (automatic in the JAX package)
-    means one microbatch here: sizing it from the device memory is not
-    ported yet."""
+    fields and defaults). ``accum_steps=0`` is automatic, as in the JAX
+    package: just enough microbatches that each stays inside the step
+    envelope measured on the card, scaled to the device's memory
+    (``train.trainer.auto_accum_steps``)."""
 
     batch_size: int = 128
     n_epoch: int = 6
@@ -174,3 +184,22 @@ class TrainConfig:
     accum_steps: int = 0
     result_root: str = "result"
     save_every_epoch: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """Corpus / tensorization settings (the JAX package's ``DataConfig``,
+    same fields and defaults). ``ref_meter_filter=True`` keeps the songs of
+    ``num_beats_per_measure == 2`` (the reference's literal filter) instead
+    of ``== ts``."""
+
+    data_path: str = "data/POP09-PIANOROLL-4-bin-quantization"
+    index_path: str = "data/index.xlsx"
+    seed: int = 3345
+    portion: int = 8            # train:val = portion:1
+    shift_low: int = -6
+    shift_high: int = 5
+    num_bar: int = 2
+    ts: int = 4                 # beats per bar
+    contain_chord: bool = True
+    ref_meter_filter: bool = False

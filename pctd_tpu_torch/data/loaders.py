@@ -1,25 +1,20 @@
 """Batch iteration over an in-memory segment corpus
 (``pctd_tpu/data/loaders.py``, numpy only).
 
-A corpus is anything with ``pr`` (N, 32, 128) uint8 onset/sustain/rest
-rolls, ``chord`` (N, 8, 14) raw chord rows and ``len()``; the index space is
+A corpus is a :class:`~pctd_tpu_torch.data.corpus.SegmentCorpus`, or
+anything with ``pr`` (N, 32, 128) uint8 onset/sustain/rest rolls,
+``chord`` (N, 8, 14) raw chord rows and ``len()``; the index space is
 N x (shift_high - shift_low + 1) (segment, transposition) pairs, and a batch
 is a gather from the packed arrays plus the shift vector. Tensorization runs
 on the device (:mod:`pctd_tpu_torch.data.tensorize`).
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, NamedTuple, Optional
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 
-
-class SegmentCorpus(NamedTuple):
-    pr: np.ndarray      # (N, 32, 128) uint8
-    chord: np.ndarray   # (N, 8, 14) float32
-
-    def __len__(self):
-        return self.pr.shape[0]
+from pctd_tpu_torch.data.corpus import SegmentCorpus  # noqa: F401
 
 
 class SegmentBatches:

@@ -3,8 +3,8 @@ uint8 segments -> pitch-shifted duration matrix, PianoTree grid and
 expanded chord, batched in tensor ops on the device that trains.
 
 Integer outputs equal the JAX package's exactly. The chord-relative
-``detrend`` features feed only the PianoTree texture encoder, which is not
-ported yet.
+``detrend`` features of the PianoTree texture encoder are in
+:mod:`pctd_tpu_torch.data.detrend`.
 """
 from __future__ import annotations
 

@@ -11,8 +11,11 @@ training loss (ELBO + auxiliary chord loss, the 11 ``METRIC_NAMES``).
 Pure functions over a params tree (JAX names and layouts), with noise from
 an explicit ``torch.Generator``. The loss takes its latent noise and teacher
 coins as inputs (:class:`Noise`, drawn by :func:`draw_noise`), since the
-JAX package's key splits cannot be reproduced in torch. The pianotree
-texture encoder is not ported yet. ``compute_dtype="bfloat16"`` runs
+JAX package's key splits cannot be reproduced in torch. With
+``txt_encoder="pianotree"`` the texture encoder reads the detrended grid
+``dt_x`` (:func:`pctd_tpu_torch.data.detrend.detrend_pianotree`), which
+``encode``, ``run`` and ``loss`` take; the decode entry points (and the
+workflows built on them) serve the conv variant only. ``compute_dtype="bfloat16"`` runs
 training and ``encode`` under the mixed-precision policy
 (:mod:`pctd_tpu_torch.utils.precision`: f32 master params cast inside,
 f32 Gaussian heads and losses) and ``decode_z`` in bf16 through the K3
@@ -46,7 +49,7 @@ def _apply_precision(params: dict, cfg: ModelConfig, *floats):
     if dtype == torch.float32:
         return (params,) + floats
     return (precision.cast_params(params, dtype),) + tuple(
-        f.to(dtype) for f in floats)
+        None if f is None else f.to(dtype) for f in floats)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
@@ -56,30 +59,40 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     ``chd_enc``, ``txt_enc``, ``dec`` and the training-only ``chd_dec``
     (drawn last, so a seed gives the served modules the same weights as
     before it was added). The params are float32 whatever
-    ``cfg.compute_dtype`` says (the master params of mixed precision)."""
+    ``cfg.compute_dtype`` says (the master params of mixed precision).
+    ``txt_enc`` is the variant ``cfg.txt_encoder`` names."""
     check_config(cfg)
     device = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
+    init_txt = (txt_enc.init_conv if cfg.txt_encoder == "conv"
+                else txt_enc.init_pianotree)
     params = {"chd_enc": chd_enc.init(gen, cfg),
-              "txt_enc": txt_enc.init_conv(gen, cfg),
+              "txt_enc": init_txt(gen, cfg),
               "dec": pt_dec.init(gen, cfg),
               "chd_dec": chd_dec.init(gen, cfg)}
     return params_to(params, device)
 
 
-def _encode(params: dict, pr_mat: torch.Tensor, c: torch.Tensor
+def _encode(params: dict, cfg: ModelConfig, pr_mat: torch.Tensor,
+            c: torch.Tensor, dt_x: Optional[torch.Tensor]
             ) -> Tuple[DiagNormal, DiagNormal]:
-    return (chd_enc.apply(params["chd_enc"], c),
-            txt_enc.apply_conv(params["txt_enc"], pr_mat))
+    if cfg.txt_encoder == "conv":
+        dist_rhy = txt_enc.apply_conv(params["txt_enc"], pr_mat)
+    else:
+        dist_rhy = txt_enc.apply_pianotree(
+            params["txt_enc"], dt_x, txt_enc.lengths_from_detrended(dt_x))
+    return chd_enc.apply(params["chd_enc"], c), dist_rhy
 
 
 def encode(params: dict, cfg: ModelConfig, pr_mat: torch.Tensor,
-           c: torch.Tensor) -> Tuple[DiagNormal, DiagNormal]:
+           c: torch.Tensor, dt_x: Optional[torch.Tensor] = None
+           ) -> Tuple[DiagNormal, DiagNormal]:
     """Posterior distributions (chord, texture), f32 in either compute
-    dtype (the Gaussian heads run in f32)."""
+    dtype (the Gaussian heads run in f32). ``dt_x`` (B, 32, 16, 39), the
+    detrended grid, is read by the pianotree variant only."""
     check_config(cfg)
-    params, c, pr_mat = _apply_precision(params, cfg, c, pr_mat)
-    return _encode(params, pr_mat, c)
+    params, c, pr_mat, dt_x = _apply_precision(params, cfg, c, pr_mat, dt_x)
+    return _encode(params, cfg, pr_mat, c, dt_x)
 
 
 def encode_chord(params: dict, cfg: ModelConfig, c: torch.Tensor
@@ -188,17 +201,17 @@ def draw_noise(gen: torch.Generator, cfg: ModelConfig, batch: int, tfr1,
 
 
 def forward_parts(params: dict, cfg: ModelConfig, x, c, pr_mat,
-                  noise: Noise):
+                  noise: Noise, dt_x=None):
     """Everything of the teacher-forced forward except the PianoTree decode:
     the precision cast, note embeddings, encoders, z and the chord-decoder
     logits. Returns (the params in the compute dtype, x_emb, lengths,
     dist_chd, dist_rhy, z, recon_chd); z and x_emb are in the compute
     dtype, the distributions f32."""
     check_config(cfg)
-    params, c, pr_mat = _apply_precision(params, cfg, c, pr_mat)
+    params, c, pr_mat, dt_x = _apply_precision(params, cfg, c, pr_mat, dt_x)
     dtype = precision.compute_dtype(cfg)
     x_emb, lengths = pt_dec.emb_x(params["dec"], x, cfg.pianotree)
-    dist_chd, dist_rhy = _encode(params, pr_mat, c)
+    dist_chd, dist_rhy = _encode(params, cfg, pr_mat, c, dt_x)
     z_chd = dist_chd.rsample_eps(noise.eps_chd)
     z = torch.cat([z_chd, dist_rhy.rsample_eps(noise.eps_rhy)],
                   dim=-1).to(dtype)
@@ -218,26 +231,29 @@ def chord_loss(c: torch.Tensor, recon_root, recon_chroma, recon_bass):
     return root_l + chroma_l + bass_l, root_l, chroma_l, bass_l
 
 
-def run(params: dict, cfg: ModelConfig, x, c, pr_mat, noise: Noise):
+def run(params: dict, cfg: ModelConfig, x, c, pr_mat, noise: Noise,
+        dt_x=None):
     """Teacher-forced forward pass (the JAX package's ``run``): x (B, 32,
-    K, 6) int grid, c (B, 8, 36), pr_mat (B, 32, 128). Returns
+    K, 6) int grid, c (B, 8, 36), pr_mat (B, 32, 128), and dt_x (B, 32,
+    16, 39) with the pianotree texture encoder. Returns
     (:class:`~pctd_tpu_torch.models.pianotree_decoder.DecoderOutput`,
     dist_chd, dist_rhy, recon_root, recon_chroma, recon_bass); the decode
     runs frame by frame through the K1/K2 kernel pair in logits-out mode on
     the card. With ``compute_dtype="bfloat16"`` the logits are bf16."""
     params, x_emb, lengths, dist_chd, dist_rhy, z, recon_chd = \
-        forward_parts(params, cfg, x, c, pr_mat, noise)
+        forward_parts(params, cfg, x, c, pr_mat, noise, dt_x)
     out = pt_dec.decode(params["dec"], cfg, z, x_emb, lengths, noise.coins1,
                         noise.coins2)
     return (out, dist_chd, dist_rhy, *recon_chd)
 
 
 def loss(params: dict, cfg: ModelConfig, x, c, pr_mat, noise: Noise,
-         beta=0.1, weights=(1.0, 0.5), weighted_dur: bool = False
-         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+         beta=0.1, weights=(1.0, 0.5), weighted_dur: bool = False,
+         dt_x=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """ELBO + auxiliary chord loss: (total, the 11 metrics by
     ``METRIC_NAMES``). x (B, 32, K, 6) int grid, c (B, 8, 36), pr_mat
-    (B, 32, 128). The decode runs frame by frame through the K1/K2 kernel
+    (B, 32, 128), dt_x (B, 32, 16, 39) with the pianotree texture
+    encoder. The decode runs frame by frame through the K1/K2 kernel
     pair on the card: with ``cfg.fused_loss`` in loss mode, the CE fused in
     (:func:`~pctd_tpu_torch.models.pianotree_decoder.decode_recon`), else
     in logits-out mode through :func:`run`, scored by
@@ -247,13 +263,13 @@ def loss(params: dict, cfg: ModelConfig, x, c, pr_mat, noise: Noise,
     """
     if cfg.fused_loss:
         p_cast, x_emb, lengths, dist_chd, dist_rhy, z, recon_chd = \
-            forward_parts(params, cfg, x, c, pr_mat, noise)
+            forward_parts(params, cfg, x, c, pr_mat, noise, dt_x)
         recon, pl, dl = pt_dec.decode_recon(
             p_cast["dec"], cfg, z, x_emb, lengths, noise.coins1,
             noise.coins2, x, weights, weighted_dur)
     else:
         out, dist_chd, dist_rhy, *recon_chd = run(params, cfg, x, c, pr_mat,
-                                                  noise)
+                                                  noise, dt_x)
         recon, pl, dl = pt_dec.recon_loss(x, out, cfg.pianotree, weights,
                                           weighted_dur)
     kl_chd = kl_std_normal(dist_chd)
@@ -333,11 +349,11 @@ class DisentangleVAE:
         cfg = cfg or ModelConfig()
         return DisentangleVAE(cfg, init_params(cfg, seed, device))
 
-    def encode(self, pr_mat, c):
-        return encode(self.params, self.cfg, pr_mat, c)
+    def encode(self, pr_mat, c, dt_x=None):
+        return encode(self.params, self.cfg, pr_mat, c, dt_x)
 
-    def run(self, x, c, pr_mat, noise: Noise):
-        return run(self.params, self.cfg, x, c, pr_mat, noise)
+    def run(self, x, c, pr_mat, noise: Noise, dt_x=None):
+        return run(self.params, self.cfg, x, c, pr_mat, noise, dt_x)
 
     def decode_z(self, z_chd, z_rhy, frame_decoder: str = "full"):
         return decode_z(self.params, self.cfg, z_chd, z_rhy, frame_decoder)

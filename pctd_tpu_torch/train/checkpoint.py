@@ -1,0 +1,92 @@
+"""Checkpoints of the whole train state (``pctd_tpu/train/checkpoint.py``,
+whose orbax save holds params, optimizer state, step and PRNG key), with
+``torch.save``/``torch.load``: the params by their tree names, Adam's
+``mu``, ``nu`` and ``count``, the step count, and the train
+``torch.Generator``'s state, which plays the part of the JAX key (the JAX
+key is stateless, the generator is not). A restored run continues exactly
+as the uninterrupted one does. The model configuration rides along, so a
+checkpoint names the widths it was trained at.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from pctd_tpu_torch.config import ChordSpec, ModelConfig, PianoTreeSpec
+from pctd_tpu_torch.ops.gru import GRUParams
+from pctd_tpu_torch.utils.weights import params_from_jax
+
+
+def named_leaves(params, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """``{"dec/notes_gru/w_ih": tensor, ...}`` in the tree's order."""
+    if isinstance(params, GRUParams):
+        params = params._asdict()
+    if isinstance(params, dict):
+        return {n: t for k, v in params.items()
+                for n, t in named_leaves(v, f"{prefix}{k}/").items()}
+    return {prefix[:-1]: params}
+
+
+def save_state(path: str, params, opt, step: int,
+               generator: torch.Generator,
+               mcfg: Optional[ModelConfig] = None) -> None:
+    """Write the train state to ``path`` (one file)."""
+    torch.save({
+        "params": {n: t.detach().cpu()
+                   for n, t in named_leaves(params).items()},
+        "mu": [t.cpu() for t in opt.mu], "nu": [t.cpu() for t in opt.nu],
+        "count": opt.count, "step": step,
+        "generator": generator.get_state(),
+        "model_config": None if mcfg is None else dataclasses.asdict(mcfg),
+    }, path)
+
+
+def load_state(path: str) -> dict:
+    """The saved dict, its tensors on the CPU."""
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+@torch.no_grad()
+def restore_state(path: str, params, opt, generator: torch.Generator
+                  ) -> int:
+    """Copy the state saved at ``path`` into ``params``, ``opt`` and
+    ``generator`` in place (the tensors keep their identity, so the
+    optimizer and the kernels' weight caches see the new values); returns
+    the saved step count."""
+    saved = load_state(path)
+    mine = named_leaves(params)
+    if list(mine) != list(saved["params"]):
+        raise ValueError(f"{path}: its params are not this model's")
+    for n, t in mine.items():
+        t.copy_(saved["params"][n])
+    for dst, src in ((opt.mu, saved["mu"]), (opt.nu, saved["nu"])):
+        for a, b in zip(dst, src, strict=True):
+            a.copy_(b)
+    opt.count = saved["count"]
+    generator.set_state(saved["generator"])
+    return saved["step"]
+
+
+def model_config_of(saved: dict) -> Optional[ModelConfig]:
+    """The :class:`ModelConfig` a loaded checkpoint names, if any."""
+    d = saved.get("model_config")
+    if d is None:
+        return None
+    return ModelConfig(**dict(d, pianotree=PianoTreeSpec(**d["pianotree"]),
+                              chord=ChordSpec(**d["chord"])))
+
+
+def params_of(saved: dict, device=None):
+    """The params tree of a loaded checkpoint on ``device`` (default
+    ``cuda``)."""
+    tree: dict = {}
+    for name, t in saved["params"].items():
+        *path, leaf = name.split("/")
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = np.asarray(t.numpy())
+    return params_from_jax(tree, device)

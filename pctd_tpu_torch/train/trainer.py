@@ -1,14 +1,21 @@
-"""Train and eval steps and a minimal Trainer
-(``pctd_tpu/train/trainer.py``).
+"""Train and eval steps and the training run (``pctd_tpu/train/trainer.py``).
 
-A train step is: raw uint8 segments -> on-device tensorize -> the
-DisentangleVAE loss (its decode through the K1/K2 kernel pair on the card,
-in the loss mode that ``ModelConfig.fused_loss`` names) -> backward ->
-global-norm clip + Adam at the scheduled learning rate. The schedules are
-evaluated at the step count; the latent noise and the teacher coins come
-from one ``torch.Generator`` seeded from ``TrainConfig.seed``. Eval draws
-from a generator of its own (:data:`EVAL_SEED`). Checkpoints, metric
-writers and the training CLI are not ported yet.
+A train step is: raw uint8 segments -> on-device tensorize (and, for the
+pianotree texture encoder, the detrended grid) -> the DisentangleVAE loss
+(its decode through the K1/K2 kernel pair on the card, in the loss mode
+that ``ModelConfig.fused_loss`` names) -> backward -> global-norm clip +
+Adam at the scheduled learning rate. The schedules are evaluated at the
+step count; the latent noise and the teacher coins come from one
+``torch.Generator`` seeded from ``TrainConfig.seed``. Eval draws from a
+generator of its own (:data:`EVAL_SEED`).
+
+:class:`Trainer` runs epochs (``run``): the train and eval epochs sum their
+metrics on the device and read the host only every ``log_every`` steps
+(for the metric writers) and at the epoch's end; it saves the ``epoch``,
+``valid`` (best val loss) and ``final`` checkpoints
+(:mod:`pctd_tpu_torch.train.checkpoint`) into its run directory. The JAX
+trainer's degrade from a kernel that fails to compile to the XLA path has
+no counterpart: the port has no fallback from a kernel.
 
 With ``ModelConfig.compute_dtype="bfloat16"`` the step runs under the
 mixed-precision policy (``pctd_tpu_torch.utils.precision``): the master
@@ -23,6 +30,7 @@ products in bf16, where JAX sums them in f32.
 """
 from __future__ import annotations
 
+import os
 import time
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
@@ -31,9 +39,12 @@ import torch
 
 from pctd_tpu_torch.config import ModelConfig, TrainConfig
 from pctd_tpu_torch.data import tensorize as tz
+from pctd_tpu_torch.data.detrend import detrend_pianotree
 from pctd_tpu_torch.models import disentangle_vae as dv
-from pctd_tpu_torch.train import schedules
+from pctd_tpu_torch.train import checkpoint, schedules
+from pctd_tpu_torch.train.logging import MetricWriters, RunPaths
 from pctd_tpu_torch.train.optim import Adam
+from pctd_tpu_torch.utils import device_mem
 from pctd_tpu_torch.utils.device import resolve_device
 
 #: the constant that keeps eval noise apart from the train stream (the JAX
@@ -41,32 +52,70 @@ from pctd_tpu_torch.utils.device import resolve_device
 EVAL_SEED = 0x5EED
 
 
+#: the largest batch (segments) of one step that fits the card: measured
+#: by chip_smoke.py's phase "auto accumulation" (torch.cuda.
+#: max_memory_allocated of an f32 step, CE fused in, at B=128 and 512,
+#: extrapolated linearly to 90% of the card's memory, rounded down to 128)
+#: on an NVIDIA H100 80GB HBM3 at a 700 W power limit, for each texture
+#: encoder; scaled to another card's memory by device_mem.scale_by_hbm
+STEP_ENVELOPE = {"conv": 3840, "pianotree": 2560}
+
+
 def batch_features(pr, chord, shift, mcfg: ModelConfig):
     """Raw segments (uint8 pr (B, 32, 128), chord (B, 8, 14), shift (B,))
     on the device -> (x (B, 32, K, 6) int32, c (B, 8, 36), pr_mat
-    (B, 32, 128))."""
+    (B, 32, 128), dt_x): dt_x is the detrended grid (B, 32, 16, 39) for
+    the pianotree texture encoder, else None."""
     pr_mat = tz.pr_to_dur_matrix(tz.shift_pr(pr.to(torch.int32), shift))
     x = tz.dur_matrix_to_grid(pr_mat, mcfg.pianotree)
     c = tz.expand_chord_batch(chord, shift)
-    return x, c, pr_mat
+    dt_x = (detrend_pianotree(x, c) if mcfg.txt_encoder == "pianotree"
+            else None)
+    return x, c, pr_mat, dt_x
+
+
+def auto_accum_steps(mcfg: ModelConfig, tcfg: TrainConfig,
+                     device=None) -> int:
+    """``TrainConfig.accum_steps``, where 0 is automatic: the smallest
+    microbatch count that divides the batch and keeps each microbatch
+    inside the step envelope (:data:`STEP_ENVELOPE`, scaled to the memory
+    of ``device``; unknown memory, the CPU's included, keeps it as
+    measured). A batch whose smallest such divisor would make many tiny
+    microbatches raises (the JAX function's search and error)."""
+    if tcfg.accum_steps > 0:
+        return tcfg.accum_steps
+    envelope = device_mem.scale_by_hbm(STEP_ENVELOPE[mcfg.txt_encoder],
+                                       device)
+    B = tcfg.batch_size
+    ideal = max(1, -(-B // envelope))
+    need = ideal
+    while B % need:
+        need += 1
+    if need > max(8, 4 * ideal):
+        raise ValueError(
+            f"batch_size={B} exceeds the single-step HBM envelope "
+            f"({envelope}) but its smallest divisor >= {ideal} is {need}, "
+            f"which would scan {need} tiny microbatches. Pick a batch size "
+            f"divisible by a small count (e.g. {ideal * envelope}) or set "
+            f"accum_steps explicitly.")
+    return need
 
 
 def param_list(params) -> List[torch.Tensor]:
-    """Every tensor of a params tree, in a fixed (insertion) order."""
-    if isinstance(params, dict):
-        return [t for v in params.values() for t in param_list(v)]
-    if isinstance(params, tuple):
-        return [t for v in params for t in param_list(v)]
-    return [params]
+    """Every tensor of a params tree, in a fixed (insertion) order: the
+    checkpoint's order."""
+    return list(checkpoint.named_leaves(params).values())
 
 
 def loss_and_grads(params, mcfg: ModelConfig, tcfg: TrainConfig, step: int,
-                   gen: torch.Generator, x, c, pr_mat, accum: int = 1
+                   gen: torch.Generator, x, c, pr_mat, accum: int = 1,
+                   dt_x=None
                    ) -> Tuple[Dict[str, torch.Tensor], List[torch.Tensor]]:
     """The 11 metrics and the gradients of every parameter (``param_list``
     order) at ``step``'s schedules. With ``accum`` > 1 the batch splits into
     that many contiguous microbatches, each with its own noise, and metrics
-    and gradients are their means."""
+    and gradients are their means. ``dt_x`` as :func:`batch_features`
+    gives it."""
     sched = schedules.train_params_at(step, tcfg)
     leaves = param_list(params)
     B = x.shape[0]
@@ -82,7 +131,8 @@ def loss_and_grads(params, mcfg: ModelConfig, tcfg: TrainConfig, step: int,
         total, metrics = dv.loss(params, mcfg, x[part], c[part],
                                  pr_mat[part], noise, beta=sched["beta"],
                                  weights=tcfg.weights,
-                                 weighted_dur=tcfg.weighted_dur)
+                                 weighted_dur=tcfg.weighted_dur,
+                                 dt_x=None if dt_x is None else dt_x[part])
         grads = torch.autograd.grad(total, leaves)
         m = torch.stack([metrics[k].detach() for k in dv.METRIC_NAMES])
         sums = m if sums is None else sums + m
@@ -101,32 +151,52 @@ def eval_metrics(params, mcfg: ModelConfig, tcfg: TrainConfig, step: int,
     """Validation metrics of one batch: the training forward without
     gradients (the frame kernel's forward only), at the current schedules
     or, with ``eval_fixed_schedule``, at their end values."""
-    x, c, pr_mat = batch_features(pr, chord, shift, mcfg)
+    x, c, pr_mat, dt_x = batch_features(pr, chord, shift, mcfg)
     sched = (schedules.final_params(tcfg) if tcfg.eval_fixed_schedule
              else schedules.train_params_at(step, tcfg))
     noise = dv.draw_noise(gen, mcfg, x.shape[0], sched["tfr1"],
                           sched["tfr2"], sched["tfr3"])
     _, metrics = dv.loss(params, mcfg, x, c, pr_mat, noise,
                          beta=sched["beta"], weights=tcfg.weights,
-                         weighted_dur=tcfg.weighted_dur)
+                         weighted_dur=tcfg.weighted_dur, dt_x=dt_x)
     return metrics
+
+
+def stacked(metrics: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The 11 metrics as one (11,) tensor in ``METRIC_NAMES`` order."""
+    return torch.stack([metrics[k] for k in dv.METRIC_NAMES])
+
+
+def named(values: Sequence[float]) -> Dict[str, float]:
+    return dict(zip(dv.METRIC_NAMES, values))
 
 
 class Trainer:
     """Parameters, optimizer state and step count of one run, with train and
     eval steps over ``{pr, chord, shift}`` host batches
-    (:class:`~pctd_tpu_torch.data.loaders.SegmentBatches`). ``history`` keeps
-    the 11 metrics of every train step, ``grad_norms`` the gradient global
-    norm before clipping."""
+    (:class:`~pctd_tpu_torch.data.loaders.SegmentBatches`), and the epoch
+    loop (:meth:`run`). :meth:`train_step` reads its metrics to the host:
+    ``history`` keeps the 11 metrics of every such step, ``grad_norms`` the
+    gradient global norm before clipping, ``step_seconds`` its host time.
+    The epoch loop does not fill them: it sums on the device, and with
+    ``writers`` writes a step's metrics every ``log_every`` steps.
+    ``profile_steps`` (start, stop) takes a ``torch.profiler`` trace of
+    those train steps of the first epoch into ``<run>/profile``; checkpoints
+    go to ``run_paths.model_path(name, tag)``."""
 
     def __init__(self, mcfg: ModelConfig, tcfg: TrainConfig, train_batches,
-                 val_batches=None, device=None, params: Optional[dict] = None):
+                 val_batches=None, device=None, params: Optional[dict] = None,
+                 name: str = "disvae", run_paths: Optional[RunPaths] = None,
+                 writers: Optional[MetricWriters] = None, log_every: int = 16,
+                 profile_steps: Optional[Tuple[int, int]] = None):
         self.mcfg, self.tcfg = mcfg, tcfg
         self.device = resolve_device(device)
         if mcfg.compute_dtype == "bfloat16":    # f32 partial sums, as JAX
             torch.backends.cuda.matmul \
                 .allow_bf16_reduced_precision_reduction = False
         self.train_batches, self.val_batches = train_batches, val_batches
+        self.name, self.run_paths, self.writers = name, run_paths, writers
+        self.log_every, self.profile_steps = log_every, profile_steps
         self.params = params if params is not None else dv.init_params(
             mcfg, seed=tcfg.seed, device=self.device)
         self.leaves = param_list(self.params)
@@ -135,28 +205,35 @@ class Trainer:
         self.opt = Adam(self.leaves, tcfg)
         self.gen = torch.Generator(device=self.device).manual_seed(
             tcfg.seed)
-        self.accum = max(tcfg.accum_steps, 1)
+        self.accum = auto_accum_steps(mcfg, tcfg, self.device)
         self.step_count = 0
+        self.train_counter = self.val_counter = 0
         self.history: List[Dict[str, float]] = []
         self.grad_norms: List[float] = []
         self.step_seconds: List[float] = []
+        self._profiler = None
 
     def _to_device(self, batch):
         to = lambda a: torch.as_tensor(np.asarray(a), device=self.device)
         return to(batch["pr"]), to(batch["chord"]), to(batch["shift"])
 
+    def _step(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One optimizer step; (its 11 metrics (11,), the gradient norm) on
+        the device, nothing read to the host."""
+        x, c, pr_mat, dt_x = batch_features(*self._to_device(batch),
+                                            self.mcfg)
+        metrics, grads = loss_and_grads(
+            self.params, self.mcfg, self.tcfg, self.step_count, self.gen,
+            x, c, pr_mat, self.accum, dt_x)
+        norm = self.opt.step(grads)
+        self.step_count += 1
+        return stacked(metrics), norm
+
     def train_step(self, batch) -> Dict[str, float]:
         """One optimizer step on a host batch; returns its metrics."""
         t0 = time.perf_counter()
-        pr, chord, shift = self._to_device(batch)
-        x, c, pr_mat = batch_features(pr, chord, shift, self.mcfg)
-        metrics, grads = loss_and_grads(
-            self.params, self.mcfg, self.tcfg, self.step_count, self.gen,
-            x, c, pr_mat, self.accum)
-        norm = self.opt.step(grads)
-        self.step_count += 1
-        host = torch.stack([metrics[k] for k in dv.METRIC_NAMES]).tolist()
-        self.history.append(dict(zip(dv.METRIC_NAMES, host)))
+        m, norm = self._step(batch)
+        self.history.append(named(m.tolist()))
         self.grad_norms.append(norm.item())
         self.step_seconds.append(time.perf_counter() - t0)
         return self.history[-1]
@@ -175,13 +252,55 @@ class Trainer:
         it = self.batches()
         return [self.train_step(next(it)) for _ in range(n)]
 
+    # -- phases ---------------------------------------------------------------
+
+    def _start_profile(self) -> None:
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if self.device.type == "cuda" else [])
+        self._profiler = profile(activities=acts)
+        self._profiler.start()
+
+    def _stop_profile(self) -> None:
+        """Stop the trace of ``profile_steps`` and write it as a Chrome
+        trace under ``<run>/profile``."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._profiler.stop()
+        out = os.path.join(self.run_paths.log_path, "profile")
+        os.makedirs(out, exist_ok=True)
+        a, b = self.profile_steps
+        self._profiler.export_chrome_trace(
+            os.path.join(out, f"train_steps_{a}_{b}.json"))
+        self._profiler = None
+
+    def _epoch_end(self, sums, n: int, empty: float) -> Dict[str, float]:
+        if n == 0:
+            return {k: empty for k in dv.METRIC_NAMES}
+        return named((sums / n).tolist())
+
     def train_epoch(self) -> Dict[str, float]:
-        """One pass over the train batches; the mean of its metrics (0.0
-        each when the loader yields no batch, as in the JAX trainer)."""
-        rows = [self.train_step(b) for b in self.train_batches.epoch()]
-        if not rows:
-            return {k: 0.0 for k in dv.METRIC_NAMES}
-        return _mean(rows)
+        """One pass over the train batches: the mean of its metrics, summed
+        on the device (0.0 each when the loader yields no batch, as in the
+        JAX trainer). Writes a step's metrics every ``log_every`` steps."""
+        sums, n = None, 0
+        prof = self.profile_steps if self.run_paths else None
+        for batch in self.train_batches.epoch():
+            if prof and self.train_counter == prof[0]:
+                self._start_profile()
+            m, _ = self._step(batch)
+            if self._profiler is not None and self.train_counter == prof[1]:
+                self._stop_profile()
+            sums = m if sums is None else sums + m
+            if self.writers and self.train_counter % self.log_every == 0:
+                self.writers.write_task("train", named(m.tolist()),
+                                        self.train_counter)
+            self.train_counter += 1
+            n += 1
+        if self._profiler is not None:
+            self._stop_profile()
+        return self._epoch_end(sums, n, 0.0)
 
     def eval_generator(self) -> torch.Generator:
         """The generator of an eval: seeded from the run seed and
@@ -193,19 +312,68 @@ class Trainer:
             self.tcfg.seed + EVAL_SEED)
 
     def eval_epoch(self) -> Dict[str, float]:
-        """Mean metrics over the val batches (inf when there are none, so an
-        empty split never looks best)."""
+        """Mean metrics over the val batches, summed on the device (inf when
+        there are none, so an empty split never looks best). Writes a
+        batch's metrics every ``log_every`` batches."""
         gen = self.eval_generator()
-        rows = []
-        for batch in self.val_batches.epoch():
-            m = eval_metrics(self.params, self.mcfg, self.tcfg,
-                             self.step_count, gen, *self._to_device(batch))
-            rows.append(dict(zip(dv.METRIC_NAMES, torch.stack(
-                [m[k] for k in dv.METRIC_NAMES]).tolist())))
-        if not rows:
-            return {k: float("inf") for k in dv.METRIC_NAMES}
-        return _mean(rows)
+        sums, n = None, 0
+        batches = () if self.val_batches is None else self.val_batches.epoch()
+        for batch in batches:
+            m = stacked(eval_metrics(self.params, self.mcfg, self.tcfg,
+                                     self.step_count, gen,
+                                     *self._to_device(batch)))
+            sums = m if sums is None else sums + m
+            if self.writers and self.val_counter % self.log_every == 0:
+                self.writers.write_task("val", named(m.tolist()),
+                                        self.val_counter)
+            self.val_counter += 1
+            n += 1
+        return self._epoch_end(sums, n, float("inf"))
 
+    # -- checkpointing ----------------------------------------------------------
 
-def _mean(rows: Sequence[Dict[str, float]]) -> Dict[str, float]:
-    return {k: float(np.mean([r[k] for r in rows])) for k in dv.METRIC_NAMES}
+    def save_checkpoint(self, tag: str) -> None:
+        if self.run_paths is None:
+            return
+        checkpoint.save_state(self.run_paths.model_path(self.name, tag),
+                              self.params, self.opt, self.step_count,
+                              self.gen, self.mcfg)
+
+    def restore_checkpoint(self, path: str) -> None:
+        self.step_count = checkpoint.restore_state(path, self.params,
+                                                   self.opt, self.gen)
+
+    # -- the run ----------------------------------------------------------------
+
+    def run(self, n_epoch: Optional[int] = None) -> Dict[str, object]:
+        """Train and evaluate ``n_epoch`` epochs (default
+        ``TrainConfig.n_epoch``), saving ``epoch`` after each,
+        ``valid`` when the val loss improves and ``final`` at the end.
+        Returns the last epoch's ``{"train", "val", "epoch_seconds"}`` (as
+        the JAX trainer does) with its ``train_seconds`` and
+        ``train_steps``."""
+        n_epoch = n_epoch or self.tcfg.n_epoch
+        best_val = float("inf")
+        last = {}
+        for epoch in range(n_epoch):
+            t0 = time.time()
+            steps = self.train_counter
+            train_m = self.train_epoch()
+            t_train = time.time() - t0
+            val_m = self.eval_epoch()
+            dt = time.time() - t0
+            if self.tcfg.save_every_epoch:
+                self.save_checkpoint("epoch")
+            if val_m["loss"] < best_val:
+                best_val = val_m["loss"]
+                self.save_checkpoint("valid")
+            mins, secs = divmod(int(dt), 60)
+            print(f"Epoch: {epoch + 1:02} | Time: {mins}m {secs}s",
+                  flush=True)
+            print(f"\tTrain Loss: {train_m['loss']:.3f}", flush=True)
+            print(f"\t Valid. Loss: {val_m['loss']:.3f}", flush=True)
+            last = {"train": train_m, "val": val_m, "epoch_seconds": dt,
+                    "train_seconds": t_train,
+                    "train_steps": self.train_counter - steps}
+        self.save_checkpoint("final")
+        return last

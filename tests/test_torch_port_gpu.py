@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions on a CUDA card: the
 decode kernels K3 (float32 and bf16) and K4, and the train-frame pair K1
 (forward) and K2 (backward, against autograd of the plain forward) in loss
-mode and in logits-out mode, float32 and bf16.
+mode and in logits-out mode, float32 and bf16; the pianotree texture
+encoder's detrend on the card and its train step against the plain path.
 
 Skipped without a card. The card's machine has no JAX, so this file imports
 only torch and pctd_tpu_torch, and runs there without the JAX test conftest:
@@ -1234,3 +1235,74 @@ def test_k1_per_row_kernel_matches_plain(cuda, B, rows):
         margins.max().item() <= 1e-5), margins
     assert torch.equal(got[3], got[8]) and torch.equal(got[2], got[7])
     assert (got[1] - want.summary).abs()[rows_ok].max().item() <= 1e-4
+
+
+def _pianotree_batch(B, seed):
+    """Raw segments in the loader's format over all 12 shifts."""
+    rng = np.random.RandomState(seed)
+    pr = np.zeros((B, 32, 128), np.uint8)
+    pr[rng.rand(B, 32, 128) < 0.03] = 2
+    chord = np.zeros((B, 8, 14), np.float32)
+    chord[..., 0] = rng.randint(0, 12, (B, 8))
+    chord[..., 1:13] = rng.randint(0, 2, (B, 8, 12))
+    chord[..., 13] = rng.randint(0, 12, (B, 8))
+    return pr, chord, (np.arange(B) % 12 - 6).astype(np.int32)
+
+
+def test_device_detrend_matches_numpy(cuda):
+    """The pianotree encoder's detrend on the card equals its numpy copy
+    exactly, over every shift and with an all-zero root row."""
+    from pctd_tpu_torch.data.detrend import (detrend_pianotree,
+                                             detrend_pianotree_batch)
+    from pctd_tpu_torch.train import trainer as tr
+
+    cfg = tiny_model_config(txt_encoder="pianotree")
+    pr, chord, shift = _pianotree_batch(48, seed=3)
+    x, c, _, dt_x = tr.batch_features(
+        *(torch.as_tensor(a, device=cuda) for a in (pr, chord, shift)), cfg)
+    c[0, 2, :12] = 0.0
+    dt_x = detrend_pianotree(x, c)
+    want = detrend_pianotree_batch(x.cpu().numpy(), c.cpu().numpy())
+    assert dt_x.dtype == torch.float32 and dt_x.shape == (48, 32, 16, 39)
+    np.testing.assert_array_equal(dt_x.cpu().numpy(), want)
+
+
+def test_pianotree_train_step_matches_plain_path(cuda, monkeypatch):
+    """One pianotree-variant loss and gradient on the card through K1, K2a
+    and K2b (32 launches each) against the same step with the plain frame
+    versions in their place: metrics within 1e-5 relative, each gradient
+    within 1e-4 x (1 + max|plain|)."""
+    from pctd_tpu_torch.config import TrainConfig
+    from pctd_tpu_torch.train import trainer as tr
+
+    cfg = tiny_model_config(txt_encoder="pianotree")
+    tcfg = TrainConfig(batch_size=16, accum_steps=1)
+    params = dv.init_params(cfg, seed=2, device=cuda)
+    leaves = tr.param_list(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    pr, chord, shift = _pianotree_batch(16, seed=4)
+    feats = tr.batch_features(
+        *(torch.as_tensor(a, device=cuda) for a in (pr, chord, shift)), cfg)
+    step = lambda: tr.loss_and_grads(
+        params, cfg, tcfg, 0, torch.Generator(device=cuda).manual_seed(5),
+        *feats[:3], 1, feats[3])
+    kernels = (train_frame.frame_fwd, train_frame.frame_bwd,
+               train_frame.weight_grads)
+    before = [f.launches for f in kernels]
+    got_m, got_g = step()
+    assert [f.launches - b for f, b in zip(kernels, before)] == [32] * 3
+
+    def plain(*args):
+        out = train_frame.frame_recon_plain(*args)
+        return out.nums, out.summary
+
+    monkeypatch.setattr(ptd.train_frame, "frame_recon", plain)
+    want_m, want_g = step()
+    assert [f.launches - b for f, b in zip(kernels, before)] == [32] * 3
+    for k in dv.METRIC_NAMES:
+        assert abs(got_m[k].item() - want_m[k].item()) <= 1e-5 * abs(
+            want_m[k].item()), k
+    for a, b in zip(got_g, want_g):
+        tol = 1e-4 * (1.0 + b.abs().max().item())
+        assert (a - b).abs().max().item() <= tol

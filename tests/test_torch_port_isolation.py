@@ -23,10 +23,13 @@ names = [m.name for m in pkgutil.walk_packages(pctd_tpu_torch.__path__,
                                                "pctd_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-for name in ("data.loaders", "data.tensorize", "models.chord_decoder",
-             "models.disentangle_vae", "models.pianotree_decoder",
-             "ops.kernels.train_frame", "ops.losses", "train.optim",
-             "train.schedules", "train.trainer", "utils.precision"):
+for name in ("cli.evaluate", "cli.train", "data.corpus", "data.detrend",
+             "data.loaders", "data.synthetic", "data.tensorize",
+             "models.chord_decoder", "models.disentangle_vae",
+             "models.pianotree_decoder", "ops.kernels.train_frame",
+             "ops.losses", "train.checkpoint", "train.logging",
+             "train.optim", "train.schedules", "train.trainer",
+             "utils.device_mem", "utils.precision"):
     assert "pctd_tpu_torch." + name in names, name
 import chip_smoke  # noqa: F401
 leaked = sorted(m for m in sys.modules
@@ -39,11 +42,13 @@ from pctd_tpu_torch.models import disentangle_vae as dv
 from pctd_tpu_torch.models.sampler import Sampler
 assert not torch.cuda.is_available()
 params = dv.init_params(tiny_model_config(), seed=0, device="cpu")
+from pctd_tpu_torch.cli import evaluate, train
 from pctd_tpu_torch.config import TrainConfig
 from pctd_tpu_torch.train.trainer import Trainer
 for call in (lambda: Sampler(params, tiny_model_config()),
              lambda: dv.init_params(tiny_model_config()),
-             lambda: Trainer(tiny_model_config(), TrainConfig(), None)):
+             lambda: Trainer(tiny_model_config(), TrainConfig(), None),
+             lambda: train.main([]), lambda: evaluate.main([])):
     try:
         call()
     except RuntimeError as e:
@@ -79,7 +84,7 @@ def _run(args, **kw):
 def test_port_imports_without_jax_and_refuses_cpu_fallback():
     proc = _run(["-c", PROBE])
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.split()[-1]) >= 28
+    assert int(proc.stdout.split()[-1]) >= 41
 
 
 def test_chip_smoke_fails_without_a_card():

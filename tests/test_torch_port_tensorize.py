@@ -21,9 +21,10 @@ def test_batch_features_equal_jax_for_every_shift():
     pr, chord = raw_segments(len(SHIFTS), seed=0)
     x, c, pr_mat, _ = jtrainer.batch_features(
         jnp.asarray(pr), jnp.asarray(chord), jnp.asarray(SHIFTS), JAX_TINY)
-    tx, tc, tpr = trainer.batch_features(
+    tx, tc, tpr, dt_x = trainer.batch_features(
         torch.from_numpy(pr), torch.from_numpy(chord),
         torch.from_numpy(SHIFTS), TINY)
+    assert dt_x is None     # the conv texture encoder reads no detrend
     assert tx.dtype == torch.int32 and tx.shape == (12, 32, 16, 6)
     np.testing.assert_array_equal(tx.numpy(), np.asarray(x))
     np.testing.assert_array_equal(tc.numpy(), np.asarray(c))

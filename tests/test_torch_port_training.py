@@ -111,7 +111,7 @@ def test_eval_metrics_use_the_schedule_asked_for(fixed):
                                torch.from_numpy(shift))
     sched = (schedules.final_params(cfg) if fixed
              else schedules.train_params_at(0, cfg))
-    x, c, pr_mat = trainer.batch_features(
+    x, c, pr_mat, _ = trainer.batch_features(
         torch.from_numpy(pr), torch.from_numpy(chord),
         torch.from_numpy(shift), TINY)
     noise = tdv.draw_noise(torch.Generator().manual_seed(3), TINY, 2,
