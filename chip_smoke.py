@@ -53,7 +53,14 @@ the evaluate CLI on the run's checkpoint against the plain frames, the
 pianotree texture encoder (its detrend on the card against the numpy copy,
 three steps, step 1 against the plain path) and the automatic
 accumulation's step envelope (the bytes of an f32 step at B=128 and 512,
-against the committed ``train.trainer.STEP_ENVELOPE``).
+against the committed ``train.trainer.STEP_ENVELOPE``). The serving
+daemon (``pctd_tpu_torch.cli.serve``) on the training run's checkpoints:
+MIDI written in-process from synthetic songs, every op at 8 and 64 windows
+at fixed batch 16 and 128 (every reply ok, K4 launched once a chunk of
+decoded rows and nothing else; one request on the K3 route), its grids
+against the CPU plain path, reload (another checkpoint's bytes; other
+widths refused, nothing changed), the daemon as a process with malformed
+lines, and the generate and arrange CLIs.
 Prints one line per phase with its seconds, a ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``. Exits nonzero,
 printing no result, without a CUDA card or when any phase fails. Imports
@@ -81,21 +88,30 @@ import time
 import numpy as np
 import torch
 
+from pctd_tpu_torch.cli import arrange as cli_arrange
 from pctd_tpu_torch.cli import evaluate as cli_evaluate
+from pctd_tpu_torch.cli import generate as cli_generate
+from pctd_tpu_torch.cli import serve as cli_serve
 from pctd_tpu_torch.cli import train as cli_train
-from pctd_tpu_torch.config import DataConfig, ModelConfig, TrainConfig
+from pctd_tpu_torch.config import (DataConfig, ModelConfig, TrainConfig,
+                                   tiny_model_config)
+from pctd_tpu_torch.data import demo as dm
 from pctd_tpu_torch.data.detrend import detrend_pianotree_batch
 from pctd_tpu_torch.data.loaders import SegmentCorpus, make_loaders
-from pctd_tpu_torch.data.synthetic import synthetic_corpora
+from pctd_tpu_torch.data.midi_io import MidiFile
+from pctd_tpu_torch.data.songs import midi_to_windows
+from pctd_tpu_torch.data.synthetic import synthetic_corpora, synthetic_song
+from pctd_tpu_torch.data.tensorize import window_features
 from pctd_tpu_torch.models import disentangle_vae as dv
 from pctd_tpu_torch.models import pianotree_decoder as ptd
 from pctd_tpu_torch.models import texture_encoder as txt_enc
 from pctd_tpu_torch.models.sampler import Sampler
 from pctd_tpu_torch.ops.kernels import ar_decoder, build, full_decoder
 from pctd_tpu_torch.ops.kernels import train_frame as tf
+from pctd_tpu_torch.train import checkpoint as ckpt
 from pctd_tpu_torch.train import trainer as tr
 from pctd_tpu_torch.train.logging import RunPaths
-from pctd_tpu_torch.train.optim import global_norm
+from pctd_tpu_torch.train.optim import Adam, global_norm
 from pctd_tpu_torch.utils import device_mem
 from pctd_tpu_torch.utils.cuda_timing import cuda_ms, queued_ms
 from pctd_tpu_torch.utils.precision import cast_params
@@ -182,6 +198,13 @@ RESUME_STEPS = 4       # uninterrupted; the resumed run saves after 2
 PT_STEPS = 3           # pianotree-variant train steps
 ENVELOPE_B = (128, 512)  # the auto-accumulation envelope's two batches
 ENVELOPE_SHARE = 0.9   # of the card's memory
+# the serving daemon (phase "serving daemon"): its --fixed-batch (the
+# default 16, and 128), request sizes in 2-bar windows from synthetic songs
+# of so many bars, timed calls a request, interpolation steps
+DAEMON_FB = (16, 128)
+DAEMON_BARS = {8: 16, 64: 130}
+DAEMON_REPS = 3
+DAEMON_INTERP = 5
 
 
 class PhaseFailed(RuntimeError):
@@ -1144,17 +1167,18 @@ def step_footprint(trainer, batch) -> int:
     return state + torch.cuda.max_memory_allocated() - before
 
 
-def training_run_phases(args, cfg, dev, counted, step_ms: float) -> dict:
+def training_run_phases(args, cfg, dev, counted, step_ms: float, tmp: str
+                        ):
     """The phases of the training run: the train CLI (two epochs with
     checkpoints, metric writers and a profile), a resumed run against
     uninterrupted ones, the evaluate CLI on the run's checkpoint, the
     pianotree texture encoder, and the automatic accumulation's envelope.
     ``step_ms`` is ``Trainer.train_step``'s median from the phase
-    "training", printed beside the epoch loop's."""
+    "training", printed beside the epoch loop's. The runs write under
+    ``tmp``; returns (the phases' numbers, the train CLI's run directory)."""
     spec = cfg.pianotree
     T = spec.num_step
     out = {}
-    tmp = tempfile.mkdtemp(prefix="pctd_run_")
     rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
     fused_k = {"K1": tf.frame_fwd, "K2a": tf.frame_bwd,
                "K2b": tf.weight_grads}
@@ -1437,7 +1461,425 @@ def training_run_phases(args, cfg, dev, counted, step_ms: float) -> dict:
     check(auto == 1, f"auto_accum_steps at B={TRAIN_B} is {auto}")
     out["envelope"] = {"card_bytes": total, **envelopes}
     phase("auto accumulation", t0)
-    shutil.rmtree(tmp, ignore_errors=True)
+    return out, run_dir
+
+
+def daemon_inputs(seed: int, tmp: str) -> dict:
+    """Input MIDI written in-process from synthetic songs: two files ("a",
+    "b") of each request size of ``DAEMON_BARS`` and, for arrange, one
+    with a track named melody."""
+    files = {}
+    for i, (n, bars) in enumerate(DAEMON_BARS.items()):
+        for j, tag in enumerate("ab"):
+            music = synthetic_song(np.random.RandomState(seed + 10 * i + j),
+                                   n_bars=bars)
+            files[f"{tag}{n}"] = os.path.join(tmp, f"{tag}{n}.mid")
+            music.write_midi(files[f"{tag}{n}"])
+    music = synthetic_song(np.random.RandomState(seed + 99), n_bars=20)
+    music.track_name_list = ["melody", "bridge", "piano"]
+    files["melody"] = os.path.join(tmp, "melody.mid")
+    music.write_midi(files["melody"])
+    return files
+
+
+def daemon_requests(files: dict, n: int, out: str) -> dict:
+    """{name: (request, decoded rows)}: each op of the daemon on the files
+    of n windows."""
+    a, b = files[f"a{n}"], files[f"b{n}"]
+    o = lambda name: os.path.join(out, f"{name}_{n}.mid")
+    reqs = {
+        "style_transfer/chord": {"op": "style_transfer", "content": a,
+                                 "style": b, "out": o("st_chord"),
+                                 "fix": "chord"},
+        "style_transfer/texture": {"op": "style_transfer", "content": a,
+                                   "style": b, "out": o("st_texture"),
+                                   "fix": "texture"},
+        "variation": {"op": "variation", "input": a, "out": o("variation"),
+                      "scale": 0.5, "seed": 1},
+        "prior/texture": {"op": "prior", "input": a, "out": o("prior_t"),
+                          "sample": "texture", "seed": 2},
+        "prior/chord": {"op": "prior", "input": a, "out": o("prior_c"),
+                        "sample": "chord", "seed": 3},
+        "prior/both": {"op": "prior", "input": a, "out": o("prior_b"),
+                       "sample": "both", "seed": 4},
+        "interp": {"op": "interp", "a": a, "b": b,
+                   "out": os.path.join(out, f"interp_{n}_%d.mid"),
+                   "count": DAEMON_INTERP, "what": "chord"},
+    }
+    return {k: (r, n * (DAEMON_INTERP if k == "interp" else 1))
+            for k, r in reqs.items()}
+
+
+def counted_request(server, req: dict, counted, want: dict):
+    """One request through ``server.handle`` with every launch count set to
+    0 just before: (reply, host ms, the counts). Fails unless the reply is
+    ok and the counts are ``want`` (by wrapper name; 0 where not named)."""
+    for f in counted:
+        f.launches = 0
+    s0 = time.perf_counter()
+    reply = server.handle(dict(req))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - s0) * 1e3
+    got = {f.__name__: f.launches for f in counted}
+    check(reply.get("ok") is True, f"daemon {req['op']}: {reply}")
+    expect = {k: want.get(k, 0) for k in got}
+    check(got == expect, f"daemon {req['op']}: launches {got}, expected "
+          f"{expect}")
+    return reply, ms, got
+
+
+def request_breakdown(server, files: dict, n: int, out: str) -> dict:
+    """A chord-fixed style transfer of n windows by stage, each stage synced
+    (host ms): ingest (``midi_to_windows`` of both files), tensorize,
+    encode, decode (the K4 chunks and the host code around them), MIDI
+    writing; the notes written; the front end's share of the stages' sum;
+    and K4's device ms a chunk (queued behind a sleep kernel) times the
+    request's chunks."""
+    spec, dev, sync = server.spec, server.s.device, torch.cuda.synchronize
+    fb = server.s.fixed_batch
+    t = {}
+    s0 = time.perf_counter()
+    wa = midi_to_windows(files[f"a{n}"], server.max_windows)
+    wb = midi_to_windows(files[f"b{n}"], server.max_windows)
+    t["ingest"] = (time.perf_counter() - s0) * 1e3
+    s0 = time.perf_counter()
+    pa = window_features(wa[0], wa[2], spec, dev)
+    pb = window_features(wb[0], wb[2], spec, dev)
+    sync()
+    t["tensorize"] = (time.perf_counter() - s0) * 1e3
+    s0 = time.perf_counter()
+    d_chd, d_rhy = server.s.encode(pb[0], pa[1])
+    sync()
+    t["encode"] = (time.perf_counter() - s0) * 1e3
+    s0 = time.perf_counter()
+    grids = server.s.decode(d_chd.mean, d_rhy.mean)
+    t["decode"] = (time.perf_counter() - s0) * 1e3
+    s0 = time.perf_counter()
+    notes = cli_serve.write_grids(os.path.join(out, f"breakdown_{n}.mid"),
+                                  grids, wa[3], spec)
+    t["write"] = (time.perf_counter() - s0) * 1e3
+    t["sum"] = sum(t.values())
+    t["notes"] = notes
+    t["front_end_share"] = (t["ingest"] + t["tensorize"]
+                            + t["write"]) / t["sum"]
+    z = torch.cat([d_chd.mean, d_rhy.mean], -1)[:fb]
+    z = torch.cat([z, z.new_zeros((fb - len(z), z.shape[1]))])
+    inputs = ptd.decode_inputs(server.s.params["dec"], server.cfg, z)
+    chunk_ms, queued = queued_ms(lambda: full_decoder.decode_grid_full(
+        server.s.fw, spec, *inputs), DAEMON_REPS)
+    check(queued, "K4 chunk: the host did not enqueue the timed calls "
+          "within the sleep kernel")
+    t["k4_chunk_device_ms"] = chunk_ms
+    t["k4_device_ms"] = chunk_ms * -(-n // fb)
+    return t
+
+
+def daemon_subprocess(files: dict, first: str, epoch: str, tmp: str) -> dict:
+    """``python -m pctd_tpu_torch.cli.serve --checkpoint first`` on the card
+    with the request sequence of the JAX daemon's end-to-end test (reload
+    to ``epoch``), malformed lines included: exits 0 with the same pattern
+    of replies."""
+    out1, out2 = (os.path.join(tmp, f"sub_{k}.mid") for k in ("st", "var"))
+    reqs = [json.dumps(r) for r in [
+        {"op": "ping"},
+        {"op": "style_transfer", "content": files["a8"],
+         "style": files["b8"], "out": out1, "fix": "chord"},
+        {"op": "variation", "input": files["a8"], "out": out2, "scale": 0.5,
+         "seed": 1},
+        {"op": "nonsense"}]]
+    reqs += ["{not json}", "[1, 2, 3]"]
+    reqs += [json.dumps(r) for r in [
+        {"op": "reload", "checkpoint": epoch},
+        {"op": "reload", "checkpoint": os.path.join(tmp, "missing")},
+        {"op": "variation", "input": files["a8"], "out": out2, "scale": 0.5,
+         "seed": 2},
+        {"op": "stats"},
+        {"op": "quit"}]]
+    root = os.path.dirname(os.path.abspath(__file__))
+    argv = ["-m", "pctd_tpu_torch.cli.serve", "--checkpoint", first,
+            "--fixed-batch", "16", "--max-windows", "64"]
+    print(f"  python {' '.join(argv)} < {len(reqs)} lines")
+    s0 = time.perf_counter()
+    res = subprocess.run([sys.executable, *argv],
+                         input="\n".join(reqs) + "\n", cwd=root,
+                         env=dict(os.environ, PYTHONPATH=root),
+                         capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - s0
+    check(res.returncode == 0, f"the daemon exited {res.returncode}: "
+          f"{res.stderr[-2000:]}")
+    lines = [json.loads(ln) for ln in res.stdout.strip().splitlines()]
+    replies = [ln for ln in lines if "ok" in ln]
+    print("  | " + "\n  | ".join(json.dumps(ln)[:160] for ln in lines))
+    ok = [r.get("ok") for r in replies]
+    check(ok == [True, True, True, False, False, False, True, False, True,
+                 True, True], f"the daemon's replies {ok}")
+    check(any(ln.get("ready") for ln in lines[:3])
+          and lines[0] == {"loaded": first}, "the daemon's first lines")
+    check(replies[1]["windows"] == 8 and "unknown op" in
+          replies[3]["error"] and replies[6]["reloaded"] == epoch
+          and replies[10].get("bye"), "the daemon's replies")
+    stats = replies[9]["stats"]
+    check(stats["variation"]["count"] == 2 and stats["reload"]["count"] == 2,
+          f"the daemon's stats {stats}")
+    check(replies[1]["notes"] > 0, "the daemon wrote no notes")
+    for out, r in ((out1, replies[1]), (out2, replies[8])):
+        check(len(MidiFile.read(out).tracks) == (1 if r["notes"] else 0),
+              f"{out}: tracks for {r['notes']} notes")
+    return {"wall_s": wall, "stats": stats}
+
+
+def serving_daemon_phase(args, cfg, dev, counted, card: str, models: str,
+                         params: dict, tmp: str) -> dict:
+    """The serving daemon (``pctd_tpu_torch.cli.serve``) at canonical widths
+    on the training run's checkpoints and on the random weights ``params``
+    saved as a checkpoint: the run's 18 steps decode eos at every frame's
+    first slot, the random weights a note at every slot, so the two bound
+    the notes a request writes and the gates see both decisions. MIDI in,
+    MIDI out, every valid request ok, K4 launched once a fixed-batch chunk
+    of decoded rows (K3 32 times a chunk on the pallas route) and nothing
+    else launched; the grids against the CPU plain path; reload; the daemon
+    as a process; the generate and arrange CLIs. Prints each op's p50 by
+    weights, fixed batch and request size."""
+    t0 = time.perf_counter()
+    spec = cfg.pianotree
+    final, epoch = (os.path.join(models, f"disvae_{k}")
+                    for k in ("final", "epoch"))
+    out_dir = os.path.join(tmp, "daemon")
+    os.makedirs(out_dir)
+    K4, K3 = (full_decoder.decode_grid_full.__name__,
+              ar_decoder.frame_decode.__name__)
+    chunks = lambda rows, fb: -(-rows // fb)
+    out = {"card": card}
+    total = collections.Counter()
+
+    def request(srv, req, want):
+        reply, ms, got = counted_request(srv, req, counted, want)
+        total.update(got)
+        return reply, ms
+
+    # inputs: MIDI written in-process; ingest's host time a file
+    files = daemon_inputs(args.seed, tmp)
+    ingest = {}
+    for name, path in files.items():
+        times, got = [], None
+        for _ in range(DAEMON_REPS):
+            s0 = time.perf_counter()
+            got = midi_to_windows(path, 64)
+            times.append((time.perf_counter() - s0) * 1e3)
+        ingest[name] = {"windows": len(got[0]),
+                        "midi_to_windows_ms": float(np.median(times))}
+    print("  inputs (windows, midi_to_windows host ms, median of "
+          f"{DAEMON_REPS}): " + ", ".join(
+              f"{k} {v['windows']} {v['midi_to_windows_ms']:.2f}"
+              for k, v in ingest.items()))
+    check(all(ingest[f"{t}{n}"]["windows"] == n for n in DAEMON_BARS
+              for t in "ab"), f"input windows {ingest}")
+    out["ingest"] = ingest
+
+    scfg = ckpt.load_model(final, cfg, 0, "cpu")[1]
+    check(scfg == cfg, f"the checkpoint's config {scfg}")
+    notes_ck = os.path.join(tmp, "random")
+    ckpt.save_state(notes_ck, params, Adam(tr.param_list(params),
+                                           TrainConfig()), 0,
+                    torch.Generator(), cfg)
+    weights = {"run": final, "random": notes_ck}
+
+    def server(path, fb=16, route="full", device=dev):
+        return cli_serve.Server(Sampler(
+            ckpt.load_model(path, cfg, 0, device)[0], scfg,
+            frame_decoder=route, fixed_batch=fb, device=device),
+            spec, 64, cfg=scfg)
+
+    # each op at 8 and 64 windows, at fixed batch 16 and 128, counted
+    p50, breakdown = {}, {}
+    for wname, path in weights.items():
+        for fb in DAEMON_FB:
+            srv = server(path, fb)
+            warm = daemon_requests(files, 8, out_dir)["style_transfer/chord"]
+            request(srv, warm[0], {K4: 1})
+            for n in DAEMON_BARS:
+                for name, (req, rows) in daemon_requests(files, n,
+                                                         out_dir).items():
+                    times = []
+                    for _ in range(DAEMON_REPS):
+                        reply, ms = request(srv, req,
+                                            {K4: chunks(rows, fb)})
+                        times.append(ms)
+                    check(reply["windows"] == n, f"{name}: {reply}")
+                    p50[f"{wname} fb={fb} n={n} {name}"] = float(
+                        np.median(times))
+            breakdown[f"{wname} fb={fb} n=64"] = request_breakdown(
+                srv, files, 64, out_dir)
+            del srv
+    print(f"  daemon p50 ms a request ({card}; host clock, MIDI in to MIDI "
+          f"out, median of {DAEMON_REPS}):")
+    for wname in weights:
+        for fb in DAEMON_FB:
+            for n in DAEMON_BARS:
+                key = f"{wname} fb={fb} n={n} "
+                print(f"    {key}: " + ", ".join(
+                    f"{k[len(key):]} {v:.2f}" for k, v in p50.items()
+                    if k.startswith(key)))
+    for k, t in breakdown.items():
+        print(f"  style_transfer {k} by stage (host ms, synced): " + ", ".join(
+            f"{s} {t[s]:.2f}" for s in ("ingest", "tensorize", "encode",
+                                        "decode", "write", "sum"))
+            + f"; {t['notes']} notes; front end {t['front_end_share']:.1%} "
+            f"of it; K4 {t['k4_chunk_device_ms']:.3f} device ms a chunk, "
+            f"{t['k4_device_ms']:.3f} a request")
+    out.update({"p50_ms": p50, "breakdown": breakdown})
+
+    # the K3 route (--frame-decoder pallas): 32 K3 launches a chunk
+    srv = server(final, fb=16, route="frame")
+    req, rows = daemon_requests(files, 64, out_dir)["style_transfer/chord"]
+    reply, ms = request(srv, req, {K3: spec.num_step * chunks(rows, 16)})
+    print(f"  --frame-decoder pallas (K3) style transfer of 64 windows at "
+          f"fb=16: {ms:.2f} ms, {spec.num_step * chunks(rows, 16)} K3 "
+          "launches, no K4")
+    out["k3_route_st64_fb16_ms"] = ms
+    del srv
+
+    # the grids against the CPU plain path, and the written MIDI against
+    # write_demo of Sampler.swap's grids, with each weight set
+    wa, wb = (midi_to_windows(files[k], 64) for k in ("a8", "b8"))
+    out["vs_cpu_plain"] = {}
+    for wname, path in weights.items():
+        srv, cpu = server(path), server(path, device="cpu")
+        pa, pb = (window_features(w[0], w[2], spec, dev)
+                  for w in (wa, wb))
+        grids = srv.s.swap(pa[0], pb[0], pa[1], pb[1], fix_rhy=False,
+                           fix_chd=True)
+        want = cpu.s.swap(pa[0].cpu(), pb[0].cpu(), pa[1].cpu(),
+                          pb[1].cpu(), fix_rhy=False, fix_chd=True)
+        agree = float((grids == want).mean())
+        lens = (grids[..., 0] != spec.pitch_eos).cumprod(-1).sum(-1)
+        served = os.path.join(out_dir, f"gate_served_{wname}.mid")
+        composed = os.path.join(out_dir, f"gate_composed_{wname}.mid")
+        srv.handle({"op": "style_transfer", "content": files["a8"],
+                    "style": files["b8"], "out": served, "fix": "chord"})
+        dm.write_demo(composed, [[dm.grid_to_pr_and_notes(
+            g, bpm=wa[3], spec=spec)[1] for g in grids]], ["generated"],
+            bpm=wa[3], shift_beat=8)
+        same = open(served, "rb").read() == open(composed, "rb").read()
+        print(f"  {wname} weights, style transfer of 8 windows: grid "
+              f"agreement with the CPU plain path {agree:.6f} (>= {AGREE}); "
+              f"frame lengths {np.bincount(lens.ravel(), minlength=16)}; "
+              f"served MIDI equals write_demo of Sampler.swap's grids: "
+              f"{same}")
+        check(agree >= AGREE, f"{wname}: daemon grids vs the CPU plain "
+              f"path {agree}")
+        check(same, f"{wname}: the served MIDI is not write_demo of the "
+              "swap's grids")
+        out["vs_cpu_plain"][wname] = agree
+        del srv, cpu
+    check(lens.sum() > 0, "the random weights decode no notes: the gate "
+          "would not see a note's decisions")
+
+    # a request of several chunks with a partial last one against the CPU:
+    # interp of 64 windows at fixed batch 128 decodes 320 rows in chunks of
+    # 128, 128 and 64 (random weights)
+    wa, wb = (midi_to_windows(files[k], 64) for k in ("a64", "b64"))
+    srv, cpu = (server(notes_ck, fb=128, device=d) for d in (dev, "cpu"))
+    pa, pb = (window_features(w[0], w[2], spec, dev) for w in (wa, wb))
+    kw = dict(interp_chd=True, interp_rhy=False, int_count=DAEMON_INTERP)
+    for f in counted:
+        f.launches = 0
+    grids = srv.s.interp(pa[0], pa[1], pb[0], pb[1], **kw)
+    got = {f.__name__: f.launches for f in counted}
+    want = cpu.s.interp(*(t.cpu() for t in (*pa, *pb)), **kw)
+    rows = len(wa[0]) * DAEMON_INTERP
+    agree = float((grids == want).mean())
+    print(f"  random weights, interp of {len(wa[0])} windows ({rows} rows, "
+          f"{chunks(rows, 128)} chunks of 128, the last partial): grid "
+          f"agreement with the CPU plain path {agree:.6f} (>= {AGREE}); "
+          f"launches {got}")
+    check(rows % 128 and got == {k: (chunks(rows, 128) if k == K4 else 0)
+                                 for k in got},
+          f"multi-chunk interp: {rows} rows, launches {got}")
+    check(agree >= AGREE, f"multi-chunk interp vs the CPU plain path {agree}")
+    out["vs_cpu_plain"]["random interp 64 fb=128"] = agree
+    del srv, cpu
+
+    # reload: the epoch checkpoint, other weights of the same widths, and
+    # other widths (refused, nothing changes)
+    req = {"op": "style_transfer", "content": files["a8"],
+           "style": files["b8"], "fix": "chord"}
+
+    def served_bytes(s, name):
+        path = os.path.join(out_dir, f"reload_{name}.mid")
+        check(s.handle(dict(req, out=path))["ok"] is True, name)
+        return open(path, "rb").read()
+
+    wide = os.path.join(tmp, "other_widths")
+    tiny = tiny_model_config()
+    p_tiny = dv.init_params(tiny, seed=args.seed, device="cpu")
+    ckpt.save_state(wide, p_tiny, Adam(tr.param_list(p_tiny),
+                                       TrainConfig()), 0,
+                    torch.Generator(), tiny)
+    srv = server(final)
+    before = served_bytes(srv, "final")
+    same_params = all(torch.equal(a, b) for a, b in zip(
+        ckpt.load_state(final)["params"].values(),
+        ckpt.load_state(epoch)["params"].values()))
+    reloads = {}
+    for name, path in (("epoch", epoch), ("random", notes_ck)):
+        check(srv.handle({"op": "reload", "checkpoint": path})["ok"] is True,
+              f"reload {name}")
+        got = served_bytes(srv, name)
+        reloads[name] = got == served_bytes(server(path), f"{name}_fresh")
+        check(reloads[name], f"after reload to {name} the daemon does not "
+              "serve what a fresh daemon on it serves")
+    check(got != before, "the reloaded weights serve the old bytes")
+    buf = io.StringIO()
+    cli_serve.serve_lines(srv, [json.dumps({"op": "reload",
+                                            "checkpoint": wide})], buf)
+    refused = json.loads(buf.getvalue())
+    check(refused["ok"] is False and "do not match" in refused["error"],
+          f"reload of other widths: {refused}")
+    check(served_bytes(srv, "after_refusal") == got,
+          "a refused reload changed what the daemon serves")
+    print(f"  reload: the epoch checkpoint (params equal to final's: "
+          f"{same_params}) and the random weights serve a fresh "
+          f"daemon's bytes; other widths refused "
+          f"({refused['error'][:80]}...), bytes unchanged")
+    out["reload"] = {"epoch_params_equal_final": same_params, **reloads}
+    del srv
+
+    # the daemon as a process
+    out["subprocess"] = daemon_subprocess(files, notes_ck, epoch, tmp)
+    print(f"  the daemon process: exit 0 in {out['subprocess']['wall_s']:.1f}"
+          " s, replies as the JAX daemon's test asserts")
+
+    # the generate and arrange CLIs on the card
+    clis = {}
+    for name, main_, argv, tracks, k4 in (
+            ("generate", cli_generate.main,
+             ["--chords", "C-Am-F-G", "--bars", "8", "--samples", "2",
+              "--texture-from", files["b8"]], ["sample_0", "sample_1"], 2),
+            ("generate (prior)", cli_generate.main,
+             ["--chords", "Am D7 G", "--samples", "2", "--seed", "5"],
+             ["sample_0", "sample_1"], 2),
+            ("arrange", cli_arrange.main,
+             [files["melody"], "--given-bars", "4"],
+             ["melody", "arranged_acc"], 1)):
+        path = os.path.join(out_dir, re.sub(r"\W+", "_", name) + ".mid")
+        argv = argv + ["--checkpoint", notes_ck, "--out", path]
+        for f in counted:
+            f.launches = 0
+        s0 = time.perf_counter()
+        captured(lambda: main_(argv))
+        ms = (time.perf_counter() - s0) * 1e3
+        got = {f.__name__: f.launches for f in counted}
+        names = [t.name for t in MidiFile.read(path).tracks]
+        print(f"  {name}: {ms:.1f} ms, tracks {names}, launches {got}")
+        check(names == tracks, f"{name}: tracks {names}")
+        check(got == {k: (k4 if k == K4 else 0) for k in got},
+              f"{name}: launches {got}")
+        clis[name] = ms
+    out["cli_ms"] = clis
+    out["launches"] = {"K4": total[K4], "K3": total[K3]}
+    print(f"  launches in the counted requests: {dict(total)}")
+    phase("serving daemon", t0)
     return out
 
 
@@ -2436,8 +2878,17 @@ def main() -> int:
     bf16_runs["logits out"]["step1_vs_fused_rel_err"] = b_modes_err
 
     # 9d-9h. the training run: the train CLI, resume, the evaluate CLI,
-    # the pianotree texture encoder, the automatic accumulation
-    training_run = training_run_phases(args, cfg, dev, counted, step_ms)
+    # the pianotree texture encoder, the automatic accumulation; 9i. the
+    # serving daemon on the run's checkpoints
+    tmp = tempfile.mkdtemp(prefix="pctd_run_")
+    try:
+        training_run, run_dir = training_run_phases(args, cfg, dev, counted,
+                                                    step_ms, tmp)
+        serving_daemon = serving_daemon_phase(
+            args, cfg, dev, counted, card, os.path.join(run_dir, "models"),
+            params, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     # 10. timing
     t0 = time.perf_counter()
@@ -2922,9 +3373,11 @@ def main() -> int:
                  "ms_b512": timing[512]["K3 bf16"][0],
                  "plain_ms_b512": timing[512]["K3 bf16"][1]})
     # the row-group decode kernels: queued times, the plan, the phases
-    # alone, the build report
+    # alone, the build report, the launches of the daemon's counted requests
     for row in rows:
         key = "K3 bf16" if "bf16" in row["name"] else row["name"][:2]
+        if key in serving_daemon["launches"]:
+            row["daemon_launches"] = serving_daemon["launches"][key]
         row.update({
             "ms_source": "CUDA events over launches queued behind a sleep "
                          "kernel (device time, host launch hidden)",
@@ -3108,7 +3561,8 @@ def main() -> int:
                       "training": training,
                       "training_logits_out": training_lo,
                       "training_bf16": training_bf16,
-                      "training_run": training_run, "card": card}))
+                      "training_run": training_run,
+                      "serving_daemon": serving_daemon, "card": card}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}))

@@ -2,13 +2,15 @@
 counterpart of the JAX package's ``train.py``).
 
 Defaults are the canonical configuration (conv texture encoder); pass
-``--variant pianotree`` for the PianoTree texture encoder. Without an npz
-corpus at ``--data-path`` a synthetic corpus is generated. Runs on
+``--variant pianotree`` for the PianoTree texture encoder. ``--midi-dir``
+ingests a directory of MIDI files; else, without an npz corpus at
+``--data-path``, a synthetic corpus is generated. Runs on
 ``cuda`` unless ``--device cpu`` is given.
 
 Examples:
     python -m pctd_tpu_torch.cli.train --epochs 6 --batch-size 128
     python -m pctd_tpu_torch.cli.train --variant pianotree --synthetic-songs 40
+    python -m pctd_tpu_torch.cli.train --midi-dir songs/ --corpus-cache c/songs
     python -m pctd_tpu_torch.cli.train --device cpu --epochs 1 --batch-size 8
 """
 from __future__ import annotations
@@ -29,9 +31,18 @@ from pctd_tpu_torch.train.trainer import Trainer
 from pctd_tpu_torch.utils.device import resolve_device
 
 
-def load_corpora(data_path: str, synthetic_songs: int, dcfg: DataConfig):
+def load_corpora(data_path: str, synthetic_songs: int, dcfg: DataConfig,
+                 midi_dir: Optional[str] = None,
+                 corpus_cache: Optional[str] = None):
     """(train, val) corpora and a description of where they came from: the
-    npz corpus when ``data_path`` is a directory, else synthetic songs."""
+    MIDI files under ``midi_dir`` when given (ingested, and cached at
+    ``corpus_cache``.{train,val}.npz when that is given), else the npz
+    corpus when ``data_path`` is a directory, else synthetic songs."""
+    if midi_dir:
+        from pctd_tpu_torch.data.ingest import ingest_directory
+
+        return (*ingest_directory(midi_dir, dcfg, cache=corpus_cache),
+                f"ingested MIDI at {midi_dir}")
     if os.path.isdir(data_path):
         from pctd_tpu_torch.data.corpus import prepare_dataset
 
@@ -57,6 +68,11 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--name", default="disvae")
     ap.add_argument("--data-path",
                     default="data/POP09-PIANOROLL-4-bin-quantization")
+    ap.add_argument("--midi-dir", default=None,
+                    help="build the corpus by ingesting the MIDI files "
+                         "under this directory (pctd_tpu_torch.data.ingest)")
+    ap.add_argument("--corpus-cache", default=None, metavar="PREFIX",
+                    help="cache the ingested corpus at PREFIX.{train,val}.npz")
     ap.add_argument("--synthetic-songs", type=int, default=40,
                     help="synthetic corpus size when no npz data exists")
     ap.add_argument("--sched-horizon", type=float, default=1.0)
@@ -101,7 +117,8 @@ def main(argv: Optional[Sequence[str]] = None,
                        accum_steps=args.accum_steps)
     dcfg = DataConfig(data_path=args.data_path, seed=args.seed)
     train_c, val_c, source = load_corpora(args.data_path,
-                                          args.synthetic_songs, dcfg)
+                                          args.synthetic_songs, dcfg,
+                                          args.midi_dir, args.corpus_cache)
     print(f"corpus: {len(train_c)} train / {len(val_c)} val segments "
           f"({source})")
     tl, vl = make_loaders(train_c, val_c, args.batch_size, dcfg.shift_low,

@@ -1,8 +1,8 @@
 """Host-side symbolic-music tensorizers in numpy: the part of the JAX
 package's ``pctd_tpu/data/converter.py`` that the corpus pipeline needs
-(``ext_nmat_to_nmat``, the piano-roll conversions, the pitch augmentation and
-the chord expansion), copied because the port may not import
-``pctd_tpu``. ``nmat_to_notes`` waits for the MIDI I/O module.
+(the nmat and note conversions, the piano-roll conversions and duration
+matrix, the pitch augmentation and the chord expansion), copied because
+the port may not import ``pctd_tpu``.
 
 Extended note-matrix ("ext_nmat") row format:
     [start_beat, start_quantum, start_denom, end_beat, end_quantum,
@@ -11,6 +11,10 @@ Extended note-matrix ("ext_nmat") row format:
 from __future__ import annotations
 
 import numpy as np
+
+
+def bpm_to_rate(bpm: float) -> float:
+    return 60.0 / bpm
 
 
 def ext_nmat_to_nmat(ext_nmat: np.ndarray) -> np.ndarray:
@@ -22,6 +26,20 @@ def ext_nmat_to_nmat(ext_nmat: np.ndarray) -> np.ndarray:
     nmat[:, 2] = ext_nmat[:, 6]
     nmat[:, 3] = ext_nmat[:, 7]
     return nmat
+
+
+def nmat_to_notes(nmat: np.ndarray, start: float, bpm: float):
+    """(N, 4) nmat -> list of :class:`~pctd_tpu_torch.data.midi_io.Note`
+    records (velocity, pitch, start seconds, end seconds)."""
+    from pctd_tpu_torch.data.midi_io import Note
+
+    notes = []
+    rate = bpm_to_rate(bpm)
+    for s, e, p, v in nmat:
+        assert s < e
+        assert 0 <= p < 128 and 0 <= v < 128
+        notes.append(Note(int(v), int(p), start + s * rate, start + e * rate))
+    return notes
 
 
 def ext_nmat_to_pr(ext_nmat, num_step: int = 32) -> np.ndarray:
@@ -65,6 +83,37 @@ def augment_mel_pr(pr: np.ndarray, shift: int = 0) -> np.ndarray:
     """Roll pitch cols 0..127 only; keep the sustain/rest cols fixed."""
     pitch_part = np.roll(pr[:, 0:128], shift, axis=-1)
     return np.concatenate([pitch_part, pr[:, 128:]], axis=-1)
+
+
+def pr_to_onehot_pr(pr: np.ndarray) -> np.ndarray:
+    """(.., 32, 128) roll -> (.., 32, 128, 3) [onset, sustain, silence]
+    planes. Works batched."""
+    onset = pr == 2
+    sustain = pr == 1
+    silence = pr == 0
+    return np.stack([onset, sustain, silence], axis=-1).astype(np.int64)
+
+
+def piano_roll_to_target(pr_onehot: np.ndarray) -> np.ndarray:
+    """(.., 32, 128, 3) onset/sustain/silence planes -> duration matrix
+    (.., 32, 128) where entry [t, p] = duration (in steps) of a note whose
+    onset is at (t, p), else 0, by the recurrence
+
+        c[t] = s[t] + (1 - onset[t+1]) * c[t+1],   c[31] = s[31]
+        dur[t] = onset[t] * (c[t] + 1)
+
+    where s = not(onset | silence) is the recomputed sustain plane."""
+    pr_onehot = np.asarray(pr_onehot)
+    onset = pr_onehot[..., 0].astype(np.int64)
+    silence = pr_onehot[..., 2].astype(np.int64)
+    s = 1 - np.logical_or(onset, silence).astype(np.int64)
+    T = onset.shape[-2]
+    c = np.zeros_like(onset)
+    c[..., T - 1, :] = s[..., T - 1, :]
+    for t in range(T - 2, -1, -1):
+        c[..., t, :] = (s[..., t, :]
+                        + (1 - onset[..., t + 1, :]) * c[..., t + 1, :])
+    return (onset * (c + 1)).astype(float)
 
 
 def expand_chord(chord: np.ndarray, shift: int, relative: bool = False

@@ -1,10 +1,10 @@
-"""Symbolic-music score model (a numpy copy of ``pctd_tpu/data/score.py``
-up to ``prepare_data``): multi-track note matrices with aligned beat and
-chord tables, partial bars regularized, everything split into bars, and the
-(data_track, indicator, db_pos) training index where ``indicator[i] == 1``
-iff bar ``i`` starts a valid ``num_bar`` window of ``ts``-beat bars with
-data. MIDI export (``to_midi``, ``write_midi``) waits for the MIDI I/O
-module.
+"""Symbolic-music score model (a numpy copy of ``pctd_tpu/data/score.py``):
+multi-track note matrices with aligned beat and chord tables, partial bars
+regularized, everything split into bars, the (data_track, indicator,
+db_pos) training index where ``indicator[i] == 1`` iff bar ``i`` starts a
+valid ``num_bar`` window of ``ts``-beat bars with data, and MIDI export
+(``to_midi``, ``write_midi``) through the port's own writer
+(:mod:`pctd_tpu_torch.data.midi_io`).
 
 Beat-table row format (POP909 convention):
     [beat_in_bar, bar_no, beats_per_bar, beat_in_bar, bar_no, beats_per_bar]
@@ -15,6 +15,8 @@ from __future__ import annotations
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from pctd_tpu_torch.data.converter import ext_nmat_to_nmat, nmat_to_notes
 
 
 class BeatTrack:
@@ -185,3 +187,28 @@ class PolyphonicMusic:
                 continue
             indicator[i] = 1
         return data_track, indicator, db_pos
+
+    # -- export ----------------------------------------------------------------
+
+    def convert_track_to_notes(self, track_ind=0, start=0.0, bpm=None):
+        bpm = bpm or self.bpm
+        nmat = ext_nmat_to_nmat(self.tracks[track_ind])
+        return nmat_to_notes(nmat, start, bpm)
+
+    def to_midi(self, track_ids=None, start=0.0, bpm=None):
+        from pctd_tpu_torch.data.midi_io import MidiFile, MidiTrack
+
+        bpm = bpm or self.bpm
+        if track_ids is None:
+            track_ids = [i for i in range(self.num_track)
+                         if len(self.tracks[i])]
+        midi = MidiFile(bpm=bpm)
+        for i in track_ids:
+            midi.tracks.append(MidiTrack(
+                name=self.track_name_list[i],
+                program=self.instrument_list[i],
+                notes=self.convert_track_to_notes(i, start, bpm)))
+        return midi
+
+    def write_midi(self, fn, track_ids=None, start=0.0, bpm=None):
+        self.to_midi(track_ids, start, bpm).write(fn)

@@ -1,6 +1,8 @@
 """On-device batch tensorization (``pctd_tpu/data/tensorize.py``): raw
 uint8 segments -> pitch-shifted duration matrix, PianoTree grid and
-expanded chord, batched in tensor ops on the device that trains.
+expanded chord, batched in tensor ops on the device that trains or
+serves. :func:`tensorize_batch` is the one entry point, used by the train
+step and the serving front end alike.
 
 Integer outputs equal the JAX package's exactly. The chord-relative
 ``detrend`` features of the PianoTree texture encoder are in
@@ -8,9 +10,12 @@ Integer outputs equal the JAX package's exactly. The chord-relative
 """
 from __future__ import annotations
 
+from typing import Dict, Tuple
+
 import torch
 
 from pctd_tpu_torch.config import PianoTreeSpec
+from pctd_tpu_torch.data.detrend import detrend_pianotree
 
 
 def select_roll(x: torch.Tensor, shift: torch.Tensor, low: int, high: int
@@ -106,3 +111,38 @@ def expand_chord_batch(chord_raw: torch.Tensor, shift: torch.Tensor
     chroma = select_roll(chord_raw[..., 1:13], sh % 12, 0, 11)
     one_hot = lambda i: torch.nn.functional.one_hot(i.long(), 12).float()
     return torch.cat([one_hot(root), chroma.float(), one_hot(bass)], dim=-1)
+
+
+def tensorize_batch(pr: torch.Tensor, chord_raw: torch.Tensor,
+                    shift: torch.Tensor, spec: PianoTreeSpec = PianoTreeSpec(),
+                    with_detrend: bool = True) -> Dict[str, torch.Tensor]:
+    """Tensorization of a batch on the inputs' device.
+
+    Inputs (un-augmented, as the corpus stores them):
+        pr        (B, 32, 128) uint8 onset/sustain/rest roll
+        chord_raw (B, 8, 14)   raw chord rows
+        shift     (B,)         per-sample transposition in semitones
+
+    Returns a dict with pr_mat (B, 32, 128) f32, x (B, 32, K, 6) int32
+    grid, c (B, 8, 36) f32 and, as asked, dt_x (B, 32, 16, 39) f32 (the
+    detrended grid)."""
+    pr_mat = pr_to_dur_matrix(shift_pr(pr.to(torch.int32), shift))
+    x = dur_matrix_to_grid(pr_mat, spec)
+    c = expand_chord_batch(chord_raw, shift)
+    out = {"pr_mat": pr_mat, "x": x, "c": c}
+    if with_detrend:
+        out["dt_x"] = detrend_pianotree(x, c)
+    return out
+
+
+def window_features(pr, chord, spec: PianoTreeSpec, device
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Raw serving windows (pr (N, 32, 128) uint8, chord (N, 8, 14), numpy
+    or tensors) -> (pr_mat, c) on ``device``, untransposed: the encoder
+    inputs of the serving CLIs."""
+    f = tensorize_batch(torch.as_tensor(pr, device=device),
+                        torch.as_tensor(chord, device=device),
+                        torch.zeros(len(pr), dtype=torch.int32,
+                                    device=device),
+                        spec=spec, with_detrend=False)
+    return f["pr_mat"], f["c"]

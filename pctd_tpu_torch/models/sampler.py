@@ -17,6 +17,9 @@ and int32 grids out. Building a bf16 Sampler sets
 ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction`` to
 False for the process, as a bf16 ``Trainer`` does: JAX sums a bf16
 product's partial sums in f32.
+
+``load_params`` puts new weights of the same names, shapes and dtypes into
+a built Sampler and folds them again (the serving daemon's ``reload``).
 """
 from __future__ import annotations
 
@@ -31,7 +34,13 @@ from pctd_tpu_torch.ops import DiagNormal
 from pctd_tpu_torch.ops.kernels.ar_decoder import folded_frame_weights
 from pctd_tpu_torch.utils import precision
 from pctd_tpu_torch.utils.device import resolve_device
-from pctd_tpu_torch.utils.weights import params_to
+from pctd_tpu_torch.utils.weights import named_leaves, params_to
+
+
+def _signature(params) -> dict:
+    """{leaf name: (shape, dtype)} of a params tree."""
+    return {n: (tuple(t.shape), t.dtype)
+            for n, t in named_leaves(params).items()}
 
 
 def _map(fn, out):
@@ -53,16 +62,35 @@ class Sampler:
         self.cfg = cfg
         self.frame_decoder = frame_decoder
         self.fixed_batch = fixed_batch
-        self.params = params_to(params, self.device)
-        dtype = precision.compute_dtype(cfg)
-        if dtype != torch.float32:
-            # cast once; the casts inside encode and decode_z are then
-            # no-ops
-            self.params = precision.cast_params(self.params, dtype)
+        self._leaves = _signature(params)
+        self.params, self.fw = self._prepare(params)
+        if precision.compute_dtype(cfg) != torch.float32:
             torch.backends.cuda.matmul \
                 .allow_bf16_reduced_precision_reduction = False
-        # the serving folds depend on the weights only: fold once
-        self.fw = folded_frame_weights(self.params["dec"], cfg)
+
+    def _prepare(self, params: dict):
+        """(params on the device, cast once to the compute dtype, and the
+        serving folds of their decoder, which depend on the weights only)."""
+        params = params_to(params, self.device)
+        dtype = precision.compute_dtype(self.cfg)
+        if dtype != torch.float32:
+            # the casts inside encode and decode_z are then no-ops
+            params = precision.cast_params(params, dtype)
+        return params, folded_frame_weights(params["dec"], self.cfg)
+
+    def load_params(self, params: dict) -> None:
+        """Serve ``params`` from now on, moved, cast and folded as at
+        construction (assigning ``self.params`` alone would leave the old
+        folds in ``self.fw``). Each leaf must have the name, shape and
+        dtype of the leaf it replaces; else this raises ValueError and the
+        Sampler keeps serving its weights."""
+        new = _signature(params)
+        if new != self._leaves:
+            diff = sorted(set(new.items()) ^ set(self._leaves.items()),
+                          key=str)
+            raise ValueError(f"params do not match the served weights "
+                             f"(name, shape, dtype): {diff[:4]}")
+        self.params, self.fw = self._prepare(params)
 
     def _tensor(self, a) -> torch.Tensor:
         """A request array (numpy or tensor) as float32 on the device."""

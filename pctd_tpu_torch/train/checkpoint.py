@@ -5,29 +5,21 @@ whose orbax save holds params, optimizer state, step and PRNG key), with
 ``torch.Generator``'s state, which plays the part of the JAX key (the JAX
 key is stateless, the generator is not). A restored run continues exactly
 as the uninterrupted one does. The model configuration rides along, so a
-checkpoint names the widths it was trained at.
+checkpoint names the widths it was trained at, and :func:`load_model`
+serves a checkpoint (or fresh weights) at those widths to the serving
+CLIs.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from pctd_tpu_torch.config import ChordSpec, ModelConfig, PianoTreeSpec
-from pctd_tpu_torch.ops.gru import GRUParams
-from pctd_tpu_torch.utils.weights import params_from_jax
-
-
-def named_leaves(params, prefix: str = "") -> Dict[str, torch.Tensor]:
-    """``{"dec/notes_gru/w_ih": tensor, ...}`` in the tree's order."""
-    if isinstance(params, GRUParams):
-        params = params._asdict()
-    if isinstance(params, dict):
-        return {n: t for k, v in params.items()
-                for n, t in named_leaves(v, f"{prefix}{k}/").items()}
-    return {prefix[:-1]: params}
+from pctd_tpu_torch.models import disentangle_vae as dv
+from pctd_tpu_torch.utils.weights import named_leaves, params_from_jax
 
 
 def save_state(path: str, params, opt, step: int,
@@ -90,3 +82,17 @@ def params_of(saved: dict, device=None):
             node = node.setdefault(k, {})
         node[leaf] = np.asarray(t.numpy())
     return params_from_jax(tree, device)
+
+
+def load_model(path: Optional[str], cfg: ModelConfig, seed: int, device
+               ) -> Tuple[dict, ModelConfig]:
+    """(params on ``device``, the serving config) for the serving CLIs: a
+    checkpoint's params at the widths it names (``cfg``'s where it names
+    none), else fresh ones of ``cfg`` from ``seed``; served in float32."""
+    if path:
+        saved = load_state(path)
+        cfg = model_config_of(saved) or cfg
+        params = params_of(saved, device)
+    else:
+        params = dv.init_params(cfg, seed=seed, device=device)
+    return params, dataclasses.replace(cfg, compute_dtype="float32")

@@ -39,13 +39,13 @@ import torch
 
 from pctd_tpu_torch.config import ModelConfig, TrainConfig
 from pctd_tpu_torch.data import tensorize as tz
-from pctd_tpu_torch.data.detrend import detrend_pianotree
 from pctd_tpu_torch.models import disentangle_vae as dv
 from pctd_tpu_torch.train import checkpoint, schedules
 from pctd_tpu_torch.train.logging import MetricWriters, RunPaths
 from pctd_tpu_torch.train.optim import Adam
 from pctd_tpu_torch.utils import device_mem
 from pctd_tpu_torch.utils.device import resolve_device
+from pctd_tpu_torch.utils.weights import named_leaves
 
 #: the constant that keeps eval noise apart from the train stream (the JAX
 #: trainer's ``fold_in(key, 0x5EED)``)
@@ -66,12 +66,9 @@ def batch_features(pr, chord, shift, mcfg: ModelConfig):
     on the device -> (x (B, 32, K, 6) int32, c (B, 8, 36), pr_mat
     (B, 32, 128), dt_x): dt_x is the detrended grid (B, 32, 16, 39) for
     the pianotree texture encoder, else None."""
-    pr_mat = tz.pr_to_dur_matrix(tz.shift_pr(pr.to(torch.int32), shift))
-    x = tz.dur_matrix_to_grid(pr_mat, mcfg.pianotree)
-    c = tz.expand_chord_batch(chord, shift)
-    dt_x = (detrend_pianotree(x, c) if mcfg.txt_encoder == "pianotree"
-            else None)
-    return x, c, pr_mat, dt_x
+    f = tz.tensorize_batch(pr, chord, shift, spec=mcfg.pianotree,
+                           with_detrend=mcfg.txt_encoder == "pianotree")
+    return f["x"], f["c"], f["pr_mat"], f.get("dt_x")
 
 
 def auto_accum_steps(mcfg: ModelConfig, tcfg: TrainConfig,
@@ -104,7 +101,7 @@ def auto_accum_steps(mcfg: ModelConfig, tcfg: TrainConfig,
 def param_list(params) -> List[torch.Tensor]:
     """Every tensor of a params tree, in a fixed (insertion) order: the
     checkpoint's order."""
-    return list(checkpoint.named_leaves(params).values())
+    return list(named_leaves(params).values())
 
 
 def loss_and_grads(params, mcfg: ModelConfig, tcfg: TrainConfig, step: int,

@@ -9,7 +9,7 @@ float32 tensor. :func:`export_params` is the inverse, bit-exact.
 """
 from __future__ import annotations
 
-from typing import Any, Optional, Union
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -73,3 +73,13 @@ def params_to(params: Any, device: torch.device):
     if isinstance(params, dict):
         return {k: params_to(v, device) for k, v in params.items()}
     return params.to(device)
+
+
+def named_leaves(params, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """``{"dec/notes_gru/w_ih": tensor, ...}`` in the tree's order."""
+    if isinstance(params, GRUParams):
+        params = params._asdict()
+    if isinstance(params, dict):
+        return {n: t for k, v in params.items()
+                for n, t in named_leaves(v, f"{prefix}{k}/").items()}
+    return {prefix[:-1]: params}

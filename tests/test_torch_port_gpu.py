@@ -2,7 +2,9 @@
 decode kernels K3 (float32 and bf16) and K4, and the train-frame pair K1
 (forward) and K2 (backward, against autograd of the plain forward) in loss
 mode and in logits-out mode, float32 and bf16; the pianotree texture
-encoder's detrend on the card and its train step against the plain path.
+encoder's detrend on the card and its train step against the plain path;
+the serving daemon's front end and Sampler on the card against the CPU
+plain path, and its decode launches by fixed batch.
 
 Skipped without a card. The card's machine has no JAX, so this file imports
 only torch and pctd_tpu_torch, and runs there without the JAX test conftest:
@@ -1306,3 +1308,71 @@ def test_pianotree_train_step_matches_plain_path(cuda, monkeypatch):
     for a, b in zip(got_g, want_g):
         tol = 1e-4 * (1.0 + b.abs().max().item())
         assert (a - b).abs().max().item() <= tol
+
+
+def _daemon_songs(tmp_path):
+    """Synthetic songs written as MIDI: "a" of 8 two-bar windows, "b" of
+    20."""
+    from pctd_tpu_torch.data.synthetic import synthetic_song
+
+    files = {}
+    for name, seed, bars in (("a", 0, 16), ("b", 1, 40)):
+        files[name] = str(tmp_path / f"{name}.mid")
+        synthetic_song(np.random.RandomState(seed),
+                       n_bars=bars).write_midi(files[name])
+    return files
+
+
+def _daemon(params, cfg, device, fixed_batch=16, route="full"):
+    from pctd_tpu_torch.cli import serve
+
+    return serve.Server(Sampler(params, cfg, frame_decoder=route,
+                                fixed_batch=fixed_batch, device=device),
+                        cfg.pianotree, 64, cfg=cfg)
+
+
+@pytest.mark.parametrize("width", ["tiny", "canonical"])
+def test_daemon_on_the_card_matches_the_cpu_plain_path(cuda, tmp_path,
+                                                       width):
+    """The daemon's front end and Sampler on the card against the same on
+    the CPU (the plain versions): a chord-fixed style transfer of 8
+    windows."""
+    cfg = tiny_model_config() if width == "tiny" else ModelConfig()
+    params = dv.init_params(cfg, seed=1, device="cpu")
+    files = _daemon_songs(tmp_path)
+    grids = []
+    for device in (cuda, torch.device("cpu")):
+        server = _daemon(params, cfg, device)
+        pm1, c1, _ = server._load(files["a"])
+        pm2, c2, _ = server._load(files["b"])
+        assert pm1.device.type == device.type
+        grids.append(server.s.swap(pm1, pm2[:8], c1, c2[:8], fix_rhy=False,
+                                   fix_chd=True))
+    assert grids[0].shape == (8, 32, 15, 6)
+    assert (grids[0] == grids[1]).mean() >= AGREE
+
+
+@pytest.mark.parametrize("route", ["full", "frame"])
+@pytest.mark.parametrize("fixed_batch", [16, 128])
+def test_daemon_launches_by_fixed_batch(cuda, tmp_path, fixed_batch, route):
+    """K4 once a fixed-batch chunk of decoded rows (K3 32 times a chunk on
+    the frame route), and the other decode kernel never."""
+    cfg = tiny_model_config()
+    server = _daemon(dv.init_params(cfg, seed=1, device="cpu"), cfg, cuda,
+                     fixed_batch, route)
+    files = _daemon_songs(tmp_path)
+    out = str(tmp_path / "out_%d.mid")
+    for req, rows in (
+            ({"op": "style_transfer", "content": files["a"],
+              "style": files["b"]}, 8),
+            ({"op": "variation", "input": files["b"], "seed": 1}, 20),
+            ({"op": "interp", "a": files["a"], "b": files["b"],
+              "count": 5}, 40)):
+        full_decoder.decode_grid_full.launches = 0
+        ar_decoder.frame_decode.launches = 0
+        assert server.handle(dict(req, out=out))["ok"]
+        chunks = -(-rows // fixed_batch)
+        want = ((chunks, 0) if route == "full"
+                else (0, cfg.pianotree.num_step * chunks))
+        assert (full_decoder.decode_grid_full.launches,
+                ar_decoder.frame_decode.launches) == want

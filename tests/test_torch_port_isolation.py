@@ -23,8 +23,10 @@ names = [m.name for m in pkgutil.walk_packages(pctd_tpu_torch.__path__,
                                                "pctd_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-for name in ("cli.evaluate", "cli.train", "data.corpus", "data.detrend",
-             "data.loaders", "data.synthetic", "data.tensorize",
+for name in ("cli.arrange", "cli.evaluate", "cli.generate", "cli.serve",
+             "cli.train", "data.chords", "data.corpus", "data.demo",
+             "data.detrend", "data.ingest", "data.loaders", "data.midi_io",
+             "data.songs", "data.synthetic", "data.tensorize",
              "models.chord_decoder", "models.disentangle_vae",
              "models.pianotree_decoder", "ops.kernels.train_frame",
              "ops.losses", "train.checkpoint", "train.logging",
@@ -42,13 +44,15 @@ from pctd_tpu_torch.models import disentangle_vae as dv
 from pctd_tpu_torch.models.sampler import Sampler
 assert not torch.cuda.is_available()
 params = dv.init_params(tiny_model_config(), seed=0, device="cpu")
-from pctd_tpu_torch.cli import evaluate, train
+from pctd_tpu_torch.cli import arrange, evaluate, generate, serve, train
 from pctd_tpu_torch.config import TrainConfig
 from pctd_tpu_torch.train.trainer import Trainer
 for call in (lambda: Sampler(params, tiny_model_config()),
              lambda: dv.init_params(tiny_model_config()),
              lambda: Trainer(tiny_model_config(), TrainConfig(), None),
-             lambda: train.main([]), lambda: evaluate.main([])):
+             lambda: train.main([]), lambda: evaluate.main([]),
+             lambda: serve.main([]), lambda: generate.main(["--chords", "C"]),
+             lambda: arrange.main(["in.mid"])):
     try:
         call()
     except RuntimeError as e:
@@ -84,7 +88,7 @@ def _run(args, **kw):
 def test_port_imports_without_jax_and_refuses_cpu_fallback():
     proc = _run(["-c", PROBE])
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.split()[-1]) >= 41
+    assert int(proc.stdout.split()[-1]) >= 49
 
 
 def test_chip_smoke_fails_without_a_card():
