@@ -60,7 +60,24 @@ at fixed batch 16 and 128 (every reply ok, K4 launched once a chunk of
 decoded rows and nothing else; one request on the K3 route), its grids
 against the CPU plain path, reload (another checkpoint's bytes; other
 widths refused, nothing changed), the daemon as a process with malformed
-lines, and the generate and arrange CLIs.
+lines, and the generate and arrange CLIs. The reference checkpoint: the
+run's checkpoint to a reference ``.pt`` and back
+(``pctd_tpu_torch.cli.convert_checkpoint``, the same bits), served by the
+daemon in this process (the source checkpoint's bytes), and a pianotree
+``.pt`` detected. The demo tree: ``pctd_tpu_torch.cli.make_demos --k 4`` on
+the run's checkpoint (K4 only, counted; the reference tree's files and
+track names, every file parsing). The 32-bar stretch (num_step=128) at
+canonical width: served through ``Sampler(fixed_batch=128)`` (the four
+workflows at n = 1, 37, 128, K4 once a chunk; a swap against K4's plain
+version; K4 at T=128 timed queued; the K3 route in f32 and bf16, 128
+launches a chunk, bf16 against the plain bf16 route with each differing
+row's first difference a near-tie), and trained at B=128 on an 8-bar
+synthetic corpus (f32 fused, logits out, bf16; K1/K2a/K2b 128 launches a
+step; step 1 against the plain path; its step envelope against the
+committed ``STEP_ENVELOPE[("conv", 128)]``). The pianotree texture encoder
+served: the detrended grid on the card, ``Sampler.encode`` with it, the
+``disentangle_vae`` workflows with ``dt_x`` through K4 against the CPU plain
+path, the Sampler's workflows refusing the model.
 Prints one line per phase with its seconds, a ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``. Exits nonzero,
 printing no result, without a CUDA card or when any phase fails. Imports
@@ -80,6 +97,7 @@ import json
 import os
 import re
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
@@ -89,11 +107,14 @@ import numpy as np
 import torch
 
 from pctd_tpu_torch.cli import arrange as cli_arrange
+from pctd_tpu_torch.cli import convert_checkpoint as cli_convert
 from pctd_tpu_torch.cli import evaluate as cli_evaluate
 from pctd_tpu_torch.cli import generate as cli_generate
+from pctd_tpu_torch.cli import make_demos as cli_make_demos
 from pctd_tpu_torch.cli import serve as cli_serve
 from pctd_tpu_torch.cli import train as cli_train
-from pctd_tpu_torch.config import (DataConfig, ModelConfig, TrainConfig,
+from pctd_tpu_torch.config import (ChordSpec, DataConfig, ModelConfig,
+                                   PianoTreeSpec, TrainConfig,
                                    tiny_model_config)
 from pctd_tpu_torch.data import demo as dm
 from pctd_tpu_torch.data.detrend import detrend_pianotree_batch
@@ -115,6 +136,8 @@ from pctd_tpu_torch.train.optim import Adam, global_norm
 from pctd_tpu_torch.utils import device_mem
 from pctd_tpu_torch.utils.cuda_timing import cuda_ms, queued_ms
 from pctd_tpu_torch.utils.precision import cast_params
+from pctd_tpu_torch.utils.torch_interop import save_reference_checkpoint
+from pctd_tpu_torch.utils.weights import params_to
 
 #: H100 SXM peaks (NVIDIA data sheet): f32 on CUDA cores, dense bf16 on the
 #: tensor cores, HBM3 bandwidth
@@ -205,6 +228,18 @@ DAEMON_FB = (16, 128)
 DAEMON_BARS = {8: 16, 64: 130}
 DAEMON_REPS = 3
 DAEMON_INTERP = 5
+# the 32-bar stretch (num_step=128): request sizes; f32 fused train steps
+# (and an eval batch), logits-out and bf16 steps; the 8-bar synthetic
+# corpus (songs of so many bars: 17 windows a song, ~170 train segments)
+STRETCH_SIZES = (1, 37, 128)
+STRETCH_STEPS = 3
+STRETCH_OTHER_STEPS = 2
+STRETCH_SONGS, STRETCH_BARS = 12, 24
+# pianotree serving: rows encoded (chunks of 16, the last partial), rows a
+# workflow decodes on the card and on the CPU plain path
+PT_SERVE_ROWS = 37
+PT_CPU_ROWS = 4
+DEMO_K = 4             # the demo tree's k x k style-transfer grid
 
 
 class PhaseFailed(RuntimeError):
@@ -220,17 +255,19 @@ def phase(name: str, t0: float) -> None:
     print(f"[phase] {name}: {time.perf_counter() - t0:.2f} s", flush=True)
 
 
-def requests(rng: np.random.RandomState, B: int):
-    """Synthetic (pr_mat (B, 32, 128), chord (B, 8, 36)): sparse onsets with
-    durations 1..8, and root one-hot | chroma | bass one-hot chords."""
-    pr = np.zeros((B, 32, 128), np.float32)
-    on = rng.rand(B, 32, 128) < 0.02
+def requests(rng: np.random.RandomState, B: int, T: int = 32):
+    """Synthetic (pr_mat (B, T, 128), chord (B, T/4, 36)): sparse onsets
+    with durations 1..8, and root one-hot | chroma | bass one-hot
+    chords."""
+    pr = np.zeros((B, T, 128), np.float32)
+    on = rng.rand(B, T, 128) < 0.02
     pr[on] = rng.randint(1, 9, on.sum())
-    c = np.zeros((B, 8, 36), np.float32)
-    rows, steps = np.arange(B)[:, None], np.arange(8)[None, :]
-    c[rows, steps, rng.randint(0, 12, (B, 8))] = 1.0
-    c[..., 12:24] = rng.randint(0, 2, (B, 8, 12))
-    c[rows, steps, 24 + rng.randint(0, 12, (B, 8))] = 1.0
+    n = T // 4
+    c = np.zeros((B, n, 36), np.float32)
+    rows, steps = np.arange(B)[:, None], np.arange(n)[None, :]
+    c[rows, steps, rng.randint(0, 12, (B, n))] = 1.0
+    c[..., 12:24] = rng.randint(0, 2, (B, n, 12))
+    c[rows, steps, 24 + rng.randint(0, 12, (B, n))] = 1.0
     return pr, c
 
 
@@ -576,8 +613,8 @@ def serve_workflows(sampler, sizes, rng, gen):
     serving, chunks = {}, 0
     for name, fn in workflows.items():
         for n in sizes:
-            pr1, c1 = requests(rng, n)
-            pr2, c2 = requests(rng, n)
+            pr1, c1 = requests(rng, n, spec.num_step)
+            pr2, c2 = requests(rng, n, spec.num_step)
             times = []
             for _ in range(3):
                 s0 = time.perf_counter()
@@ -586,7 +623,8 @@ def serve_workflows(sampler, sizes, rng, gen):
                 times.append(time.perf_counter() - s0)
             segs = n * (5 if name == "interp" else 1)
             chunks += 3 * -(-segs // sampler.fixed_batch)
-            shape = ((n, 5) if name == "interp" else (n,)) + (32, 15, 6)
+            shape = ((n, 5) if name == "interp" else (n,)) + (
+                spec.num_step, 15, 6)
             check(out.shape == shape and out.dtype == np.int32,
                   f"{name} n={n}: {out.shape} {out.dtype}")
             check(((out[..., 0] >= 0) & (out[..., 0] < spec.pitch_range))
@@ -1167,6 +1205,40 @@ def step_footprint(trainer, batch) -> int:
     return state + torch.cuda.max_memory_allocated() - before
 
 
+def measure_envelope(cfg, corpora, seed: int, dev) -> dict:
+    """The step envelope of ``cfg``: the bytes of an f32 step (CE fused in)
+    at each batch of ``ENVELOPE_B`` on ``corpora`` (train, val),
+    extrapolated linearly to ``ENVELOPE_SHARE`` of the card's memory and
+    rounded down to 128; fails if the committed
+    ``train.trainer.STEP_ENVELOPE`` entry exceeds it."""
+    total = torch.cuda.get_device_properties(dev).total_memory
+    foot = {}
+    for B in ENVELOPE_B:
+        tcfg_e = TrainConfig(batch_size=B, accum_steps=1, seed=seed)
+        lb, _ = make_loaders(*corpora, B, seed=seed)
+        t = tr.Trainer(cfg, tcfg_e, lb, device=dev)
+        it = t.batches()
+        t.train_step(next(it))          # first use: panels, caches
+        foot[B] = step_footprint(t, next(it))
+        del t, it
+    torch.cuda.empty_cache()
+    (b0, f0), (b1, f1) = sorted(foot.items())
+    slope = (f1 - f0) / (b1 - b0)
+    fixed = f0 - b0 * slope
+    env = int((ENVELOPE_SHARE * total - fixed) / slope) // 128 * 128
+    key = (cfg.txt_encoder, cfg.pianotree.num_step)
+    committed = tr.step_envelope(cfg)
+    print(f"  {key}: an f32 step takes " + ", ".join(
+        f"{v / 1e9:.3f} GB at B={k}" for k, v in foot.items())
+        + f"; {slope / 1e6:.3f} MB a segment + {fixed / 1e9:.3f} GB; "
+        f"{ENVELOPE_SHARE:.0%} of {total} B holds B={env}; committed "
+        f"STEP_ENVELOPE {committed}")
+    check(committed <= env, f"{key}: the committed envelope {committed} "
+          f"exceeds the measured {env}")
+    return {"footprint_bytes": foot, "bytes_a_segment": slope,
+            "fixed_bytes": fixed, "envelope": env, "committed": committed}
+
+
 def training_run_phases(args, cfg, dev, counted, step_ms: float, tmp: str
                         ):
     """The phases of the training run: the train CLI (two epochs with
@@ -1426,34 +1498,9 @@ def training_run_phases(args, cfg, dev, counted, step_ms: float, tmp: str
     # (CE fused in) at two batch sizes, extrapolated to 90% of the card
     t0 = time.perf_counter()
     total = torch.cuda.get_device_properties(dev).total_memory
-    envelopes = {}
-    for enc in ("conv", "pianotree"):
-        cfg_e = dataclasses.replace(cfg, txt_encoder=enc)
-        foot = {}
-        for B in ENVELOPE_B:
-            tcfg_e = TrainConfig(batch_size=B, accum_steps=1, seed=args.seed)
-            lb, _ = make_loaders(train_c, val_c, B, seed=args.seed)
-            t = tr.Trainer(cfg_e, tcfg_e, lb, device=dev)
-            it = t.batches()
-            t.train_step(next(it))          # first use: panels, caches
-            foot[B] = step_footprint(t, next(it))
-            del t, it
-        (b0, f0), (b1, f1) = sorted(foot.items())
-        slope = (f1 - f0) / (b1 - b0)
-        fixed = f0 - b0 * slope
-        env = int((ENVELOPE_SHARE * total - fixed) / slope) // 128 * 128
-        envelopes[enc] = {"footprint_bytes": foot, "bytes_a_segment": slope,
-                          "fixed_bytes": fixed, "envelope": env,
-                          "committed": tr.STEP_ENVELOPE[enc]}
-        print(f"  {enc}: an f32 step takes " + ", ".join(
-            f"{v / 1e9:.3f} GB at B={k}" for k, v in foot.items())
-            + f"; {slope / 1e6:.3f} MB a segment + {fixed / 1e9:.3f} GB; "
-            f"{ENVELOPE_SHARE:.0%} of {total} B holds B={env}; committed "
-            f"STEP_ENVELOPE {tr.STEP_ENVELOPE[enc]}")
-    for enc, e in envelopes.items():
-        check(e["committed"] <= e["envelope"], f"{enc}: the committed "
-              f"envelope {e['committed']} exceeds the measured "
-              f"{e['envelope']}")
+    envelopes = {enc: measure_envelope(
+        dataclasses.replace(cfg, txt_encoder=enc), (train_c, val_c),
+        args.seed, dev) for enc in ("conv", "pianotree")}
     auto = tr.auto_accum_steps(cfg, TrainConfig(batch_size=TRAIN_B), dev)
     print(f"  card memory {total} B (device_mem.MEASURED_HBM "
           f"{device_mem.MEASURED_HBM}); auto_accum_steps at B={TRAIN_B}: "
@@ -1881,6 +1928,538 @@ def serving_daemon_phase(args, cfg, dev, counted, card: str, models: str,
     print(f"  launches in the counted requests: {dict(total)}")
     phase("serving daemon", t0)
     return out
+
+
+def stretch_config(cfg: ModelConfig) -> ModelConfig:
+    """``cfg`` at the 32-bar stretch: 128 steps, 32 chord beats."""
+    return dataclasses.replace(cfg, pianotree=PianoTreeSpec(num_step=128),
+                               chord=ChordSpec(num_step=32))
+
+
+def counts(counted) -> dict:
+    return {f.__name__: f.launches for f in counted}
+
+
+def reset_counts(counted) -> None:
+    for f in counted:
+        f.launches = 0
+
+
+@contextlib.contextmanager
+def recorded_plain_frames(hs: list):
+    """Inside this context the K3 route of ``decode_grid`` runs
+    ``frame_decode_plain`` on the card and appends each frame's time hidden
+    to ``hs``; the kernel route is restored on exit."""
+    kernel_route = ar_decoder.frame_decode
+
+    def plain(fw, spec, h, sos_emb, **kw):
+        hs.append(h)
+        return ar_decoder.frame_decode_plain(fw, spec, h, sos_emb)
+
+    ar_decoder.frame_decode = plain
+    try:
+        yield
+    finally:
+        ar_decoder.frame_decode = kernel_route
+
+
+def first_frame_margins(fw, spec, got, want, hs, dev) -> list:
+    """For each row whose grid ``got`` (the kernel route's) differs from
+    ``want`` (the plain route's, whose frames' time hiddens are ``hs``):
+    the plain version's margin (:func:`root_margins`) at the first
+    differing decision of the first differing frame."""
+    got, want = (torch.as_tensor(a, device=dev) for a in (got, want))
+    B, T = got.shape[:2]
+    diff = (got != want).reshape(B, T, -1).any(-1)
+    margins = []
+    for r in diff.any(1).nonzero()[:, 0].tolist():
+        t = int(diff[r].int().argmax())
+        hid, gi = ar_decoder.frame_projection(fw, hs[t][r:r + 1])
+        *_, pl, dl = ar_decoder.slot_chain_plain(fw, spec, hid, gi,
+                                                 logits=True)
+        margins.append(root_margins(got[r:r + 1, t], want[r:r + 1, t],
+                                    pl, dl).item())
+    return margins
+
+
+def stretch_serving_phase(args, dev, counted, gen, rng) -> dict:
+    """The stretch (``stretch_config``) served at canonical width in f32
+    through ``Sampler(fixed_batch=128)``: the four workflows at n = 1, 37,
+    128 (K4 once a chunk, nothing else), a swap of 128 against K4's plain
+    version on the card and K4's bits over two launches, K4 at T=128 timed
+    queued behind a sleep kernel beside its bound and its plain version;
+    the K3 route at n=128 in f32 (128 K3 launches a chunk, against K4's
+    grids) and bf16 (against the plain bf16 route on the card, each
+    differing row's first difference a near-tie)."""
+    t0 = time.perf_counter()
+    cfg = stretch_config(ModelConfig())
+    spec = cfg.pianotree
+    T = spec.num_step
+    K4, K3 = full_decoder.decode_grid_full, ar_decoder.frame_decode
+    params = dv.init_params(cfg, seed=args.seed, device=dev)
+    sampler = Sampler(params, cfg, fixed_batch=TRAIN_B, device=dev)
+    warm_pr, warm_c = requests(rng, 4, T)
+    sampler.swap(warm_pr, warm_pr, warm_c, warm_c, True, True)
+    reset_counts(counted)
+    serving, chunks = serve_workflows(sampler, STRETCH_SIZES, rng, gen)
+    got = counts(counted)
+    print(f"  launches in {chunks} decode chunks of <= {TRAIN_B} rows: "
+          f"{got}")
+    check(got[K4.__name__] == chunks and sum(got.values()) == chunks,
+          f"stretch serving launches {got}, expected {chunks} K4 and "
+          "nothing else")
+
+    pr, c = requests(rng, TRAIN_B, T)
+    d_chd, d_rhy = sampler.encode(pr, c)
+    inputs = ptd.decode_inputs(params["dec"], cfg, torch.cat(
+        [d_chd.mean, d_rhy.mean], -1))
+    served = sampler.swap(pr, pr, c, c, True, True)
+    plain = full_decoder.decode_grid_full_plain(sampler.fw, spec, *inputs)
+    ag = agreement(torch.as_tensor(served, device=dev), plain)
+    once, twice = K4(sampler.fw, spec, *inputs), K4(sampler.fw, spec,
+                                                       *inputs)
+    same = torch.equal(once, twice)
+    eos = once[..., 0] == spec.pitch_eos
+    hist = torch.bincount(torch.where(
+        eos.any(-1), eos.int().argmax(-1) + 1, spec.max_simu_note - 1)
+        .flatten().long(), minlength=16).tolist()
+    print(f"  served swap n={TRAIN_B} vs K4's plain version on the card: "
+          f"grid agreement {ag:.6f}; two launches bit-identical: {same}; "
+          f"frame lengths {hist}")
+    check(ag >= AGREE, f"stretch swap vs K4's plain version {ag}")
+    check(same, "stretch K4: two launches differ")
+    k4_ms, ok = queued_ms(lambda: K4(sampler.fw, spec, *inputs),
+                          DECODE_REPS["K4"])
+    check(ok, "K4 T=128: the host did not enqueue the timed calls within "
+          "the sleep kernel")
+    k4_plain_ms = cuda_ms(lambda: full_decoder.decode_grid_full_plain(
+        sampler.fw, spec, *inputs), 1)
+    k4_bound, k4_by = bound_ms(*full_work(sampler.fw, spec, TRAIN_B))
+    print(f"  K4 T={T} B={TRAIN_B} (queued): {k4_ms:.4f} ms; plain "
+          f"{k4_plain_ms:.3f} ms; bound {k4_bound:.4f} ms ({k4_by}), "
+          f"{k4_bound / k4_ms:.3%} of it")
+
+    f_sampler = Sampler(params, cfg, frame_decoder="frame",
+                        fixed_batch=TRAIN_B, device=dev)
+    f_sampler.swap(warm_pr, warm_pr, warm_c, warm_c, True, True)
+    reset_counts(counted)
+    s0 = time.perf_counter()
+    via_k3 = f_sampler.swap(pr, pr, c, c, True, True)
+    torch.cuda.synchronize()
+    k3_ms = (time.perf_counter() - s0) * 1e3
+    got_k3 = counts(counted)
+    ag_k3 = float((via_k3 == served).mean())
+    print(f"  K3 route swap n={TRAIN_B}: {k3_ms:.2f} ms, launches {got_k3};"
+          f" agreement with K4's grids {ag_k3:.6f}")
+    check(got_k3[K3.__name__] == T and sum(got_k3.values()) == T,
+          f"K3 route launches {got_k3}, expected {T} K3")
+    check(ag_k3 >= AGREE, f"stretch K3 route vs K4 grids {ag_k3}")
+
+    cfg_b = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    b_sampler = Sampler(params, cfg_b, frame_decoder="frame",
+                        fixed_batch=TRAIN_B, device=dev)
+    b_sampler.swap(warm_pr, warm_pr, warm_c, warm_c, True, True)
+    reset_counts(counted)
+    with decode_launch_dtypes() as seen:
+        s0 = time.perf_counter()
+        via_b = b_sampler.swap(pr, pr, c, c, True, True)
+        torch.cuda.synchronize()
+        k3b_ms = (time.perf_counter() - s0) * 1e3
+    got_b = counts(counted)
+    check(got_b[K3.__name__] == T and sum(got_b.values()) == T
+          and sum(seen.values()) == T and all(
+              k == "pctd_frame_decode_bf16" and v == {"torch.bfloat16"}
+              for (k, v) in seen),
+          f"bf16 K3 route launches {got_b}, {launch_summary(seen)}")
+    hs = []
+    with recorded_plain_frames(hs):
+        via_bp = b_sampler.swap(pr, pr, c, c, True, True)
+    check(K3.launches == T, "the plain bf16 route launched K3")
+    ag_b = float((via_b == via_bp).mean())
+    margins = first_frame_margins(b_sampler.fw, spec, via_b, via_bp, hs,
+                                  dev)
+    worst = max(margins, default=0.0)
+    ag_f32 = float((via_b == via_k3).mean())
+    print(f"  bf16 K3 route swap n={TRAIN_B}: {k3b_ms:.2f} ms, launches "
+          f"{got_b}; agreement with the plain bf16 route on the card "
+          f"{ag_b:.6f}, {len(margins)} differing rows, worst first-"
+          f"difference margin {worst:.3g}; with the f32 K3 route "
+          f"{ag_f32:.6f} (the control, < 1)")
+    check(ag_b >= AGREE, f"stretch bf16 K3 route vs plain {ag_b}")
+    check(worst <= BF16_TIE, f"stretch bf16 K3 route: a row's first "
+          f"differing decision is no near-tie (margin {worst:.3g})")
+    check(ag_f32 < 1.0, "the bf16 stretch swap equals the f32 one")
+    phase("stretch serving", t0)
+    return {"workflows": serving, "chunks": chunks,
+            "launches": {"K4": chunks, "K3 f32": T, "K3 bf16": T},
+            "swap128_vs_plain": ag, "k4_ms": k4_ms,
+            "k4_plain_ms": k4_plain_ms, "k4_bound_ms": k4_bound,
+            "k4_bound_by": k4_by, "k3_route_swap128_ms": k3_ms,
+            "k3_route_vs_k4": ag_k3, "k3_bf16_route_swap128_ms": k3b_ms,
+            "k3_bf16_vs_plain": ag_b, "k3_bf16_worst_margin": worst}
+
+
+def stretch_training_phase(args, dev, counted) -> dict:
+    """The stretch trained at canonical width at B=128 on an 8-bar
+    synthetic corpus (``DataConfig(num_bar=8)``): f32 with the CE fused in
+    (``STRETCH_STEPS`` steps and an eval batch; step 1 against the plain
+    path on the card; one step profiled), logits out and bf16 fused
+    (``STRETCH_OTHER_STEPS`` steps each), K1, K2a and K2b launched 128
+    times a step (K1 also 128 an eval batch) and nothing else; then the
+    (conv, 128) step envelope at B=128 and 512."""
+    t0 = time.perf_counter()
+    cfg = stretch_config(ModelConfig())
+    T = cfg.pianotree.num_step
+    dcfg = dataclasses.replace(DataConfig(), num_bar=8)
+    corpora = synthetic_corpora(n_songs=STRETCH_SONGS, seed=dcfg.seed,
+                                n_bars=STRETCH_BARS, cfg=dcfg)
+    check(corpora[0].pr.shape[1:] == (T, 128)
+          and corpora[0].chord.shape[1:] == (32, 14),
+          f"8-bar corpus shapes {corpora[0].pr.shape}")
+    print(f"  8-bar corpus: {len(corpora[0])} train / {len(corpora[1])} val "
+          f"segments")
+    tcfg = TrainConfig(batch_size=TRAIN_B, accum_steps=1, seed=args.seed)
+    step_gen = lambda: torch.Generator(device=dev).manual_seed(tcfg.seed)
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+    out = {}
+    runs = {"f32 fused": (cfg, STRETCH_STEPS),
+            "f32 logits out": (dataclasses.replace(cfg, fused_loss=False),
+                               STRETCH_OTHER_STEPS),
+            "bf16 fused": (dataclasses.replace(cfg, compute_dtype="bfloat16"),
+                           STRETCH_OTHER_STEPS)}
+    first = next(make_loaders(*corpora, TRAIN_B, seed=args.seed)[0].epoch())
+    for name, (cfg_r, steps) in runs.items():
+        train_b, val_b = make_loaders(*corpora, TRAIN_B, seed=args.seed)
+        trainer = tr.Trainer(cfg_r, tcfg, train_b, val_b, device=dev)
+        feats = tr.batch_features(*trainer._to_device(first), cfg_r)[:3]
+        fwd, bwd = ((tf.frame_fwd, tf.frame_bwd) if cfg_r.fused_loss
+                    else (tf.frame_core_fwd, tf.frame_core_bwd))
+        want = {fwd.__name__: T * (steps + (name == "f32 fused")
+                                   * len(val_b)),
+                bwd.__name__: T * steps, tf.weight_grads.__name__: T * steps}
+        ref = None
+        if name == "f32 fused":
+            with plain_frames():
+                ref_m, ref_g = tr.loss_and_grads(trainer.params, cfg_r, tcfg,
+                                                 0, step_gen(), *feats)
+            ref = ({k: v.item() for k, v in ref_m.items()},
+                   global_norm(ref_g).item())
+            del ref_g
+        elif name == "f32 logits out":
+            ref = tr.eval_metrics(trainer.params, cfg, tcfg, 0, step_gen(),
+                                  *trainer._to_device(first))
+            ref = ({k: v.item() for k, v in ref.items()}, None)
+        reset_counts(counted)
+        trainer.train_steps(steps)
+        if name == "f32 fused":
+            trainer.eval_epoch()
+        torch.cuda.synchronize()
+        got = counts(counted)
+        print(f"  {name}: launches in {steps} steps"
+              f"{' + an eval batch' if name == 'f32 fused' else ''}: {got}")
+        check(got == dict({k: 0 for k in got}, **want),
+              f"stretch {name} launches {got}, expected {want}")
+        for i, m in enumerate(trainer.history):
+            check(all(np.isfinite(v) for v in m.values()),
+                  f"stretch {name} step {i + 1} {m}")
+        m1 = trainer.history[0]
+        res = {"launches": got, "step1_loss": m1["loss"],
+               "step_ms": [s * 1e3 for s in trainer.step_seconds]}
+        if name == "f32 fused":
+            err = max(rel(m1[k], ref[0][k]) for k in dv.METRIC_NAMES)
+            norm_err = rel(trainer.grad_norms[0], ref[1])
+            print(f"  {name} step 1 vs the plain path on the card: loss "
+                  f"{m1['loss']!r} vs {ref[0]['loss']!r}; 11 metrics max "
+                  f"rel err {err:.3g}; grad norm rel err {norm_err:.3g}")
+            check(err <= LOSS_RTOL, f"stretch step 1 metrics rel err {err}")
+            check(norm_err <= NORM_RTOL,
+                  f"stretch step 1 grad norm rel err {norm_err}")
+            res.update(step1_metric_rel_err=err,
+                       step1_grad_norm_rel_err=norm_err,
+                       profile=profile_step(trainer))
+            f32_m1 = m1
+        elif name == "f32 logits out":
+            err = max(rel(m1[k], ref[0][k]) for k in dv.METRIC_NAMES)
+            print(f"  {name} step 1 vs the fused mode on the same batch, "
+                  f"noise and weights: 11 metrics max rel err {err:.3g}")
+            check(err <= MODES_RTOL, f"stretch logits-out vs fused step 1 "
+                  f"rel err {err}")
+            res["step1_vs_fused_rel_err"] = err
+        else:
+            err = max(rel(m1[k], f32_m1[k]) for k in dv.METRIC_NAMES)
+            print(f"  {name} step 1 vs the f32 step on the same batch, "
+                  f"noise and weights: 11 metrics max rel err {err:.3g}")
+            check(BF16_LOSS_RTOL < err <= BF16_VS_F32_RTOL,
+                  f"stretch bf16 vs f32 step 1 rel err {err}: not within "
+                  f"{BF16_VS_F32_RTOL}, or within {BF16_LOSS_RTOL} (the "
+                  "gate could not tell bf16 from f32)")
+            res["step1_vs_f32_rel_err"] = err
+        print(f"  {name} step ms: " + " ".join(
+            f"{v:.1f}" for v in res["step_ms"]))
+        out[name] = res
+        del trainer
+    torch.cuda.empty_cache()
+    out["envelope"] = measure_envelope(cfg, corpora, args.seed, dev)
+    phase("stretch training", t0)
+    return out
+
+
+def pianotree_serving_phase(args, dev, counted, rng) -> dict:
+    """The pianotree texture encoder served at canonical width on random
+    weights from ``--seed``: the detrended grid made on the card,
+    ``Sampler.encode`` with it (fixed batch 16, the last chunk partial)
+    against the unchunked encode, the ``disentangle_vae`` workflows with
+    ``dt_x`` through K4 (once each) against the same on the CPU plain path,
+    and the Sampler's workflows refusing the model."""
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(ModelConfig(), txt_encoder="pianotree")
+    K4 = full_decoder.decode_grid_full
+    params = dv.init_params(cfg, seed=args.seed, device="cpu")
+    raw = segments(rng, PT_SERVE_ROWS)
+    shift = np.arange(PT_SERVE_ROWS, dtype=np.int32) % 12 - 6
+    feats = {}
+    for key, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        _, c, pr_mat, dt_x = tr.batch_features(
+            *(torch.as_tensor(a, device=device)
+              for a in (raw.pr, raw.chord, shift)), cfg)
+        feats[key] = (pr_mat, c, dt_x)
+    check(torch.equal(feats["card"][2].cpu(), feats["cpu"][2]),
+          "the detrended grid on the card differs from the CPU's")
+    sampler = Sampler(params, cfg, fixed_batch=16, device=dev)
+    chunked = sampler.encode(*feats["card"])
+    whole = Sampler(params, cfg, device=dev).encode(*feats["card"])
+    enc_err = max((a - b).abs().max().item() for da, db in zip(chunked, whole)
+                  for a, b in zip(da, db))
+    print(f"  Sampler.encode with dt_x, {PT_SERVE_ROWS} rows in chunks of "
+          f"16 vs unchunked: max|diff| {enc_err:.3g}")
+    check(enc_err <= STATE_ATOL, f"chunked pianotree encode {enc_err}")
+    n = PT_CPU_ROWS
+    g = lambda dev_: torch.Generator(device=dev_).manual_seed(args.seed)
+    workflows = {
+        "swap": lambda p, pm, c, d, dv_: dv.swap(
+            p, cfg, pm[:n], pm[n:2 * n], c[:n], c[n:2 * n], True, False,
+            dt_x1=d[:n], dt_x2=d[n:2 * n]),
+        "inference": lambda p, pm, c, d, dv_: dv.inference(
+            p, cfg, pm[:n], c[:n], sample=False, dt_x=d[:n]),
+        "posterior_sample": lambda p, pm, c, d, dv_: dv.posterior_sample(
+            p, cfg, g(dv_), pm[:n], c[:n], scale=0.0, dt_x=d[:n]),
+        "interp": lambda p, pm, c, d, dv_: torch.as_tensor(dv.interp(
+            p, cfg, pm[:1], c[:1], pm[1:2], c[1:2], interp_rhy=True,
+            int_count=n, dt_x1=d[:1], dt_x2=d[1:2]))}
+    p_dev = params_to(params, dev)
+    out = {}
+    for name, fn in workflows.items():
+        reset_counts(counted)
+        got = fn(p_dev, *feats["card"], dev)
+        torch.cuda.synchronize()
+        launched = counts(counted)
+        want = fn(params, *feats["cpu"], torch.device("cpu"))
+        ag = float((got.cpu() == want).float().mean())
+        print(f"  disentangle_vae.{name} with dt_x: grid {tuple(got.shape)},"
+              f" launches {launched}; agreement with the CPU plain path "
+              f"{ag:.6f}")
+        check(launched[K4.__name__] == 1 and sum(launched.values()) == 1,
+              f"pianotree {name} launches {launched}")
+        check(ag >= AGREE, f"pianotree {name} vs the CPU plain path {ag}")
+        out[name] = {"agreement": ag, "launches": launched}
+    pm = feats["card"][0][:2].cpu().numpy()
+    cc = feats["card"][1][:2].cpu().numpy()
+    for name, call in (("swap", lambda: sampler.swap(pm, pm, cc, cc, True,
+                                                      True)),
+                       ("interp", lambda: sampler.interp(pm, cc, pm, cc))):
+        try:
+            call()
+        except ValueError as e:
+            check(f"disentangle_vae.{name}" in str(e), str(e))
+        else:
+            check(False, f"Sampler.{name} served a pianotree model")
+    print("  the Sampler's workflows refuse the pianotree model, naming "
+          "the disentangle_vae function that takes dt_x")
+    phase("pianotree serving", t0)
+    return out
+
+
+def reference_checkpoint_phase(args, cfg, dev, counted, models: str,
+                               tmp: str) -> dict:
+    """The training run's checkpoint and the random weights' (saved by
+    ``serving_daemon_phase`` at ``tmp/random``) to a reference ``.pt`` and
+    back (``cli.convert_checkpoint``): the same bits; each converted
+    checkpoint served by ``cli.serve`` in this process gives its source
+    checkpoint's bytes. The run's weights decode eos at every first slot,
+    so its served files hold few notes; the random weights' hold notes in
+    every file, which the gate requires. A pianotree ``.pt`` is
+    detected."""
+    t0 = time.perf_counter()
+    d = os.path.join(tmp, "interop")
+    os.makedirs(d)
+    files = daemon_inputs(args.seed, tmp)
+    out = {}
+    for weights, src_ck in (("run", os.path.join(models, "disvae_final")),
+                            ("random", os.path.join(tmp, "random"))):
+        ref, conv, back = (os.path.join(d, f"{weights}_{n}")
+                           for n in ("ref.pt", "converted", "back.pt"))
+        for argv in (["--to-torch", ref, "--checkpoint", src_ck],
+                     ["--from-torch", ref, "--out", conv],
+                     ["--to-torch", back, "--checkpoint", conv]):
+            captured(lambda: cli_convert.main(argv))
+        a, b = (torch.load(p, map_location="cpu", weights_only=True)
+                for p in (ref, back))
+        same_pt = sorted(a) == sorted(b) and all(torch.equal(a[k], b[k])
+                                                 for k in a)
+        src, dst = (ckpt.load_state(p)["params"] for p in (src_ck, conv))
+        same_params = list(src) == list(dst) and all(
+            torch.equal(src[k], dst[k]) for k in src)
+        print(f"  {weights} weights: {len(a)} reference tensors; .pt -> "
+              f"checkpoint -> .pt the same bits: {same_pt}; the converted "
+              f"params equal the source's: {same_params}")
+        check(same_pt and same_params,
+              f"reference checkpoint round trip ({weights} weights)")
+
+        served = lambda tag, *f: os.path.join(d, f"served_{weights}_{tag}",
+                                              *f)
+        for tag, path in (("source", src_ck), ("converted", conv)):
+            os.makedirs(served(tag))
+            reqs = daemon_requests(files, 8, served(tag))
+            lines = "".join(json.dumps(r) + "\n" for r, _ in reqs.values())
+            buf = io.StringIO()
+            cli_serve.main(["--checkpoint", path, "--fixed-batch", "16"],
+                           stdin=io.StringIO(lines), stdout=buf)
+            replies = [json.loads(x) for x in buf.getvalue().splitlines()]
+            check(sum(1 for r in replies if r.get("ok")) == len(reqs),
+                  f"cli.serve on the {weights} {tag} checkpoint: {replies}")
+        outs = sorted(os.listdir(served("source")))
+        read = lambda tag, f: open(served(tag, f), "rb").read()
+        same = [read("source", f) == read("converted", f) for f in outs]
+        notes = [sum(len(t.notes) for t in MidiFile.read(
+            served("converted", f)).tracks) for f in outs]
+        print(f"  cli.serve on the converted {weights} checkpoint: "
+              f"{len(outs)} MIDI files ({sum(notes)} notes, fewest in a "
+              f"file {min(notes)}), byte-equal to the source "
+              f"checkpoint's: {sum(same)}")
+        check(len(outs) >= len(reqs) and all(same),
+              f"the converted {weights} checkpoint's MIDI bytes")
+        if weights == "random":
+            check(min(notes) > 0, "a served file of the random weights "
+                  "holds no notes: the byte gate would be trivial")
+        out[weights] = {"reference_tensors": len(a),
+                        "round_trip_same_bits": same_pt,
+                        "served_files_equal": sum(same),
+                        "served_notes": sum(notes)}
+
+    pt_cfg = dataclasses.replace(cfg, txt_encoder="pianotree")
+    pt_ref = os.path.join(d, "pianotree.pt")
+    save_reference_checkpoint(pt_ref, dv.init_params(pt_cfg, seed=1,
+                                                     device=dev))
+    _, text = captured(lambda: cli_convert.main(
+        ["--from-torch", pt_ref, "--out", os.path.join(d, "pt_ck")]))
+    check("pianotree texture variant" in text, "pianotree .pt detection")
+    phase("reference checkpoint", t0)
+    return out
+
+
+def demo_tree_files(k: int) -> dict:
+    """{relative path: track names or None} that the demo tree of a k x k
+    grid holds, after the reference demo tree's structure."""
+    d1, d2p, d2q, d3, d4 = (
+        "1_compositional_style_transfer",
+        "2_texture_variation/posterior_sampling",
+        "2_texture_variation/prior_sampling", "3_acc_arrangement",
+        "chord_prog_interpolation")
+    figs = ["A_original", "B_original", "Achd_Btxt", "Bchd_Atxt"]
+    files = {f"{d1}/swap_{i}_{j}.mid": [f"chd{i}_txt{j}"]
+             for i in range(k) for j in range(k)}
+    files[f"{d1}/swap_all.mid"] = [f"swap_{i}_{j}" for i in range(k)
+                                   for j in range(k)]
+    files[f"{d1}/16bar_style_transfer/all.mid"] = figs
+    files.update({f"{d1}/16bar_style_transfer/{f}.mid": [f] for f in figs})
+    files.update({f"{d2p}/original.mid": ["original"], **{
+        f"{d2p}/post_sample_{s}.mid": ["posterior"] for s in range(3)}})
+    for n in range(1, min(4, k)):
+        files[f"{d2p}/more_examples/sample{n}/original.mid"] = ["original"]
+        files[f"{d2p}/more_examples/sample{n}/post_sample_0.mid"] = [
+            "posterior"]
+    files[f"{d2q}/C-Am-F-G.mid"] = ["C-Am-F-G"]
+    files.update({f"{d2q}/more_examples/{p}.mid": [p]
+                  for p in ("Am-D7-G", "G-F-Eb", "F-Bb-F")})
+    files.update({f"{d2q}/prior_sample_{s}.mid": ["prior"]
+                  for s in range(2)})
+    files[f"{d3}/arrangement_given_texture.mid"] = ["melody",
+                                                    "arranged_acc"]
+    for f in ("fig_generation_given2bar.mid",
+              "more_examples/sample1_given2bar.mid",
+              "more_examples/sample1_given4bar.mid",
+              "more_examples/long_generation/sample1_given4bar.mid"):
+        files[f"{d3}/{f}"] = None
+    files[f"{d4}/interp_chd.mid"] = ["chord_interp"]
+    for pa, pb in (("C-Am-F-G", "Eb-Cm-Ab-Bb"), ("Am-Dm-G-C", "C-F-G-C"),
+                   ("Db-G-Cm", "C-D-G")):
+        files[f"{d4}/{pa}_to_{pb}.mid"] = [f"{pa}_to_{pb}"]
+        files[f"{d4}/{pb}_to_{pa}.mid"] = [f"{pb}_to_{pa}"]
+    return files
+
+
+def demo_tree_phase(args, counted, models: str, tmp: str) -> dict:
+    """``cli.make_demos --k 4`` on the card from the training run's
+    checkpoint and from the random weights' (``tmp/random``): K4 only,
+    counted; the tree against the reference's structure
+    (``demo_tree_files``: its files and each file's tracks by name, in
+    order) and every file parsing with the port's reader. The run's weights
+    decode eos at every first slot, so a track may hold no notes: the
+    reader drops such a track and the gate counts it in the header. The
+    random weights decode a note at every slot: there the track names must
+    equal the structure's exactly and every track but the melody must hold
+    notes."""
+    t0 = time.perf_counter()
+    K4 = full_decoder.decode_grid_full.__name__
+    want = demo_tree_files(DEMO_K)
+    result = {}
+    for weights, ck in (("run", os.path.join(models, "disvae_final")),
+                        ("random", os.path.join(tmp, "random"))):
+        out = os.path.join(tmp, f"demo_out_{weights}")
+        reset_counts(counted)
+        captured(lambda: cli_make_demos.main(
+            ["--checkpoint", ck, "--k", str(DEMO_K), "--out", out]))
+        torch.cuda.synchronize()
+        launched = counts(counted)
+        written = sorted(os.path.relpath(os.path.join(dp, f), out)
+                         for dp, _, fs in os.walk(out) for f in fs)
+        missing = sorted(set(want) - set(written))
+        notes, bad = 0, []
+        for rel in written:
+            path = os.path.join(out, rel)
+            mf = MidiFile.read(path)
+            notes += sum(len(t.notes) for t in mf.tracks)
+            with open(path, "rb") as f:
+                chunks = struct.unpack_from(">4sIHHH", f.read(14))[3]
+            names, expect = [t.name for t in mf.tracks], want.get(rel)
+            if weights == "run":
+                ok = expect is None or (chunks == 1 + len(expect) and names
+                                        == [n for n in expect if n in names])
+            else:
+                # no track dropped, and the named ones as the structure says
+                ok = chunks == 1 + len(names) and all(
+                    t.notes for t in mf.tracks if t.name != "melody") and (
+                    rel not in want or (
+                        names == expect if expect is not None
+                        else names[-1:] == ["arranged_acc"]))
+            if not ok:
+                bad.append((rel, chunks, names))
+        print(f"  {weights} weights: launches {launched}; {len(written)} "
+              f"MIDI files ({notes} notes), all parse; of the reference "
+              f"structure's {len(want)} files, missing {missing}, tracks "
+              f"differ {bad[:3]}")
+        check(launched[K4] > 0 and all(v == 0 for k, v in launched.items()
+                                       if k != K4),
+              f"the demo tree's launches ({weights} weights) {launched}")
+        check(not missing and not bad,
+              f"the demo tree's structure ({weights} weights)")
+        check(any(f.startswith("1_compositional_style_transfer/"
+                               "more_examples/swap_") for f in written),
+              "more_examples grid")
+        result[weights] = {"launches": launched, "files": len(written),
+                           "notes": notes}
+    phase("demo tree", t0)
+    return result
 
 
 def main() -> int:
@@ -2884,9 +3463,12 @@ def main() -> int:
     try:
         training_run, run_dir = training_run_phases(args, cfg, dev, counted,
                                                     step_ms, tmp)
+        models = os.path.join(run_dir, "models")
         serving_daemon = serving_daemon_phase(
-            args, cfg, dev, counted, card, os.path.join(run_dir, "models"),
-            params, tmp)
+            args, cfg, dev, counted, card, models, params, tmp)
+        reference_ck = reference_checkpoint_phase(args, cfg, dev, counted,
+                                                  models, tmp)
+        demo_tree = demo_tree_phase(args, counted, models, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3330,6 +3912,13 @@ def main() -> int:
                           f"{k} {v:.4f}" for k, v in res.items()))
     phase("K3/K4 by phase", t0)
 
+    # 10b. the 32-bar stretch (num_step=128): serving through K4 and the K3
+    # route, training through K1/K2a/K2b with its step envelope; the
+    # pianotree texture encoder served with the detrended grid
+    stretch_serving = stretch_serving_phase(args, dev, counted, gen, rng)
+    stretch_training = stretch_training_phase(args, dev, counted)
+    pianotree_serving = pianotree_serving_phase(args, dev, counted, rng)
+
     # 11. kernels
     rows = []
     src = "pctd_tpu_torch/ops/kernels/csrc/decoder.cu"
@@ -3557,12 +4146,41 @@ def main() -> int:
                 "workspace_bytes": r128["workspace_bytes"],
                 "workspace_bytes_b512": r512["workspace_bytes"],
                 "registers": k2b_regs})
+    # launches of the stretch: a 128-row chunk (K4 once, the K3 route 128
+    # times), a train step (K1, K2a, K2b 128 times); K4's time at T=128
+    st = {k: v["launches"] for k, v in stretch_training.items()
+          if k != "envelope"}
+    for row in rows:
+        name = row["name"]
+        mode = ("bf16 fused" if "bf16" in name and "logits" not in name
+                else "f32 logits out" if "logits" in name
+                and "bf16" not in name else "f32 fused"
+                if "bf16" not in name else None)
+        if name.startswith("K4"):
+            row.update(launches_stretch=stretch_serving["launches"]["K4"],
+                       ms_t128=stretch_serving["k4_ms"],
+                       plain_ms_t128=stretch_serving["k4_plain_ms"],
+                       bound_ms_t128=stretch_serving["k4_bound_ms"])
+        elif name.startswith("K3"):
+            row["launches_stretch_chunk"] = stretch_serving["launches"][
+                "K3 bf16" if "bf16" in name else "K3 f32"]
+        elif mode is not None:
+            fused = "logits" not in mode
+            fn = {"K1": tf.frame_fwd if fused else tf.frame_core_fwd,
+                  "K2a": tf.frame_bwd if fused else tf.frame_core_bwd,
+                  "K2b": tf.weight_grads}[name.split()[0]]
+            row["launches_stretch"] = st[mode][fn.__name__]
     print(json.dumps({"serving": serving, "serving_bf16": serving_bf16,
                       "training": training,
                       "training_logits_out": training_lo,
                       "training_bf16": training_bf16,
                       "training_run": training_run,
-                      "serving_daemon": serving_daemon, "card": card}))
+                      "serving_daemon": serving_daemon,
+                      "reference_checkpoint": reference_ck,
+                      "demo_tree": demo_tree,
+                      "stretch_serving": stretch_serving,
+                      "stretch_training": stretch_training,
+                      "pianotree_serving": pianotree_serving, "card": card}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}))

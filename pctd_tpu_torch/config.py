@@ -64,13 +64,15 @@ class ModelConfig:
     mixed-precision policy, ``pctd_tpu_torch.utils.precision``) is taken by
     the training entry points (``disentangle_vae.loss`` and ``run``,
     ``train.trainer.Trainer``, with the train-frame kernels K1/K2 in their
-    bf16 mode on the card) and by ``disentangle_vae.encode``; the serving
-    entry points (``decode_z``, ``decode_grid``, ``Sampler``) take float32
-    only.
+    bf16 mode on the card), by ``disentangle_vae.encode`` and by the K3
+    serving route (``frame_decoder="frame"``); the K4 route decodes in
+    float32 only.
 
     ``txt_encoder`` is "conv" or "pianotree" (the PtvaeEncoder over the
-    detrended grid, ``ptenc_*`` widths) for training, ``encode`` and the
-    loss; the serving entry points take "conv" only."""
+    detrended grid, ``ptenc_*`` widths). The pianotree variant runs at
+    ``pianotree.num_step`` 32 only (the detrend's layout); the conv variant
+    also at the 32-bar stretch (``PianoTreeSpec(num_step=128)`` with
+    ``ChordSpec(num_step=32)``, the corpus of ``DataConfig(num_bar=8)``)."""
 
     chd_z_dim: int = 256
     txt_z_dim: int = 256
@@ -117,22 +119,25 @@ class ModelConfig:
 def check_config(cfg: ModelConfig, frame_decoder: Optional[str] = None
                  ) -> None:
     """Raise unless the port runs ``cfg``: a texture encoder of "conv" or
-    "pianotree" and a ``compute_dtype`` of float32 or bfloat16. The decode
-    entry points name their ``frame_decoder``: they serve the conv encoder
-    only; ``"full"`` (the K4 kernel) decodes in float32 only, ``"frame"``
-    (the K3 kernel) in either dtype."""
+    "pianotree" (the latter at 32 steps) and a ``compute_dtype`` of float32
+    or bfloat16. The decode entry points name their ``frame_decoder``:
+    ``"full"`` (the K4 kernel) decodes in float32 only, ``"frame"`` (the K3
+    kernel) in either dtype."""
     if cfg.txt_encoder not in ("conv", "pianotree"):
         raise ValueError(f"texture encoder {cfg.txt_encoder!r}: the port "
                          "runs 'conv' and 'pianotree'")
+    if cfg.txt_encoder == "pianotree" and cfg.pianotree.num_step != 32:
+        raise ValueError(
+            f"texture encoder 'pianotree' at num_step="
+            f"{cfg.pianotree.num_step}: its detrended grid is laid out as 8 "
+            "beats x 4 steps = 32 steps (the JAX package's detrend, "
+            "pctd_tpu/data/detrend.py:98,136), so the variant runs at "
+            "num_step=32 only; the stretch runs with txt_encoder='conv'")
     if cfg.compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: the port "
                          "runs 'bfloat16' and 'float32'")
     if frame_decoder is None:
         return
-    if cfg.txt_encoder != "conv":
-        raise NotImplementedError(
-            f"texture encoder {cfg.txt_encoder!r}: the serving entry points "
-            "run 'conv' (the Sampler takes no detrended grid)")
     if frame_decoder not in ("full", "frame"):
         raise ValueError(f"frame_decoder must be 'full' or 'frame', "
                          f"got {frame_decoder!r}")

@@ -14,12 +14,12 @@ coins as inputs (:class:`Noise`, drawn by :func:`draw_noise`), since the
 JAX package's key splits cannot be reproduced in torch. With
 ``txt_encoder="pianotree"`` the texture encoder reads the detrended grid
 ``dt_x`` (:func:`pctd_tpu_torch.data.detrend.detrend_pianotree`), which
-``encode``, ``run`` and ``loss`` take; the decode entry points (and the
-workflows built on them) serve the conv variant only. ``compute_dtype="bfloat16"`` runs
-training and ``encode`` under the mixed-precision policy
-(:mod:`pctd_tpu_torch.utils.precision`: f32 master params cast inside,
-f32 Gaussian heads and losses) and ``decode_z`` in bf16 through the K3
-route (``frame_decoder="frame"``); the K4 route (``"full"``, the default of
+``encode``, ``run``, ``loss`` and the workflow functions take (``swap`` and
+``interp`` one a source: ``dt_x1``, ``dt_x2``), as the JAX functions do.
+``compute_dtype="bfloat16"`` runs training and ``encode`` under the
+mixed-precision policy (:mod:`pctd_tpu_torch.utils.precision`: f32 master
+params cast inside, f32 Gaussian heads and losses) and ``decode_z`` in
+bf16 through the K3 route (``frame_decoder="frame"``); the K4 route (``"full"``, the default of
 ``decode_z`` and of the workflow functions built on it) decodes in float32
 only.
 """
@@ -78,6 +78,10 @@ def _encode(params: dict, cfg: ModelConfig, pr_mat: torch.Tensor,
             ) -> Tuple[DiagNormal, DiagNormal]:
     if cfg.txt_encoder == "conv":
         dist_rhy = txt_enc.apply_conv(params["txt_enc"], pr_mat)
+    elif dt_x is None:
+        raise ValueError("the pianotree texture encoder reads the detrended "
+                         "grid: pass dt_x (data.detrend.detrend_pianotree "
+                         "of the grid and the expanded chord)")
     else:
         dist_rhy = txt_enc.apply_pianotree(
             params["txt_enc"], dt_x, txt_enc.lengths_from_detrended(dt_x))
@@ -106,7 +110,7 @@ def encode_chord(params: dict, cfg: ModelConfig, c: torch.Tensor
 def decode_z(params: dict, cfg: ModelConfig, z_chd: torch.Tensor,
              z_rhy: torch.Tensor, frame_decoder: str = "full", fw=None
              ) -> torch.Tensor:
-    """Argmax decode of latents -> estimated grid (B, 32, K-1, 6) int32;
+    """Argmax decode of latents -> estimated grid (B, T, K-1, 6) int32;
     ``frame_decoder`` and ``fw`` as in
     :func:`~pctd_tpu_torch.models.pianotree_decoder.decode_grid`. The
     params (Gaussian heads excluded) and z are cast to the compute dtype
@@ -120,9 +124,10 @@ def decode_z(params: dict, cfg: ModelConfig, z_chd: torch.Tensor,
 
 
 def inference(params: dict, cfg: ModelConfig, pr_mat, c, sample: bool,
-              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+              generator: Optional[torch.Generator] = None, dt_x=None
+              ) -> torch.Tensor:
     """Encode -> (posterior draw | mean) -> decode."""
-    dist_chd, dist_rhy = encode(params, cfg, pr_mat, c)
+    dist_chd, dist_rhy = encode(params, cfg, pr_mat, c, dt_x)
     if sample:
         z_chd, z_rhy = (dist_chd.rsample(generator),
                         dist_rhy.rsample(generator))
@@ -132,20 +137,22 @@ def inference(params: dict, cfg: ModelConfig, pr_mat, c, sample: bool,
 
 
 def swap(params: dict, cfg: ModelConfig, pr_mat1, pr_mat2, c1, c2,
-         fix_rhy: bool, fix_chd: bool) -> torch.Tensor:
+         fix_rhy: bool, fix_chd: bool, dt_x1=None, dt_x2=None
+         ) -> torch.Tensor:
     """Compositional style transfer: texture from source 1 if ``fix_rhy``
     else 2, chord from source 1 if ``fix_chd`` else 2."""
     return inference(params, cfg, pr_mat1 if fix_rhy else pr_mat2,
-                     c1 if fix_chd else c2, sample=False)
+                     c1 if fix_chd else c2, sample=False,
+                     dt_x=dt_x1 if fix_rhy else dt_x2)
 
 
 def posterior_sample(params: dict, cfg: ModelConfig,
                      generator: torch.Generator, pr_mat, c,
                      scale: Optional[float] = None, sample_chd: bool = True,
-                     sample_txt: bool = True) -> torch.Tensor:
+                     sample_txt: bool = True, dt_x=None) -> torch.Tensor:
     """Variation by sampling around the posterior (std scaled by
     ``scale``)."""
-    dist_chd, dist_rhy = encode(params, cfg, pr_mat, c)
+    dist_chd, dist_rhy = encode(params, cfg, pr_mat, c, dt_x)
     if scale is not None:
         dist_chd = DiagNormal(dist_chd.mean, dist_chd.std * scale)
         dist_rhy = DiagNormal(dist_rhy.mean, dist_rhy.std * scale)
@@ -156,11 +163,11 @@ def posterior_sample(params: dict, cfg: ModelConfig,
 
 def prior_sample(params: dict, cfg: ModelConfig, generator: torch.Generator,
                  pr_mat, c, sample_chd: bool = False,
-                 sample_rhy: bool = False, scale: float = 1.0
+                 sample_rhy: bool = False, scale: float = 1.0, dt_x=None
                  ) -> torch.Tensor:
     """Replace the chord and/or texture latent with N(0, scale^2) draws;
     the other is drawn from its posterior."""
-    dist_chd, dist_rhy = encode(params, cfg, pr_mat, c)
+    dist_chd, dist_rhy = encode(params, cfg, pr_mat, c, dt_x)
     if sample_chd:
         dist_chd = DiagNormal(torch.zeros_like(dist_chd.mean),
                               torch.full_like(dist_chd.std, scale))
@@ -316,10 +323,10 @@ def interp_latents(z1: np.ndarray, z2: np.ndarray, on: bool,
 
 def interp(params: dict, cfg: ModelConfig, pr_mat1, c1, pr_mat2, c2,
            interp_chd: bool = False, interp_rhy: bool = False,
-           int_count: int = 10) -> np.ndarray:
-    """Latent interpolation decode -> (B, int_count, 32, K-1, 6)."""
-    d_chd1, d_rhy1 = encode(params, cfg, pr_mat1, c1)
-    d_chd2, d_rhy2 = encode(params, cfg, pr_mat2, c2)
+           int_count: int = 10, dt_x1=None, dt_x2=None) -> np.ndarray:
+    """Latent interpolation decode -> (B, int_count, T, K-1, 6)."""
+    d_chd1, d_rhy1 = encode(params, cfg, pr_mat1, c1, dt_x1)
+    d_chd2, d_rhy2 = encode(params, cfg, pr_mat2, c2, dt_x2)
     np_ = lambda t: t.detach().cpu().numpy()
     B = pr_mat1.shape[0]
     z_chds = interp_latents(np_(d_chd1.mean), np_(d_chd2.mean), interp_chd,
@@ -358,12 +365,14 @@ class DisentangleVAE:
     def decode_z(self, z_chd, z_rhy, frame_decoder: str = "full"):
         return decode_z(self.params, self.cfg, z_chd, z_rhy, frame_decoder)
 
-    def inference(self, pr_mat, c, sample: bool = False, generator=None):
-        return inference(self.params, self.cfg, pr_mat, c, sample, generator)
+    def inference(self, pr_mat, c, sample: bool = False, generator=None,
+                  dt_x=None):
+        return inference(self.params, self.cfg, pr_mat, c, sample, generator,
+                         dt_x)
 
-    def swap(self, pr_mat1, pr_mat2, c1, c2, fix_rhy, fix_chd):
+    def swap(self, pr_mat1, pr_mat2, c1, c2, fix_rhy, fix_chd, **kw):
         return swap(self.params, self.cfg, pr_mat1, pr_mat2, c1, c2,
-                    fix_rhy, fix_chd)
+                    fix_rhy, fix_chd, **kw)
 
     def posterior_sample(self, generator, pr_mat, c, **kw):
         return posterior_sample(self.params, self.cfg, generator, pr_mat, c,

@@ -20,6 +20,12 @@ product's partial sums in f32.
 
 ``load_params`` puts new weights of the same names, shapes and dtypes into
 a built Sampler and folds them again (the serving daemon's ``reload``).
+
+A Sampler of the pianotree texture encoder encodes with the detrended grid
+(``encode(pr_mat, c, dt_x)``, chunked with the other inputs) and decodes as
+any other; the four workflows keep the JAX Sampler's signatures, which take
+no ``dt_x``, and raise for it: the ``disentangle_vae`` functions of the same
+names take ``dt_x``.
 """
 from __future__ import annotations
 
@@ -121,15 +127,29 @@ class Sampler:
         return tuple(DiagNormal(*(torch.cat(ts) for ts in zip(*dists)))
                      for dists in zip(*outs))
 
-    def encode(self, pr_mat, c):
-        """(B, 32, 128) duration matrices and (B, 8, 36) chords ->
+    def encode(self, pr_mat, c, dt_x=None):
+        """(B, T, 128) duration matrices, (B, T/4, 36) chords and, for the
+        pianotree texture encoder, the (B, 32, 16, 39) detrended grids ->
         (chord, texture) posteriors on the device."""
+        arrays = [self._tensor(pr_mat), self._tensor(c)]
+        if dt_x is not None:
+            arrays.append(self._tensor(dt_x))
         return self._chunked(
-            lambda pm, cc: dv.encode(self.params, self.cfg, pm, cc),
-            self._tensor(pr_mat), self._tensor(c))
+            lambda pm, cc, *dd: dv.encode(self.params, self.cfg, pm, cc,
+                                          *dd), *arrays)
+
+    def _encode_request(self, workflow: str, pr_mat, c):
+        """``encode`` for a workflow, which takes no detrended grid."""
+        if self.cfg.txt_encoder != "conv":
+            raise ValueError(
+                f"Sampler.{workflow} takes no detrended grid, which the "
+                f"{self.cfg.txt_encoder!r} texture encoder reads: call "
+                f"disentangle_vae.{workflow}(..., dt_x...) or "
+                "Sampler.encode(pr_mat, c, dt_x) and Sampler.decode")
+        return self.encode(pr_mat, c)
 
     def decode(self, z_chd, z_rhy) -> np.ndarray:
-        """Latents -> estimated grids (B, 32, K-1, 6) int32, as numpy."""
+        """Latents -> estimated grids (B, T, K-1, 6) int32, as numpy."""
         grid = self._chunked(
             lambda zc, zr: dv.decode_z(self.params, self.cfg, zc, zr,
                                        self.frame_decoder, self.fw),
@@ -139,7 +159,7 @@ class Sampler:
     def reconstruct(self, pr_mat, c, sample: bool = False,
                     generator: Optional[torch.Generator] = None
                     ) -> np.ndarray:
-        d_chd, d_rhy = self.encode(pr_mat, c)
+        d_chd, d_rhy = self._encode_request("inference", pr_mat, c)
         if sample:
             return self.decode(d_chd.rsample(generator),
                                d_rhy.rsample(generator))
@@ -150,15 +170,16 @@ class Sampler:
     def swap(self, pr_mat1, pr_mat2, c1, c2, fix_rhy: bool, fix_chd: bool
              ) -> np.ndarray:
         """Compositional style transfer."""
-        return self.reconstruct(pr_mat1 if fix_rhy else pr_mat2,
-                                c1 if fix_chd else c2)
+        d_chd, d_rhy = self._encode_request(
+            "swap", pr_mat1 if fix_rhy else pr_mat2, c1 if fix_chd else c2)
+        return self.decode(d_chd.mean, d_rhy.mean)
 
     def posterior_sample(self, generator: torch.Generator, pr_mat, c,
                          scale: Optional[float] = None,
                          sample_chd: bool = True, sample_txt: bool = True
                          ) -> np.ndarray:
         """Texture/chord variation around the posterior."""
-        d_chd, d_rhy = self.encode(pr_mat, c)
+        d_chd, d_rhy = self._encode_request("posterior_sample", pr_mat, c)
         if scale is not None:
             d_chd = d_chd._replace(std=d_chd.std * scale)
             d_rhy = d_rhy._replace(std=d_rhy.std * scale)
@@ -170,7 +191,7 @@ class Sampler:
                      sample_chd: bool = False, sample_rhy: bool = False,
                      scale: float = 1.0) -> np.ndarray:
         """Prior replacement of the chord and/or texture latent."""
-        d_chd, d_rhy = self.encode(pr_mat, c)
+        d_chd, d_rhy = self._encode_request("prior_sample", pr_mat, c)
         z_chd = (DiagNormal(torch.zeros_like(d_chd.mean),
                             torch.full_like(d_chd.std, scale))
                  if sample_chd else d_chd).rsample(generator)
@@ -181,9 +202,9 @@ class Sampler:
 
     def interp(self, pr_mat1, c1, pr_mat2, c2, interp_chd: bool = False,
                interp_rhy: bool = False, int_count: int = 10) -> np.ndarray:
-        """Chord/texture SLERP interpolation -> (B, int_count, 32, K-1, 6)."""
-        d_chd1, d_rhy1 = self.encode(pr_mat1, c1)
-        d_chd2, d_rhy2 = self.encode(pr_mat2, c2)
+        """Chord/texture SLERP interpolation -> (B, int_count, T, K-1, 6)."""
+        d_chd1, d_rhy1 = self._encode_request("interp", pr_mat1, c1)
+        d_chd2, d_rhy2 = self._encode_request("interp", pr_mat2, c2)
         np_ = lambda t: t.cpu().numpy()
         B = d_chd1.mean.shape[0]
         zcs = dv.interp_latents(np_(d_chd1.mean), np_(d_chd2.mean),

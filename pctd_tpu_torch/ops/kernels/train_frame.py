@@ -985,10 +985,11 @@ _PANELS: dict = {}
 
 
 def panels(cw: CoreWeights, d: Dims, C: int) -> torch.Tensor:
-    """:func:`pack_panels`, cached: a train step's 32 frames and its eval
-    reuse one packing while the weights are the same tensors at the same
-    version (an in-place update bumps it; new tensors, as a bf16 cast each
-    step makes, miss). Counts its packings in ``panels.packs``."""
+    """:func:`pack_panels`, cached: a train step's T frames and its eval
+    reuse one packing (the key holds no T) while the weights are the same
+    tensors at the same version (an in-place update bumps it; new tensors,
+    as a bf16 cast each step makes, miss). Counts its packings in
+    ``panels.packs``."""
     srcs = [getattr(cw, f) for f in PANEL_FIELDS]
     key = (C, srcs[0].dtype, srcs[0].device, d)
     versions = tuple(t._version for t in srcs)

@@ -7,7 +7,9 @@ key is stateless, the generator is not). A restored run continues exactly
 as the uninterrupted one does. The model configuration rides along, so a
 checkpoint names the widths it was trained at, and :func:`load_model`
 serves a checkpoint (or fresh weights) at those widths to the serving
-CLIs.
+CLIs. :func:`save_params` writes a checkpoint of params alone (a model
+converted from the reference's ``.pt``, ``cli.convert_checkpoint``), which
+serves as a run's does but does not resume.
 """
 from __future__ import annotations
 
@@ -34,6 +36,14 @@ def save_state(path: str, params, opt, step: int,
         "generator": generator.get_state(),
         "model_config": None if mcfg is None else dataclasses.asdict(mcfg),
     }, path)
+
+
+def save_params(path: str, params, mcfg: ModelConfig) -> None:
+    """Write the params of a model and its configuration to ``path`` (one
+    file; no optimizer, step or generator state)."""
+    torch.save({"params": {n: t.detach().cpu()
+                           for n, t in named_leaves(params).items()},
+                "model_config": dataclasses.asdict(mcfg)}, path)
 
 
 def load_state(path: str) -> dict:
@@ -88,11 +98,19 @@ def load_model(path: Optional[str], cfg: ModelConfig, seed: int, device
                ) -> Tuple[dict, ModelConfig]:
     """(params on ``device``, the serving config) for the serving CLIs: a
     checkpoint's params at the widths it names (``cfg``'s where it names
-    none), else fresh ones of ``cfg`` from ``seed``; served in float32."""
+    none), else fresh ones of ``cfg`` from ``seed``; served in float32.
+    They serve the conv texture encoder only, as the JAX package's scripts
+    do: they compute no detrended grid, so a pianotree checkpoint raises
+    ValueError."""
     if path:
         saved = load_state(path)
         cfg = model_config_of(saved) or cfg
-        params = params_of(saved, device)
-    else:
-        params = dv.init_params(cfg, seed=seed, device=device)
+    if cfg.txt_encoder != "conv":
+        raise ValueError(
+            f"{path or 'a fresh model'}: the {cfg.txt_encoder!r} texture "
+            "encoder reads a detrended grid, which the serving CLIs do not "
+            "compute; they serve 'conv' models only (serve this one with "
+            "disentangle_vae's workflows and dt_x)")
+    params = (params_of(saved, device) if path
+              else dv.init_params(cfg, seed=seed, device=device))
     return params, dataclasses.replace(cfg, compute_dtype="float32")

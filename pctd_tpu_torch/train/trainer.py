@@ -52,13 +52,28 @@ from pctd_tpu_torch.utils.weights import named_leaves
 EVAL_SEED = 0x5EED
 
 
-#: the largest batch (segments) of one step that fits the card: measured
-#: by chip_smoke.py's phase "auto accumulation" (torch.cuda.
-#: max_memory_allocated of an f32 step, CE fused in, at B=128 and 512,
-#: extrapolated linearly to 90% of the card's memory, rounded down to 128)
-#: on an NVIDIA H100 80GB HBM3 at a 700 W power limit, for each texture
-#: encoder; scaled to another card's memory by device_mem.scale_by_hbm
-STEP_ENVELOPE = {"conv": 3840, "pianotree": 2560}
+#: the largest batch (segments) of one step that fits the card, by
+#: (texture encoder, num_step): K1 keeps every frame's activations for K2,
+#: so a segment's bytes grow with its frames. Measured by chip_smoke.py's
+#: phases "auto accumulation" (T=32) and "stretch training" (T=128):
+#: torch.cuda.max_memory_allocated of an f32 step, CE fused in, at B=128
+#: and 512, extrapolated linearly to 90% of the card's memory, rounded down
+#: to 128, on an NVIDIA H100 80GB HBM3 at a 700 W power limit; scaled to
+#: another card's memory by device_mem.scale_by_hbm
+STEP_ENVELOPE = {("conv", 32): 3840, ("pianotree", 32): 2560,
+                 ("conv", 128): 896}
+
+
+def step_envelope(mcfg: ModelConfig) -> int:
+    """:data:`STEP_ENVELOPE` of ``mcfg``; raises for a configuration whose
+    envelope was not measured."""
+    key = (mcfg.txt_encoder, mcfg.pianotree.num_step)
+    if key not in STEP_ENVELOPE:
+        raise ValueError(
+            f"no step envelope measured for texture encoder {key[0]!r} at "
+            f"num_step={key[1]} (measured: {sorted(STEP_ENVELOPE)}); set "
+            "TrainConfig.accum_steps explicitly")
+    return STEP_ENVELOPE[key]
 
 
 def batch_features(pr, chord, shift, mcfg: ModelConfig):
@@ -75,14 +90,13 @@ def auto_accum_steps(mcfg: ModelConfig, tcfg: TrainConfig,
                      device=None) -> int:
     """``TrainConfig.accum_steps``, where 0 is automatic: the smallest
     microbatch count that divides the batch and keeps each microbatch
-    inside the step envelope (:data:`STEP_ENVELOPE`, scaled to the memory
+    inside the step envelope (:func:`step_envelope`, scaled to the memory
     of ``device``; unknown memory, the CPU's included, keeps it as
     measured). A batch whose smallest such divisor would make many tiny
     microbatches raises (the JAX function's search and error)."""
     if tcfg.accum_steps > 0:
         return tcfg.accum_steps
-    envelope = device_mem.scale_by_hbm(STEP_ENVELOPE[mcfg.txt_encoder],
-                                       device)
+    envelope = device_mem.scale_by_hbm(step_envelope(mcfg), device)
     B = tcfg.batch_size
     ideal = max(1, -(-B // envelope))
     need = ideal

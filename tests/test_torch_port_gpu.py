@@ -4,7 +4,10 @@ decode kernels K3 (float32 and bf16) and K4, and the train-frame pair K1
 mode and in logits-out mode, float32 and bf16; the pianotree texture
 encoder's detrend on the card and its train step against the plain path;
 the serving daemon's front end and Sampler on the card against the CPU
-plain path, and its decode launches by fixed batch.
+plain path, and its decode launches by fixed batch; the 32-bar stretch
+(num_step=128): K4 and the K3 route against K4's plain version, one train
+step through K1/K2a/K2b against the plain path in both loss modes; and the
+pianotree Sampler's encode with the detrended grid on the card.
 
 Skipped without a card. The card's machine has no JAX, so this file imports
 only torch and pctd_tpu_torch, and runs there without the JAX test conftest:
@@ -12,6 +15,7 @@ only torch and pctd_tpu_torch, and runs there without the JAX test conftest:
     python -m pytest --noconftest -m gpu tests/test_torch_port_gpu.py
 """
 import copy
+import dataclasses
 import types
 
 import numpy as np
@@ -1376,3 +1380,111 @@ def test_daemon_launches_by_fixed_batch(cuda, tmp_path, fixed_batch, route):
                 else (0, cfg.pianotree.num_step * chunks))
         assert (full_decoder.decode_grid_full.launches,
                 ar_decoder.frame_decode.launches) == want
+
+
+# --- the 32-bar stretch (num_step=128) and pianotree serving ----------------
+
+def _stretch(cfg):
+    from pctd_tpu_torch.config import ChordSpec, PianoTreeSpec
+
+    return dataclasses.replace(cfg, pianotree=PianoTreeSpec(num_step=128),
+                               chord=ChordSpec(num_step=32))
+
+
+@pytest.mark.parametrize("width,B", [("tiny", 37), ("canonical", 16)])
+def test_decode_kernels_at_the_stretch_match_plain(cuda, width, B):
+    """K4 over 128 frames (one launch) and the K3 route (128 launches)
+    against K4's plain version on the card."""
+    cfg = _stretch(tiny_model_config() if width == "tiny" else ModelConfig())
+    params, fw = _model(cfg, cuda, eos_bias=0.0)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    z = torch.randn(B, cfg.z_dim, device=cuda, generator=g)
+    inputs = ptd.decode_inputs(params["dec"], cfg, z)
+    want = full_decoder.decode_grid_full_plain(fw, cfg.pianotree, *inputs)
+    k4, k3 = (full_decoder.decode_grid_full.launches,
+              ar_decoder.frame_decode.launches)
+    got_k4 = full_decoder.decode_grid_full(fw, cfg.pianotree, *inputs)
+    got_k3 = ptd.decode_grid(params["dec"], cfg, z, frame_decoder="frame",
+                             fw=fw)
+    assert (full_decoder.decode_grid_full.launches - k4,
+            ar_decoder.frame_decode.launches - k3) == (1, 128)
+    assert got_k4.shape == got_k3.shape == want.shape == (B, 128, 15, 6)
+    for got in (got_k4, got_k3):
+        assert (got == want).float().mean().item() >= AGREE
+
+
+@pytest.mark.parametrize("fused_loss", [True, False])
+def test_stretch_train_step_matches_plain_path(cuda, monkeypatch,
+                                               fused_loss):
+    """One stretch loss and gradient on the card through K1, K2a and K2b
+    (128 launches each) against the same step with the plain frame
+    versions in their place."""
+    from pctd_tpu_torch.config import DataConfig, TrainConfig
+    from pctd_tpu_torch.data.synthetic import synthetic_corpora
+    from pctd_tpu_torch.train import trainer as tr
+
+    cfg = _stretch(tiny_model_config(fused_loss=fused_loss))
+    tcfg = TrainConfig(batch_size=16, accum_steps=1)
+    params = dv.init_params(cfg, seed=2, device=cuda)
+    for t in tr.param_list(params):
+        t.requires_grad_(True)
+    corpus, _ = synthetic_corpora(
+        n_songs=4, seed=1, n_bars=16,
+        cfg=dataclasses.replace(DataConfig(), num_bar=8, portion=3))
+    idx = np.arange(16) % len(corpus)
+    feats = tr.batch_features(
+        torch.as_tensor(corpus.pr[idx], device=cuda),
+        torch.as_tensor(corpus.chord[idx], device=cuda),
+        torch.zeros(16, dtype=torch.int32, device=cuda), cfg)
+    step = lambda: tr.loss_and_grads(
+        params, cfg, tcfg, 0, torch.Generator(device=cuda).manual_seed(5),
+        *feats[:3])
+    kernels = ((train_frame.frame_fwd, train_frame.frame_bwd) if fused_loss
+               else (train_frame.frame_core_fwd, train_frame.frame_core_bwd)
+               ) + (train_frame.weight_grads,)
+    before = [f.launches for f in kernels]
+    got_m, got_g = step()
+    assert [f.launches - b for f, b in zip(kernels, before)] == [128] * 3
+
+    def plain(*args):
+        out = train_frame.frame_recon_plain(*args)
+        return out.nums, out.summary
+
+    monkeypatch.setattr(ptd.train_frame, "frame_recon", plain)
+    monkeypatch.setattr(ptd.train_frame, "frame_core",
+                        train_frame.frame_core_plain)
+    want_m, want_g = step()
+    assert [f.launches - b for f, b in zip(kernels, before)] == [128] * 3
+    for k in dv.METRIC_NAMES:
+        assert abs(got_m[k].item() - want_m[k].item()) <= 1e-5 * abs(
+            want_m[k].item()), k
+    for a, b in zip(got_g, want_g):
+        tol = 1e-4 * (1.0 + b.abs().max().item())
+        assert (a - b).abs().max().item() <= tol
+
+
+def test_pianotree_sampler_encode_on_the_card(cuda):
+    """A pianotree Sampler's encode with the detrended grid on the card
+    (chunked, the last chunk partial) against the CPU plain path, and its
+    decode through K4."""
+    from pctd_tpu_torch.train import trainer as tr
+
+    cfg = tiny_model_config(txt_encoder="pianotree")
+    params = dv.init_params(cfg, seed=3, device="cpu")
+    pr, chord, shift = _pianotree_batch(21, seed=6)
+    out = []
+    for device in (cuda, torch.device("cpu")):
+        _, c, pr_mat, dt_x = tr.batch_features(
+            *(torch.as_tensor(a, device=device) for a in (pr, chord, shift)),
+            cfg)
+        s = Sampler(params, cfg, fixed_batch=8, device=device)
+        d_chd, d_rhy = s.encode(pr_mat, c, dt_x)
+        k4 = full_decoder.decode_grid_full.launches
+        grid = s.decode(d_chd.mean, d_rhy.mean)
+        out.append((d_chd.mean.cpu(), d_rhy.mean.cpu(), grid,
+                    full_decoder.decode_grid_full.launches - k4))
+    (a_chd, a_rhy, a_grid, a_k4), (b_chd, b_rhy, b_grid, b_k4) = out
+    assert (a_k4, b_k4) == (3, 0)
+    torch.testing.assert_close(a_chd, b_chd, rtol=0, atol=1e-5)
+    torch.testing.assert_close(a_rhy, b_rhy, rtol=0, atol=1e-5)
+    assert (a_grid == b_grid).mean() >= AGREE

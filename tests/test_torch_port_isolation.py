@@ -23,7 +23,8 @@ names = [m.name for m in pkgutil.walk_packages(pctd_tpu_torch.__path__,
                                                "pctd_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-for name in ("cli.arrange", "cli.evaluate", "cli.generate", "cli.serve",
+for name in ("cli.arrange", "cli.convert_checkpoint", "cli.evaluate",
+             "cli.generate", "cli.make_demos", "cli.serve",
              "cli.train", "data.chords", "data.corpus", "data.demo",
              "data.detrend", "data.ingest", "data.loaders", "data.midi_io",
              "data.songs", "data.synthetic", "data.tensorize",
@@ -31,7 +32,7 @@ for name in ("cli.arrange", "cli.evaluate", "cli.generate", "cli.serve",
              "models.pianotree_decoder", "ops.kernels.train_frame",
              "ops.losses", "train.checkpoint", "train.logging",
              "train.optim", "train.schedules", "train.trainer",
-             "utils.device_mem", "utils.precision"):
+             "utils.device_mem", "utils.precision", "utils.torch_interop"):
     assert "pctd_tpu_torch." + name in names, name
 import chip_smoke  # noqa: F401
 leaked = sorted(m for m in sys.modules
@@ -44,7 +45,8 @@ from pctd_tpu_torch.models import disentangle_vae as dv
 from pctd_tpu_torch.models.sampler import Sampler
 assert not torch.cuda.is_available()
 params = dv.init_params(tiny_model_config(), seed=0, device="cpu")
-from pctd_tpu_torch.cli import arrange, evaluate, generate, serve, train
+from pctd_tpu_torch.cli import (arrange, convert_checkpoint, evaluate,
+                                generate, make_demos, serve, train)
 from pctd_tpu_torch.config import TrainConfig
 from pctd_tpu_torch.train.trainer import Trainer
 for call in (lambda: Sampler(params, tiny_model_config()),
@@ -52,7 +54,10 @@ for call in (lambda: Sampler(params, tiny_model_config()),
              lambda: Trainer(tiny_model_config(), TrainConfig(), None),
              lambda: train.main([]), lambda: evaluate.main([]),
              lambda: serve.main([]), lambda: generate.main(["--chords", "C"]),
-             lambda: arrange.main(["in.mid"])):
+             lambda: arrange.main(["in.mid"]),
+             lambda: convert_checkpoint.main(["--to-torch", "out.pt",
+                                              "--checkpoint", "ck"]),
+             lambda: make_demos.main(["--tiny"])):
     try:
         call()
     except RuntimeError as e:
@@ -88,7 +93,7 @@ def _run(args, **kw):
 def test_port_imports_without_jax_and_refuses_cpu_fallback():
     proc = _run(["-c", PROBE])
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.split()[-1]) >= 49
+    assert int(proc.stdout.split()[-1]) >= 52
 
 
 def test_chip_smoke_fails_without_a_card():

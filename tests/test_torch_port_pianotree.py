@@ -3,7 +3,8 @@ package on the CPU at tiny width, on the same weights (``params_from_jax``)
 and inputs: the encoder, ``encode`` with the detrended grid, the loss and
 its 11 metrics (against the JAX loss through the Pallas frame kernels in
 interpret mode and through the XLA path), the parameter gradients, and the
-bf16 loss; the serving entry points refuse the variant."""
+bf16 loss; the Sampler's workflows and the serving CLIs refuse the
+variant."""
 import dataclasses
 
 import jax
@@ -156,12 +157,23 @@ def test_bf16_loss_matches_jax(case):
 
 
 def test_serving_refuses_the_variant_and_training_takes_it():
+    """The Sampler's workflows (the JAX signatures: no detrended grid) and
+    the serving CLIs refuse the variant; its Sampler builds and decodes,
+    and the disentangle_vae workflows take dt_x
+    (tests/test_torch_port_pianotree_serving.py)."""
+    from pctd_tpu_torch.cli import serve
+
     tcfg.check_config(CFG)
+    tcfg.check_config(CFG, "full")
     params = tdv.init_params(CFG, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="pianotree"):
-        Sampler(params, CFG, device="cpu")
+    sampler = Sampler(params, CFG, device="cpu")
+    pr = np.zeros((1, 32, 128), np.float32)
+    c = np.zeros((1, 8, 36), np.float32)
+    with pytest.raises(ValueError, match="pianotree"):
+        sampler.swap(pr, pr, c, c, True, True)
     z = torch.zeros(1, CFG.chd_z_dim)
-    with pytest.raises(NotImplementedError, match="pianotree"):
-        tdv.decode_z(params, CFG, z, z)
+    assert tdv.decode_z(params, CFG, z, z).shape == (1, 32, 15, 6)
+    with pytest.raises(ValueError, match="detrended grid"):
+        serve.main(["--device", "cpu"], model_config=CFG)
     with pytest.raises(ValueError, match="texture encoder"):
         tcfg.check_config(dataclasses.replace(CFG, txt_encoder="rnn"))

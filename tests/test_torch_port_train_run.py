@@ -199,7 +199,7 @@ def test_auto_accum_steps_follows_the_jax_arithmetic(monkeypatch, batch,
     device memory."""
     monkeypatch.setenv("PCTD_HBM_BYTES", str(hbm_gib * 1024 ** 3))
     monkeypatch.setattr(device_mem, "MEASURED_HBM", 16 * 1024 ** 3)
-    monkeypatch.setitem(trainer.STEP_ENVELOPE, "conv", 2048)
+    monkeypatch.setitem(trainer.STEP_ENVELOPE, ("conv", 32), 2048)
     jm = jcfg.tiny_model_config(train_frame_kernel=True)
     try:
         want = jtrainer.auto_accum_steps(
@@ -217,7 +217,7 @@ def test_auto_accum_steps_on_the_cpu_and_when_given(monkeypatch):
     """Unknown memory (the CPU) keeps the envelope as measured; an explicit
     accum_steps wins; the Trainer takes the automatic count."""
     monkeypatch.delenv("PCTD_HBM_BYTES", raising=False)
-    env = trainer.STEP_ENVELOPE["conv"]
+    env = trainer.STEP_ENVELOPE[("conv", 32)]
     assert device_mem.hbm_bytes("cpu") is None
     assert device_mem.scale_by_hbm(env, "cpu") == env
     auto = lambda b, **kw: trainer.auto_accum_steps(
