@@ -77,7 +77,15 @@ step; step 1 against the plain path; its step envelope against the
 committed ``STEP_ENVELOPE[("conv", 128)]``). The pianotree texture encoder
 served: the detrended grid on the card, ``Sampler.encode`` with it, the
 ``disentangle_vae`` workflows with ``dt_x`` through K4 against the CPU plain
-path, the Sampler's workflows refusing the model.
+path, the Sampler's workflows refusing the model. The phase "data
+parallel": the data-parallel train step over a process group of one rank
+(NCCL, in this process; step 1 bit-equal to the single-device step, K1/
+K2a/K2b 32 times a step) and over two gloo ranks on this card (spawned as
+``python3 chip_smoke.py --dp-rank ...`` after the build; the exact loss
+and gradients against one process on the whole batch, the compat mode
+against the halves), ``cli.serve --data-parallel`` against the daemon
+without the flag (the same bytes) and ``cli.make_demos --frame-decoder
+pallas`` (K3 only) against the K4 demo tree.
 Prints one line per phase with its seconds, a ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``. Exits nonzero,
 printing no result, without a CUDA card or when any phase fails. Imports
@@ -130,6 +138,7 @@ from pctd_tpu_torch.models.sampler import Sampler
 from pctd_tpu_torch.ops.kernels import ar_decoder, build, full_decoder
 from pctd_tpu_torch.ops.kernels import train_frame as tf
 from pctd_tpu_torch.train import checkpoint as ckpt
+from pctd_tpu_torch.train import schedules
 from pctd_tpu_torch.train import trainer as tr
 from pctd_tpu_torch.train.logging import RunPaths
 from pctd_tpu_torch.train.optim import Adam, global_norm
@@ -137,7 +146,7 @@ from pctd_tpu_torch.utils import device_mem
 from pctd_tpu_torch.utils.cuda_timing import cuda_ms, queued_ms
 from pctd_tpu_torch.utils.precision import cast_params
 from pctd_tpu_torch.utils.torch_interop import save_reference_checkpoint
-from pctd_tpu_torch.utils.weights import params_to
+from pctd_tpu_torch.utils.weights import named_leaves, params_to
 
 #: H100 SXM peaks (NVIDIA data sheet): f32 on CUDA cores, dense bf16 on the
 #: tensor cores, HBM3 bandwidth
@@ -240,6 +249,10 @@ STRETCH_SONGS, STRETCH_BARS = 12, 24
 PT_SERVE_ROWS = 37
 PT_CPU_ROWS = 4
 DEMO_K = 4             # the demo tree's k x k style-transfer grid
+# the phase "data parallel": timed steps of each spawned rank, and how long
+# the phase waits for its ranks
+DP_TIMED_STEPS = 2
+DP_RANK_TIMEOUT = 300
 
 
 class PhaseFailed(RuntimeError):
@@ -2462,17 +2475,416 @@ def demo_tree_phase(args, counted, models: str, tmp: str) -> dict:
     return result
 
 
+# the phase "data parallel": a rank of part (b) and the phase itself
+
+
+class RecordingOpt:
+    """An optimizer stand-in that keeps the gradients a step hands it and
+    updates nothing (so both modes of a case start from the same params)."""
+
+    def __init__(self):
+        self.grads = None
+
+    def step(self, grads):
+        self.grads = [g.detach().clone() for g in grads]
+        return global_norm(self.grads)
+
+
+class RecordingAdam(Adam):
+    """:class:`Adam` that keeps the gradients of its last step."""
+
+    def step(self, grads):
+        self.grads = [g.detach().clone() for g in grads]
+        return super().step(grads)
+
+
+def trainable(params) -> list:
+    leaves = tr.param_list(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    return leaves
+
+
+def timed(fn):
+    """``fn()``'s result and its host ms, ending in a synchronize."""
+    s0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - s0) * 1e3
+
+
+def data_parallel_rank(rank: int, world: int, port: int, d: str) -> int:
+    """One rank of the phase "data parallel" (b), a process of its own:
+    joins the gloo group of ``world`` ranks on localhost:``port`` (all on
+    this card, CUDA tensors), takes its rows of the global batch in
+    ``d/inputs.pt`` and runs the data-parallel step with its zero latent
+    noise and every coin on, exact and in the compat mode (gradients
+    recorded, params unchanged), then ``DP_TIMED_STEPS`` timed steps with
+    Adam and noise from its generator, counted. Writes ``d/rank<R>.pt``."""
+    from pctd_tpu_torch.parallel import distributed as pdist
+    from pctd_tpu_torch.parallel import mesh as pm
+
+    inputs = torch.load(os.path.join(d, "inputs.pt"), weights_only=False)
+    pdist.initialize(f"localhost:{port}", world, rank, "gloo")
+    try:
+        mesh = pm.make_mesh()
+        torch.cuda.set_device(mesh.device)
+        cfg = ModelConfig()
+        tcfg = TrainConfig(batch_size=TRAIN_B, accum_steps=1,
+                           seed=inputs["seed"])
+        params = ckpt.params_of({"params": inputs["params"]}, mesh.device)
+        leaves = trainable(params)
+        rows = pm.shard_batch(mesh, *inputs["batch"])
+        noise = dv.fixed_noise(cfg, rows[0].shape[0], mesh.device,
+                               coins=True)
+        out = {"device": str(mesh.device), "rows": rows[0].shape[0]}
+        for exact in (True, False):
+            opt = RecordingOpt()
+            step = pm.make_parallel_train_step(cfg, tcfg, opt, mesh,
+                                               exact_loss=exact)
+            m, _ = step(params, 0, None, *rows, noise=noise)
+            key = "exact" if exact else "compat"
+            out[key] = m.cpu()
+            if exact:
+                out["grad_sums"] = torch.stack(
+                    [g.double().sum() for g in opt.grads]).cpu()
+                if rank == 0:
+                    out["grads"] = [g.cpu() for g in opt.grads]
+        torch.cuda.synchronize()
+        counted = (tf.frame_fwd, tf.frame_bwd, tf.weight_grads)
+        step = pm.make_parallel_train_step(cfg, tcfg, Adam(leaves, tcfg),
+                                           mesh)
+        gen = torch.Generator(device=mesh.device).manual_seed(
+            pm.rank_seed(tcfg.seed, rank))
+        reset_counts(counted)
+        out["step_ms"] = [timed(lambda: step(params, i, gen, *rows))[1]
+                          for i in range(DP_TIMED_STEPS)]
+        out["launches"] = counts(counted)
+        torch.save(out, os.path.join(d, f"rank{rank}.pt"))
+        print(f"rank {rank}: {out['rows']} rows on {out['device']}, "
+              f"launches in {DP_TIMED_STEPS} steps {out['launches']}, "
+              f"step ms {[round(t, 2) for t in out['step_ms']]}",
+              flush=True)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def scaled_grad_err(got, want) -> float:
+    """The largest of max|got - want| / (1 + max|want|) over tensors."""
+    return max(((a.float() - b.float()).abs().max()
+                / (1 + b.float().abs().max())).item()
+               for a, b in zip(got, want))
+
+
+@contextlib.contextmanager
+def demo_decodes(calls: list):
+    """Inside this context every ``Sampler.decode`` appends (z_chd, z_rhy,
+    grid) to ``calls``; the method is restored on exit."""
+    route = Sampler.decode
+
+    def recorded(self, z_chd, z_rhy):
+        grid = route(self, z_chd, z_rhy)
+        calls.append((self._tensor(z_chd), self._tensor(z_rhy), grid))
+        return grid
+
+    Sampler.decode = recorded
+    try:
+        yield
+    finally:
+        Sampler.decode = route
+
+
+def data_parallel_phase(args, cfg, dev, counted, demo_tree: dict,
+                        tmp: str) -> dict:
+    """The data-parallel path on the card. (a) A process group of one rank
+    over NCCL in this process: 3 steps at B=128, f32, CE fused in, through
+    K1/K2a/K2b; step 1 (zero latent noise, every coin on) bit-equal to the
+    single-device step in metrics, gradients, norm and updated params; 32
+    K1, K2a and K2b launches a step. (b) Two ranks on this card over gloo
+    (NCCL takes one rank a device), spawned after the build, 64 rows each
+    of the same 128: the exact loss within LOSS_RTOL of the single-process
+    loss on all 128 rows, the averaged gradients within the step-1 bar
+    (norm NORM_RTOL, each tensor GRAD_TOL x (1 + max|ref|)), both ranks the
+    same bits, the compat mode's loss the mean of the two halves' losses;
+    each rank's launches and step times. (c) ``cli.serve --data-parallel``
+    in this process: the seven request kinds of 8 windows on the random
+    weights, replies and files byte-equal to the run without the flag,
+    ``"devices": 1``. (d) ``cli.make_demos --frame-decoder pallas`` on the
+    random weights: K3 only, 32 launches a 16-row chunk (the K4 tree's
+    chunks), the K4 tree's files; where a grid differs from K4's, each
+    differing row's first difference a near-tie."""
+    from pctd_tpu_torch.parallel import distributed as pdist
+    from pctd_tpu_torch.parallel import mesh as pm
+
+    t0 = time.perf_counter()
+    spec = cfg.pianotree
+    T = spec.num_step
+    out = {}
+    K1, K2a, K2b = (f.__name__ for f in (tf.frame_fwd, tf.frame_bwd,
+                                         tf.weight_grads))
+    K4, K3 = (full_decoder.decode_grid_full.__name__,
+              ar_decoder.frame_decode.__name__)
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+
+    # (a) world size 1 over NCCL, in this process
+    tcfg = TrainConfig(batch_size=TRAIN_B, accum_steps=1, seed=args.seed)
+    params0 = dv.init_params(cfg, seed=args.seed, device=dev)
+    corpus = segments(np.random.RandomState(args.seed + 16), 64)
+    b = next(make_loaders(corpus, corpus, TRAIN_B, seed=args.seed)[0]
+             .epoch())
+    batch = (b["pr"], b["chord"], b["shift"])
+    noise = dv.fixed_noise(cfg, TRAIN_B, dev, coins=True)
+    ref_p = copy.deepcopy(params0)
+    ref_leaves = trainable(ref_p)
+    x, c, pr_mat, _ = tr.batch_features(
+        *(torch.as_tensor(a, device=dev) for a in batch), cfg)
+    ref_m, ref_g = tr.loss_and_grads(ref_p, cfg, tcfg, 0, None, x, c,
+                                     pr_mat, noise=noise)
+    ref_m = tr.stacked(ref_m).detach()
+    ref_g = [g.detach().clone() for g in ref_g]
+    ref_norm = Adam(ref_leaves, tcfg).step(ref_g)
+    halves = []
+    for h in range(2):
+        part = slice(h * TRAIN_B // 2, (h + 1) * TRAIN_B // 2)
+        total, _ = dv.loss(params0, cfg, x[part], c[part], pr_mat[part],
+                           dv.fixed_noise(cfg, TRAIN_B // 2, dev,
+                                          coins=True),
+                           beta=schedules.train_params_at(0, tcfg)["beta"])
+        halves.append(total.item())
+    pdist.initialize_local("nccl")
+    try:
+        mesh = pm.make_mesh()
+        check(mesh.world == 1 and mesh.device.type == "cuda"
+              and torch.distributed.get_backend() == "nccl",
+              f"world-1 mesh {mesh}")
+        par_p = copy.deepcopy(params0)
+        opt = RecordingAdam(trainable(par_p), tcfg)
+        step = pm.make_parallel_train_step(cfg, tcfg, opt, mesh)
+        rows = pm.shard_batch(mesh, *batch)
+        gen = torch.Generator(device=dev).manual_seed(
+            pm.rank_seed(tcfg.seed, mesh.rank))
+        reset_counts(counted)
+        (m1, norm1), ms1 = timed(lambda: step(par_p, 0, None, *rows,
+                                              noise=noise))
+        same = {"metrics": torch.equal(m1, ref_m),
+                "grads": all(torch.equal(a, b_)
+                             for a, b_ in zip(opt.grads, ref_g)),
+                "norm": torch.equal(norm1, ref_norm),
+                "params": all(torch.equal(a, b_) for a, b_ in zip(
+                    tr.param_list(par_p), ref_leaves))}
+        step_ms = [ms1] + [timed(lambda: step(par_p, i, gen, *rows))[1]
+                           for i in (1, 2)]
+        got = counts(counted)
+    finally:
+        torch.distributed.destroy_process_group()
+    want = {k: 0 for k in got}
+    want.update({K1: 3 * T, K2a: 3 * T, K2b: 3 * T})
+    print(f"  (a) world size 1 over NCCL on {mesh.device}: step 1 vs the "
+          f"single-device step, bit-equal: {same}; loss {m1[0].item()!r}; "
+          f"launches in 3 steps {got}; step ms "
+          f"{[round(t, 2) for t in step_ms]}")
+    check(all(same.values()), f"world-1 step 1 is not bit-equal: {same}")
+    check(got == want, f"world-1 launches {got}, expected {want}")
+    out["world1"] = {"bit_equal": same, "launches": got, "step_ms": step_ms,
+                     "loss": m1[0].item()}
+
+    # (b) two ranks on this card over gloo, spawned after the build
+    d = os.path.join(tmp, "dp_ranks")
+    os.makedirs(d)
+    torch.save({"params": {n: t.detach().cpu() for n, t in
+                           named_leaves(params0).items()},
+                "batch": batch, "seed": args.seed},
+               os.path.join(d, "inputs.pt"))
+    port = pdist.free_port()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    s0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+         "2", str(port), d], cwd=root, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    texts = []
+    try:
+        for p in procs:
+            texts.append(p.communicate(timeout=DP_RANK_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    ranks_s = time.perf_counter() - s0
+    for r, (p, text) in enumerate(zip(procs, texts)):
+        print("\n".join("  | " + ln for ln in text.splitlines()[-6:]))
+        check(p.returncode == 0, f"data-parallel rank {r} exited "
+              f"{p.returncode}")
+    ranks = [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    exact = ranks[0]["exact"]
+    metric_err = max(rel(a, b_) for a, b_ in zip(exact.tolist(),
+                                                 ref_m.tolist()))
+    norm_err = rel(global_norm(ranks[0]["grads"]).item(), ref_norm.item())
+    grad_err = scaled_grad_err(ranks[0]["grads"], [g.cpu() for g in ref_g])
+    compat_err = rel(ranks[0]["compat"][0].item(), float(np.mean(halves)))
+    equal_ranks = (torch.equal(ranks[0]["exact"], ranks[1]["exact"])
+                   and torch.equal(ranks[0]["compat"], ranks[1]["compat"])
+                   and torch.equal(ranks[0]["grad_sums"],
+                                   ranks[1]["grad_sums"]))
+    print(f"  (b) 2 gloo ranks on {ranks[0]['device']}, {ranks[0]['rows']} "
+          f"rows each ({ranks_s:.1f} s with start-up): exact loss "
+          f"{exact[0].item()!r} vs the single process's {ref_m[0].item()!r}"
+          f" (11 metrics max rel err {metric_err:.3g}); gradients: norm rel "
+          f"err {norm_err:.3g}, max scaled err {grad_err:.3g}; compat loss "
+          f"{ranks[0]['compat'][0].item()!r} vs the halves' mean "
+          f"{float(np.mean(halves))!r} (rel err {compat_err:.3g}); ranks "
+          f"bit-equal: {equal_ranks}")
+    check(metric_err <= LOSS_RTOL, f"2-rank exact metrics rel err "
+          f"{metric_err}")
+    check(norm_err <= NORM_RTOL, f"2-rank gradient norm rel err {norm_err}")
+    check(grad_err <= GRAD_TOL, f"2-rank gradients scaled err {grad_err}")
+    check(compat_err <= LOSS_RTOL, f"2-rank compat loss rel err "
+          f"{compat_err}")
+    check(equal_ranks, "the two ranks' results differ")
+    for r, rk in enumerate(ranks):
+        want = {K1: DP_TIMED_STEPS * T, K2a: DP_TIMED_STEPS * T,
+                K2b: DP_TIMED_STEPS * T}
+        check(rk["launches"] == want, f"rank {r} launches {rk['launches']}")
+    out["two_ranks"] = {
+        "rows_each": ranks[0]["rows"], "metric_rel_err": metric_err,
+        "grad_norm_rel_err": norm_err, "grad_scaled_err": grad_err,
+        "compat_rel_err": compat_err, "seconds_with_start_up": ranks_s,
+        "launches": [rk["launches"] for rk in ranks],
+        "step_ms": [rk["step_ms"] for rk in ranks]}
+    del ref_g, ranks
+
+    # (c) the serving daemon with --data-parallel, in this process
+    random_ck = os.path.join(tmp, "random")
+    os.makedirs(os.path.join(tmp, "dp_serve"))
+    files = daemon_inputs(args.seed, os.path.join(tmp, "dp_serve"))
+    runs = []
+    for flag in ([], ["--data-parallel"]):
+        dst = os.path.join(tmp, "dp_serve", "dp" if flag else "one")
+        os.makedirs(dst)
+        reqs = daemon_requests(files, 8, dst)
+        lines = [json.dumps(r) for r, _ in reqs.values()] + [
+            json.dumps({"op": "quit"})]
+        buf = io.StringIO()
+        reset_counts(counted)
+        cli_serve.main(["--checkpoint", random_ck, "--fixed-batch", "16",
+                        *flag], stdin=io.StringIO("\n".join(lines) + "\n"),
+                       stdout=buf)
+        torch.cuda.synchronize()
+        got = counts(counted)
+        replies = [json.loads(ln) for ln in buf.getvalue().splitlines()]
+        ready = [r for r in replies if r.get("ready")][0]
+        answers = [r for r in replies if "ok" in r]
+        paths = [p for r in answers if "out" in r for p in (
+            r["out"] if isinstance(r["out"], list) else [r["out"]])]
+        blobs = []
+        for p in paths:
+            with open(p, "rb") as f:
+                blobs.append(f.read())
+        check(all(r["ok"] for r in answers), f"daemon replies {answers}")
+        runs.append({"devices": ready["devices"], "launches": got,
+                     "answers": [{k: v for k, v in r.items()
+                                  if k not in ("ms", "out")}
+                                 for r in answers], "files": blobs})
+    equal = (runs[0]["answers"] == runs[1]["answers"]
+             and runs[0]["files"] == runs[1]["files"])
+    print(f"  (c) serve --data-parallel: devices {runs[1]['devices']}, "
+          f"{len(runs[1]['answers'])} replies, {len(runs[1]['files'])} "
+          f"files, byte-equal to the run without the flag: {equal}; "
+          f"launches {runs[1]['launches']} (without: "
+          f"{runs[0]['launches']})")
+    check(runs[1]["devices"] == 1 and runs[0]["devices"] == 1,
+          "the ready line's device count")
+    check(len(runs[1]["files"]) == 6 + DAEMON_INTERP,
+          f"{len(runs[1]['files'])} files written")
+    check(equal, "serve --data-parallel differs from serve")
+    check(runs[0]["launches"] == runs[1]["launches"]
+          and runs[1]["launches"][K4] > 0,
+          f"serve launches {runs[0]['launches']} / {runs[1]['launches']}")
+    out["serve"] = {"devices": runs[1]["devices"],
+                    "launches": runs[1]["launches"], "byte_equal": equal}
+
+    # (d) the demo tree through K3
+    k4_tree = os.path.join(tmp, "demo_out_random")
+    k3_tree = os.path.join(tmp, "demo_out_k3")
+    calls = []
+    reset_counts(counted)
+    with demo_decodes(calls):
+        captured(lambda: cli_make_demos.main(
+            ["--checkpoint", random_ck, "--k", str(DEMO_K), "--out", k3_tree,
+             "--frame-decoder", "pallas"]))
+    torch.cuda.synchronize()
+    got = counts(counted)
+    chunks = demo_tree["random"]["launches"][K4]
+    want = {k: 0 for k in got}
+    want[K3] = T * chunks
+    files_of = lambda root: sorted(
+        os.path.relpath(os.path.join(dp, f), root)
+        for dp, _, fs in os.walk(root) for f in fs)
+    names = files_of(k3_tree)
+    differ = []
+    for rel_path in names:
+        with open(os.path.join(k3_tree, rel_path), "rb") as f3, \
+                open(os.path.join(k4_tree, rel_path), "rb") as f4:
+            if f3.read() != f4.read():
+                differ.append(rel_path)
+    params, mcfg = ckpt.load_model(random_ck, cfg, args.seed, dev)
+    k4_sampler = Sampler(params, mcfg, fixed_batch=16, device=dev)
+    plain_k3 = Sampler(params, mcfg, frame_decoder="frame", device=dev)
+    margins, rows_differ = [], 0
+    for zc, zr, grid in calls:
+        want_grid = k4_sampler.decode(zc, zr)
+        if np.array_equal(grid, want_grid):
+            continue
+        hs = []
+        with recorded_plain_frames(hs):
+            plain_k3.decode(zc, zr)
+        m_ = first_frame_margins(plain_k3.fw, spec, grid, want_grid, hs,
+                                 dev)
+        rows_differ += len(m_)
+        margins += m_
+    worst = max(margins, default=0.0)
+    print(f"  (d) make_demos --frame-decoder pallas: launches {got} "
+          f"({chunks} chunks of 16 rows in the K4 tree); {len(names)} files, "
+          f"{len(differ)} differ from the K4 tree's; {len(calls)} decode "
+          f"calls, {rows_differ} rows differ from K4's grids, worst "
+          f"first-difference margin {worst:.3g}")
+    check(got == want, f"the K3 demo tree's launches {got}, expected {want}")
+    check(names == files_of(k4_tree), "the K3 tree's files are not the "
+          "K4 tree's")
+    check(not differ or rows_differ > 0, f"files differ with equal grids: "
+          f"{differ[:3]}")
+    check(worst <= BF16_TIE, f"a K3 row's first difference from K4 is no "
+          f"near-tie (margin {worst:.3g})")
+    out["demo_k3"] = {"launches": got, "files": len(names),
+                      "files_differ": len(differ), "rows_differ": rows_differ,
+                      "worst_margin": worst}
+    out["seconds"] = time.perf_counter() - t0
+    phase("data parallel", t0)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--parent-k1", default="",
                     help="JSON line of tools/k1_by_rows.py run on a checkout "
                          "of the per-row K1, printed beside the new K1")
+    ap.add_argument("--dp-rank", nargs=4, default=None,
+                    metavar=("RANK", "WORLD", "PORT", "DIR"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this test runs on the card",
               file=sys.stderr)
         return 2
+    if args.dp_rank:
+        rank, world, port, d = args.dp_rank
+        return data_parallel_rank(int(rank), int(world), int(port), d)
     check(torch.get_float32_matmul_precision() == "highest"
           and not torch.backends.cuda.matmul.allow_tf32,
           "float32 matmuls must run in full f32 (no TF32)")
@@ -3469,6 +3881,8 @@ def main() -> int:
         reference_ck = reference_checkpoint_phase(args, cfg, dev, counted,
                                                   models, tmp)
         demo_tree = demo_tree_phase(args, counted, models, tmp)
+        data_parallel = data_parallel_phase(args, cfg, dev, counted,
+                                            demo_tree, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4170,6 +4584,21 @@ def main() -> int:
                   "K2a": tf.frame_bwd if fused else tf.frame_core_bwd,
                   "K2b": tf.weight_grads}[name.split()[0]]
             row["launches_stretch"] = st[mode][fn.__name__]
+    # launches of the data-parallel path: K1/K2a/K2b (f32, CE fused in) in
+    # the world-1 steps and on each gloo rank; K3 in the demo tree
+    dp_fn = {"K1": tf.frame_fwd, "K2a": tf.frame_bwd, "K2b": tf.weight_grads}
+    for row in rows:
+        key = row["name"].split()[0]
+        if key in dp_fn and "(" not in row["name"]:
+            fn = dp_fn[key].__name__
+            row["launches_data_parallel"] = {
+                "world1_nccl_3_steps": data_parallel["world1"]["launches"][
+                    fn],
+                f"gloo_ranks_{DP_TIMED_STEPS}_steps": [
+                    r[fn] for r in data_parallel["two_ranks"]["launches"]]}
+        elif row["name"] == "K3 frame_group_kernel":
+            row["launches_demo_k3"] = data_parallel["demo_k3"]["launches"][
+                ar_decoder.frame_decode.__name__]
     print(json.dumps({"serving": serving, "serving_bf16": serving_bf16,
                       "training": training,
                       "training_logits_out": training_lo,
@@ -4180,7 +4609,8 @@ def main() -> int:
                       "demo_tree": demo_tree,
                       "stretch_serving": stretch_serving,
                       "stretch_training": stretch_training,
-                      "pianotree_serving": pianotree_serving, "card": card}))
+                      "pianotree_serving": pianotree_serving,
+                      "data_parallel": data_parallel, "card": card}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}))

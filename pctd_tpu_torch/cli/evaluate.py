@@ -8,6 +8,7 @@ has no randomness and compares with the JAX package's on the same weights.
 Usage:
     python -m pctd_tpu_torch.cli.evaluate --checkpoint result_*/models/disvae_final
     python -m pctd_tpu_torch.cli.evaluate --deterministic   # fresh model
+    python -m pctd_tpu_torch.cli.evaluate --checkpoint CKPT --midi-dir songs/
 """
 from __future__ import annotations
 
@@ -34,17 +35,6 @@ EVAL_NOISE = 0xE7A1
 BETA = 0.1
 
 
-def zero_noise(mcfg: ModelConfig, batch: int, device) -> dv.Noise:
-    """Zero latent noise (z = the posterior mean) and every coin 0."""
-    spec = mcfg.pianotree
-    zeros = lambda *s, **kw: torch.zeros(s, device=device, **kw)
-    return dv.Noise(zeros(batch, mcfg.chd_z_dim), zeros(batch, mcfg.txt_z_dim),
-                    zeros(spec.num_step, dtype=torch.bool),
-                    zeros(spec.num_step, spec.max_simu_note,
-                          dtype=torch.bool),
-                    zeros(mcfg.chord.num_step, dtype=torch.bool))
-
-
 @torch.no_grad()
 def evaluate(params: dict, mcfg: ModelConfig, val_batches,
              deterministic: bool = False,
@@ -59,7 +49,7 @@ def evaluate(params: dict, mcfg: ModelConfig, val_batches,
         pr, chord, shift = (torch.as_tensor(batch[k], device=dev)
                             for k in ("pr", "chord", "shift"))
         x, c, pr_mat, dt_x = batch_features(pr, chord, shift, mcfg)
-        noise = (zero_noise(mcfg, x.shape[0], dev) if deterministic else
+        noise = (dv.fixed_noise(mcfg, x.shape[0], dev) if deterministic else
                  dv.draw_noise(generator, mcfg, x.shape[0], 0.0, 0.0, 0.0))
         _, metrics = dv.loss(params, mcfg, x, c, pr_mat, noise, beta=BETA,
                              dt_x=dt_x)
@@ -84,6 +74,9 @@ def main(argv: Optional[Sequence[str]] = None,
                     default="conv")
     ap.add_argument("--data-path",
                     default="data/POP09-PIANOROLL-4-bin-quantization")
+    ap.add_argument("--midi-dir", default=None,
+                    help="evaluate on a corpus ingested from the MIDI files "
+                         "under this directory")
     ap.add_argument("--synthetic-songs", type=int, default=40)
     ap.add_argument("--seed", type=int, default=3345)
     ap.add_argument("--deterministic", action="store_true",
@@ -92,14 +85,18 @@ def main(argv: Optional[Sequence[str]] = None,
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     dcfg = DataConfig(data_path=args.data_path, seed=args.seed)
-    _, val_c, _ = load_corpora(args.data_path, args.synthetic_songs, dcfg)
+    _, val_c, _ = load_corpora(args.data_path, args.synthetic_songs, dcfg,
+                               args.midi_dir)
     mcfg = dataclasses.replace(model_config or ModelConfig(),
                                txt_encoder=args.variant)
     if args.checkpoint:
         saved = checkpoint.load_state(args.checkpoint)
         mcfg = checkpoint.model_config_of(saved) or mcfg
         params = checkpoint.params_of(saved, device)
-        print(f"loaded {args.checkpoint} (step {saved['step']})")
+        # a converted checkpoint holds params alone, and no step
+        step = saved.get("step")
+        print(f"loaded {args.checkpoint}"
+              + ("" if step is None else f" (step {step})"))
     else:
         params = dv.init_params(mcfg, seed=args.seed, device=device)
     _, vl = make_loaders(val_c, val_c, args.batch_size, seed=args.seed)

@@ -18,10 +18,12 @@ structure and breadth of the reference's demo/ tree:
 chord_prog_interpolation/
     interp_chd.mid + named progression pairs, BOTH directions
 
-Every decode runs through one ``Sampler(fixed_batch=16)`` on the card (K4).
-Random draws come from ``torch.Generator``s seeded as the JAX script seeds
-its keys. The JAX script's ``--aot-dir``, ``--frame-decoder`` and
-``--platform`` (here ``--device``) are not ported.
+Every decode runs through one ``Sampler(fixed_batch=16)`` on the card:
+through K4 with ``--frame-decoder`` auto or pallas_full (the default), K3
+with pallas (the serving daemon's mapping); xla is refused. Random draws
+come from ``torch.Generator``s seeded as the JAX script seeds its keys.
+The JAX script's ``--aot-dir`` and ``--platform`` (here ``--device``) are
+not ported.
 
 Usage:
     python -m pctd_tpu_torch.cli.make_demos --checkpoint \\
@@ -48,6 +50,7 @@ from pctd_tpu_torch.data.converter import batch_expand_chord
 from pctd_tpu_torch.data.songs import SongDataset
 from pctd_tpu_torch.data.synthetic import synthetic_corpora
 from pctd_tpu_torch.data.tensorize import window_features
+from pctd_tpu_torch.cli.serve import FRAME_DECODERS
 from pctd_tpu_torch.models import disentangle_vae as dv
 from pctd_tpu_torch.models.sampler import Sampler
 from pctd_tpu_torch.train.checkpoint import load_model
@@ -76,9 +79,17 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     ap.add_argument("--midi-dir", default=None,
                     help="source segments from a corpus ingested from raw "
                          "MIDI files instead of the synthetic corpus")
+    ap.add_argument("--frame-decoder", default="auto",
+                    choices=["auto", "xla", "pallas", "pallas_full"],
+                    help="auto and pallas_full: K4; pallas: K3; xla is "
+                         "refused (no plain decode route on the card)")
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
+    if args.frame_decoder not in FRAME_DECODERS:
+        raise SystemExit(f"--frame-decoder {args.frame_decoder}: the plain "
+                         "versions are not a decode route on the card; use "
+                         "auto, pallas_full (K4) or pallas (K3)")
     device = resolve_device(args.device)
     params, cfg = load_model(
         args.checkpoint, tiny_model_config() if args.tiny else ModelConfig(),
@@ -95,7 +106,9 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
         train_c, _ = synthetic_corpora(n_songs=max(8, args.k * 2),
                                        seed=args.seed, cfg=dcfg)
     k = args.k
-    sampler = Sampler(params, cfg, fixed_batch=FIXED_BATCH, device=device)
+    sampler = Sampler(params, cfg,
+                      frame_decoder=FRAME_DECODERS[args.frame_decoder],
+                      fixed_batch=FIXED_BATCH, device=device)
     gen = lambda seed: torch.Generator(device=device).manual_seed(seed)
 
     def pick_segments(n):

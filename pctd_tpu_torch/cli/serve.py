@@ -37,11 +37,13 @@ widths are the checkpoint's, decoded in float32. ``--frame-decoder``:
 ``auto`` and ``pallas_full`` serve through K4 (``Sampler`` route
 ``"full"``), ``pallas`` through K3 (``"frame"``); ``xla`` is refused, since
 the plain versions are not a serving route on the card. A kernel that fails
-raises: there is no chain that degrades to another decoder. The JAX
-daemon's ``--data-parallel`` (data parallel is not ported yet),
-``--aot-dir``/``--export-aot`` (serialized XLA executables; the port's
-kernels are built once from source) and ``--platform`` (here ``--device``)
-are not ported.
+raises: there is no chain that degrades to another decoder.
+``--data-parallel`` splits each chunk's rows over every visible card
+(``Sampler(mesh=make_mesh())``; ``--fixed-batch`` a multiple of the card
+count), as the JAX daemon's flag does; the ``ready`` line names the device
+count. The JAX daemon's ``--aot-dir``/``--export-aot`` (serialized XLA
+executables; the port's kernels are built once from source) and
+``--platform`` (here ``--device``) are not ported.
 
 Usage:
     python -m pctd_tpu_torch.cli.serve --checkpoint <run>/models/disvae_final \\
@@ -65,6 +67,7 @@ from pctd_tpu_torch.data import demo as dm
 from pctd_tpu_torch.data.songs import midi_to_windows
 from pctd_tpu_torch.data.tensorize import window_features
 from pctd_tpu_torch.models.sampler import Sampler
+from pctd_tpu_torch.parallel.mesh import make_mesh
 from pctd_tpu_torch.train import checkpoint
 from pctd_tpu_torch.utils.device import resolve_device
 
@@ -223,6 +226,8 @@ def parser() -> argparse.ArgumentParser:
                     choices=["auto", "xla", "pallas", "pallas_full"],
                     help="auto and pallas_full: K4; pallas: K3; xla is "
                          "refused (no plain serving route on the card)")
+    ap.add_argument("--data-parallel", action="store_true",
+                    help="split request rows over every visible device")
     ap.add_argument("--tiny", action="store_true",
                     help="tiny model dims (smoke runs, untrained)")
     ap.add_argument("--seed", type=int, default=0)
@@ -254,12 +259,16 @@ def main(argv: Optional[Sequence[str]] = None,
         print(json.dumps({"warning": "no checkpoint - untrained model"}),
               file=out, flush=True)
     route = FRAME_DECODERS[args.frame_decoder]
+    mesh = make_mesh(device_type=device.type) if args.data_parallel \
+        else None
     sampler = Sampler(params, cfg, frame_decoder=route,
-                      fixed_batch=args.fixed_batch, device=device)
+                      fixed_batch=args.fixed_batch,
+                      device=None if mesh else device, mesh=mesh)
     server = Server(sampler, cfg.pianotree, args.max_windows, cfg=cfg)
     print(json.dumps({"ready": True, "fixed_batch": args.fixed_batch,
-                      "device": str(device), "frame_decoder": route}),
-          file=out, flush=True)
+                      "device": str(sampler.device),
+                      "devices": len(sampler.devices),
+                      "frame_decoder": route}), file=out, flush=True)
     serve_lines(server, stdin or sys.stdin, out)
 
 

@@ -207,6 +207,20 @@ def draw_noise(gen: torch.Generator, cfg: ModelConfig, batch: int, tfr1,
                  uni(cfg.chord.num_step) < tfr3)
 
 
+def fixed_noise(cfg: ModelConfig, batch: int, device=None,
+                coins: bool = False) -> Noise:
+    """A :class:`Noise` without randomness: zero latent noise (z is the
+    posterior mean) and every teacher coin ``coins`` (False: teacher-forcing
+    rate 0; True: rate 1)."""
+    spec = cfg.pianotree
+    zeros = lambda *s: torch.zeros(s, device=device)
+    flags = lambda *s: torch.full(s, coins, dtype=torch.bool, device=device)
+    return Noise(zeros(batch, cfg.chd_z_dim), zeros(batch, cfg.txt_z_dim),
+                 flags(spec.num_step),
+                 flags(spec.num_step, spec.max_simu_note),
+                 flags(cfg.chord.num_step))
+
+
 def forward_parts(params: dict, cfg: ModelConfig, x, c, pr_mat,
                   noise: Noise, dt_x=None):
     """Everything of the teacher-forced forward except the PianoTree decode:
@@ -256,7 +270,8 @@ def run(params: dict, cfg: ModelConfig, x, c, pr_mat, noise: Noise,
 
 def loss(params: dict, cfg: ModelConfig, x, c, pr_mat, noise: Noise,
          beta=0.1, weights=(1.0, 0.5), weighted_dur: bool = False,
-         dt_x=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+         dt_x=None, group=None
+         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """ELBO + auxiliary chord loss: (total, the 11 metrics by
     ``METRIC_NAMES``). x (B, 32, K, 6) int grid, c (B, 8, 36), pr_mat
     (B, 32, 128), dt_x (B, 32, 16, 39) with the pianotree texture
@@ -267,18 +282,24 @@ def loss(params: dict, cfg: ModelConfig, x, c, pr_mat, noise: Noise,
     :func:`~pctd_tpu_torch.models.pianotree_decoder.recon_loss`. With
     ``compute_dtype="bfloat16"`` the params are cast inside (gradients
     reach the f32 ``params`` through the cast) and the losses run in f32.
+
+    ``group`` (a ``torch.distributed`` process group, the JAX
+    ``axis_name``) takes the masked reconstruction CE over the batch rows
+    of all its ranks: the loss and, after a mean of the ranks' gradients,
+    the gradient of the whole batch. The KL and chord terms stay this
+    rank's means, which the mean over equal shards makes exact.
     """
     if cfg.fused_loss:
         p_cast, x_emb, lengths, dist_chd, dist_rhy, z, recon_chd = \
             forward_parts(params, cfg, x, c, pr_mat, noise, dt_x)
         recon, pl, dl = pt_dec.decode_recon(
             p_cast["dec"], cfg, z, x_emb, lengths, noise.coins1,
-            noise.coins2, x, weights, weighted_dur)
+            noise.coins2, x, weights, weighted_dur, group)
     else:
         out, dist_chd, dist_rhy, *recon_chd = run(params, cfg, x, c, pr_mat,
                                                   noise, dt_x)
         recon, pl, dl = pt_dec.recon_loss(x, out, cfg.pianotree, weights,
-                                          weighted_dur)
+                                          weighted_dur, group)
     kl_chd = kl_std_normal(dist_chd)
     kl_rhy = kl_std_normal(dist_rhy)
     kl = kl_chd + kl_rhy

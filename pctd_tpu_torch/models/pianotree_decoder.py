@@ -34,7 +34,8 @@ from pctd_tpu_torch.config import ModelConfig, PianoTreeSpec, check_config
 from pctd_tpu_torch.ops import bigru_last_masked, gru_cell_pre, \
     gru_gates_pre, gru_init
 from pctd_tpu_torch.ops.kernels import ar_decoder, full_decoder, train_frame
-from pctd_tpu_torch.ops.losses import cross_entropy_ignore, masked_ce_parts
+from pctd_tpu_torch.ops.losses import all_reduce_sum, cross_entropy_ignore, \
+    masked_ce_parts
 from pctd_tpu_torch.utils.init import dense_apply, dense_params, free_param
 
 #: column offset of the GRU hidden gates in the combined dur-chain
@@ -393,7 +394,7 @@ def decode_recon(p: dict, cfg: ModelConfig, z: torch.Tensor,
                  x_emb: torch.Tensor, lengths: torch.Tensor,
                  coins1: torch.Tensor, coins2: torch.Tensor,
                  x: torch.Tensor, weights=(1.0, 0.5),
-                 weighted_dur: bool = False):
+                 weighted_dur: bool = False, group=None):
     """Teacher-forced decode fused with the reconstruction CE. z (B, z_dim);
     x_emb (B, T, K, E) and lengths (B, T) from :func:`emb_x`; coins1 (T,)
     bool selects the ground-truth frame summary as the next time token;
@@ -402,7 +403,10 @@ def decode_recon(p: dict, cfg: ModelConfig, z: torch.Tensor,
 
     Each frame's :func:`~pctd_tpu_torch.ops.kernels.train_frame.frame_recon`
     returns its CE numerators, summed over frames; the denominators are the
-    targets' mask counts."""
+    targets' mask counts. With ``group`` the numerators and the counts are
+    summed over its ranks before the division (one all-reduce; see
+    :mod:`pctd_tpu_torch.ops.losses`): the loss of the whole batch, whose
+    gradient reaches the frame kernels' backward as scaled ``d_nums``."""
     spec = cfg.pianotree
     W = spec.dur_width
     cw = train_frame.core_weights(p, cfg)
@@ -421,6 +425,10 @@ def decode_recon(p: dict, cfg: ModelConfig, z: torch.Tensor,
         nums = nums + nums_t
     den_p = (gt_pitch != spec.pitch_pad).sum()
     den_d = (gt_dur != spec.dur_pad).sum(dim=(0, 1, 2))          # (W,)
+    if group is not None:
+        summed = all_reduce_sum(torch.cat(
+            [nums, den_p[None].to(nums.dtype), den_d.to(nums.dtype)]), group)
+        nums, den_p, den_d = summed[:1 + W], summed[1 + W], summed[2 + W:]
     pitch_loss = nums[0] / den_p.clamp(min=1)
     per_bit = [nums[1 + i] / den_d[i].clamp(min=1) for i in range(W)]
     return _weigh(pitch_loss, per_bit, (nums[1:].sum(), den_d.sum()),
@@ -428,20 +436,22 @@ def decode_recon(p: dict, cfg: ModelConfig, z: torch.Tensor,
 
 
 def recon_loss(x: torch.Tensor, out: DecoderOutput, spec: PianoTreeSpec,
-               weights=(1.0, 0.5), weighted_dur: bool = False):
+               weights=(1.0, 0.5), weighted_dur: bool = False, group=None):
     """Pitch + duration reconstruction loss from logits: CE over grid slots
     1..K-1 with pad targets ignored. Returns (loss, pitch_loss,
     dur_loss). The loss with ``fused_loss=False`` scores the teacher-forced
     :func:`decode`'s logits with it; with ``fused_loss=True``
-    :func:`decode_recon` fuses the same CE into the frame kernel."""
+    :func:`decode_recon` fuses the same CE into the frame kernel. ``group``
+    takes each CE over the ranks of a process group
+    (:mod:`pctd_tpu_torch.ops.losses`)."""
     gt_pitch = x[:, :, 1:, 0]
     gt_dur = x[:, :, 1:, 1:]
     pitch_loss = cross_entropy_ignore(out.pitch_logits, gt_pitch,
-                                      spec.pitch_pad)
+                                      spec.pitch_pad, group)
     if weighted_dur:
         per_bit = [cross_entropy_ignore(out.dur_logits[..., i, :],
-                                        gt_dur[..., i], spec.dur_pad)
+                                        gt_dur[..., i], spec.dur_pad, group)
                    for i in range(spec.dur_width)]
         return _weigh(pitch_loss, per_bit, None, weights, True)
-    dur = masked_ce_parts(out.dur_logits, gt_dur, spec.dur_pad)
+    dur = masked_ce_parts(out.dur_logits, gt_dur, spec.dur_pad, group)
     return _weigh(pitch_loss, None, dur, weights, False)

@@ -26,9 +26,19 @@ A Sampler of the pianotree texture encoder encodes with the detrended grid
 any other; the four workflows keep the JAX Sampler's signatures, which take
 no ``dt_x``, and raise for it: the ``disentangle_vae`` functions of the same
 names take ``dt_x``.
+
+``mesh`` (a :class:`~pctd_tpu_torch.parallel.mesh.Mesh` of local devices,
+``make_mesh()``) serves data-parallel, as the JAX Sampler's mesh does: the
+workflows have no cross-row dependency, so each encode and decode chunk's
+rows split evenly over the mesh's devices, each of which holds its own
+copy of the (folded) weights; every device's launches are issued before
+any result is read, and the results come back to the first device in row
+order. There are no collectives. ``fixed_batch`` must then be a multiple
+of the device count (without it, every request's rows).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import numpy as np
@@ -39,7 +49,7 @@ from pctd_tpu_torch.models import disentangle_vae as dv
 from pctd_tpu_torch.ops import DiagNormal
 from pctd_tpu_torch.ops.kernels.ar_decoder import folded_frame_weights
 from pctd_tpu_torch.utils import precision
-from pctd_tpu_torch.utils.device import resolve_device
+from pctd_tpu_torch.utils.device import names_device, resolve_device
 from pctd_tpu_torch.utils.weights import named_leaves, params_to
 
 
@@ -56,33 +66,72 @@ def _map(fn, out):
     return tuple(DiagNormal(*map(fn, d)) for d in out)
 
 
+def _concat(outs):
+    """Row-wise concatenation of results (tensors or DiagNormal pairs)."""
+    if len(outs) == 1:
+        return outs[0]
+    if isinstance(outs[0], torch.Tensor):
+        return torch.cat(outs)
+    return tuple(DiagNormal(*(torch.cat(ts) for ts in zip(*dists)))
+                 for dists in zip(*outs))
+
+
+def _on(device: torch.device):
+    """The context in which launches go to ``device``'s current stream."""
+    return (torch.cuda.device(device) if device.type == "cuda"
+            else contextlib.nullcontext())
+
+
 class Sampler:
     def __init__(self, params: dict, cfg: ModelConfig,
                  frame_decoder: str = "full",
-                 fixed_batch: Optional[int] = None, device=None):
+                 fixed_batch: Optional[int] = None, device=None,
+                 mesh=None):
         check_config(cfg, frame_decoder)
         if fixed_batch is not None and fixed_batch < 1:
             raise ValueError(f"fixed_batch must be positive, got "
                              f"{fixed_batch}")
-        self.device = resolve_device(device)
+        if mesh is not None:
+            if mesh.group is not None:
+                raise ValueError("serving has no collectives: give a mesh "
+                                 "of local devices without a process group")
+            if fixed_batch is not None and fixed_batch % len(mesh.devices):
+                raise ValueError(f"fixed_batch {fixed_batch} not divisible "
+                                 f"by the mesh's {len(mesh.devices)} "
+                                 "devices")
+            if not names_device(device, mesh.devices[0]):
+                raise ValueError(f"device {device} is not the mesh's first "
+                                 f"device {mesh.devices[0]}")
+            self.devices = tuple(mesh.devices)
+        else:
+            self.devices = (resolve_device(device),)
+        self.device = self.devices[0]
+        self.mesh = mesh
         self.cfg = cfg
         self.frame_decoder = frame_decoder
         self.fixed_batch = fixed_batch
         self._leaves = _signature(params)
-        self.params, self.fw = self._prepare(params)
+        self._set_params(params)
         if precision.compute_dtype(cfg) != torch.float32:
             torch.backends.cuda.matmul \
                 .allow_bf16_reduced_precision_reduction = False
 
-    def _prepare(self, params: dict):
-        """(params on the device, cast once to the compute dtype, and the
+    def _set_params(self, params: dict) -> None:
+        """A (params, folds) replica on each device; ``self.params`` and
+        ``self.fw`` are the first device's."""
+        self._replicas = [self._prepare(params, d) for d in self.devices]
+        self.params, self.fw = self._replicas[0]
+
+    def _prepare(self, params: dict, device: torch.device):
+        """(params on ``device``, cast once to the compute dtype, and the
         serving folds of their decoder, which depend on the weights only)."""
-        params = params_to(params, self.device)
+        params = params_to(params, device)
         dtype = precision.compute_dtype(self.cfg)
         if dtype != torch.float32:
             # the casts inside encode and decode_z are then no-ops
             params = precision.cast_params(params, dtype)
-        return params, folded_frame_weights(params["dec"], self.cfg)
+        with _on(device):
+            return params, folded_frame_weights(params["dec"], self.cfg)
 
     def load_params(self, params: dict) -> None:
         """Serve ``params`` from now on, moved, cast and folded as at
@@ -96,7 +145,7 @@ class Sampler:
                           key=str)
             raise ValueError(f"params do not match the served weights "
                              f"(name, shape, dtype): {diff[:4]}")
-        self.params, self.fw = self._prepare(params)
+        self._set_params(params)
 
     def _tensor(self, a) -> torch.Tensor:
         """A request array (numpy or tensor) as float32 on the device."""
@@ -104,28 +153,42 @@ class Sampler:
             a = torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
         return a.to(self.device, torch.float32)
 
+    def _split(self, fn, arrays):
+        """``fn(params, folds, *rows)`` of each device's even share of the
+        arrays' rows, launched on every device before any result is read;
+        the results on the first device, in row order."""
+        if len(self.devices) == 1:
+            return fn(*self._replicas[0], *arrays)
+        n = arrays[0].shape[0] // len(self.devices)
+        outs = []
+        for i, (device, replica) in enumerate(zip(self.devices,
+                                                  self._replicas)):
+            with _on(device):
+                outs.append(fn(*replica, *(a[i * n:(i + 1) * n].to(device)
+                                           for a in arrays)))
+        return _concat([_map(lambda t: t.to(self.device), o) for o in outs])
+
     def _chunked(self, fn, *arrays):
-        """Run ``fn`` over fixed_batch-row zero-padded chunks of the arrays
-        (axis 0) and concatenate the un-padded results."""
+        """Run ``fn(params, folds, *rows)`` over fixed_batch-row zero-padded
+        chunks of the arrays (axis 0), each chunk split over the devices,
+        and concatenate the un-padded results."""
         n = arrays[0].shape[0]
         if n == 0:
             raise ValueError("empty batch")
         fb = self.fixed_batch
         if fb is None:
-            return fn(*arrays)
+            if n % len(self.devices):
+                raise ValueError(f"batch {n} not divisible by the mesh's "
+                                 f"{len(self.devices)} devices")
+            return self._split(fn, arrays)
         outs = []
         for lo in range(0, n, fb):
             take = min(fb, n - lo)
             chunk = [a[lo:lo + take] if take == fb else torch.cat(
                 [a[lo:lo + take], a.new_zeros((fb - take,) + a.shape[1:])])
                 for a in arrays]
-            outs.append(_map(lambda t: t[:take], fn(*chunk)))
-        if len(outs) == 1:
-            return outs[0]
-        if isinstance(outs[0], torch.Tensor):
-            return torch.cat(outs)
-        return tuple(DiagNormal(*(torch.cat(ts) for ts in zip(*dists)))
-                     for dists in zip(*outs))
+            outs.append(_map(lambda t: t[:take], self._split(fn, chunk)))
+        return _concat(outs)
 
     def encode(self, pr_mat, c, dt_x=None):
         """(B, T, 128) duration matrices, (B, T/4, 36) chords and, for the
@@ -135,8 +198,8 @@ class Sampler:
         if dt_x is not None:
             arrays.append(self._tensor(dt_x))
         return self._chunked(
-            lambda pm, cc, *dd: dv.encode(self.params, self.cfg, pm, cc,
-                                          *dd), *arrays)
+            lambda params, fw, pm, cc, *dd: dv.encode(params, self.cfg, pm,
+                                                      cc, *dd), *arrays)
 
     def _encode_request(self, workflow: str, pr_mat, c):
         """``encode`` for a workflow, which takes no detrended grid."""
@@ -151,8 +214,8 @@ class Sampler:
     def decode(self, z_chd, z_rhy) -> np.ndarray:
         """Latents -> estimated grids (B, T, K-1, 6) int32, as numpy."""
         grid = self._chunked(
-            lambda zc, zr: dv.decode_z(self.params, self.cfg, zc, zr,
-                                       self.frame_decoder, self.fw),
+            lambda params, fw, zc, zr: dv.decode_z(
+                params, self.cfg, zc, zr, self.frame_decoder, fw),
             self._tensor(z_chd), self._tensor(z_rhy))
         return grid.cpu().numpy()
 

@@ -15,7 +15,9 @@ metrics on the device and read the host only every ``log_every`` steps
 ``valid`` (best val loss) and ``final`` checkpoints
 (:mod:`pctd_tpu_torch.train.checkpoint`) into its run directory. The JAX
 trainer's degrade from a kernel that fails to compile to the XLA path has
-no counterpart: the port has no fallback from a kernel.
+no counterpart: the port has no fallback from a kernel. ``Trainer(...,
+mesh=)`` is one rank of a data-parallel run
+(:mod:`pctd_tpu_torch.parallel.mesh`).
 
 With ``ModelConfig.compute_dtype="bfloat16"`` the step runs under the
 mixed-precision policy (``pctd_tpu_torch.utils.precision``): the master
@@ -44,7 +46,7 @@ from pctd_tpu_torch.train import checkpoint, schedules
 from pctd_tpu_torch.train.logging import MetricWriters, RunPaths
 from pctd_tpu_torch.train.optim import Adam
 from pctd_tpu_torch.utils import device_mem
-from pctd_tpu_torch.utils.device import resolve_device
+from pctd_tpu_torch.utils.device import names_device, resolve_device
 from pctd_tpu_torch.utils.weights import named_leaves
 
 #: the constant that keeps eval noise apart from the train stream (the JAX
@@ -120,30 +122,36 @@ def param_list(params) -> List[torch.Tensor]:
 
 def loss_and_grads(params, mcfg: ModelConfig, tcfg: TrainConfig, step: int,
                    gen: torch.Generator, x, c, pr_mat, accum: int = 1,
-                   dt_x=None
+                   dt_x=None, group=None, noise: Optional[dv.Noise] = None
                    ) -> Tuple[Dict[str, torch.Tensor], List[torch.Tensor]]:
     """The 11 metrics and the gradients of every parameter (``param_list``
     order) at ``step``'s schedules. With ``accum`` > 1 the batch splits into
     that many contiguous microbatches, each with its own noise, and metrics
     and gradients are their means. ``dt_x`` as :func:`batch_features`
-    gives it."""
+    gives it. ``group`` as :func:`~pctd_tpu_torch.models.disentangle_vae.
+    loss` takes it (the data-parallel step's). ``noise`` replaces the draw
+    from ``gen`` (one microbatch only)."""
     sched = schedules.train_params_at(step, tcfg)
     leaves = param_list(params)
     B = x.shape[0]
     if B % accum:
         raise ValueError(f"batch {B} does not split into {accum} "
                          "microbatches")
+    if noise is not None and accum != 1:
+        raise ValueError("noise is given for one microbatch, not "
+                         f"{accum}")
     mb = B // accum
     sums, gsums = None, None
     for i in range(accum):
         part = slice(i * mb, (i + 1) * mb)
-        noise = dv.draw_noise(gen, mcfg, mb, sched["tfr1"], sched["tfr2"],
-                              sched["tfr3"])
+        drawn = noise if noise is not None else dv.draw_noise(
+            gen, mcfg, mb, sched["tfr1"], sched["tfr2"], sched["tfr3"])
         total, metrics = dv.loss(params, mcfg, x[part], c[part],
-                                 pr_mat[part], noise, beta=sched["beta"],
+                                 pr_mat[part], drawn, beta=sched["beta"],
                                  weights=tcfg.weights,
                                  weighted_dur=tcfg.weighted_dur,
-                                 dt_x=None if dt_x is None else dt_x[part])
+                                 dt_x=None if dt_x is None else dt_x[part],
+                                 group=group)
         grads = torch.autograd.grad(total, leaves)
         m = torch.stack([metrics[k].detach() for k in dv.METRIC_NAMES])
         sums = m if sums is None else sums + m
@@ -157,11 +165,12 @@ def loss_and_grads(params, mcfg: ModelConfig, tcfg: TrainConfig, step: int,
 
 @torch.no_grad()
 def eval_metrics(params, mcfg: ModelConfig, tcfg: TrainConfig, step: int,
-                 gen: torch.Generator, pr, chord, shift
+                 gen: torch.Generator, pr, chord, shift, group=None
                  ) -> Dict[str, torch.Tensor]:
     """Validation metrics of one batch: the training forward without
     gradients (the frame kernel's forward only), at the current schedules
-    or, with ``eval_fixed_schedule``, at their end values."""
+    or, with ``eval_fixed_schedule``, at their end values. ``group`` as
+    :func:`~pctd_tpu_torch.models.disentangle_vae.loss` takes it."""
     x, c, pr_mat, dt_x = batch_features(pr, chord, shift, mcfg)
     sched = (schedules.final_params(tcfg) if tcfg.eval_fixed_schedule
              else schedules.train_params_at(step, tcfg))
@@ -169,7 +178,8 @@ def eval_metrics(params, mcfg: ModelConfig, tcfg: TrainConfig, step: int,
                           sched["tfr2"], sched["tfr3"])
     _, metrics = dv.loss(params, mcfg, x, c, pr_mat, noise,
                          beta=sched["beta"], weights=tcfg.weights,
-                         weighted_dur=tcfg.weighted_dur, dt_x=dt_x)
+                         weighted_dur=tcfg.weighted_dur, dt_x=dt_x,
+                         group=group)
     return metrics
 
 
@@ -193,14 +203,37 @@ class Trainer:
     ``writers`` writes a step's metrics every ``log_every`` steps.
     ``profile_steps`` (start, stop) takes a ``torch.profiler`` trace of
     those train steps of the first epoch into ``<run>/profile``; checkpoints
-    go to ``run_paths.model_path(name, tag)``."""
+    go to ``run_paths.model_path(name, tag)``.
+
+    With ``mesh`` (a :class:`~pctd_tpu_torch.parallel.mesh.Mesh` of one
+    device and a process group) the Trainer is one rank of a data-parallel
+    run: every rank reads the same global batches from loaders seeded
+    alike and keeps its rows, the steps go through
+    :func:`~pctd_tpu_torch.parallel.mesh.make_parallel_train_step` and
+    :func:`~pctd_tpu_torch.parallel.mesh.make_parallel_eval_step` (metrics
+    averaged over the ranks), rank 0's params are broadcast at the start,
+    and the rank's generators are seeded by
+    :func:`~pctd_tpu_torch.parallel.mesh.rank_seed`. Every rank calls
+    :meth:`save_checkpoint` (it gathers the ranks' generator states); only
+    the Trainer given ``run_paths`` writes, which is rank 0's in
+    ``cli.train``. Only rank 0 prints the epoch lines."""
 
     def __init__(self, mcfg: ModelConfig, tcfg: TrainConfig, train_batches,
                  val_batches=None, device=None, params: Optional[dict] = None,
                  name: str = "disvae", run_paths: Optional[RunPaths] = None,
                  writers: Optional[MetricWriters] = None, log_every: int = 16,
-                 profile_steps: Optional[Tuple[int, int]] = None):
+                 profile_steps: Optional[Tuple[int, int]] = None,
+                 mesh=None):
         self.mcfg, self.tcfg = mcfg, tcfg
+        self.mesh = mesh
+        if mesh is not None:
+            if len(mesh.devices) != 1:
+                raise ValueError(f"a training rank drives one device, not "
+                                 f"{len(mesh.devices)}")
+            if not names_device(device, mesh.device):
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh.device}")
+            device = mesh.device
         self.device = resolve_device(device)
         if mcfg.compute_dtype == "bfloat16":    # f32 partial sums, as JAX
             torch.backends.cuda.matmul \
@@ -215,8 +248,18 @@ class Trainer:
             t.requires_grad_(True)
         self.opt = Adam(self.leaves, tcfg)
         self.gen = torch.Generator(device=self.device).manual_seed(
-            tcfg.seed)
-        self.accum = auto_accum_steps(mcfg, tcfg, self.device)
+            self._seed(tcfg.seed))
+        if mesh is None:
+            self.accum = auto_accum_steps(mcfg, tcfg, self.device)
+        else:
+            from pctd_tpu_torch.parallel import mesh as pm
+
+            pm.replicate(mesh, self.params)
+            self.accum = 1
+            self._parallel_step = pm.make_parallel_train_step(
+                mcfg, tcfg, self.opt, mesh)
+            self._parallel_eval = pm.make_parallel_eval_step(mcfg, tcfg,
+                                                             mesh)
         self.step_count = 0
         self.train_counter = self.val_counter = 0
         self.history: List[Dict[str, float]] = []
@@ -224,21 +267,44 @@ class Trainer:
         self.step_seconds: List[float] = []
         self._profiler = None
 
+    @property
+    def is_main(self) -> bool:
+        """Rank 0 of a data-parallel run, or a single-device Trainer."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _seed(self, seed: int) -> int:
+        if self.mesh is None:
+            return seed
+        from pctd_tpu_torch.parallel.mesh import rank_seed
+
+        return rank_seed(seed, self.mesh.rank)
+
     def _to_device(self, batch):
-        to = lambda a: torch.as_tensor(np.asarray(a), device=self.device)
-        return to(batch["pr"]), to(batch["chord"]), to(batch["shift"])
+        """A host batch on the device: with a mesh, this rank's rows."""
+        arrays = batch["pr"], batch["chord"], batch["shift"]
+        if self.mesh is not None:
+            from pctd_tpu_torch.parallel.mesh import shard_batch
+
+            return shard_batch(self.mesh, *arrays)
+        return tuple(torch.as_tensor(np.asarray(a), device=self.device)
+                     for a in arrays)
 
     def _step(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """One optimizer step; (its 11 metrics (11,), the gradient norm) on
         the device, nothing read to the host."""
-        x, c, pr_mat, dt_x = batch_features(*self._to_device(batch),
-                                            self.mcfg)
-        metrics, grads = loss_and_grads(
-            self.params, self.mcfg, self.tcfg, self.step_count, self.gen,
-            x, c, pr_mat, self.accum, dt_x)
-        norm = self.opt.step(grads)
+        pr, chord, shift = self._to_device(batch)
+        if self.mesh is not None:
+            m, norm = self._parallel_step(self.params, self.step_count,
+                                          self.gen, pr, chord, shift)
+        else:
+            x, c, pr_mat, dt_x = batch_features(pr, chord, shift,
+                                                self.mcfg)
+            metrics, grads = loss_and_grads(
+                self.params, self.mcfg, self.tcfg, self.step_count,
+                self.gen, x, c, pr_mat, self.accum, dt_x)
+            m, norm = stacked(metrics), self.opt.step(grads)
         self.step_count += 1
-        return stacked(metrics), norm
+        return m, norm
 
     def train_step(self, batch) -> Dict[str, float]:
         """One optimizer step on a host batch; returns its metrics."""
@@ -318,9 +384,9 @@ class Trainer:
         :data:`EVAL_SEED` alone, so every eval draws the same noise (as the
         JAX trainer's ``fold_in(fold_in(state.key, 0x5EED), i)``, whose key
         never changes) and none repeats the train stream (seeded with the
-        run seed alone)."""
+        run seed alone); with a mesh, the rank's seed of that sum."""
         return torch.Generator(device=self.device).manual_seed(
-            self.tcfg.seed + EVAL_SEED)
+            self._seed(self.tcfg.seed + EVAL_SEED))
 
     def eval_epoch(self) -> Dict[str, float]:
         """Mean metrics over the val batches, summed on the device (inf when
@@ -330,9 +396,13 @@ class Trainer:
         sums, n = None, 0
         batches = () if self.val_batches is None else self.val_batches.epoch()
         for batch in batches:
-            m = stacked(eval_metrics(self.params, self.mcfg, self.tcfg,
-                                     self.step_count, gen,
-                                     *self._to_device(batch)))
+            if self.mesh is not None:
+                m = self._parallel_eval(self.params, self.step_count, gen,
+                                        *self._to_device(batch))
+            else:
+                m = stacked(eval_metrics(self.params, self.mcfg, self.tcfg,
+                                         self.step_count, gen,
+                                         *self._to_device(batch)))
             sums = m if sums is None else sums + m
             if self.writers and self.val_counter % self.log_every == 0:
                 self.writers.write_task("val", named(m.tolist()),
@@ -344,15 +414,27 @@ class Trainer:
     # -- checkpointing ----------------------------------------------------------
 
     def save_checkpoint(self, tag: str) -> None:
+        """Write the train state under ``tag`` where ``run_paths`` is given;
+        with a mesh, every rank's generator state (every rank must call
+        this: the states are gathered over the group)."""
+        rank_gens = None
+        if self.mesh is not None:
+            from pctd_tpu_torch.parallel.mesh import gather_states
+
+            rank_gens = gather_states(self.mesh, self.gen.get_state())
         if self.run_paths is None:
             return
         checkpoint.save_state(self.run_paths.model_path(self.name, tag),
                               self.params, self.opt, self.step_count,
-                              self.gen, self.mcfg)
+                              self.gen, self.mcfg, rank_gens)
 
     def restore_checkpoint(self, path: str) -> None:
-        self.step_count = checkpoint.restore_state(path, self.params,
-                                                   self.opt, self.gen)
+        """Resume from a checkpoint of a run of this world size (a
+        single-device run's is of world size 1); another raises."""
+        rank, world = ((0, 1) if self.mesh is None
+                       else (self.mesh.rank, self.mesh.world))
+        self.step_count = checkpoint.restore_state(
+            path, self.params, self.opt, self.gen, rank, world)
 
     # -- the run ----------------------------------------------------------------
 
@@ -378,11 +460,12 @@ class Trainer:
             if val_m["loss"] < best_val:
                 best_val = val_m["loss"]
                 self.save_checkpoint("valid")
-            mins, secs = divmod(int(dt), 60)
-            print(f"Epoch: {epoch + 1:02} | Time: {mins}m {secs}s",
-                  flush=True)
-            print(f"\tTrain Loss: {train_m['loss']:.3f}", flush=True)
-            print(f"\t Valid. Loss: {val_m['loss']:.3f}", flush=True)
+            if self.is_main:
+                mins, secs = divmod(int(dt), 60)
+                print(f"Epoch: {epoch + 1:02} | Time: {mins}m {secs}s",
+                      flush=True)
+                print(f"\tTrain Loss: {train_m['loss']:.3f}", flush=True)
+                print(f"\t Valid. Loss: {val_m['loss']:.3f}", flush=True)
             last = {"train": train_m, "val": val_m, "epoch_seconds": dt,
                     "train_seconds": t_train,
                     "train_steps": self.train_counter - steps}

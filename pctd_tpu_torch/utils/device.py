@@ -18,3 +18,13 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
                 "plain PyTorch path on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def names_device(given: Optional[Union[str, torch.device]],
+                 device: torch.device) -> bool:
+    """Whether ``given`` (a device a caller named, or None) is ``device``:
+    None, or the same type and no index or the same one."""
+    if given is None:
+        return True
+    given = torch.device(given)
+    return given.type == device.type and given.index in (None, device.index)

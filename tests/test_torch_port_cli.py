@@ -119,3 +119,93 @@ def test_train_cli_flags_reach_the_configs(monkeypatch, tmp_path):
             t.eval_fixed_schedule) == (2, 0.01, 0.5, 3.0, True)
     assert seen["kw"]["profile_steps"] == (2, 4)
     assert seen["kw"]["log_every"] == 5
+
+
+def test_evaluate_on_a_midi_directory_equals_jax(tmp_path, capsys):
+    """``--midi-dir`` evaluates on the corpus ingested from MIDI written
+    here: the ``--deterministic`` metrics of a checkpoint equal the JAX
+    evaluation (``loss(sample=False, tfr=0)``) of the same weights over the
+    val batches of the JAX package's ingest of the same files."""
+    from pctd_tpu.config import DataConfig as JDataConfig
+    from pctd_tpu.data.ingest import ingest_directory as jingest_directory
+    from pctd_tpu.data.loaders import make_loaders as jmake_loaders
+    from pctd_tpu_torch.train import checkpoint
+    from tests.test_torch_port_serve import write_song
+
+    midi = tmp_path / "midi"
+    os.makedirs(midi)
+    for i in range(4):
+        write_song(str(midi / f"s{i}.mid"), 30 + i, 12 + 2 * i,
+                   names=("a", "b", "c"))
+    jc, cfg = jcfg.tiny_model_config(), tcfg.tiny_model_config()
+    jp = jax_params(jc, seed=4)
+    ck = str(tmp_path / "ck")
+    checkpoint.save_params(ck, port_params(jp), cfg)
+    got = evaluate.main(["--device", "cpu", "--checkpoint", ck,
+                         "--midi-dir", str(midi), "--deterministic",
+                         "--batch-size", "8", "--seed", "3345"])
+    _, val = jingest_directory(str(midi), JDataConfig(seed=3345))
+    _, vl = jmake_loaders(val, val, 8, seed=3345)
+    jloss = jax.jit(lambda p, pr, chord, shift: jdv.loss(
+        p, jc, jax.random.PRNGKey(0),
+        *jtrainer.batch_features(pr, chord, shift, jc), tfr1=0.0, tfr2=0.0,
+        tfr3=0.0, beta=0.1, sample=False)[1])
+    rows = [jloss(jp, *(jnp.asarray(b[k]) for k in ("pr", "chord", "shift")))
+            for b in vl.epoch()]
+    assert got["num_batches"] == len(rows) >= 1
+    for k in tdv.METRIC_NAMES:
+        want = np.mean([float(r[k]) for r in rows])
+        np.testing.assert_allclose(got[k], want, rtol=1e-5, err_msg=k)
+
+
+def test_train_cli_accepts_the_jax_decode_flags(monkeypatch, tmp_path):
+    """``--remat`` and ``--frame-kernel`` are accepted and change nothing:
+    the port always decodes through its frame kernels."""
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    def fake_trainer(mcfg, tcfg_, *a, **kw):
+        seen.append((mcfg, tcfg_))
+        raise Stop
+
+    monkeypatch.setattr(train, "Trainer", fake_trainer)
+    for flags in ([], ["--remat", "--frame-kernel"]):
+        with pytest.raises(Stop):
+            train.main(["--device", "cpu", "--synthetic-songs", "2",
+                        "--result-dir", str(tmp_path), *flags],
+                       model_config=tcfg.tiny_model_config())
+    assert seen[0] == seen[1]
+    assert "--remat" in train.parser().format_help()
+
+
+def test_parallel_train_cli_at_world_size_one_equals_the_plain_run(
+        tmp_path, capsys):
+    """``--device cpu --parallel --dist-backend gloo`` runs an epoch as a
+    process group of one rank; its metrics and final params equal the run
+    without ``--parallel`` bit for bit, and the group is gone after."""
+    import torch
+    import torch.distributed as dist
+
+    from pctd_tpu_torch.train import checkpoint
+
+    runs = []
+    for flags in ([], ["--parallel", "--dist-backend", "gloo"]):
+        base = tmp_path / ("dp" if flags else "plain")
+        result = train.main(["--device", "cpu", "--epochs", "1",
+                             "--batch-size", "64", "--synthetic-songs", "2",
+                             "--result-dir", str(base), *flags],
+                            model_config=tcfg.tiny_model_config())
+        run, = glob.glob(str(base / "result_*"))
+        runs.append((result, checkpoint.load_state(
+            os.path.join(run, "models", "disvae_final"))))
+    out = capsys.readouterr().out
+    assert "data-parallel over 1 rank(s), 64 rows each, gloo" in out
+    assert not dist.is_initialized()
+    (plain, ck_plain), (dp, ck_dp) = runs
+    assert dp["train"] == plain["train"] and dp["val"] == plain["val"]
+    assert dp["train_steps"] == plain["train_steps"] == 2
+    for name, t in ck_plain["params"].items():
+        assert torch.equal(t, ck_dp["params"][name]), name
+    assert torch.equal(ck_dp["generators"][0], ck_plain["generator"])

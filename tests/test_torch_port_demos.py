@@ -298,3 +298,22 @@ def test_swap_files_hold_the_sampler_swap_grids(trees, tmp_path):
                            shift_beat=8)
             assert _bytes(want) == \
                 _bytes(os.path.join(d1, f"swap_{i}_{j}.mid")), (i, j)
+
+
+def test_k3_route_writes_the_default_routes_files(trees, tmp_path):
+    """``--frame-decoder pallas`` decodes every grid through the per-frame
+    route (K3 on the card): the same files, byte for byte, as the default
+    whole-sequence route (K4); ``xla`` is refused."""
+    out = trees[0]
+    ck = os.path.join(os.path.dirname(out), "ck")
+    k3 = str(tmp_path / "k3_out")
+    make_demos.main(["--tiny", "--k", str(K), "--device", "cpu", "--seed",
+                     str(SEED), "--out", k3, "--checkpoint", ck,
+                     "--frame-decoder", "pallas"])
+    assert _files(k3) == _files(out)
+    for rel in _files(out):
+        assert _bytes(os.path.join(k3, rel)) == \
+            _bytes(os.path.join(out, rel)), rel
+    with pytest.raises(SystemExit, match="not a decode route"):
+        make_demos.main(["--tiny", "--device", "cpu", "--out",
+                         str(tmp_path / "x"), "--frame-decoder", "xla"])

@@ -1488,3 +1488,204 @@ def test_pianotree_sampler_encode_on_the_card(cuda):
     torch.testing.assert_close(a_chd, b_chd, rtol=0, atol=1e-5)
     torch.testing.assert_close(a_rhy, b_rhy, rtol=0, atol=1e-5)
     assert (a_grid == b_grid).mean() >= AGREE
+
+
+# --- data parallel -----------------------------------------------------------
+
+def _dp_case(cfg, device, B, seed=2):
+    """(params, the trainable leaves, a host batch of B raw segments, zero
+    latent noise with every coin on)."""
+    from pctd_tpu_torch.train.trainer import param_list
+
+    params = dv.init_params(cfg, seed=seed, device=device)
+    for t in param_list(params):
+        t.requires_grad_(True)
+    rng = np.random.RandomState(seed)
+    pr = (rng.rand(B, 32, 128) < 0.03).astype(np.uint8) * 2
+    chord = np.zeros((B, 8, 14), np.float32)
+    chord[..., 0] = rng.randint(0, 12, (B, 8))
+    chord[..., 1:13] = rng.randint(0, 2, (B, 8, 12))
+    chord[..., 13] = chord[..., 0]
+    batch = (pr, chord, np.zeros(B, np.int32))
+    return params, param_list(params), batch, dv.fixed_noise(
+        cfg, B, device, coins=True)
+
+
+def test_world_of_one_over_nccl_is_the_single_device_step(cuda):
+    """A process group of one rank over NCCL: the data-parallel step (K1/
+    K2a/K2b, CE fused in) gives the single-device step's metrics,
+    gradients and updated params bit for bit, with 32 launches a step of
+    each."""
+    import torch.distributed as dist
+
+    from pctd_tpu_torch.config import TrainConfig
+    from pctd_tpu_torch.parallel import distributed as pdist
+    from pctd_tpu_torch.parallel import mesh as pm
+    from pctd_tpu_torch.train import trainer as tr
+    from pctd_tpu_torch.train.optim import Adam
+
+    cfg, B = ModelConfig(), 32
+    tcfg = TrainConfig(batch_size=B, accum_steps=1)
+    ref_p, ref_leaves, batch, noise = _dp_case(cfg, cuda, B)
+    x, c, pr_mat, _ = tr.batch_features(
+        *(torch.as_tensor(a, device=cuda) for a in batch), cfg)
+    ref_m, ref_g = tr.loss_and_grads(ref_p, cfg, tcfg, 0, None, x, c,
+                                     pr_mat, noise=noise)
+    ref_g = [g.clone() for g in ref_g]
+    Adam(ref_leaves, tcfg).step(ref_g)
+    par_p, par_leaves, _, _ = _dp_case(cfg, cuda, B)
+    seen = []
+
+    class Recording(Adam):
+        def step(self, grads):
+            seen.extend(g.clone() for g in grads)
+            return super().step(grads)
+
+    pdist.initialize_local("nccl")
+    try:
+        mesh = pm.make_mesh()
+        step = pm.make_parallel_train_step(cfg, tcfg,
+                                           Recording(par_leaves, tcfg), mesh)
+        for f in (train_frame.frame_fwd, train_frame.frame_bwd,
+                  train_frame.weight_grads):
+            f.launches = 0
+        m, _ = step(par_p, 0, None, *pm.shard_batch(mesh, *batch),
+                    noise=noise)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(m, tr.stacked(ref_m))
+    assert all(torch.equal(a, b) for a, b in zip(seen, ref_g))
+    assert all(torch.equal(a, b) for a, b in zip(par_leaves, ref_leaves))
+    assert (train_frame.frame_fwd.launches, train_frame.frame_bwd.launches,
+            train_frame.weight_grads.launches) == (32, 32, 32)
+
+
+def _gloo_rank(rank, world, port, path):
+    """A rank of test_two_gloo_ranks_on_the_card_are_one_process: the exact
+    data-parallel step on its rows, results written to ``path``."""
+    from pctd_tpu_torch.config import TrainConfig
+    from pctd_tpu_torch.parallel import distributed as pdist
+    from pctd_tpu_torch.parallel import mesh as pm
+
+    pdist.initialize(f"localhost:{port}", world, rank, "gloo")
+    try:
+        mesh = pm.make_mesh()
+        cfg, B = tiny_model_config(), 16
+        params, leaves, batch, _ = _dp_case(cfg, mesh.device, B)
+        rows = pm.shard_batch(mesh, *batch)
+        noise = dv.fixed_noise(cfg, rows[0].shape[0], mesh.device,
+                               coins=True)
+        got = {}
+
+        class Keep:
+            def step(self, grads):
+                got["grads"] = [g.cpu() for g in grads]
+                return torch.zeros(())
+
+        step = pm.make_parallel_train_step(
+            cfg, TrainConfig(batch_size=B, accum_steps=1), Keep(), mesh)
+        train_frame.frame_fwd.launches = 0
+        m, _ = step(params, 0, None, *rows, noise=noise)
+        got.update(metrics=m.cpu(), k1=train_frame.frame_fwd.launches)
+        torch.save(got, f"{path}.{rank}")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def test_two_gloo_ranks_on_the_card_are_one_process(cuda, tmp_path):
+    """Two ranks on this card over gloo (CUDA tensors), 8 rows each of 16:
+    the exact loss and the averaged gradients are those of one process on
+    all 16 rows, each rank through K1."""
+    import multiprocessing
+
+    from pctd_tpu_torch.config import TrainConfig
+    from pctd_tpu_torch.parallel.distributed import free_port
+    from pctd_tpu_torch.train import trainer as tr
+
+    ctx = multiprocessing.get_context("spawn")
+    path, port = str(tmp_path / "rank"), free_port()
+    procs = [ctx.Process(target=_gloo_rank, args=(r, 2, port, path))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=300)
+    alive = [p.is_alive() for p in procs]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    assert not any(alive) and [p.exitcode for p in procs] == [0, 0]
+    ranks = [torch.load(f"{path}.{r}") for r in range(2)]
+    cfg, B = tiny_model_config(), 16
+    params, _, batch, noise = _dp_case(cfg, cuda, B)
+    x, c, pr_mat, _ = tr.batch_features(
+        *(torch.as_tensor(a, device=cuda) for a in batch), cfg)
+    ref_m, ref_g = tr.loss_and_grads(params, cfg, TrainConfig(batch_size=B),
+                                     0, None, x, c, pr_mat, noise=noise)
+    assert torch.equal(ranks[0]["metrics"], ranks[1]["metrics"])
+    assert ranks[0]["k1"] == ranks[1]["k1"] == cfg.pianotree.num_step
+    torch.testing.assert_close(ranks[0]["metrics"],
+                               tr.stacked(ref_m).cpu(), rtol=1e-5, atol=0)
+    for g, want in zip(ranks[0]["grads"], ref_g):
+        assert (g - want.cpu()).abs().max() <= 1e-4 * (
+            1 + want.abs().max().item())
+
+
+def test_serve_data_parallel_on_the_card_answers_as_without(cuda,
+                                                           tmp_path):
+    """``cli.serve --data-parallel`` over the visible cards: its replies and
+    files equal the daemon's without the flag, and its ready line counts
+    the cards."""
+    import io
+    import json
+
+    from pctd_tpu_torch.cli import serve
+
+    files = _daemon_songs(tmp_path)
+    runs = []
+    for flag in ([], ["--data-parallel"]):
+        reqs = [{"op": "style_transfer", "content": files["a"],
+                 "style": files["b"], "out": str(tmp_path / f"st{flag}.mid")},
+                {"op": "interp", "a": files["a"], "b": files["b"],
+                 "count": 2, "out": str(tmp_path / f"i{flag}_%d.mid")},
+                {"op": "quit"}]
+        buf = io.StringIO()
+        serve.main(["--tiny", *flag], stdin=io.StringIO(
+            "\n".join(json.dumps(r) for r in reqs) + "\n"), stdout=buf)
+        lines = [json.loads(ln) for ln in buf.getvalue().splitlines()]
+        ready = [ln for ln in lines if ln.get("ready")][0]
+        outs = [p for ln in lines if "out" in ln for p in (
+            ln["out"] if isinstance(ln["out"], list) else [ln["out"]])]
+        blobs = [open(p, "rb").read() for p in outs]
+        runs.append((ready["devices"], blobs))
+    assert runs[0][0] == 1
+    assert runs[1][0] == torch.cuda.device_count()
+    assert runs[0][1] == runs[1][1] and len(runs[0][1]) == 3
+
+
+def test_demo_tree_through_k3_is_the_k4_tree(cuda, tmp_path):
+    """``cli.make_demos --frame-decoder pallas`` launches K3 32 times a
+    16-row chunk and K4 never, and writes the default (K4) route's files;
+    every file is byte-equal to K4's."""
+    import os
+
+    from pctd_tpu_torch.cli import make_demos
+
+    K3, K4 = ar_decoder.frame_decode, full_decoder.decode_grid_full
+    trees = {}
+    for flag in ("auto", "pallas"):
+        out = str(tmp_path / flag)
+        K3.launches = K4.launches = 0
+        make_demos.main(["--tiny", "--k", "2", "--out", out,
+                         "--frame-decoder", flag])
+        trees[flag] = (K3.launches, K4.launches, sorted(
+            os.path.relpath(os.path.join(d, f), out)
+            for d, _, fs in os.walk(out) for f in fs))
+    k3_chunks = trees["auto"][1]
+    assert trees["auto"][0] == 0 and k3_chunks > 0
+    assert trees["pallas"][:2] == (32 * k3_chunks, 0)
+    assert trees["pallas"][2] == trees["auto"][2]
+    for f in trees["auto"][2]:
+        assert (open(tmp_path / "auto" / f, "rb").read()
+                == open(tmp_path / "pallas" / f, "rb").read()), f

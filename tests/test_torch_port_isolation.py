@@ -24,13 +24,14 @@ names = [m.name for m in pkgutil.walk_packages(pctd_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 for name in ("cli.arrange", "cli.convert_checkpoint", "cli.evaluate",
-             "cli.generate", "cli.make_demos", "cli.serve",
-             "cli.train", "data.chords", "data.corpus", "data.demo",
+             "cli.generate", "cli.launch_distributed", "cli.make_demos",
+             "cli.serve", "cli.train", "data.chords", "data.corpus", "data.demo",
              "data.detrend", "data.ingest", "data.loaders", "data.midi_io",
              "data.songs", "data.synthetic", "data.tensorize",
              "models.chord_decoder", "models.disentangle_vae",
              "models.pianotree_decoder", "ops.kernels.train_frame",
-             "ops.losses", "train.checkpoint", "train.logging",
+             "ops.losses", "parallel", "parallel.distributed",
+             "parallel.mesh", "train.checkpoint", "train.logging",
              "train.optim", "train.schedules", "train.trainer",
              "utils.device_mem", "utils.precision", "utils.torch_interop"):
     assert "pctd_tpu_torch." + name in names, name
@@ -48,6 +49,7 @@ params = dv.init_params(tiny_model_config(), seed=0, device="cpu")
 from pctd_tpu_torch.cli import (arrange, convert_checkpoint, evaluate,
                                 generate, make_demos, serve, train)
 from pctd_tpu_torch.config import TrainConfig
+from pctd_tpu_torch.parallel import make_mesh
 from pctd_tpu_torch.train.trainer import Trainer
 for call in (lambda: Sampler(params, tiny_model_config()),
              lambda: dv.init_params(tiny_model_config()),
@@ -57,7 +59,8 @@ for call in (lambda: Sampler(params, tiny_model_config()),
              lambda: arrange.main(["in.mid"]),
              lambda: convert_checkpoint.main(["--to-torch", "out.pt",
                                               "--checkpoint", "ck"]),
-             lambda: make_demos.main(["--tiny"])):
+             lambda: make_demos.main(["--tiny"]),
+             lambda: make_mesh(), lambda: train.main(["--parallel"])):
     try:
         call()
     except RuntimeError as e:

@@ -37,6 +37,7 @@ from pctd_tpu_torch.data.synthetic import synthetic_song
 from pctd_tpu_torch.data.tensorize import tensorize_batch
 from pctd_tpu_torch.models import disentangle_vae as tdv
 from pctd_tpu_torch.models.sampler import Sampler
+from pctd_tpu_torch.parallel import Mesh
 from pctd_tpu_torch.train import checkpoint
 from pctd_tpu_torch.train.optim import Adam
 from pctd_tpu_torch.train.trainer import param_list
@@ -287,7 +288,7 @@ def test_frame_decoder_flag_maps_to_a_kernel_route(flag, route):
     serve.main(argv, stdin=io.StringIO('{"op": "quit"}\n'), stdout=buf)
     ready = [json.loads(ln) for ln in buf.getvalue().splitlines()][1]
     assert ready == {"ready": True, "fixed_batch": 16, "device": "cpu",
-                     "frame_decoder": route}
+                     "devices": 1, "frame_decoder": route}
 
 
 def _jax_texture(jp, pr, chord):
@@ -412,3 +413,45 @@ def test_train_cli_ingests_a_midi_directory(tmp_path, capsys):
         got = np.load(f"{prefix}.{split}.npz")
         for f in ("pr", "mel", "chord", "song_id", "bar_pos"):
             np.testing.assert_array_equal(got[f], getattr(w, f))
+
+
+@pytest.mark.parametrize("devices", [1, 2])
+def test_data_parallel_flag_answers_as_without_it(world, monkeypatch,
+                                                  devices):
+    """``--data-parallel`` splits each chunk's rows over the devices of
+    ``make_mesh()``: one CPU device as the CLI finds it, and two CPU
+    devices in its place; every reply and file equals the run without the
+    flag's, and the ready line names the device count."""
+    d, jp, files = world
+    ck = str(d / "ck_dp")
+    checkpoint.save_params(ck, port_params(jp), TINY)
+    if devices > 1:
+        monkeypatch.setattr(serve, "make_mesh", lambda device_type: Mesh(
+            (torch.device(device_type),) * devices))
+    reqs = [
+        {"op": "style_transfer", "content": files["a"], "style": files["b"],
+         "fix": "chord"},
+        {"op": "variation", "input": files["c"], "scale": 0.5, "seed": 1},
+        {"op": "prior", "input": files["c"], "sample": "both", "seed": 2},
+        {"op": "interp", "a": files["a"], "b": files["c"], "count": 2,
+         "what": "texture"}]
+    runs = []
+    for flag in ([], ["--data-parallel"]):
+        tag = "dp" if flag else "one"
+        lines = [json.dumps(dict(r, out=str(d / f"{tag}_{i}_%d.mid")))
+                 for i, r in enumerate(reqs)] + ['{"op": "quit"}']
+        buf = io.StringIO()
+        serve.main(["--checkpoint", ck, "--device", "cpu",
+                    "--fixed-batch", "4", *flag],
+                   stdin=io.StringIO("\n".join(lines) + "\n"), stdout=buf)
+        out = [json.loads(ln) for ln in buf.getvalue().splitlines()]
+        ready = [ln for ln in out if ln.get("ready")][0]
+        assert ready["devices"] == (devices if flag else 1)
+        replies = [{k: v for k, v in ln.items() if k not in ("ms", "out")}
+                   for ln in out if "ok" in ln]
+        files_out = [_bytes(p) for ln in out if "out" in ln
+                     for p in (ln["out"] if isinstance(ln["out"], list)
+                               else [ln["out"]])]
+        assert all(r["ok"] for r in replies) and len(files_out) == 5
+        runs.append((replies, files_out))
+    assert runs[0] == runs[1]
