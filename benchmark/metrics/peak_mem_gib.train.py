@@ -1,0 +1,8 @@
+"""Layer: the device. The allocator's peak (``max_memory_allocated``)
+over the window, in GiB."""
+
+
+def read(run):
+    if run.kind != "train" or not run.window_peak_bytes:
+        return None
+    return run.window_peak_bytes / 2 ** 30
