@@ -48,7 +48,7 @@ from pctd_tpu_torch.config import ModelConfig, check_config
 from pctd_tpu_torch.models import disentangle_vae as dv
 from pctd_tpu_torch.ops import DiagNormal
 from pctd_tpu_torch.ops.kernels.ar_decoder import folded_frame_weights
-from pctd_tpu_torch.utils import precision
+from pctd_tpu_torch.utils import precision, trace
 from pctd_tpu_torch.utils.device import names_device, resolve_device
 from pctd_tpu_torch.utils.weights import named_leaves, params_to
 
@@ -194,12 +194,13 @@ class Sampler:
         """(B, T, 128) duration matrices, (B, T/4, 36) chords and, for the
         pianotree texture encoder, the (B, 32, 16, 39) detrended grids ->
         (chord, texture) posteriors on the device."""
-        arrays = [self._tensor(pr_mat), self._tensor(c)]
-        if dt_x is not None:
-            arrays.append(self._tensor(dt_x))
-        return self._chunked(
-            lambda params, fw, pm, cc, *dd: dv.encode(params, self.cfg, pm,
-                                                      cc, *dd), *arrays)
+        with trace.span("sampler.encode"):
+            arrays = [self._tensor(pr_mat), self._tensor(c)]
+            if dt_x is not None:
+                arrays.append(self._tensor(dt_x))
+            return self._chunked(
+                lambda params, fw, pm, cc, *dd: dv.encode(
+                    params, self.cfg, pm, cc, *dd), *arrays)
 
     def _encode_request(self, workflow: str, pr_mat, c):
         """``encode`` for a workflow, which takes no detrended grid."""
@@ -213,69 +214,77 @@ class Sampler:
 
     def decode(self, z_chd, z_rhy) -> np.ndarray:
         """Latents -> estimated grids (B, T, K-1, 6) int32, as numpy."""
-        grid = self._chunked(
-            lambda params, fw, zc, zr: dv.decode_z(
-                params, self.cfg, zc, zr, self.frame_decoder, fw),
-            self._tensor(z_chd), self._tensor(z_rhy))
-        return grid.cpu().numpy()
+        with trace.span("sampler.decode"):
+            grid = self._chunked(
+                lambda params, fw, zc, zr: dv.decode_z(
+                    params, self.cfg, zc, zr, self.frame_decoder, fw),
+                self._tensor(z_chd), self._tensor(z_rhy))
+            return grid.cpu().numpy()
 
     def reconstruct(self, pr_mat, c, sample: bool = False,
                     generator: Optional[torch.Generator] = None
                     ) -> np.ndarray:
-        d_chd, d_rhy = self._encode_request("inference", pr_mat, c)
-        if sample:
-            return self.decode(d_chd.rsample(generator),
-                               d_rhy.rsample(generator))
-        return self.decode(d_chd.mean, d_rhy.mean)
+        with trace.span("sampler.reconstruct"):
+            d_chd, d_rhy = self._encode_request("inference", pr_mat, c)
+            if sample:
+                return self.decode(d_chd.rsample(generator),
+                                   d_rhy.rsample(generator))
+            return self.decode(d_chd.mean, d_rhy.mean)
 
     # -- the four workflows --------------------------------------------------
 
     def swap(self, pr_mat1, pr_mat2, c1, c2, fix_rhy: bool, fix_chd: bool
              ) -> np.ndarray:
         """Compositional style transfer."""
-        d_chd, d_rhy = self._encode_request(
-            "swap", pr_mat1 if fix_rhy else pr_mat2, c1 if fix_chd else c2)
-        return self.decode(d_chd.mean, d_rhy.mean)
+        with trace.span("sampler.swap"):
+            d_chd, d_rhy = self._encode_request(
+                "swap", pr_mat1 if fix_rhy else pr_mat2,
+                c1 if fix_chd else c2)
+            return self.decode(d_chd.mean, d_rhy.mean)
 
     def posterior_sample(self, generator: torch.Generator, pr_mat, c,
                          scale: Optional[float] = None,
                          sample_chd: bool = True, sample_txt: bool = True
                          ) -> np.ndarray:
         """Texture/chord variation around the posterior."""
-        d_chd, d_rhy = self._encode_request("posterior_sample", pr_mat, c)
-        if scale is not None:
-            d_chd = d_chd._replace(std=d_chd.std * scale)
-            d_rhy = d_rhy._replace(std=d_rhy.std * scale)
-        z_chd = d_chd.rsample(generator) if sample_chd else d_chd.mean
-        z_rhy = d_rhy.rsample(generator) if sample_txt else d_rhy.mean
-        return self.decode(z_chd, z_rhy)
+        with trace.span("sampler.posterior_sample"):
+            d_chd, d_rhy = self._encode_request("posterior_sample", pr_mat,
+                                                c)
+            if scale is not None:
+                d_chd = d_chd._replace(std=d_chd.std * scale)
+                d_rhy = d_rhy._replace(std=d_rhy.std * scale)
+            z_chd = d_chd.rsample(generator) if sample_chd else d_chd.mean
+            z_rhy = d_rhy.rsample(generator) if sample_txt else d_rhy.mean
+            return self.decode(z_chd, z_rhy)
 
     def prior_sample(self, generator: torch.Generator, pr_mat, c,
                      sample_chd: bool = False, sample_rhy: bool = False,
                      scale: float = 1.0) -> np.ndarray:
         """Prior replacement of the chord and/or texture latent."""
-        d_chd, d_rhy = self._encode_request("prior_sample", pr_mat, c)
-        z_chd = (DiagNormal(torch.zeros_like(d_chd.mean),
-                            torch.full_like(d_chd.std, scale))
-                 if sample_chd else d_chd).rsample(generator)
-        z_rhy = (DiagNormal(torch.zeros_like(d_rhy.mean),
-                            torch.full_like(d_rhy.std, scale))
-                 if sample_rhy else d_rhy).rsample(generator)
-        return self.decode(z_chd, z_rhy)
+        with trace.span("sampler.prior_sample"):
+            d_chd, d_rhy = self._encode_request("prior_sample", pr_mat, c)
+            z_chd = (DiagNormal(torch.zeros_like(d_chd.mean),
+                                torch.full_like(d_chd.std, scale))
+                     if sample_chd else d_chd).rsample(generator)
+            z_rhy = (DiagNormal(torch.zeros_like(d_rhy.mean),
+                                torch.full_like(d_rhy.std, scale))
+                     if sample_rhy else d_rhy).rsample(generator)
+            return self.decode(z_chd, z_rhy)
 
     def interp(self, pr_mat1, c1, pr_mat2, c2, interp_chd: bool = False,
                interp_rhy: bool = False, int_count: int = 10) -> np.ndarray:
         """Chord/texture SLERP interpolation -> (B, int_count, T, K-1, 6)."""
-        d_chd1, d_rhy1 = self._encode_request("interp", pr_mat1, c1)
-        d_chd2, d_rhy2 = self._encode_request("interp", pr_mat2, c2)
-        np_ = lambda t: t.cpu().numpy()
-        B = d_chd1.mean.shape[0]
-        zcs = dv.interp_latents(np_(d_chd1.mean), np_(d_chd2.mean),
-                                interp_chd, int_count)
-        zrs = dv.interp_latents(np_(d_rhy1.mean), np_(d_rhy2.mean),
-                                interp_rhy, int_count)
-        est = self.decode(zcs.reshape(B * int_count, -1),
-                          zrs.reshape(B * int_count, -1))
-        spec = self.cfg.pianotree
-        return est.reshape(B, int_count, spec.num_step,
-                           spec.max_simu_note - 1, 6)
+        with trace.span("sampler.interp"):
+            d_chd1, d_rhy1 = self._encode_request("interp", pr_mat1, c1)
+            d_chd2, d_rhy2 = self._encode_request("interp", pr_mat2, c2)
+            np_ = lambda t: t.cpu().numpy()
+            B = d_chd1.mean.shape[0]
+            zcs = dv.interp_latents(np_(d_chd1.mean), np_(d_chd2.mean),
+                                    interp_chd, int_count)
+            zrs = dv.interp_latents(np_(d_rhy1.mean), np_(d_rhy2.mean),
+                                    interp_rhy, int_count)
+            est = self.decode(zcs.reshape(B * int_count, -1),
+                              zrs.reshape(B * int_count, -1))
+            spec = self.cfg.pianotree
+            return est.reshape(B, int_count, spec.num_step,
+                               spec.max_simu_note - 1, 6)

@@ -15,6 +15,7 @@ import torch
 
 from pctd_tpu_torch.config import TrainConfig
 from pctd_tpu_torch.train import schedules
+from pctd_tpu_torch.utils import trace
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -47,15 +48,16 @@ class Adam:
     def step(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
         """One update from ``grads`` (same order as the params); returns
         their global norm before clipping (a 0-d tensor)."""
-        grads, norm = clip_by_global_norm(grads, self.cfg.clip_norm)
-        lr = schedules.lr_at(self.count, self.cfg)
-        self.count += 1
-        c1 = 1.0 - self.b1 ** self.count
-        c2 = 1.0 - self.b2 ** self.count
-        for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
-            mu.copy_((1.0 - self.b1) * g + self.b1 * mu)
-            nu.copy_((1.0 - self.b2) * (g * g) + self.b2 * nu)
-            upd = (mu / c1) / (torch.sqrt(nu / c2 + self.eps_root)
-                               + self.eps)
-            p.add_(-lr * upd)
-        return norm
+        with trace.span("train.optim"):
+            grads, norm = clip_by_global_norm(grads, self.cfg.clip_norm)
+            lr = schedules.lr_at(self.count, self.cfg)
+            self.count += 1
+            c1 = 1.0 - self.b1 ** self.count
+            c2 = 1.0 - self.b2 ** self.count
+            for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
+                mu.copy_((1.0 - self.b1) * g + self.b1 * mu)
+                nu.copy_((1.0 - self.b2) * (g * g) + self.b2 * nu)
+                upd = (mu / c1) / (torch.sqrt(nu / c2 + self.eps_root)
+                                   + self.eps)
+                p.add_(-lr * upd)
+            return norm

@@ -45,7 +45,7 @@ from pctd_tpu_torch.models import disentangle_vae as dv
 from pctd_tpu_torch.train import checkpoint, schedules
 from pctd_tpu_torch.train.logging import MetricWriters, RunPaths
 from pctd_tpu_torch.train.optim import Adam
-from pctd_tpu_torch.utils import device_mem
+from pctd_tpu_torch.utils import device_mem, trace
 from pctd_tpu_torch.utils.device import names_device, resolve_device
 from pctd_tpu_torch.utils.weights import named_leaves
 
@@ -144,15 +144,16 @@ def loss_and_grads(params, mcfg: ModelConfig, tcfg: TrainConfig, step: int,
     sums, gsums = None, None
     for i in range(accum):
         part = slice(i * mb, (i + 1) * mb)
-        drawn = noise if noise is not None else dv.draw_noise(
-            gen, mcfg, mb, sched["tfr1"], sched["tfr2"], sched["tfr3"])
-        total, metrics = dv.loss(params, mcfg, x[part], c[part],
-                                 pr_mat[part], drawn, beta=sched["beta"],
-                                 weights=tcfg.weights,
-                                 weighted_dur=tcfg.weighted_dur,
-                                 dt_x=None if dt_x is None else dt_x[part],
-                                 group=group)
-        grads = torch.autograd.grad(total, leaves)
+        with trace.span("train.forward"):
+            drawn = noise if noise is not None else dv.draw_noise(
+                gen, mcfg, mb, sched["tfr1"], sched["tfr2"], sched["tfr3"])
+            total, metrics = dv.loss(
+                params, mcfg, x[part], c[part], pr_mat[part], drawn,
+                beta=sched["beta"], weights=tcfg.weights,
+                weighted_dur=tcfg.weighted_dur,
+                dt_x=None if dt_x is None else dt_x[part], group=group)
+        with trace.span("train.backward"):
+            grads = torch.autograd.grad(total, leaves)
         m = torch.stack([metrics[k].detach() for k in dv.METRIC_NAMES])
         sums = m if sums is None else sums + m
         gsums = list(grads) if gsums is None else [
@@ -282,12 +283,13 @@ class Trainer:
     def _to_device(self, batch):
         """A host batch on the device: with a mesh, this rank's rows."""
         arrays = batch["pr"], batch["chord"], batch["shift"]
-        if self.mesh is not None:
-            from pctd_tpu_torch.parallel.mesh import shard_batch
+        with trace.span("train.data"):
+            if self.mesh is not None:
+                from pctd_tpu_torch.parallel.mesh import shard_batch
 
-            return shard_batch(self.mesh, *arrays)
-        return tuple(torch.as_tensor(np.asarray(a), device=self.device)
-                     for a in arrays)
+                return shard_batch(self.mesh, *arrays)
+            return tuple(torch.as_tensor(np.asarray(a), device=self.device)
+                         for a in arrays)
 
     def _step(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """One optimizer step; (its 11 metrics (11,), the gradient norm) on
@@ -297,8 +299,9 @@ class Trainer:
             m, norm = self._parallel_step(self.params, self.step_count,
                                           self.gen, pr, chord, shift)
         else:
-            x, c, pr_mat, dt_x = batch_features(pr, chord, shift,
-                                                self.mcfg)
+            with trace.span("train.forward"):
+                x, c, pr_mat, dt_x = batch_features(pr, chord, shift,
+                                                    self.mcfg)
             metrics, grads = loss_and_grads(
                 self.params, self.mcfg, self.tcfg, self.step_count,
                 self.gen, x, c, pr_mat, self.accum, dt_x)
@@ -363,7 +366,12 @@ class Trainer:
         JAX trainer). Writes a step's metrics every ``log_every`` steps."""
         sums, n = None, 0
         prof = self.profile_steps if self.run_paths else None
-        for batch in self.train_batches.epoch():
+        batches = iter(self.train_batches.epoch())
+        while True:
+            with trace.span("train.data"):
+                batch = next(batches, None)
+            if batch is None:
+                break
             if prof and self.train_counter == prof[0]:
                 self._start_profile()
             m, _ = self._step(batch)

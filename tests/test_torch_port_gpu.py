@@ -7,7 +7,9 @@ the serving daemon's front end and Sampler on the card against the CPU
 plain path, and its decode launches by fixed batch; the 32-bar stretch
 (num_step=128): K4 and the K3 route against K4's plain version, one train
 step through K1/K2a/K2b against the plain path in both loss modes; and the
-pianotree Sampler's encode with the detrended grid on the card.
+pianotree Sampler's encode with the detrended grid on the card; and the
+program's spans (``utils/trace.py``), which get no mirror on the device
+timeline and launch nothing.
 
 Skipped without a card. The card's machine has no JAX, so this file imports
 only torch and pctd_tpu_torch, and runs there without the JAX test conftest:
@@ -1689,3 +1691,93 @@ def test_demo_tree_through_k3_is_the_k4_tree(cuda, tmp_path):
     for f in trees["auto"][2]:
         assert (open(tmp_path / "auto" / f, "rb").read()
                 == open(tmp_path / "pallas" / f, "rb").read()), f
+
+
+def _span_run(cuda):
+    """A tiny-width f32 Sampler and Trainer on the card, the Trainer warmed
+    by one step: (a swap of 20 rows through K4, one train step at B=16
+    through K1/K2a/K2b)."""
+    from pctd_tpu_torch.config import TrainConfig
+    from pctd_tpu_torch.data.corpus import SegmentCorpus
+    from pctd_tpu_torch.data.loaders import SegmentBatches
+    from pctd_tpu_torch.train.trainer import Trainer
+
+    cfg = tiny_model_config()
+    params = dv.init_params(cfg, seed=8, device=cuda)
+    sampler = Sampler(params, cfg, device=cuda)
+    rng = np.random.RandomState(9)
+    pr = np.zeros((20, 32, 128), np.float32)
+    on = rng.rand(20, 32, 128) < 0.02
+    pr[on] = rng.randint(1, 9, on.sum())
+    c = np.zeros((20, 8, 36), np.float32)
+    c[:, :, 0] = c[:, :, 24] = 1.0
+    raw = np.zeros((16, 32, 128), np.uint8)
+    raw[rng.rand(16, 32, 128) < 0.03] = 2
+    chord = np.zeros((16, 8, 14), np.float32)
+    chord[..., 1:13] = rng.randint(0, 2, (16, 8, 12))
+    run = Trainer(cfg, TrainConfig(batch_size=16, accum_steps=1),
+                  SegmentBatches(SegmentCorpus(raw, chord), 16, 0, 0),
+                  device=cuda, params=dv.init_params(cfg, seed=10,
+                                                     device=cuda))
+    run.train_epoch()
+    swap = lambda: sampler.swap(pr, pr[::-1], c, c, fix_rhy=True,
+                                fix_chd=False)
+    return swap, run.train_epoch
+
+
+def _profiled(cuda, fn):
+    """The events of ``fn`` under a CPU + CUDA profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize(cuda)
+    return prof.events()
+
+
+def test_spans_have_no_device_mirror(cuda):
+    """Under a CUDA profiler a traced swap and a traced train step record
+    their ``pctd.`` spans on the host, and no CUDA-type event named
+    ``pctd.``; a ``record_function`` range around the same call (a user
+    annotation) is mirrored on the device timeline, so the look would see
+    a mirror."""
+    from torch.autograd import DeviceType
+
+    swap, step = _span_run(cuda)
+    for fn, want in ((swap, {"pctd.sampler.swap", "pctd.sampler.encode",
+                             "pctd.sampler.decode"}),
+                     (step, {"pctd.train.data", "pctd.train.forward",
+                             "pctd.train.backward", "pctd.train.optim"})):
+        def annotated():
+            with torch.profiler.record_function("annotated.call"):
+                fn()
+
+        events = _profiled(cuda, annotated)
+        host = {e.name for e in events if e.device_type == DeviceType.CPU}
+        device = {e.name for e in events
+                  if e.device_type == DeviceType.CUDA}
+        assert want <= host
+        assert not [n for n in device if n.startswith("pctd.")]
+        assert "annotated.call" in device
+
+
+def test_spans_launch_nothing(cuda, monkeypatch):
+    """A traced train step launches as many kernels with its spans as with
+    ``trace.span`` made null."""
+    import contextlib
+    import re
+
+    from torch.autograd import DeviceType
+    from pctd_tpu_torch.utils import trace
+
+    _, step = _span_run(cuda)
+
+    def kernels():
+        return sum(1 for e in _profiled(cuda, step)
+                   if e.device_type == DeviceType.CUDA
+                   and not re.match(r"(Memcpy|Memset)", e.name))
+
+    with_spans = kernels()
+    monkeypatch.setattr(trace, "span", lambda name: contextlib.nullcontext())
+    assert kernels() == with_spans > 100
