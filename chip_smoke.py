@@ -1593,8 +1593,9 @@ def request_breakdown(server, files: dict, n: int, out: str) -> dict:
     (host ms): ingest (``midi_to_windows`` of both files), tensorize,
     encode, decode (the K4 chunks and the host code around them), MIDI
     writing; the notes written; the front end's share of the stages' sum;
-    and K4's device ms a chunk (queued behind a sleep kernel) times the
-    request's chunks."""
+    and K4's device ms for one chunk and for the request's chunks in the
+    launches they share in the Sampler (each queued behind a sleep
+    kernel)."""
     spec, dev, sync = server.spec, server.s.device, torch.cuda.synchronize
     fb = server.s.fixed_batch
     t = {}
@@ -1622,15 +1623,17 @@ def request_breakdown(server, files: dict, n: int, out: str) -> dict:
     t["notes"] = notes
     t["front_end_share"] = (t["ingest"] + t["tensorize"]
                             + t["write"]) / t["sum"]
-    z = torch.cat([d_chd.mean, d_rhy.mean], -1)[:fb]
-    z = torch.cat([z, z.new_zeros((fb - len(z), z.shape[1]))])
-    inputs = ptd.decode_inputs(server.s.params["dec"], server.cfg, z)
-    chunk_ms, queued = queued_ms(lambda: full_decoder.decode_grid_full(
-        server.s.fw, spec, *inputs), DAEMON_REPS)
-    check(queued, "K4 chunk: the host did not enqueue the timed calls "
-          "within the sleep kernel")
-    t["k4_chunk_device_ms"] = chunk_ms
-    t["k4_device_ms"] = chunk_ms * -(-n // fb)
+    z = torch.cat([d_chd.mean, d_rhy.mean], -1)
+    z = torch.cat([z, z.new_zeros((-len(z) % fb, z.shape[1]))])
+    inputs = [ptd.decode_inputs(server.s.params["dec"], server.cfg,
+                                z[lo:lo + fb]) for lo in range(0, len(z), fb)]
+    for key, fn in (("k4_chunk_device_ms", lambda: full_decoder
+                     .decode_grid_full(server.s.fw, spec, *inputs[0])),
+                    ("k4_device_ms", lambda: full_decoder
+                     .decode_grid_full_chunks(server.s.fw, spec, inputs))):
+        t[key], queued = queued_ms(fn, DAEMON_REPS)
+        check(queued, f"{key}: the host did not enqueue the timed calls "
+              "within the sleep kernel")
     return t
 
 
@@ -1695,10 +1698,11 @@ def serving_daemon_phase(args, cfg, dev, counted, card: str, models: str,
     saved as a checkpoint: the run's 18 steps decode eos at every frame's
     first slot, the random weights a note at every slot, so the two bound
     the notes a request writes and the gates see both decisions. MIDI in,
-    MIDI out, every valid request ok, K4 launched once a fixed-batch chunk
-    of decoded rows (K3 32 times a chunk on the pallas route) and nothing
-    else launched; the grids against the CPU plain path; reload; the daemon
-    as a process; the generate and arrange CLIs. Prints each op's p50 by
+    MIDI out, every valid request ok, K4 launched once a run of the
+    fixed-batch chunks of decoded rows that share a launch (K3 32 times a
+    chunk on the pallas route) and nothing else launched; the grids
+    against the CPU plain path; reload; the daemon as a process; the
+    generate and arrange CLIs. Prints each op's p50 by
     weights, fixed batch and request size."""
     t0 = time.perf_counter()
     spec = cfg.pianotree
@@ -1709,6 +1713,14 @@ def serving_daemon_phase(args, cfg, dev, counted, card: str, models: str,
     K4, K3 = (full_decoder.decode_grid_full.__name__,
               ar_decoder.frame_decode.__name__)
     chunks = lambda rows, fb: -(-rows // fb)
+
+    def k4_launches(srv, rows):
+        """K4 launches of a decode of ``rows`` rows: a launch a run of the
+        fixed-batch chunks that share one."""
+        fb = srv.s.fixed_batch
+        cap = full_decoder.groups_at_once(srv.s.fw, spec, dev)
+        return len(full_decoder.launch_runs(chunks(rows, fb), fb, cap))
+
     out = {"card": card}
     total = collections.Counter()
 
@@ -1763,7 +1775,7 @@ def serving_daemon_phase(args, cfg, dev, counted, card: str, models: str,
                     times = []
                     for _ in range(DAEMON_REPS):
                         reply, ms = request(srv, req,
-                                            {K4: chunks(rows, fb)})
+                                            {K4: k4_launches(srv, rows)})
                         times.append(ms)
                     check(reply["windows"] == n, f"{name}: {reply}")
                     p50[f"{wname} fb={fb} n={n} {name}"] = float(
@@ -1853,8 +1865,8 @@ def serving_daemon_phase(args, cfg, dev, counted, card: str, models: str,
           f"{chunks(rows, 128)} chunks of 128, the last partial): grid "
           f"agreement with the CPU plain path {agree:.6f} (>= {AGREE}); "
           f"launches {got}")
-    check(rows % 128 and got == {k: (chunks(rows, 128) if k == K4 else 0)
-                                 for k in got},
+    check(rows % 128 and got == {k: (k4_launches(srv, rows) if k == K4
+                                     else 0) for k in got},
           f"multi-chunk interp: {rows} rows, launches {got}")
     check(agree >= AGREE, f"multi-chunk interp vs the CPU plain path {agree}")
     out["vs_cpu_plain"]["random interp 64 fb=128"] = agree
@@ -2595,8 +2607,7 @@ def demo_decodes(calls: list):
         Sampler.decode = route
 
 
-def data_parallel_phase(args, cfg, dev, counted, demo_tree: dict,
-                        tmp: str) -> dict:
+def data_parallel_phase(args, cfg, dev, counted, tmp: str) -> dict:
     """The data-parallel path on the card. (a) A process group of one rank
     over NCCL in this process: 3 steps at B=128, f32, CE fused in, through
     K1/K2a/K2b; step 1 (zero latent noise, every coin on) bit-equal to the
@@ -2611,8 +2622,8 @@ def data_parallel_phase(args, cfg, dev, counted, demo_tree: dict,
     in this process: the seven request kinds of 8 windows on the random
     weights, replies and files byte-equal to the run without the flag,
     ``"devices": 1``. (d) ``cli.make_demos --frame-decoder pallas`` on the
-    random weights: K3 only, 32 launches a 16-row chunk (the K4 tree's
-    chunks), the K4 tree's files; where a grid differs from K4's, each
+    random weights: K3 only, 32 launches a 16-row chunk of its decodes,
+    the K4 tree's files; where a grid differs from K4's, each
     differing row's first difference a near-tie."""
     from pctd_tpu_torch.parallel import distributed as pdist
     from pctd_tpu_torch.parallel import mesh as pm
@@ -2819,7 +2830,8 @@ def data_parallel_phase(args, cfg, dev, counted, demo_tree: dict,
              "--frame-decoder", "pallas"]))
     torch.cuda.synchronize()
     got = counts(counted)
-    chunks = demo_tree["random"]["launches"][K4]
+    chunks = sum(-(-len(zc) // cli_make_demos.FIXED_BATCH)
+                 for zc, _, _ in calls)
     want = {k: 0 for k in got}
     want[K3] = T * chunks
     files_of = lambda root: sorted(
@@ -2849,7 +2861,7 @@ def data_parallel_phase(args, cfg, dev, counted, demo_tree: dict,
         margins += m_
     worst = max(margins, default=0.0)
     print(f"  (d) make_demos --frame-decoder pallas: launches {got} "
-          f"({chunks} chunks of 16 rows in the K4 tree); {len(names)} files, "
+          f"({chunks} chunks of 16 rows); {len(names)} files, "
           f"{len(differ)} differ from the K4 tree's; {len(calls)} decode "
           f"calls, {rows_differ} rows differ from K4's grids, worst "
           f"first-difference margin {worst:.3g}")
@@ -3881,8 +3893,7 @@ def main() -> int:
         reference_ck = reference_checkpoint_phase(args, cfg, dev, counted,
                                                   models, tmp)
         demo_tree = demo_tree_phase(args, counted, models, tmp)
-        data_parallel = data_parallel_phase(args, cfg, dev, counted,
-                                            demo_tree, tmp)
+        data_parallel = data_parallel_phase(args, cfg, dev, counted, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

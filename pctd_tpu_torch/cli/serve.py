@@ -10,8 +10,10 @@ A request enters as MIDI and leaves as MIDI:
               -> grids -> notes -> MIDI file
 
 The process loads a checkpoint once, builds one
-``Sampler(fixed_batch=N)`` (every request is padded or chunked to N rows)
-and answers requests on stdin, one JSON object a line, on stdout:
+``Sampler(fixed_batch=N)`` (every request is padded or chunked to N rows;
+through K4 a request's chunks share launches, as many a launch as the card
+decodes at once) and answers requests on stdin, one JSON object a line, on
+stdout:
 
     {"op": "ping"}
     {"op": "style_transfer", "content": "a.mid", "style": "b.mid",
@@ -220,7 +222,10 @@ def parser() -> argparse.ArgumentParser:
         description=__doc__.split("\n")[0],
         formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--checkpoint", default=None)
-    ap.add_argument("--fixed-batch", type=int, default=16)
+    ap.add_argument("--fixed-batch", type=int, default=16,
+                    help="rows a chunk: requests are padded or chunked to "
+                         "it; through K4 the chunks of a request share "
+                         "launches up to what the card decodes at once")
     ap.add_argument("--max-windows", type=int, default=64)
     ap.add_argument("--frame-decoder", default="auto",
                     choices=["auto", "xla", "pallas", "pallas_full"],

@@ -123,6 +123,15 @@ def decode_z(params: dict, cfg: ModelConfig, z_chd: torch.Tensor,
                               frame_decoder=frame_decoder, fw=fw)
 
 
+def decode_z_inputs(params: dict, cfg: ModelConfig, z_chd: torch.Tensor,
+                    z_rhy: torch.Tensor) -> pt_dec.DecodeInputs:
+    """The argmax decode's z-derived inputs of latents, cast and computed
+    as :func:`decode_z` computes them before its decode kernel."""
+    z = torch.cat([z_chd, z_rhy], dim=-1)
+    params, z = _apply_precision(params, cfg, z)
+    return pt_dec.decode_inputs(params["dec"], cfg, z)
+
+
 def inference(params: dict, cfg: ModelConfig, pr_mat, c, sample: bool,
               generator: Optional[torch.Generator] = None, dt_x=None
               ) -> torch.Tensor:

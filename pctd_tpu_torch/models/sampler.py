@@ -4,10 +4,19 @@ workflows over a fixed batch shape, with numpy results.
 ``fixed_batch=N`` pads every encode/decode batch up to N rows (zeros) and
 slices the result back; larger requests run in N-row chunks. The decode
 launches the chosen kernel: ``frame_decoder="full"`` (K4, the default) or
-``"frame"`` (K3 per frame, time GRU in torch). On the card the Sampler
-launches that kernel or raises: there is no fallback chain, and no CPU
-fallback when no card is found (``device="cpu"`` must be asked for, and
-then runs the kernels' plain versions).
+``"frame"`` (K3 per frame, time GRU in torch). On the K4 route the chunks
+of one decode share K4 launches, as many a launch as the card runs at once
+(``full_decoder.decode_grid_full_chunks``; each chunk's K4 inputs are
+still computed at the chunk's shape, so its rows decode to the bits of a
+launch of their own); on the K3 route each chunk is decoded alone.
+``decoded_chunks`` and ``decode_launches`` count, per Sampler, the chunks
+decoded (an unchunked decode is one) and the decode launches made for
+them (K4 launches; one a chunk on the K3 route), each once a device.
+
+On the card the Sampler launches that kernel or raises: there is no
+fallback chain, and no CPU fallback when no card is found
+(``device="cpu"`` must be asked for, and then runs the kernels' plain
+versions).
 
 ``compute_dtype="bfloat16"`` serves through ``frame_decoder="frame"``, the
 route of the JAX package's bf16 serving (its K4 has no bf16 mode; "full"
@@ -47,6 +56,7 @@ import torch
 from pctd_tpu_torch.config import ModelConfig, check_config
 from pctd_tpu_torch.models import disentangle_vae as dv
 from pctd_tpu_torch.ops import DiagNormal
+from pctd_tpu_torch.ops.kernels import full_decoder
 from pctd_tpu_torch.ops.kernels.ar_decoder import folded_frame_weights
 from pctd_tpu_torch.utils import precision, trace
 from pctd_tpu_torch.utils.device import names_device, resolve_device
@@ -110,6 +120,8 @@ class Sampler:
         self.cfg = cfg
         self.frame_decoder = frame_decoder
         self.fixed_batch = fixed_batch
+        self.decoded_chunks = 0
+        self.decode_launches = 0
         self._leaves = _signature(params)
         self._set_params(params)
         if precision.compute_dtype(cfg) != torch.float32:
@@ -168,6 +180,16 @@ class Sampler:
                                            for a in arrays)))
         return _concat([_map(lambda t: t.to(self.device), o) for o in outs])
 
+    def _chunks(self, arrays):
+        """(real rows, chunk) of each fixed_batch-row chunk of the arrays
+        (axis 0), the last one zero-padded."""
+        n, fb = arrays[0].shape[0], self.fixed_batch
+        for lo in range(0, n, fb):
+            take = min(fb, n - lo)
+            yield take, [a[lo:lo + take] if take == fb else torch.cat(
+                [a[lo:lo + take], a.new_zeros((fb - take,) + a.shape[1:])])
+                for a in arrays]
+
     def _chunked(self, fn, *arrays):
         """Run ``fn(params, folds, *rows)`` over fixed_batch-row zero-padded
         chunks of the arrays (axis 0), each chunk split over the devices,
@@ -175,20 +197,35 @@ class Sampler:
         n = arrays[0].shape[0]
         if n == 0:
             raise ValueError("empty batch")
-        fb = self.fixed_batch
-        if fb is None:
+        if self.fixed_batch is None:
             if n % len(self.devices):
                 raise ValueError(f"batch {n} not divisible by the mesh's "
                                  f"{len(self.devices)} devices")
             return self._split(fn, arrays)
-        outs = []
-        for lo in range(0, n, fb):
-            take = min(fb, n - lo)
-            chunk = [a[lo:lo + take] if take == fb else torch.cat(
-                [a[lo:lo + take], a.new_zeros((fb - take,) + a.shape[1:])])
-                for a in arrays]
-            outs.append(_map(lambda t: t[:take], self._split(fn, chunk)))
-        return _concat(outs)
+        return _concat([_map(lambda t: t[:take], self._split(fn, chunk))
+                        for take, chunk in self._chunks(arrays)])
+
+    def _decode_shared(self, z_chd, z_rhy) -> torch.Tensor:
+        """The K4 decode of more than one fixed-batch chunk: on each device
+        the K4 inputs of its share of every chunk, each at the share's
+        shape as ``decode_z`` computes them, then K4 over those chunks in
+        shared launches; the grids in row order on the first device."""
+        chunks = list(self._chunks([z_chd, z_rhy]))
+        share = self.fixed_batch // len(self.devices)
+        grids = []
+        for i, (device, (params, fw)) in enumerate(zip(self.devices,
+                                                       self._replicas)):
+            with _on(device):
+                inputs = [dv.decode_z_inputs(params, self.cfg, *(
+                    a[i * share:(i + 1) * share].to(device) for a in chunk))
+                    for _, chunk in chunks]
+                got, launches = full_decoder.decode_grid_full_chunks(
+                    fw, self.cfg.pianotree, inputs)
+            grids.append(got)
+            self.decode_launches += launches
+        self.decoded_chunks += len(chunks) * len(self.devices)
+        return torch.cat([torch.cat([g[j].to(self.device) for g in grids])
+                          [:take] for j, (take, _) in enumerate(chunks)])
 
     def encode(self, pr_mat, c, dt_x=None):
         """(B, T, 128) duration matrices, (B, T/4, 36) chords and, for the
@@ -215,10 +252,16 @@ class Sampler:
     def decode(self, z_chd, z_rhy) -> np.ndarray:
         """Latents -> estimated grids (B, T, K-1, 6) int32, as numpy."""
         with trace.span("sampler.decode"):
+            zs = self._tensor(z_chd), self._tensor(z_rhy)
+            fb, n = self.fixed_batch, zs[0].shape[0]
+            if self.frame_decoder == "full" and fb is not None and n > fb:
+                return self._decode_shared(*zs).cpu().numpy()
             grid = self._chunked(
                 lambda params, fw, zc, zr: dv.decode_z(
-                    params, self.cfg, zc, zr, self.frame_decoder, fw),
-                self._tensor(z_chd), self._tensor(z_rhy))
+                    params, self.cfg, zc, zr, self.frame_decoder, fw), *zs)
+            chunks = 1 if fb is None else -(-n // fb)
+            self.decoded_chunks += chunks * len(self.devices)
+            self.decode_launches += chunks * len(self.devices)
             return grid.cpu().numpy()
 
     def reconstruct(self, pr_mat, c, sample: bool = False,

@@ -14,8 +14,17 @@ built on K3's plain pieces the same way. The JAX kernel's
 decode in float32 only: the JAX kernel has no bf16 mode (its ``fori_loop``
 carry enters in bf16 and leaves in f32, so ``decode_grid_fused`` raises on
 bf16 params).
+
+A request decoded in fixed-batch chunks takes
+:func:`decode_grid_full_chunks`: consecutive chunks share one launch, as
+many as the card runs at once in clusters of 16 blocks
+(:func:`groups_at_once`, :func:`launch_runs`), each chunk's rows on whole
+row groups of their own, so every row is decoded as in a launch of its
+chunk alone.
 """
 from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -80,3 +89,61 @@ def decode_grid_full(fw: FoldedWeights, spec: PianoTreeSpec,
 
 
 decode_grid_full.launches = 0
+
+
+def groups_at_once(fw: FoldedWeights, spec: PianoTreeSpec,
+                   device: torch.device) -> Optional[int]:
+    """The 16-row groups K4 decodes at once on ``device`` in clusters of
+    16 blocks (``build.decode_info``'s occupancy query, the plan's
+    ``at_once[16]``); None on the CPU, whose plain version has no groups."""
+    if device.type == "cpu":
+        return None
+    from pctd_tpu_torch.ops.kernels import build
+
+    return build.decode_info(fw, build.decoder_dims(fw, spec), True,
+                             build.DECODE_CLUSTERS[0], device)[1]
+
+
+def launch_runs(chunks: int, rows: int, cap: Optional[int]) -> List[int]:
+    """The chunks of ``rows`` rows each K4 launch takes, in order, for
+    ``chunks`` consecutive chunks: as many as fit ``cap`` 16-row groups, a
+    chunk taking ⌈rows / 16⌉ groups of its own, and at least one (a chunk
+    wider than ``cap`` alone is launched as it would be alone); all of them
+    in one where ``cap`` is None."""
+    from pctd_tpu_torch.ops.kernels import build
+
+    per = chunks if cap is None else max(1, cap // -(-rows // build.DECODE_G))
+    return [min(per, chunks - lo) for lo in range(0, chunks, per)]
+
+
+def decode_grid_full_chunks(fw: FoldedWeights, spec: PianoTreeSpec,
+                            chunks: Sequence[Tuple[torch.Tensor, ...]]
+                            ) -> Tuple[List[torch.Tensor], int]:
+    """K4 over the equal-sized chunks of one request, each given as its
+    decode inputs (``h0``, ``gi_z``, ``token0``, ``sos_emb``, computed at
+    the chunk's shape): consecutive chunks share a launch
+    (:func:`launch_runs` with :func:`groups_at_once`), each padded with
+    zero rows to whole 16-row groups on the card, so that a row takes the
+    group position and cluster size it takes in its chunk's own launch
+    (16 where the chunks fit the card at once; a chunk wider than that is
+    launched alone), and its bits with them. Returns (each chunk's grid,
+    the launches made)."""
+    rows = chunks[0][0].shape[0]
+    cap = groups_at_once(fw, spec, chunks[0][0].device)
+    if cap is None:
+        width = rows
+    else:
+        from pctd_tpu_torch.ops.kernels import build
+
+        width = -(-rows // build.DECODE_G) * build.DECODE_G
+    pad = lambda t: (t if width == rows else torch.cat(
+        [t, t.new_zeros((width - rows,) + t.shape[1:])]))
+    grids, lo = [], 0
+    runs = launch_runs(len(chunks), rows, cap)
+    for n in runs:
+        grid = decode_grid_full(fw, spec, *(
+            torch.cat([pad(c[i]) for c in chunks[lo:lo + n]])
+            for i in range(4)))
+        grids += [grid[j * width:j * width + rows] for j in range(n)]
+        lo += n
+    return grids, len(runs)

@@ -1,10 +1,11 @@
 """The plan of the row-group decode kernels K3/K4 (``build.decode_plan``):
 groups of 16 rows, one cluster of 16 blocks each where every group fits on
 the card at once, else 8, and the waves that the clusters the card holds
-at once take. Pure Python: runs on the CPU."""
+at once take; and how a request's fixed-batch chunks share K4 launches
+(``full_decoder.launch_runs``). Pure Python: runs on the CPU."""
 import pytest
 
-from pctd_tpu_torch.ops.kernels import build
+from pctd_tpu_torch.ops.kernels import build, full_decoder
 
 #: clusters at once that the row-group K3 reports on an H100 SXM (132 SMs):
 #: its shared memory gives one block an SM, and a cluster's blocks share a
@@ -70,3 +71,25 @@ def test_plan_never_takes_a_size_that_does_not_fit():
     for batch in (1, 37, 128, 300, 512):
         plan = build.decode_plan(batch, 132, {16: 0, 8: 15})
         assert plan.C == 8 and plan.waves == -(-plan.groups // 15)
+
+
+@pytest.mark.parametrize("chunks,rows,cap,runs", [
+    (1, 16, 7, [1]),              # one chunk: its own launch, as before
+    (7, 16, 7, [7]),              # exactly the cap
+    (8, 16, 7, [7, 1]),           # one past it: a second launch
+    (5, 24, 7, [3, 2]),           # 24 rows take 2 groups: 3 a launch
+    (4, 8, H100[16], [4]),        # 8 rows take a whole group
+    (3, 128, H100[16], [1, 1, 1]),  # wider than the cap: one a launch
+    (9, 16, None, [9]),           # no cap (the CPU): one launch
+])
+def test_chunks_share_k4_launches_up_to_the_cap(chunks, rows, cap, runs):
+    got = full_decoder.launch_runs(chunks, rows, cap)
+    assert got == runs and sum(got) == chunks
+    groups = -(-rows // 16)
+    for n in got:
+        # within one wave of 16-block clusters, unless a chunk alone is not
+        assert cap is None or n * groups <= cap or n == 1
+        # every launch a plan of 16 blocks a cluster where the chunks fit
+        if cap is not None and n * groups <= cap:
+            assert build.decode_plan(n * groups * 16, 132,
+                                     {16: cap, 8: 2 * cap}).C == 16

@@ -4,9 +4,11 @@ decode kernels K3 (float32 and bf16) and K4, and the train-frame pair K1
 mode and in logits-out mode, float32 and bf16; the pianotree texture
 encoder's detrend on the card and its train step against the plain path;
 the serving daemon's front end and Sampler on the card against the CPU
-plain path, and its decode launches by fixed batch; the 32-bar stretch
-(num_step=128): K4 and the K3 route against K4's plain version, one train
-step through K1/K2a/K2b against the plain path in both loss modes; and the
+plain path, and its decode launches by fixed batch; a multi-chunk decode's
+shared K4 launches against its chunks decoded alone, bit for bit; the
+32-bar stretch (num_step=128): K4 and the K3 route against K4's plain
+version, one train step through K1/K2a/K2b against the plain path in both
+loss modes; and the
 pianotree Sampler's encode with the detrended grid on the card; and the
 program's spans (``utils/trace.py``), which get no mirror on the device
 timeline and launch nothing.
@@ -93,8 +95,12 @@ def test_sampler_serves_through_the_kernels(cuda):
     pr = (rng.rand(9, 32, 128) < 0.02).astype(np.float32) * 2
     c = rng.rand(9, 8, 36).astype(np.float32)
     k4 = full_decoder.decode_grid_full.launches
-    full = Sampler(params, cfg, fixed_batch=4).swap(pr, pr, c, c, True, True)
-    assert full_decoder.decode_grid_full.launches == k4 + 3
+    s = Sampler(params, cfg, fixed_batch=4)
+    full = s.swap(pr, pr, c, c, True, True)
+    # 3 chunks of 4 rows, a 16-row group each, share launches up to the cap
+    cap = full_decoder.groups_at_once(s.fw, cfg.pianotree, cuda)
+    assert full_decoder.decode_grid_full.launches == k4 + len(
+        full_decoder.launch_runs(3, 4, cap))
     k3 = ar_decoder.frame_decode.launches
     frame = Sampler(params, cfg, frame_decoder="frame",
                     fixed_batch=4).swap(pr, pr, c, c, True, True)
@@ -1361,8 +1367,9 @@ def test_daemon_on_the_card_matches_the_cpu_plain_path(cuda, tmp_path,
 @pytest.mark.parametrize("route", ["full", "frame"])
 @pytest.mark.parametrize("fixed_batch", [16, 128])
 def test_daemon_launches_by_fixed_batch(cuda, tmp_path, fixed_batch, route):
-    """K4 once a fixed-batch chunk of decoded rows (K3 32 times a chunk on
-    the frame route), and the other decode kernel never."""
+    """K4 once a run of as many fixed-batch chunks of decoded rows as the
+    card decodes at once in 16-block clusters (K3 32 times a chunk on the
+    frame route), and the other decode kernel never."""
     cfg = tiny_model_config()
     server = _daemon(dv.init_params(cfg, seed=1, device="cpu"), cfg, cuda,
                      fixed_batch, route)
@@ -1378,10 +1385,48 @@ def test_daemon_launches_by_fixed_batch(cuda, tmp_path, fixed_batch, route):
         ar_decoder.frame_decode.launches = 0
         assert server.handle(dict(req, out=out))["ok"]
         chunks = -(-rows // fixed_batch)
-        want = ((chunks, 0) if route == "full"
+        cap = full_decoder.groups_at_once(server.s.fw, cfg.pianotree, cuda)
+        want = ((len(full_decoder.launch_runs(chunks, fixed_batch, cap)), 0)
+                if route == "full"
                 else (0, cfg.pianotree.num_step * chunks))
         assert (full_decoder.decode_grid_full.launches,
                 ar_decoder.frame_decode.launches) == want
+
+
+@pytest.mark.parametrize("rows", [40, 64, "past the cap"])
+@pytest.mark.parametrize("fixed_batch", [16, 8, 24])
+def test_shared_k4_launches_decode_the_bits_of_chunks_alone(cuda,
+                                                            fixed_batch,
+                                                            rows):
+    """A multi-chunk decode through ``Sampler(fixed_batch=fb)`` at the
+    canonical widths (its chunks in shared K4 launches) gives the grid of
+    the same latents decoded one chunk a call (each a launch of its own, the
+    one-chunk path), bit for bit; in as many launches as the card's cap of
+    16-row groups at once asks for. 16 x cap + 5 rows take two launches or
+    more."""
+    cfg = ModelConfig()
+    params, _ = _model(cfg, cuda)
+    s = Sampler(params, cfg, fixed_batch=fixed_batch)
+    cap = full_decoder.groups_at_once(s.fw, cfg.pianotree, cuda)
+    assert cap >= 1
+    n = 16 * cap + 5 if rows == "past the cap" else rows
+    g = torch.Generator().manual_seed(n + fixed_batch)
+    zc = torch.randn(n, cfg.chd_z_dim, generator=g)
+    zr = torch.randn(n, cfg.txt_z_dim, generator=g)
+    chunks = -(-n // fixed_batch)
+    runs = full_decoder.launch_runs(chunks, fixed_batch, cap)
+    k4 = full_decoder.decode_grid_full.launches
+    got = s.decode(zc, zr)
+    assert full_decoder.decode_grid_full.launches - k4 == len(runs)
+    assert (s.decoded_chunks, s.decode_launches) == (chunks, len(runs))
+    assert len(runs) < chunks and (rows != "past the cap" or len(runs) > 1)
+    k4 = full_decoder.decode_grid_full.launches
+    alone = np.concatenate([s.decode(zc[lo:lo + fixed_batch],
+                                     zr[lo:lo + fixed_batch])
+                            for lo in range(0, n, fixed_batch)])
+    assert full_decoder.decode_grid_full.launches - k4 == chunks
+    assert got.shape == (n, 32, 15, 6)
+    np.testing.assert_array_equal(got, alone)
 
 
 # --- the 32-bar stretch (num_step=128) and pianotree serving ----------------
@@ -1486,7 +1531,9 @@ def test_pianotree_sampler_encode_on_the_card(cuda):
         out.append((d_chd.mean.cpu(), d_rhy.mean.cpu(), grid,
                     full_decoder.decode_grid_full.launches - k4))
     (a_chd, a_rhy, a_grid, a_k4), (b_chd, b_rhy, b_grid, b_k4) = out
-    assert (a_k4, b_k4) == (3, 0)
+    # 3 chunks of 8 rows, a 16-row group each, share launches up to the cap
+    cap = full_decoder.groups_at_once(s.fw, cfg.pianotree, cuda)
+    assert (a_k4, b_k4) == (len(full_decoder.launch_runs(3, 8, cap)), 0)
     torch.testing.assert_close(a_chd, b_chd, rtol=0, atol=1e-5)
     torch.testing.assert_close(a_rhy, b_rhy, rtol=0, atol=1e-5)
     assert (a_grid == b_grid).mean() >= AGREE

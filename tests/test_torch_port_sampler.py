@@ -8,6 +8,7 @@ import torch
 from pctd_tpu.models import disentangle_vae as jdv
 from pctd_tpu_torch.models import disentangle_vae as tdv
 from pctd_tpu_torch.models.sampler import Sampler
+from pctd_tpu_torch.ops.kernels import full_decoder
 
 from tests.torch_port_helpers import (JAX_TINY, TINY, jax_params,
                                       port_params, requests, t)
@@ -126,6 +127,69 @@ def test_functional_api_matches_sampler(weights):
                                t(pr1), t(c1))
         b = getattr(s, name)(torch.Generator().manual_seed(5), pr1, c1)
         np.testing.assert_array_equal(a.numpy(), b)
+
+
+def _latents(n, seed):
+    return (_noise((n, TINY.chd_z_dim), seed),
+            _noise((n, TINY.txt_z_dim), seed + 1))
+
+
+@pytest.mark.parametrize("cap", [None, 7])
+@pytest.mark.parametrize("n,chunks", [(5, 1), (16, 1), (40, 3), (130, 9)])
+def test_k4_route_counts_the_chunks_a_launch_decodes(weights, monkeypatch,
+                                                     n, chunks, cap):
+    """A fixed-batch decode on the K4 route: its 16-row chunks share
+    launches, as many a launch as ``cap`` 16-row groups hold (None, the
+    CPU's: all in one; 7 stands for the card's occupancy), and the grid is
+    the unchunked decode's."""
+    _, tp = weights
+    monkeypatch.setattr(full_decoder, "groups_at_once", lambda *a: cap)
+    s = Sampler(tp, TINY, fixed_batch=16, device="cpu")
+    zc, zr = _latents(n, n)
+    got = s.decode(zc, zr)
+    launches = 1 if cap is None else -(-chunks // cap)
+    assert (s.decoded_chunks, s.decode_launches) == (chunks, launches)
+    np.testing.assert_array_equal(
+        got, Sampler(tp, TINY, device="cpu").decode(zc, zr))
+
+
+def test_unchunked_and_k3_route_count_a_launch_a_chunk(weights):
+    _, tp = weights
+    zc, zr = _latents(40, 3)
+    free = Sampler(tp, TINY, device="cpu")
+    frame = Sampler(tp, TINY, frame_decoder="frame", fixed_batch=16,
+                    device="cpu")
+    for s, counts in ((free, (1, 1)), (frame, (3, 3))):
+        s.decode(zc, zr)
+        s.decode(zc[:5], zr[:5])
+        assert (s.decoded_chunks, s.decode_launches) == tuple(
+            c + 1 for c in counts)
+
+
+@pytest.mark.parametrize("fb,n,rows", [(4, 9, [32, 16]), (24, 30, [32, 32])])
+def test_shared_launches_pad_each_chunk_to_whole_groups(weights,
+                                                        monkeypatch, fb, n,
+                                                        rows):
+    """With a card's cap (here 2 groups, by hand), a chunk of a size that is
+    not a multiple of 16 takes whole 16-row groups of its own in a shared
+    launch: 9 rows at fixed batch 4 launch 32 and 16 rows, 30 at 24 (two
+    chunks of two groups each, over the cap together) launch twice."""
+    _, tp = weights
+    monkeypatch.setattr(full_decoder, "groups_at_once", lambda *a: 2)
+    launched = []
+    launch = full_decoder.decode_grid_full
+
+    def counted(fw, spec, h0, *inputs):
+        launched.append(h0.shape[0])
+        return launch(fw, spec, h0, *inputs)
+
+    monkeypatch.setattr(full_decoder, "decode_grid_full", counted)
+    zc, zr = _latents(n, 7)
+    s = Sampler(tp, TINY, fixed_batch=fb, device="cpu")
+    got = s.decode(zc, zr)
+    assert launched == rows and s.decode_launches == len(rows)
+    np.testing.assert_array_equal(
+        got, Sampler(tp, TINY, device="cpu").decode(zc, zr))
 
 
 def test_sampler_rejects_bad_arguments(weights):
