@@ -13,6 +13,17 @@ launch of their own); on the K3 route each chunk is decoded alone.
 decoded (an unchunked decode is one) and the decode launches made for
 them (K4 launches; one a chunk on the K3 route), each once a device.
 
+On the card a fixed-batch encode replays a CUDA graph a chunk
+(:class:`EncodeGraph`): one chunk's ``disentangle_vae.encode`` at the
+chunk's shape, captured at the first encode of its input shapes, one graph
+a device and shape into one private memory pool. A replay launches the
+kernels that the op-by-op encode launches, so the posteriors keep their
+bits. ``load_params`` drops the graphs, and the next encode captures again.
+The CPU and an unchunked Sampler (``fixed_batch=None``, whose shapes vary)
+encode op by op. ``encoded_chunks`` and ``encode_replays`` count the chunks
+encoded (an unchunked encode is one) and the graph replays made for them
+(0 op by op), each once a device.
+
 On the card the Sampler launches that kernel or raises: there is no
 fallback chain, and no CPU fallback when no card is found
 (``device="cpu"`` must be asked for, and then runs the kernels' plain
@@ -92,6 +103,45 @@ def _on(device: torch.device):
             else contextlib.nullcontext())
 
 
+def _replays(device: torch.device) -> bool:
+    """Whether a fixed-batch encode on ``device`` replays a CUDA graph."""
+    return device.type == "cuda"
+
+
+def fill_rows(static: torch.Tensor, rows: torch.Tensor) -> None:
+    """Write ``rows`` over the first rows of ``static`` and zeros over the
+    rest: in place, the zero-padded chunk that ``Sampler._chunks`` makes."""
+    k = rows.shape[0]
+    static[:k].copy_(rows)
+    if k < static.shape[0]:
+        static[k:].zero_()
+
+
+class EncodeGraph:
+    """``encode(*inputs)`` captured as a CUDA graph on ``device`` over
+    static inputs of ``shapes``: run once on a side stream of the device
+    first (the libraries' lazy set-up, the stream's cuBLAS workspace),
+    then captured on that stream into ``pool``. ``replay()`` reruns it over
+    what the inputs hold now and overwrites ``outputs``."""
+
+    def __init__(self, encode, shapes, device: torch.device, pool=None):
+        self.inputs = [torch.zeros(s, device=device) for s in shapes]
+        self.pool = torch.cuda.graph_pool_handle() if pool is None else pool
+        main = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(main)
+        with torch.no_grad():
+            with torch.cuda.stream(side):
+                encode(*self.inputs)
+            main.wait_stream(side)
+            self._graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self._graph, pool=self.pool, stream=side):
+                self.outputs = encode(*self.inputs)
+
+    def replay(self) -> None:
+        self._graph.replay()
+
+
 class Sampler:
     def __init__(self, params: dict, cfg: ModelConfig,
                  frame_decoder: str = "full",
@@ -122,6 +172,8 @@ class Sampler:
         self.fixed_batch = fixed_batch
         self.decoded_chunks = 0
         self.decode_launches = 0
+        self.encoded_chunks = 0
+        self.encode_replays = 0
         self._leaves = _signature(params)
         self._set_params(params)
         if precision.compute_dtype(cfg) != torch.float32:
@@ -130,7 +182,10 @@ class Sampler:
 
     def _set_params(self, params: dict) -> None:
         """A (params, folds) replica on each device; ``self.params`` and
-        ``self.fw`` are the first device's."""
+        ``self.fw`` are the first device's. Drops the encode graphs, which
+        read the replicas they were captured on."""
+        self._graphs = {}
+        self._pool = None
         self._replicas = [self._prepare(params, d) for d in self.devices]
         self.params, self.fw = self._replicas[0]
 
@@ -227,6 +282,49 @@ class Sampler:
         return torch.cat([torch.cat([g[j].to(self.device) for g in grids])
                           [:take] for j, (take, _) in enumerate(chunks)])
 
+    def _graph(self, i: int, arrays) -> EncodeGraph:
+        """Device ``i``'s encode graph of its share of a chunk of the
+        arrays' row shapes, captured at its first use."""
+        key = (i,) + tuple(tuple(a.shape[1:]) for a in arrays)
+        if key not in self._graphs:
+            params, _ = self._replicas[i]
+            share = self.fixed_batch // len(self.devices)
+            with _on(self.devices[i]):
+                graph = EncodeGraph(
+                    lambda *rows: dv.encode(params, self.cfg, *rows),
+                    [(share,) + k for k in key[1:]], self.devices[i],
+                    self._pool)
+            self._graphs[key], self._pool = graph, graph.pool
+        return self._graphs[key]
+
+    def _encode_replayed(self, arrays):
+        """``encode`` a fixed_batch-row chunk at a time, each device's
+        share of a chunk a graph replay: the chunk's real rows written into
+        the graph's inputs over zero padding, every device's replay launched
+        before any result is read, and the posteriors of the real rows
+        taken as new tensors before the graph runs again."""
+        n, fb = arrays[0].shape[0], self.fixed_batch
+        if n == 0:
+            raise ValueError("empty batch")
+        share = fb // len(self.devices)
+        outs = []
+        for lo in range(0, n, fb):
+            take = min(fb, n - lo)
+            parts = []
+            for i, device in enumerate(self.devices):
+                graph = self._graph(i, arrays)
+                a, b = lo + i * share, lo + min(take, (i + 1) * share)
+                with _on(device):
+                    for static, array in zip(graph.inputs, arrays):
+                        fill_rows(static, array[a:b])
+                    graph.replay()
+                    parts.append(_map(torch.clone, graph.outputs))
+            self.encoded_chunks += len(self.devices)
+            self.encode_replays += len(self.devices)
+            outs.append(_map(lambda t: t[:take], _concat(
+                [_map(lambda t: t.to(self.device), p) for p in parts])))
+        return _concat(outs)
+
     def encode(self, pr_mat, c, dt_x=None):
         """(B, T, 128) duration matrices, (B, T/4, 36) chords and, for the
         pianotree texture encoder, the (B, 32, 16, 39) detrended grids ->
@@ -235,9 +333,15 @@ class Sampler:
             arrays = [self._tensor(pr_mat), self._tensor(c)]
             if dt_x is not None:
                 arrays.append(self._tensor(dt_x))
-            return self._chunked(
+            fb = self.fixed_batch
+            if fb is not None and _replays(self.device):
+                return self._encode_replayed(arrays)
+            out = self._chunked(
                 lambda params, fw, pm, cc, *dd: dv.encode(
                     params, self.cfg, pm, cc, *dd), *arrays)
+            chunks = 1 if fb is None else -(-arrays[0].shape[0] // fb)
+            self.encoded_chunks += chunks * len(self.devices)
+            return out
 
     def _encode_request(self, workflow: str, pr_mat, c):
         """``encode`` for a workflow, which takes no detrended grid."""

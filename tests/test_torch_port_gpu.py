@@ -9,7 +9,9 @@ shared K4 launches against its chunks decoded alone, bit for bit; the
 32-bar stretch (num_step=128): K4 and the K3 route against K4's plain
 version, one train step through K1/K2a/K2b against the plain path in both
 loss modes; and the
-pianotree Sampler's encode with the detrended grid on the card; and the
+pianotree Sampler's encode with the detrended grid on the card; the
+Sampler's fixed-batch encode as CUDA graph replays against the op-by-op
+encode, bit for bit, and on the profiler's device timeline; and the
 program's spans (``utils/trace.py``), which get no mirror on the device
 timeline and launch nothing.
 
@@ -29,6 +31,7 @@ import torch
 from pctd_tpu_torch.config import ModelConfig, tiny_model_config
 from pctd_tpu_torch.models import disentangle_vae as dv
 from pctd_tpu_torch.models import pianotree_decoder as ptd
+from pctd_tpu_torch.models import sampler as sampler_mod
 from pctd_tpu_torch.models.sampler import Sampler
 from pctd_tpu_torch.ops.kernels import ar_decoder, full_decoder, train_frame
 
@@ -1537,6 +1540,133 @@ def test_pianotree_sampler_encode_on_the_card(cuda):
     torch.testing.assert_close(a_chd, b_chd, rtol=0, atol=1e-5)
     torch.testing.assert_close(a_rhy, b_rhy, rtol=0, atol=1e-5)
     assert (a_grid == b_grid).mean() >= AGREE
+
+
+# --- the fixed-batch encode as CUDA graph replays ----------------------------
+
+def _encode_case(kind, device, n, seed):
+    """(config, params, decode route, encode inputs of n rows) at the
+    canonical widths: the conv encoder in f32 (K4) or bf16 (K3), or the
+    pianotree encoder with its detrended grid made on the card."""
+    from pctd_tpu_torch.train import trainer as tr
+
+    cfg = ModelConfig(txt_encoder="conv" if kind != "pianotree"
+                      else "pianotree",
+                      compute_dtype="bfloat16" if kind == "bf16"
+                      else "float32")
+    params = dv.init_params(cfg, seed=1, device=device)
+    route = "frame" if kind == "bf16" else "full"
+    if kind == "pianotree":
+        pr, chord, shift = _pianotree_batch(n, seed)
+        _, c, pr_mat, dt_x = tr.batch_features(*(
+            torch.as_tensor(a, device=device) for a in (pr, chord, shift)),
+            cfg)
+        return cfg, params, route, (pr_mat, c, dt_x)
+    rng = np.random.RandomState(seed)
+    pr = (rng.rand(n, 32, 128) < 0.02).astype(np.float32) * 2
+    c = rng.rand(n, 8, 36).astype(np.float32)
+    return cfg, params, route, (pr, c)
+
+
+def _posteriors(out):
+    return [x for d in out for x in d]
+
+
+@pytest.mark.parametrize("rows", [40, 64, 117])
+@pytest.mark.parametrize("fixed_batch", [16, 8, 24])
+@pytest.mark.parametrize("kind", ["conv", "bf16", "pianotree"])
+def test_encode_replays_give_the_bits_of_the_op_by_op_encode(
+        cuda, kind, fixed_batch, rows):
+    """A fixed-batch encode on the card (a graph replay a chunk) gives
+    ``disentangle_vae.encode`` of the same zero-padded chunks bit for bit,
+    in one graph and one replay a chunk; a second encode, of other rows,
+    replays the same graph and leaves the first one's posteriors as they
+    were."""
+    cfg, params, route, inputs = _encode_case(kind, cuda, rows,
+                                              rows + fixed_batch)
+    s = Sampler(params, cfg, frame_decoder=route, fixed_batch=fixed_batch)
+    arrays = [s._tensor(a) for a in inputs]
+    others = [a.flip(0) for a in arrays]
+    got = _posteriors(s.encode(*inputs))
+    got2 = _posteriors(s.encode(*others))
+    for ins, out in ((arrays, got), (others, got2)):
+        chunks = list(s._chunks(ins))
+        want = [_posteriors(dv.encode(s.params, cfg, *chunk))
+                for _, chunk in chunks]
+        for i, col in enumerate(zip(*want)):
+            assert torch.equal(out[i], torch.cat(
+                [w[:take] for w, (take, _) in zip(col, chunks)])), i
+    n = -(-rows // fixed_batch)
+    assert (s.encoded_chunks, s.encode_replays) == (2 * n, 2 * n)
+    assert len(s._graphs) == 1
+    assert got[0].shape == (rows, cfg.chd_z_dim)
+    assert got[2].shape == (rows, cfg.txt_z_dim)
+
+
+@pytest.mark.parametrize("kind", ["conv", "bf16"])
+def test_swap_through_encode_replays_gives_the_op_by_op_grids(cuda,
+                                                              monkeypatch,
+                                                              kind):
+    """A swap of 40 rows at fixed batch 16 decodes the grids of the same
+    Sampler encoding op by op (``_replays`` made false), bit for bit."""
+    cfg, params, route, (pr, c) = _encode_case(kind, cuda, 40, 5)
+    swap = lambda s: s.swap(pr, pr[::-1].copy(), c, c[::-1].copy(),
+                            fix_rhy=True, fix_chd=False)
+    replayed = Sampler(params, cfg, frame_decoder=route, fixed_batch=16)
+    got = swap(replayed)
+    monkeypatch.setattr(sampler_mod, "_replays", lambda device: False)
+    op_by_op = Sampler(params, cfg, frame_decoder=route, fixed_batch=16)
+    want = swap(op_by_op)
+    assert (replayed.encode_replays, op_by_op.encode_replays) == (3, 0)
+    assert replayed.encoded_chunks == op_by_op.encoded_chunks == 3
+    assert got.shape == (40, 32, 15, 6)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_encode_graphs_after_load_params_read_the_new_weights(cuda):
+    """``load_params`` drops the graphs; the next encode captures again and
+    gives a fresh Sampler's posteriors on the new weights, bit for bit."""
+    cfg, old_params, _, (pr, c) = _encode_case("conv", cuda, 20, 6)
+    new = dv.init_params(cfg, seed=2, device=cuda)
+    s = Sampler(old_params, cfg, fixed_batch=16)
+    old = _posteriors(s.encode(pr, c))
+    s.load_params(new)
+    assert s._graphs == {}
+    got = _posteriors(s.encode(pr, c))
+    want = _posteriors(Sampler(new, cfg, fixed_batch=16).encode(pr, c))
+    assert len(s._graphs) == 1 and s.encode_replays == 4
+    for a, b, o in zip(got, want, old):
+        assert torch.equal(a, b) and not torch.equal(a, o)
+
+
+def test_encode_replay_kernels_show_on_the_device_timeline(cuda,
+                                                           monkeypatch):
+    """Under ``torch.profiler`` a replayed encode's kernels appear on the
+    device timeline as the op-by-op encode's do, name for name (copies,
+    fills and concatenations aside: the two paths pad and gather rows
+    differently, and a graph runs a device-to-device copy as a
+    ``memcpy32_post`` kernel), so the benchmark's busy time and span
+    readers see them."""
+    import collections
+    import re
+
+    from torch.autograd import DeviceType
+
+    cfg, params, _, (pr, c) = _encode_case("conv", cuda, 40, 7)
+
+    def kernels(s):
+        s.encode(pr, c)            # the capture, outside the profile
+        return collections.Counter(
+            e.name for e in _profiled(cuda, lambda: s.encode(pr, c))
+            if e.device_type == DeviceType.CUDA
+            and not re.search(r"[Mm]emcpy|Memset|[Cc]opy|Fill|[Cc]at",
+                              e.name))
+
+    replayed = kernels(Sampler(params, cfg, fixed_batch=16))
+    monkeypatch.setattr(sampler_mod, "_replays", lambda device: False)
+    op_by_op = kernels(Sampler(params, cfg, fixed_batch=16))
+    assert sum(op_by_op.values()) > 300
+    assert replayed == op_by_op
 
 
 # --- data parallel -----------------------------------------------------------

@@ -7,8 +7,10 @@ import torch
 
 from pctd_tpu.models import disentangle_vae as jdv
 from pctd_tpu_torch.models import disentangle_vae as tdv
+from pctd_tpu_torch.models import sampler as sampler_mod
 from pctd_tpu_torch.models.sampler import Sampler
 from pctd_tpu_torch.ops.kernels import full_decoder
+from pctd_tpu_torch.parallel.mesh import Mesh
 
 from tests.torch_port_helpers import (JAX_TINY, TINY, jax_params,
                                       port_params, requests, t)
@@ -201,3 +203,135 @@ def test_sampler_rejects_bad_arguments(weights):
     with pytest.raises(ValueError):
         Sampler(tp, TINY, device="cpu").decode(np.zeros((0, 8)),
                                                np.zeros((0, 8)))
+
+
+# --- the encode: op by op on the CPU, graph replays on the card -------------
+
+def _posteriors(out):
+    """The (chord, texture) posteriors' mean and std tensors, in order."""
+    return [x for d in out for x in d]
+
+
+def _op_by_op(s, pr, c):
+    """What ``encode`` computes: ``disentangle_vae.encode`` of each
+    zero-padded fixed-batch chunk, its real rows kept."""
+    chunks = list(s._chunks([t(pr), t(c)]))
+    outs = [_posteriors(tdv.encode(s.params, TINY, *chunk))
+            for _, chunk in chunks]
+    return [torch.cat([o[:take] for o, (take, _) in zip(col, chunks)])
+            for col in zip(*outs)]
+
+
+@pytest.mark.parametrize("fb,n", [(4, 3), (4, 9), (None, 9)])
+def test_cpu_encode_runs_op_by_op_and_never_replays(weights, fb, n):
+    _, tp = weights
+    pr, c = requests(n, seed=30 + n)
+    s = Sampler(tp, TINY, fixed_batch=fb, device="cpu")
+    got = _posteriors(s.encode(pr, c))
+    want = (_op_by_op(s, pr, c) if fb is not None
+            else _posteriors(tdv.encode(tp, TINY, t(pr), t(c))))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert s.encode_replays == 0 and s._graphs == {}
+
+
+@pytest.mark.parametrize("fb,n,chunks", [(4, 3, 1), (4, 8, 2), (4, 13, 4),
+                                         (None, 13, 1)])
+def test_encoded_chunks_count_as_decoded_chunks(weights, fb, n, chunks):
+    _, tp = weights
+    pr, c = requests(n, seed=n)
+    s = Sampler(tp, TINY, fixed_batch=fb, device="cpu")
+    d_chd, d_rhy = s.encode(pr, c)
+    s.decode(d_chd.mean, d_rhy.mean)
+    assert s.encoded_chunks == s.decoded_chunks == chunks
+    assert s.encode_replays == 0
+
+
+@pytest.mark.parametrize("take", [1, 3, 4])
+def test_fill_rows_pads_as_chunks_does(weights, take):
+    """A graph's static inputs, whatever they held, filled with a chunk's
+    real rows equal the zero-padded chunk that ``_chunks`` builds."""
+    _, tp = weights
+    g = torch.Generator().manual_seed(take)
+    arrays = [torch.rand((4 + take,) + shape, generator=g)
+              for shape in ((32, 128), (8, 36), (32, 16, 39))]
+    s = Sampler(tp, TINY, fixed_batch=4, device="cpu")
+    (_, first), (got_take, last) = s._chunks(arrays)
+    assert got_take == take
+    for rows, chunk in zip(arrays, last):
+        static = torch.full_like(chunk, float("nan"))
+        sampler_mod.fill_rows(static, rows[4:])
+        assert torch.equal(static, chunk)
+    for rows, chunk in zip(arrays, first):
+        static = torch.full_like(chunk, float("nan"))
+        sampler_mod.fill_rows(static, rows[:4])
+        assert torch.equal(static, chunk)
+
+
+class _OpByOpGraph:
+    """``EncodeGraph`` as the CPU can run it: static inputs and outputs,
+    ``replay()`` overwriting the outputs with the encode of what the inputs
+    hold, op by op. The inputs start as NaN, so a row left unfilled shows."""
+
+    def __init__(self, encode, shapes, device, pool=None):
+        self.encode, self.pool = encode, pool
+        self.inputs = [torch.full(s, float("nan"), device=device)
+                       for s in shapes]
+        self.outputs = encode(*self.inputs)
+
+    def replay(self):
+        for static, new in zip(_posteriors(self.outputs),
+                               _posteriors(self.encode(*self.inputs))):
+            static.copy_(new)
+
+
+def _replaying(monkeypatch):
+    monkeypatch.setattr(sampler_mod, "_replays", lambda device: True)
+    monkeypatch.setattr(sampler_mod, "EncodeGraph", _OpByOpGraph)
+
+
+@pytest.mark.parametrize("devices", [1, 2])
+@pytest.mark.parametrize("fb,n", [(4, 9), (4, 8), (8, 3)])
+def test_replayed_encode_gives_each_device_its_share(weights, monkeypatch,
+                                                     devices, fb, n):
+    """The replay path's bookkeeping (``_replays`` and the graph swapped
+    for a CPU stand-in): each device's graph takes its share of each
+    zero-padded chunk and the real rows come back in order, bit-equal to
+    the op-by-op encode over the same devices; one graph a device, one
+    replay a device and chunk; a result outlives the next replay."""
+    _, tp = weights
+    mesh = Mesh((torch.device("cpu"),) * devices)
+    pr, c = requests(n, seed=40 + n)
+    pr2, c2 = requests(n, seed=50 + n)
+    plain = Sampler(tp, TINY, fixed_batch=fb, mesh=mesh)
+    want, want2 = (_posteriors(plain.encode(*r)) for r in ((pr, c),
+                                                           (pr2, c2)))
+    _replaying(monkeypatch)
+    s = Sampler(tp, TINY, fixed_batch=fb, mesh=mesh)
+    got = _posteriors(s.encode(pr, c))
+    got2 = _posteriors(s.encode(pr2, c2))
+    for a, b in zip(got + got2, want + want2):
+        assert torch.equal(a, b)
+    chunks = -(-n // fb)
+    assert s.encoded_chunks == s.encode_replays == 2 * chunks * devices
+    assert sorted(k[0] for k in s._graphs) == list(range(devices))
+
+
+def test_load_params_empties_the_graph_cache(weights, monkeypatch):
+    """New weights drop the graphs; the next encode captures again and
+    reads the new weights, as a fresh Sampler on them does."""
+    _, tp = weights
+    new = port_params(jax_params(seed=8))
+    pr, c = requests(6, seed=9)
+    want = _posteriors(Sampler(new, TINY, fixed_batch=4,
+                               device="cpu").encode(pr, c))
+    _replaying(monkeypatch)
+    s = Sampler(tp, TINY, fixed_batch=4, device="cpu")
+    old = _posteriors(s.encode(pr, c))
+    assert len(s._graphs) == 1
+    s.load_params(new)
+    assert s._graphs == {}
+    got = _posteriors(s.encode(pr, c))
+    assert len(s._graphs) == 1
+    for a, b, o in zip(got, want, old):
+        assert torch.equal(a, b) and not torch.equal(a, o)
