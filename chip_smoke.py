@@ -4312,10 +4312,10 @@ def main() -> int:
                 variants = {"all": build.PHASES_ALL, **{
                     n: b for n, b in build.DECODE_PHASES.items()
                     if full or n != "time"}}
-                if full:   # K4's phases: the whole, its time GRU and its
-                    # duration chains alone
+                if full:   # K4's phases: the whole, its time GRU, its
+                    # duration chains and its summaries alone
                     variants = {n: variants[n] for n in ("all", "time",
-                                                         "dur")}
+                                                         "dur", "summary")}
                 name = (build.FULL_ENTRY if full
                         else build.FRAME_ENTRY)[w.w_hh.dtype]
                 res = {}

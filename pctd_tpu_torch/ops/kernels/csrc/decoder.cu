@@ -45,6 +45,32 @@
 // the decisions into every block; each block then folds the token feedback
 // of its own columns. Three cluster barriers a slot, one a summary step.
 //
+// The summary bi-GRU (group_summary) is bound by its 16 serial steps. Only
+// h @ we_hh depends on the step before; a step that also gathered its note
+// embeddings and multiplied [x | h] by [we_ih | we_hh] read from L2 would
+// wait on dependent rounds of L2 loads and two block barriers besides its
+// cluster barrier. So it runs as K1's summary does (train_frame.cu): each
+// block first computes the input projections of a chunk of steps (x @
+// we_ih + be_ih, its columns of we_ih staged in shared memory, the
+// embeddings of Kx steps a product, all off the serial path), then runs
+// the chunk's steps on we_hh alone, staged in the same place: a 16-row
+// product from shared memory, the gate, the new hidden into the
+// direction's blocks and one cluster barrier a step. The chunk is as many
+// steps as the block's memory holds once the note chain is over (its
+// region and w_dcomb's, which K4 stages again each frame by asynchronous
+// copies behind the time step; group_layout): in K4 all 16 in clusters of
+// 16, 8 in clusters of 8. What bounds it then is the shared-memory
+// bandwidth and latency of those products (each lane's k-slice is fixed:
+// the products keep group_product's lanes and k-slices, so the sums are
+// the same bits as one product of a step's x @ we_ih and h @ we_hh) and
+// the cluster barriers.
+//
+// The layout lives in static shared memory, and each phase carves the
+// pointers it uses from it (group_carve): held in registers for the whole
+// launch, the layout and pointers get spilled to local memory, which the
+// ~28 KB of L1 beside the block's shared memory does not hold, so every
+// phase would wait on their reloads from L2.
+//
 // Arithmetic is plain f32 FMA (no TF32, no reduced precision): every argmax
 // feeds back, so the logits that decide it stay f32; sums run in a fixed
 // order, so two launches give the same bits. Ties go to the lowest pitch
@@ -81,28 +107,68 @@ struct DecoderWeightsT {
 };
 using DecoderWeights = DecoderWeightsT<float>;
 
+// the dynamic shared memory of a row-group block
+extern __shared__ float4 group_smem[];
+
 namespace {
 
-// Shared memory of a row-group block (offsets in floats, then in bytes).
-// Written by other blocks: ht (K4), tok (K4), hf, Y, pitch, bits, and the
-// summary planes hsd. One region holds, phase by phase, the note chain's
-// locals (gif, gh, acc, ys, hd, X, red), the time GRU's gates tg (K4) and the
-// summary's planes and locals (hsd, sg, xs): a cluster barrier separates
-// the phases, so no block writes into a region that another still reads.
-// w_dcomb, in the weights' storage type, comes last.
+// The lanes a unit of a summary product: group_product's rule for a step's
+// six segments together (x @ we_ih and h @ we_hh, three gates of SU
+// columns each), for the hoisted products and the recurrent ones alike, so
+// that the k order of every sum is the step's and not the batching's.
+__host__ __device__ inline int summary_lanes(int SU) {
+  const int nq = 6 * (DG / PR) * (SU / PJ);
+  int sl = 1;
+  while (sl < 8 && nq * sl * 2 <= NT) sl *= 2;
+  return sl;
+}
+
+// group_product's k-slice of a lane: a multiple of 4 whose count of 16-byte
+// words is odd
+__host__ __device__ inline int slice_width(int in, int sl) {
+  int kc = (cdiv(in, sl) + 3) & ~3;
+  if (!(kc & 4)) kc += 4;
+  return kc;
+}
+
+constexpr int SPAD_MAX = 7 * 128;  // bytes between a staged weight's slices
+constexpr int XB = 8;    // a batch's embeddings a thread
+constexpr int WMAX = 8;  // duration bits a note: a byte of mask
+// dynamic shared memory a block: the layout takes the static part (see the
+// note at the top)
+constexpr int GROUP_MAX_SMEM = DEC_MAX_SMEM - 256;
+
+// Shared memory of a row-group block, offsets in bytes. Kept for the
+// launch: ht, tok (K4), the owned rows' slot projections Y, the staged
+// constants (w_dur_gi's columns, w_emb's bit rows and b_emb, b_dcomb,
+// gi_d), the owned rows' decisions and the group's lengths, pitches and
+// bits. Written by other blocks: ht (K4), tok (K4), hf, Y, pitch, bits, and
+// the summary planes hsd. Then one region, phase by phase (a cluster
+// barrier separates the phases, so no block writes into a region that
+// another still reads): the note chain's (the notes hidden hf, its locals
+// gif, gh, acc, ys, hd, X, red, or K4's time gates tg over them, then
+// w_dcomb in the weights' storage type), then, from the chain's last
+// barrier on, the summary's: the direction's two hidden planes, this
+// block's biases, its staged summary weights (we_ih, then we_hh), the
+// hoisted input projections of Kc steps, and a batch of Kx steps'
+// embeddings (or, in a recurrent step, its hidden gates). w_dcomb is staged
+// again each frame.
 struct GLayout {
-  int C, nro, U, TU, SU, SLc;
-  int lTH, lHS, lNH, lSL, lDH, lDC, lE, lEH, lU3, lT6, lS6, lSLc;
-  int o_ht, o_tok, o_hf, o_Y, o_wdg, o_emb, o_dc, o_gif, o_gh, o_acc, o_ys,
-      o_hd, o_X, o_red, o_tg, o_hsd, o_sg, o_xs, n_floats;
-  int b_own, b_pitch, b_bits, b_wd, bytes;
+  int C, nro, U, TU, SU, SLc, Kc, Kx;
+  int lTH, lHS, lNH, lSL, lDH, lDC, lE, lEH, lU3, lT6, lS3, lSLc;
+  int o_ht, o_tok, o_Y, o_wdg, o_emb, o_dc, o_own, o_pitch, o_bits;
+  int o_hf, o_gif, o_gh, o_acc, o_ys, o_hd, o_X, o_red, o_tg, o_wd;
+  int o_hsd, o_sb, o_mask, o_ws, o_gis, o_xs, bytes;
 };
+
+__host__ __device__ inline int align16(int x) { return (x + 15) & ~15; }
 
 template <typename S>
 __host__ __device__ inline GLayout group_layout(const DecoderWeightsT<S>& w,
                                                 int C, bool full) {
   GLayout L;
-  const int SL = w.P + w.DH + 2 + 3 * w.DH, DC = 2 + 3 * w.DH;
+  const int SL = w.P + w.DH + 2 + 3 * w.DH, DC = 2 + 3 * w.DH, S1 = w.K - 1;
+  const int ts = (int)sizeof(S);
   L.C = C;
   L.nro = DG / C;
   L.U = 4 * cdiv(w.NH / 4, C);   // the largest share of each partition
@@ -119,80 +185,110 @@ __host__ __device__ inline GLayout group_layout(const DecoderWeightsT<S>& w,
   L.lEH = pad4(w.EH);
   L.lU3 = pad4(3 * L.U);
   L.lT6 = pad4(6 * L.TU);
-  L.lS6 = pad4(6 * L.SU);
+  L.lS3 = pad4(3 * L.SU);
   L.lSLc = pad4(L.SLc);
-  int o = 0;
-  L.o_ht = o;  o += DG * L.lTH;   // time hidden of the group's rows
-  L.o_tok = o;                    // K4: summary token [hf | hb]
-  if (full) o += DG * L.lHS;
-  L.o_hf = o;  o += DG * L.lNH;   // notes hidden
-  L.o_Y = o;   o += L.nro * L.lSL;  // owned rows' slot projections
-  L.o_wdg = o; o += w.W * L.lU3;    // w_dur_gi, this block's columns
-  L.o_emb = o; o += (w.W + 1) * L.lE;  // w_emb's bit rows, then b_emb
-  L.o_dc = o;  o += L.lDC + 9 * L.lDH;  // b_dcomb, then gi_d's 3 x 3 rows
-  int u = o;                      // the note chain's locals
-  L.o_gif = u; u += DG * L.lU3;   // frame share of gi (own units)
-  L.o_gh = u;  u += DG * L.lU3;   // hidden gates (own units)
-  L.o_acc = u; u += DG * L.lU3;   // folded token feedback (own units)
-  L.o_ys = u;  u += DG * L.lSLc;  // own w_slot columns
-  L.o_hd = u;  u += L.nro * L.lDH;  // owned rows' dur hidden
-  L.o_X = u;   u += L.nro * L.lDC;  // owned rows' [dur logits | gates]
-  L.o_red = u; u += L.nro * NT;     // dur_product's partial sums
-  int end = u;
-  L.o_tg = o;                     // K4: time gates [gi | gh] (own units)
-  if (full) end = imax2(end, o + DG * L.lT6);
-  u = o;                          // the summary
-  L.o_hsd = u; u += 2 * DG * L.lEH;  // two planes of a direction's hidden
-  L.o_sg = u;  u += DG * L.lS6;   // [gi | gh] (own units)
-  L.o_xs = u;  u += DG * L.lE;    // a step's note embeddings
-  L.n_floats = imax2(end, u);
-  const int S1 = w.K - 1;
-  int b = 4 * L.n_floats;
-  L.b_own = b;   b += 4 * (L.nro * (1 + w.W) + DG);  // owned decisions, len
-  L.b_pitch = b; b += 2 * DG * S1;                   // short [DG][K-1]
-  L.b_bits = b;  b += DG * S1 * w.W;                 // uchar [DG][K-1][W]
-  b = (b + 15) & ~15;
-  L.b_wd = b;
-  L.bytes = b + w.DH * DC * (int)sizeof(S);
+  int b = 0;
+  L.o_ht = b;    b += 4 * DG * L.lTH;     // time hidden of the group's rows
+  L.o_tok = b;                            // K4: summary token [hf | hb]
+  if (full) b += 4 * DG * L.lHS;
+  L.o_Y = b;     b += 4 * L.nro * L.lSL;  // owned rows' slot projections
+  L.o_wdg = b;   b += 4 * w.W * L.lU3;    // w_dur_gi, this block's columns
+  L.o_emb = b;   b += 4 * (w.W + 1) * L.lE;  // w_emb's bit rows, then b_emb
+  L.o_dc = b;    b += 4 * (L.lDC + 9 * L.lDH);  // b_dcomb, gi_d's 3 x 3 rows
+  L.o_own = b;   b += 4 * (L.nro * (1 + w.W) + DG);  // owned decisions, len
+  L.o_pitch = b; b += 2 * DG * S1;                   // short [DG][K-1]
+  L.o_bits = b;  b += DG * S1 * w.W;                 // uchar [DG][K-1][W]
+  const int region = b = align16(b);
+  L.o_hf = b;    b += 4 * DG * L.lNH;     // notes hidden
+  int u = b;                              // the note chain's locals
+  L.o_gif = u;   u += 4 * DG * L.lU3;     // frame share of gi (own units)
+  L.o_gh = u;    u += 4 * DG * L.lU3;     // hidden gates (own units)
+  L.o_acc = u;   u += 4 * DG * L.lU3;     // folded token feedback (own units)
+  L.o_ys = u;    u += 4 * DG * L.lSLc;    // own w_slot columns
+  L.o_hd = u;    u += 4 * L.nro * L.lDH;  // owned rows' dur hidden
+  L.o_X = u;     u += 4 * L.nro * L.lDC;  // owned rows' [dur logits | gates]
+  L.o_red = u;   u += 4 * L.nro * NT;     // dur_product's partial sums
+  L.o_tg = b;                             // K4: time gates [gi | gh]
+  if (full) u = imax2(u, b + 4 * DG * L.lT6);
+  L.o_wd = align16(u);
+  const int chain_end = L.o_wd + w.DH * DC * ts;
+  b = region;                             // the summary
+  L.o_hsd = b;   b += 4 * 2 * DG * L.lEH;  // two planes of a direction's hidden
+  L.o_sb = b;    b += 4 * 2 * L.lS3;      // be_ih, be_hh (own units)
+  L.o_mask = b;  b += align16(DG * S1);   // uchar [DG][K-1]: a note's bits
+  L.o_ws = b;    b += align16(imax2(w.E, w.EH) * 3 * L.SU * ts + SPAD_MAX);
+  L.o_gis = b;
+  // Kc: the steps hoisted before their recurrence, as many as the rest of
+  // the block's memory holds beside one step's embeddings, evened over the
+  // chunks; Kx: the steps whose embeddings a hoisted product takes, as many
+  // as the rest holds and a thread's XB registers build
+  const int gstep = 4 * DG * L.lS3, xstep = 4 * DG * L.lE;
+  const int room = GROUP_MAX_SMEM - b;
+  int kc = (room - imax2(xstep, gstep)) / gstep, kx = 0;
+  if (kc > w.K) kc = w.K;
+  if (kc >= 1) {
+    kc = cdiv(w.K, cdiv(w.K, kc));
+    kx = (room - kc * gstep) / xstep;
+    if (kx * DG * w.E > XB * NT) kx = XB * NT / (DG * w.E);
+    if (kx > kc) kx = kc;
+  }
+  L.Kc = kc < 0 ? 0 : kc;
+  L.Kx = kx < 1 ? 1 : kx;
+  L.o_xs = b + L.Kc * gstep;   // Kx steps' embeddings, or a step's gh
+  b = L.o_xs + imax2(L.Kx * xstep, gstep);
+  L.bytes = imax2(chain_end, b);
   return L;
 }
 
 struct GSmem {
   float *ht, *tok, *hf, *Y, *wdg, *emb, *bdc, *gid, *gif, *gh, *acc, *ys,
-      *hd, *X, *red, *tg, *hsd, *sg, *xs;
+      *hd, *X, *red, *tg, *hsd, *sb, *gis, *xs;
   int *own, *len;       // own: [nro][1 + W] pitch and bits of owned rows
   short* pitch;         // [DG][K-1]
-  unsigned char* bits;  // [DG][K-1][W]
-  void* wd;
+  unsigned char *bits, *mask;  // [DG][K-1][W], [DG][K-1]
+  void *wd, *ws;
 };
 
-__device__ inline GSmem group_carve(const GLayout& L, char* base, int W) {
-  float* f = reinterpret_cast<float*>(base);
+// the float array at byte offset o of the block's shared memory
+__device__ __forceinline__ float* group_smem_f(int o) {
+  return reinterpret_cast<float*>(reinterpret_cast<char*>(group_smem) + o);
+}
+
+// The pointers of the layout L (in static shared memory). A function
+// carves the ones it uses at its start: derived from group_smem, they are
+// known to point into shared memory, and they live no longer than the
+// function.
+__device__ inline GSmem group_carve(const GLayout& L, int W) {
+  char* base = reinterpret_cast<char*>(group_smem);
+  auto f = [&](int o) { return reinterpret_cast<float*>(base + o); };
   GSmem s;
-  s.ht = f + L.o_ht;
-  s.tok = f + L.o_tok;
-  s.hf = f + L.o_hf;
-  s.Y = f + L.o_Y;
-  s.wdg = f + L.o_wdg;
-  s.emb = f + L.o_emb;
-  s.bdc = f + L.o_dc;
-  s.gid = f + L.o_dc + L.lDC;
-  s.gif = f + L.o_gif;
-  s.gh = f + L.o_gh;
-  s.acc = f + L.o_acc;
-  s.ys = f + L.o_ys;
-  s.hd = f + L.o_hd;
-  s.X = f + L.o_X;
-  s.red = f + L.o_red;
-  s.tg = f + L.o_tg;
-  s.hsd = f + L.o_hsd;
-  s.sg = f + L.o_sg;
-  s.xs = f + L.o_xs;
-  s.own = reinterpret_cast<int*>(base + L.b_own);
+  s.ht = f(L.o_ht);
+  s.tok = f(L.o_tok);
+  s.hf = f(L.o_hf);
+  s.Y = f(L.o_Y);
+  s.wdg = f(L.o_wdg);
+  s.emb = f(L.o_emb);
+  s.bdc = f(L.o_dc);
+  s.gid = s.bdc + L.lDC;
+  s.gif = f(L.o_gif);
+  s.gh = f(L.o_gh);
+  s.acc = f(L.o_acc);
+  s.ys = f(L.o_ys);
+  s.hd = f(L.o_hd);
+  s.X = f(L.o_X);
+  s.red = f(L.o_red);
+  s.tg = f(L.o_tg);
+  s.hsd = f(L.o_hsd);
+  s.sb = f(L.o_sb);
+  s.gis = f(L.o_gis);
+  s.xs = f(L.o_xs);
+  s.own = reinterpret_cast<int*>(base + L.o_own);
   s.len = s.own + L.nro * (1 + W);
-  s.pitch = reinterpret_cast<short*>(base + L.b_pitch);
-  s.bits = reinterpret_cast<unsigned char*>(base + L.b_bits);
-  s.wd = base + L.b_wd;
+  s.pitch = reinterpret_cast<short*>(base + L.o_pitch);
+  s.bits = reinterpret_cast<unsigned char*>(base + L.o_bits);
+  s.mask = reinterpret_cast<unsigned char*>(base + L.o_mask);
+  s.wd = base + L.o_wd;
+  s.ws = base + L.o_ws;
   return s;
 }
 
@@ -253,14 +349,14 @@ __device__ __forceinline__ float gru_gate_r(const float (&gi)[3],
   return (1.0f - z) * n + z * h;
 }
 
-// Zeroed exchange buffers and phase region (a phase launched alone reads
-// zeros, not junk); the small constants the serial steps read staged in
-// shared memory (this block's columns of w_dur_gi, w_emb's bit rows and
-// b_emb, b_dcomb, gi_d, w_dcomb).
+// Zeroed exchange buffers and the chain's region (a phase launched alone
+// reads zeros, not junk); the small constants the serial steps read staged
+// in shared memory (this block's columns of w_dur_gi, w_emb's bit rows and
+// b_emb, b_dcomb, gi_d).
 template <typename S>
 __device__ __forceinline__ void group_init(const DecoderWeightsT<S>& w,
-                                           const GLayout& L, const GSmem& s,
-                                           int c) {
+                                           const GLayout& L, int c) {
+  const GSmem s = group_carve(L, w.W);
   const int t = threadIdx.x, S1 = w.K - 1;
   const int NH = w.NH, j0 = part(NH, L.C, c), U = part(NH, L.C, c + 1) - j0;
   for (int i = t; i < w.W * 3 * U; i += NT) {
@@ -279,12 +375,42 @@ __device__ __forceinline__ void group_init(const DecoderWeightsT<S>& w,
   for (int i = t; i < 9 * DH; i += NT)  // gi_d (3, 3DH): row g a DH-row
     s.gid[i / DH * L.lDH + i % DH] = __ldg(w.gi_d + i);
   for (int i = t; i < L.nro * L.lSL; i += NT) s.Y[i] = 0.0f;
-  for (int i = t; i < DG * L.lNH; i += NT) s.hf[i] = 0.0f;
-  for (int i = t; i < L.n_floats - L.o_gif; i += NT) s.gif[i] = 0.0f;
+  for (int i = t; i < (L.o_wd - L.o_hf) / 4; i += NT) s.hf[i] = 0.0f;
   for (int i = t; i < DG * S1; i += NT) s.pitch[i] = 0;
   for (int i = t; i < DG * S1 * w.W; i += NT) s.bits[i] = 0;
-  S* wd = static_cast<S*>(s.wd);
-  for (int i = t; i < DH * DC; i += NT) wd[i] = w.w_dcomb[i];
+}
+
+// N (8 or 16) bytes from global memory into this block's shared memory,
+// asynchronously (cp.async); cp_wait() waits for this thread's copies
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+                 "l"(src)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// w_dcomb into its place in shared memory by asynchronous copies (its
+// DH x (2 + 3 DH) elements are whole 16-byte words: DH % 4 == 0); the
+// summary's region covers it, so K4 stages it each frame, behind the time
+// step. cp_wait() and a block barrier come before the duration chain.
+template <typename S>
+__device__ __forceinline__ void stage_wd(const DecoderWeightsT<S>& w,
+                                         const GLayout& L) {
+  const GSmem s = group_carve(L, w.W);
+  const int n = w.DH * (2 + 3 * w.DH) * (int)sizeof(S) / 16;
+  const char* src = reinterpret_cast<const char*>(w.w_dcomb);
+  char* dst = static_cast<char*>(s.wd);
+  for (int i = threadIdx.x; i < n; i += NT)
+    cp_async<16>(dst + 16 * i, src + 16 * i);
 }
 
 // The frame projection: this block's units' columns of [hid | gi_frame] =
@@ -292,8 +418,8 @@ __device__ __forceinline__ void group_init(const DecoderWeightsT<S>& w,
 // into every block's hf.
 template <typename S>
 __device__ __forceinline__ void group_projection(
-    const DecoderWeightsT<S>& w, const GLayout& L, const GSmem& s,
-    cg::cluster_group& cl) {
+    const DecoderWeightsT<S>& w, const GLayout& L, cg::cluster_group& cl) {
+  const GSmem s = group_carve(L, w.W);
   const int t = threadIdx.x, C = L.C, c = cl.block_rank();
   const int NH = w.NH, NH4 = 4 * w.NH;
   const int j0 = part(NH, C, c), U = part(NH, C, c + 1) - j0;
@@ -324,8 +450,8 @@ __device__ __forceinline__ void group_projection(
 // bit 0, bit 1 rows) in registers.
 template <int NRO, typename S>
 __device__ __forceinline__ void owned_rows(const DecoderWeightsT<S>& w,
-                                           const GLayout& L, const GSmem& s,
-                                           bool dur) {
+                                           const GLayout& L, bool dur) {
+  const GSmem s = group_carve(L, w.W);
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
   const int P = w.P, DH = w.DH, W = w.W, DC = 2 + 3 * w.DH;
   const bool mine = dur && t < NRO * DH;
@@ -397,9 +523,10 @@ __device__ __forceinline__ void owned_rows(const DecoderWeightsT<S>& w,
 // feedback. The phases bits NOTE and DUR select what runs.
 template <int NRO, typename S>
 __device__ __forceinline__ void group_chain(const DecoderWeightsT<S>& w,
-                                            const GLayout& L, const GSmem& s,
+                                            const GLayout& L,
                                             cg::cluster_group& cl,
                                             int phases) {
+  const GSmem s = group_carve(L, w.W);
   const int t = threadIdx.x, C = L.C, c = cl.block_rank();
   const int NH = w.NH, NH3 = 3 * w.NH, DH = w.DH, P = w.P, W = w.W, K = w.K;
   const int SL = P + DH + 2 + 3 * DH;
@@ -461,7 +588,7 @@ __device__ __forceinline__ void group_chain(const DecoderWeightsT<S>& w,
       cl.sync();
     }
     if (note || dur) {
-      owned_rows<NRO>(w, L, s, dur);
+      owned_rows<NRO>(w, L, dur);
       for (int idx = t; idx < NRO * C; idx += NT) {
         const int ro = idx / C, cc = idx - ro * C, r = c + C * ro;
         const int* o = s.own + ro * (1 + W);
@@ -494,7 +621,8 @@ __device__ __forceinline__ void group_chain(const DecoderWeightsT<S>& w,
 // Each row's length: the first slot that decided eos, else K - 1.
 template <typename S>
 __device__ __forceinline__ void group_lengths(const DecoderWeightsT<S>& w,
-                                              const GSmem& s) {
+                                              const GLayout& L) {
+  const GSmem s = group_carve(L, w.W);
   for (int r = threadIdx.x; r < DG; r += NT) {
     int len = 0;
     for (int k = 1; k < w.K && !len; ++k)
@@ -504,87 +632,254 @@ __device__ __forceinline__ void group_lengths(const DecoderWeightsT<S>& w,
   __syncthreads();
 }
 
+// A block's summary weight staged in shared memory: `in` rows of n = 3 SU
+// columns (its units' r, z and n columns side by side), row k at (k / kc)
+// spad + k ld elements: each lane's k-slice (summary_lanes, slice_width)
+// starts 128 / sl bytes on modulo 128 from the last, so that the lanes of
+// a quarter warp (8 / sl units of sl slices; 16 lanes for 8-byte bf16
+// words) read distinct banks.
+template <typename S>
+struct StagedW {
+  S* W;
+  int in, n, ld, sl, kc, spad;
+};
+
+template <typename S>
+__device__ __forceinline__ StagedW<S> staged_w(void* ws, int in, int n,
+                                               int sl) {
+  StagedW<S> sw;
+  sw.W = static_cast<S*>(ws);
+  sw.in = in;
+  sw.n = sw.ld = n;
+  sw.sl = sl;
+  sw.kc = slice_width(in, sl);
+  const int ts = (int)sizeof(S), step = sw.kc * n * ts;
+  sw.spad = ((128 / sl - step % 128) + 128) % 128 / ts;
+  return sw;
+}
+
+// Columns [e0, e0 + SU) of each gate of a direction's weight Wd (in, 3 EH)
+// into sw, four weights a copy; ends synchronized.
+template <typename S>
+__device__ __forceinline__ void stage_summary(const S* Wd, int EH, int e0,
+                                              int SU, const StagedW<S>& sw) {
+  const int nq = sw.n / 4, total = sw.in * nq;
+  for (int i = threadIdx.x; i < total; i += NT) {
+    const int k = i / nq, q = 4 * (i - k * nq), g = q / SU;
+    cp_async<4 * sizeof(S)>(sw.W + k / sw.kc * sw.spad + k * sw.ld + q,
+                            Wd + (size_t)k * 3 * EH + g * EH + e0 + q -
+                                g * SU);
+  }
+  cp_wait();
+  __syncthreads();
+}
+
+__device__ __forceinline__ unsigned sh_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ float4 lds4(unsigned a) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(a));
+  return v;
+}
+// four weights of storage type S at shared address a, as f32 (the bf16
+// bits in the high half of an f32)
+template <typename S>
+__device__ __forceinline__ float4 ldsw(unsigned a) {
+  if (sizeof(S) == 4) return lds4(a);
+  unsigned x, y;
+  asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n"
+               : "=r"(x), "=r"(y)
+               : "r"(a));
+  return make_float4(__uint_as_float(x << 16),
+                     __uint_as_float(x & 0xffff0000u),
+                     __uint_as_float(y << 16),
+                     __uint_as_float(y & 0xffff0000u));
+}
+
+// out[r][j] = b[j] + sum_{k < in} x[r][k] W[k][j] for R rows (a multiple
+// of RU) and j < n, W staged (StagedW), b and x in shared memory, in units
+// of RU rows x PJ columns at sl lanes a unit: each lane sums its k-slice
+// (group_product's slices at sl lanes) in order, the slices meet by xor
+// shuffles and the bias comes last, so every output has group_product's
+// bits whatever RU. RU = 4 spreads a 16-row product over twice the warps
+// of RU = PR. Every thread calls it; it ends synchronized.
+template <int RU, typename S>
+__device__ __forceinline__ void staged_product(const StagedW<S>& sw,
+                                               const float* b,
+                                               const float* x, int ldx,
+                                               int R, float* out, int ldo) {
+  const int t = threadIdx.x, lane = t & 31, sl = sw.sl;
+  const int Q = sw.n / PJ, nq = R / RU * Q;
+  if (nq == 0) return;
+  const int per_warp = 32 / sl, s = lane % sl;
+  const int warps = cdiv(nq, per_warp);
+  const unsigned wld = sw.ld * (unsigned)sizeof(S), xld = 4u * ldx;
+  for (int wq = t >> 5; wq < warps; wq += NT / 32) {
+    const int p = wq * per_warp + lane / sl;
+    const bool live = p < nq;
+    const int r0 = live ? p / Q * RU : 0, c0 = live ? PJ * (p % Q) : 0;
+    const int k0 = min(sw.in, s * sw.kc),
+              k1 = live ? min(sw.in, k0 + sw.kc) : k0;
+    // shared addresses of the lane's first weight row and x element
+    unsigned wa = sh_addr(sw.W + s * sw.spad + c0) + k0 * wld;
+    unsigned xa = sh_addr(x + r0 * ldx + k0);
+    float acc[RU][PJ];
+#pragma unroll
+    for (int r = 0; r < RU; ++r)
+#pragma unroll
+      for (int u = 0; u < PJ; ++u) acc[r][u] = 0.0f;
+    int k = k0;
+#pragma unroll 1
+    for (; k + 4 <= k1; k += 4, wa += 4 * wld, xa += 16) {
+      float4 wv[4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wv[kk] = ldsw<S>(wa + kk * wld);
+#pragma unroll
+      for (int r = 0; r < RU; ++r) {
+        const float4 a = lds4(xa + r * xld);
+        const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          acc[r][0] = fmaf(av[kk], wv[kk].x, acc[r][0]);
+          acc[r][1] = fmaf(av[kk], wv[kk].y, acc[r][1]);
+          acc[r][2] = fmaf(av[kk], wv[kk].z, acc[r][2]);
+          acc[r][3] = fmaf(av[kk], wv[kk].w, acc[r][3]);
+        }
+      }
+    }
+    for (; k < k1; ++k, wa += wld, xa += 4) {
+      const float4 wk = ldsw<S>(wa);
+#pragma unroll
+      for (int r = 0; r < RU; ++r) {
+        float xv;
+        asm volatile("ld.shared.f32 %0, [%1];\n"
+                     : "=f"(xv)
+                     : "r"(xa + r * xld));
+        acc[r][0] = fmaf(xv, wk.x, acc[r][0]);
+        acc[r][1] = fmaf(xv, wk.y, acc[r][1]);
+        acc[r][2] = fmaf(xv, wk.z, acc[r][2]);
+        acc[r][3] = fmaf(xv, wk.w, acc[r][3]);
+      }
+    }
+    for (int off = 1; off < sl; off <<= 1)
+#pragma unroll
+      for (int r = 0; r < RU; ++r)
+#pragma unroll
+        for (int u = 0; u < PJ; ++u)
+          acc[r][u] += __shfl_xor_sync(0xffffffffu, acc[r][u], off);
+    if (live && s == 0) {
+#pragma unroll
+      for (int r = 0; r < RU; ++r) {
+        float* o = out + (r0 + r) * ldo + c0;
+#pragma unroll
+        for (int u = 0; u < PJ; ++u) o[u] = acc[r][u] + b[c0 + u];
+      }
+    }
+  }
+  __syncthreads();
+}
+
 // The masked bi-GRU over [sos | 15 predicted notes]: blocks [0, C/2) run
 // the forward direction, [C/2, C) the backward, each block EH / (C/2)
 // units; step k runs slot k forward and slot K-1-k backward, and a row's
-// hidden moves only while the slot is below its length. Two planes of the
-// direction's hidden alternate (one cluster barrier a step); the result is
-// plane K & 1. sos_emb holds the group's rows (nrows valid).
+// hidden moves only while the slot is below its length. The steps run in
+// chunks of L.Kc: the chunk's input projections first (gi = x @ we_ih +
+// be_ih, we_ih staged, Kx steps' embeddings a product), then its steps on
+// we_hh alone, staged: each h @ we_hh + be_hh, the gate, the new hidden
+// into the direction's blocks and one cluster barrier. Two planes of the
+// direction's hidden alternate; the result is plane K & 1. sos_emb holds
+// the group's rows (nrows valid).
 template <typename S>
 __device__ __forceinline__ void group_summary(const DecoderWeightsT<S>& w,
                                               const GLayout& L,
-                                              const GSmem& s,
                                               cg::cluster_group& cl,
                                               const S* sos_emb, int nrows) {
+  const GSmem s = group_carve(L, w.W);
   const int t = threadIdx.x, Cd = L.C / 2, c = cl.block_rank();
   const int d = c / Cd, e0 = part(w.EH, Cd, c - d * Cd),
             SU = part(w.EH, Cd, c - d * Cd + 1) - e0;
   const int E = w.E, EH = w.EH, EH3 = 3 * w.EH, K = w.K, W = w.W;
-  const int plane = DG * L.lEH;
+  const int n3 = 3 * SU, sl = summary_lanes(SU), plane = DG * L.lEH;
+  const int gstep = DG * L.lS3;
+  const StagedW<S> wi = staged_w<S>(s.ws, E, n3, sl),
+                   wh = staged_w<S>(s.ws, EH, n3, sl);
+  float* bi = s.sb;           // be_ih, be_hh: this block's columns
+  float* bh = s.sb + L.lS3;
   for (int i = t; i < plane; i += NT) s.hsd[i] = 0.0f;
-  // a step's note embeddings, x = w_emb[pitch] + the set bits' rows +
-  // b_emb (sos_emb for slot 0): gather() loads the pitch rows (or sos) of
-  // step k into registers, the step before, behind that step's product;
-  // finish() adds the staged bit rows and bias into xs
-  float nx[XI];
-  auto gather = [&](int k) {
-    const int slot = d == 0 ? k : K - 1 - k;
+  for (int i = t; i < n3; i += NT) {
+    const int g = i / SU, col = d * EH3 + g * EH + e0 + i - g * SU;
+    bi[i] = ldg_f(w.be_ih + col);
+    bh[i] = ldg_f(w.be_hh + col);
+  }
+  for (int i = t; i < DG * (K - 1); i += NT) {
+    int m = 0;
+    for (int ws = 0; ws < W; ++ws) m |= s.bits[i * W + ws] << ws;
+    s.mask[i] = static_cast<unsigned char>(m);
+  }
+  auto slot_of = [&](int k) { return d == 0 ? k : K - 1 - k; };
+  // the embeddings of steps [k, k + n) into xs, x = w_emb[pitch] + the set
+  // bits' rows in order + b_emb (sos_emb for slot 0): a thread loads the
+  // pitch rows of all its elements first, then adds the bit rows bit by bit
+  auto embed = [&](int k, int n) {
+    float v[XB];
+    int m[XB], eo[XB], xo[XB];  // the note's bits (-1: sos), e, xs index
 #pragma unroll
-    for (int i = 0; i < XI; ++i) {
-      const int idx = t + i * NT, r = idx / E, e = idx - r * E;
-      nx[i] = 0.0f;
-      if (idx >= DG * E) continue;
-      if (slot == 0)
-        nx[i] = r < nrows ? to_f(sos_emb[r * E + e]) : 0.0f;
-      else
-        nx[i] = ldg_f(w.w_emb +
-                      (size_t)s.pitch[r * (K - 1) + slot - 1] * E + e);
-    }
-  };
-  auto finish = [&](int k) {
-    const int slot = d == 0 ? k : K - 1 - k;
-#pragma unroll
-    for (int i = 0; i < XI; ++i) {
-      const int idx = t + i * NT, r = idx / E, e = idx - r * E;
-      if (idx >= DG * E) continue;
-      float v = nx[i];
-      if (slot != 0) {
-        const int q = r * (K - 1) + slot - 1;
-        for (int ws = 0; ws < W; ++ws)
-          if (s.bits[q * W + ws]) v += s.emb[ws * L.lE + e];
-        v += s.emb[W * L.lE + e];
+    for (int i = 0; i < XB; ++i) {
+      const int idx = t + i * NT, q = idx / E, e = idx - q * E;
+      const int j = q / DG, r = q - j * DG, slot = slot_of(k + j);
+      v[i] = 0.0f;
+      m[i] = -1;
+      eo[i] = e;
+      xo[i] = q < n * DG ? q * L.lE + e : -1;
+      if (xo[i] < 0) continue;
+      if (slot == 0) {
+        v[i] = r < nrows ? to_f(sos_emb[r * E + e]) : 0.0f;
+      } else {
+        const int qd = r * (K - 1) + slot - 1;
+        v[i] = ldg_f(w.w_emb + (size_t)s.pitch[qd] * E + e);
+        m[i] = s.mask[qd];
       }
-      s.xs[r * L.lE + e] = v;
+    }
+    for (int ws = 0; ws < W; ++ws)
+#pragma unroll
+      for (int i = 0; i < XB; ++i)
+        if (m[i] > 0 && (m[i] >> ws & 1)) v[i] += s.emb[ws * L.lE + eo[i]];
+#pragma unroll
+    for (int i = 0; i < XB; ++i) {
+      if (m[i] >= 0) v[i] += s.emb[W * L.lE + eo[i]];
+      if (xo[i] >= 0) s.xs[xo[i]] = v[i];
     }
   };
-  gather(0);
-  for (int k = 0; k < K; ++k) {
-    const int slot = d == 0 ? k : K - 1 - k;
-    const float* hin = s.hsd + (k & 1) * plane;
-    float* hout = s.hsd + ((k + 1) & 1) * plane;
-    finish(k);
-    __syncthreads();
-    if (k + 1 < K) gather(k + 1);
-    Seg<S> sg[6];
-#pragma unroll
-    for (int g = 0; g < 3; ++g) {
-      sg[g] = seg(w.we_ih + (size_t)d * E * EH3 + g * EH + e0,
-                  w.be_ih + d * EH3 + g * EH + e0, EH3, SU, E, s.xs, L.lE,
-                  s.sg + g * SU, L.lS6);
-      sg[3 + g] = seg(w.we_hh + (size_t)d * EH * EH3 + g * EH + e0,
-                      w.be_hh + d * EH3 + g * EH + e0, EH3, SU, EH, hin,
-                      L.lEH, s.sg + (3 + g) * SU, L.lS6);
+  for (int k0 = 0; k0 < K; k0 += L.Kc) {
+    const int k1 = min(K, k0 + L.Kc);
+    stage_summary(w.we_ih + (size_t)d * E * EH3, EH, e0, SU, wi);
+    for (int kb = k0; kb < k1; kb += L.Kx) {
+      const int nb = min(L.Kx, k1 - kb);
+      embed(kb, nb);
+      __syncthreads();
+      staged_product<PR>(wi, bi, s.xs, L.lE, nb * DG,
+                         s.gis + (kb - k0) * gstep, L.lS3);
     }
-    group_product(sg);
-    for (int idx = t; idx < DG * SU; idx += NT) {
-      const int r = idx / SU, u = idx - r * SU, e = e0 + u;
-      const float hv = hin[r * L.lEH + e];
-      const float* g = s.sg + r * L.lS6;
-      const float hn = slot < s.len[r] ? gru_gate(g, g + 3 * SU, SU, u, hv)
-                                       : hv;
-      put_ranks(cl, d * Cd, Cd, hout + r * L.lEH + e, hn);
+    stage_summary(w.we_hh + (size_t)d * EH * EH3, EH, e0, SU, wh);
+    for (int k = k0; k < k1; ++k) {
+      const int slot = slot_of(k);
+      const float* hin = s.hsd + (k & 1) * plane;
+      float* hout = s.hsd + ((k + 1) & 1) * plane;
+      staged_product<PR / 2>(wh, bh, hin, L.lEH, DG, s.xs, L.lS3);
+      for (int idx = t; idx < DG * SU; idx += NT) {
+        const int r = idx / SU, u = idx - r * SU, e = e0 + u;
+        const float hv = hin[r * L.lEH + e];
+        const float hn = slot < s.len[r]
+                             ? gru_gate(s.gis + (k - k0) * gstep + r * L.lS3,
+                                        s.xs + r * L.lS3, SU, u, hv)
+                             : hv;
+        put_ranks(cl, d * Cd, Cd, hout + r * L.lEH + e, hn);
+      }
+      cl.sync();
     }
-    cl.sync();
   }
 }
 
@@ -596,23 +891,28 @@ frame_group_kernel(DecoderWeightsT<S> w, int B, int phases,
                    const S* __restrict__ sos_emb, int* __restrict__ pitch_idx,
                    int* __restrict__ dur_bits, S* __restrict__ summary,
                    int* __restrict__ lengths) {
-  extern __shared__ float4 smem4[];
   cg::cluster_group cl = cg::this_cluster();
   const int C = cl.num_blocks(), c = cl.block_rank(), t = threadIdx.x;
-  const GLayout L = group_layout(w, C, false);
-  const GSmem s = group_carve(L, reinterpret_cast<char*>(smem4), w.W);
+  __shared__ GLayout L_;
+  if (t == 0) L_ = group_layout(w, C, false);
+  __syncthreads();
+  const GLayout& L = L_;
   const int row0 = blockIdx.x / C * DG, nrows = min(DG, B - row0);
   const int TH = w.TH, K = w.K, W = w.W, S1 = w.K - 1;
-  group_init(w, L, s, c);
+  group_init(w, L, c);
+  stage_wd(w, L);
   for (int idx = t; idx < DG * TH; idx += NT) {
     const int r = idx / TH, j = idx - r * TH;
-    s.ht[r * L.lTH + j] =
+    group_smem_f(L.o_ht)[r * L.lTH + j] =
         r < nrows ? to_f(h_time[(size_t)(row0 + r) * TH + j]) : 0.0f;
   }
   cl.sync();
-  if (phases & PH_PROJ) group_projection(w, L, s, cl);
-  group_chain<NRO>(w, L, s, cl, phases);
-  group_lengths(w, s);
+  if (phases & PH_PROJ) group_projection(w, L, cl);
+  cp_wait();
+  __syncthreads();
+  group_chain<NRO>(w, L, cl, phases);
+  group_lengths(w, L);
+  const GSmem s = group_carve(L, w.W);
   for (int idx = t; idx < NRO * S1 * (1 + W); idx += NT) {
     const int ro = idx / (S1 * (1 + W)), q = idx - ro * S1 * (1 + W);
     const int r = c + C * ro, k = q / (1 + W), cc = q - k * (1 + W);
@@ -626,10 +926,10 @@ frame_group_kernel(DecoderWeightsT<S> w, int B, int phases,
   if (t < NRO && c + C * t < nrows) lengths[row0 + c + C * t] =
       s.len[c + C * t];
   if (phases & PH_SUMM) {
-    group_summary(w, L, s, cl, sos_emb + (size_t)row0 * w.E, nrows);
+    group_summary(w, L, cl, sos_emb + (size_t)row0 * w.E, nrows);
     const int Cd = C / 2, d = c / Cd, e0 = part(w.EH, Cd, c - d * Cd),
               SU = part(w.EH, Cd, c - d * Cd + 1) - e0;
-    const float* hfin = s.hsd + (K & 1) * DG * L.lEH;
+    const float* hfin = group_smem_f(L.o_hsd) + (K & 1) * DG * L.lEH;
     for (int idx = t; idx < nrows * SU; idx += NT) {
       const int r = idx / SU, e = e0 + idx - r * SU;
       summary[(size_t)(row0 + r) * 2 * w.EH + d * w.EH + e] =
@@ -648,31 +948,35 @@ full_group_kernel(DecoderWeights w, int B, int phases,
                   const float* __restrict__ h0, const float* __restrict__ gi_z,
                   const float* __restrict__ token0,
                   const float* __restrict__ sos_emb, int* __restrict__ grid) {
-  extern __shared__ float4 smem4[];
   cg::cluster_group cl = cg::this_cluster();
   const int C = cl.num_blocks(), c = cl.block_rank(), t = threadIdx.x;
-  const GLayout L = group_layout(w, C, true);
-  const GSmem s = group_carve(L, reinterpret_cast<char*>(smem4), w.W);
+  __shared__ GLayout L_;
+  if (t == 0) L_ = group_layout(w, C, true);
+  __syncthreads();
+  const GLayout& L = L_;
   const int row0 = blockIdx.x / C * DG, nrows = min(DG, B - row0);
   const int TH = w.TH, TH3 = 3 * w.TH, EH2 = 2 * w.EH, K = w.K, W = w.W,
             S1 = w.K - 1, cell = 1 + w.W;
   const int t0 = part(TH, C, c), TU = part(TH, C, c + 1) - t0;
   const int Cd = C / 2, d = c / Cd, e0 = part(w.EH, Cd, c - d * Cd),
             SU = part(w.EH, Cd, c - d * Cd + 1) - e0;
-  group_init(w, L, s, c);
+  group_init(w, L, c);
   for (int idx = t; idx < DG * TH; idx += NT) {
     const int r = idx / TH, j = idx - r * TH;
-    s.ht[r * L.lTH + j] = r < nrows ? h0[(size_t)(row0 + r) * TH + j] : 0.0f;
+    group_smem_f(L.o_ht)[r * L.lTH + j] =
+        r < nrows ? h0[(size_t)(row0 + r) * TH + j] : 0.0f;
   }
   for (int idx = t; idx < DG * EH2; idx += NT) {
     const int r = idx / EH2, j = idx - r * EH2;
-    s.tok[r * L.lHS + j] =
+    group_smem_f(L.o_tok)[r * L.lHS + j] =
         r < nrows ? token0[(size_t)(row0 + r) * EH2 + j] : 0.0f;
   }
   cl.sync();
   for (int ti = 0; ti < w.T; ++ti) {
+    stage_wd(w, L);
     if (phases & PH_TIME) {
       // gi = gi_z + token @ wt_tok, gh = h @ wt_hh + bt_hh
+      const GSmem s = group_carve(L, w.W);
       Seg<float> sg[6];
 #pragma unroll
       for (int g = 0; g < 3; ++g) {
@@ -701,19 +1005,24 @@ full_group_kernel(DecoderWeights w, int B, int phases,
       }
       cl.sync();
     }
-    if (phases & PH_PROJ) group_projection(w, L, s, cl);
-    group_chain<NRO>(w, L, s, cl, phases);
-    group_lengths(w, s);
-    // grid (B, T, K-1, 1+W) = [pitch | dur bits] a slot, owned rows
-    for (int idx = t; idx < NRO * S1 * cell; idx += NT) {
-      const int ro = idx / (S1 * cell), q = idx - ro * S1 * cell;
-      const int r = c + C * ro, k = q / cell, cc = q - k * cell;
-      if (r >= nrows) continue;
-      grid[(((size_t)(row0 + r) * w.T + ti) * S1 + k) * cell + cc] =
-          cc == 0 ? s.pitch[r * S1 + k] : s.bits[(r * S1 + k) * W + cc - 1];
+    if (phases & PH_PROJ) group_projection(w, L, cl);
+    cp_wait();
+    __syncthreads();
+    group_chain<NRO>(w, L, cl, phases);
+    group_lengths(w, L);
+    {  // grid (B, T, K-1, 1+W) = [pitch | dur bits] a slot, owned rows
+      const GSmem s = group_carve(L, w.W);
+      for (int idx = t; idx < NRO * S1 * cell; idx += NT) {
+        const int ro = idx / (S1 * cell), q = idx - ro * S1 * cell;
+        const int r = c + C * ro, k = q / cell, cc = q - k * cell;
+        if (r >= nrows) continue;
+        grid[(((size_t)(row0 + r) * w.T + ti) * S1 + k) * cell + cc] =
+            cc == 0 ? s.pitch[r * S1 + k] : s.bits[(r * S1 + k) * W + cc - 1];
+      }
     }
     if (phases & PH_SUMM) {
-      group_summary(w, L, s, cl, sos_emb + (size_t)row0 * w.E, nrows);
+      group_summary(w, L, cl, sos_emb + (size_t)row0 * w.E, nrows);
+      const GSmem s = group_carve(L, w.W);
       const float* hfin = s.hsd + (K & 1) * DG * L.lEH;
       for (int idx = t; idx < DG * SU; idx += NT) {
         const int r = idx / SU, e = e0 + idx - r * SU;
@@ -727,13 +1036,15 @@ full_group_kernel(DecoderWeights w, int B, int phases,
 }
 
 // What the row-group kernels take beyond the cluster size: their shared
-// memory fits a block, an owned row's dur units fit a block's threads, a
-// step's embeddings fit XI a thread, and w_slot's width (P + 2 + 4 DH) is
-// whole quads like the other widths (the wrapper checks TH, NH, DH, E, EH).
+// memory fits a block with at least one summary step hoisted, an owned
+// row's dur units fit a block's threads, a step's embeddings fit XB a
+// thread, a note's duration bits a byte, and w_slot's width (P + 2 + 4 DH)
+// is whole quads like the other widths (the wrapper checks TH, NH, DH, E,
+// EH).
 template <typename S>
 bool group_fits(const DecoderWeightsT<S>& w, const GLayout& L) {
-  return L.bytes <= DEC_MAX_SMEM && L.nro * w.DH <= NT &&
-         DG * w.E <= XI * NT && (w.P + 2) % 4 == 0;
+  return L.bytes <= GROUP_MAX_SMEM && L.Kc >= 1 && L.nro * w.DH <= NT &&
+         DG * w.E <= XB * NT && w.W <= WMAX && (w.P + 2) % 4 == 0;
 }
 
 template <typename S>

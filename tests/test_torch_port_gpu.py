@@ -980,8 +980,10 @@ def test_group_kernels_are_bit_identical_across_launches(cuda, kernel, B):
 
 
 def test_group_phases_alone_and_together(cuda):
-    """Each timing phase launches alone; the phases of a decode, launched
-    together, give the bits of the wrapper's launch."""
+    """Each timing phase launches alone; the summary phase alone is the
+    summary of that launch's own (zero) decisions and lengths, at both
+    cluster sizes; the phases of a decode, launched together, give the bits
+    of the wrapper's launch."""
     from pctd_tpu_torch.ops.kernels import build
 
     cfg, fw, h, sos, inputs = _group_case("canonical", 37, torch.float32, 3)
@@ -1001,10 +1003,38 @@ def test_group_phases_alone_and_together(cuda):
         build.launch(build.FULL_ENTRY[torch.float32], fw, dims, B,
                      [*inputs, grid], phases=bit)
     torch.cuda.synchronize()
+    for cluster in (8, 16):
+        alone = out()
+        build.launch(build.FRAME_ENTRY[torch.float32], fw, dims, B,
+                     [h, sos, *alone], phases=build.DECODE_PHASES["summary"],
+                     cluster=cluster)
+        pitch, bits, summ, lengths = alone
+        assert not pitch.any() and not bits.any()
+        assert (lengths == S).all()
+        want = ar_decoder.summary_plain(fw, spec, pitch, bits, sos, lengths)
+        assert (summ - want).abs().max().item() <= 1e-4
     together = out()
     build.launch(build.FRAME_ENTRY[torch.float32], fw, dims, B,
                  [h, sos, *together], phases=build.PHASES_ALL)
     for a, b in zip(together, ar_decoder.frame_decode(fw, spec, h, sos)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kernel", ["K3", "K3 bf16", "K4"])
+@pytest.mark.parametrize("cluster", [8, 16])
+def test_group_kernels_give_the_same_bits_twice(cuda, kernel, cluster):
+    """Two launches of K3 (f32, bf16) and K4 over 300 rows (two waves of
+    clusters of 8, three of 16; the last group padded) give the same bits:
+    every sum runs in a fixed order."""
+    dtype = torch.bfloat16 if kernel == "K3 bf16" else torch.float32
+    cfg, fw, h, sos, inputs = _group_case("canonical", 300, dtype, 11)
+    if kernel == "K4":
+        run = lambda: [full_decoder.decode_grid_full(
+            fw, cfg.pianotree, *inputs, cluster=cluster)]
+    else:
+        run = lambda: ar_decoder.frame_decode(fw, cfg.pianotree, h, sos,
+                                              cluster=cluster)
+    for a, b in zip(run(), run()):
         assert torch.equal(a, b)
 
 
