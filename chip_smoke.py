@@ -37,8 +37,8 @@ kernels alone and each of the two serial chains alone at B=128 and 512 in
 both storage types, the chains at each cluster size, and counts K2a's
 kernels in the profiled steps. The phase "timing" times the row-group K3
 (both storage types) and K4 queued behind a sleep kernel (the per-row
-kernels they replaced are timed from a checkout of the parent commit by
-``pctd_tpu_torch/tools/decode_by_rows.py``); the phase "K3/K4 by phase"
+kernels they replaced were timed by ``tools/decode_by_rows.py``, which
+``git show c1278ea`` recovers); the phase "K3/K4 by phase"
 times them whole and by phase at both cluster sizes. The phase "K1 by
 phase" times the row-group K1 whole (at both cluster sizes) and by phase
 at B=128 and 512 in both storage types and modes with every teacher coin
@@ -3910,8 +3910,8 @@ def main() -> int:
         h_b = h.to(BF16)
         sos_b = sos_probe_b[:1].expand(B, -1).contiguous()
         # the row-group kernels, each queued behind a sleep kernel, twice
-        # in turns (the per-row kernels they replaced are timed from the
-        # parent commit's checkout: pctd_tpu_torch/tools/decode_by_rows.py)
+        # in turns (the per-row kernels they replaced were timed by
+        # tools/decode_by_rows.py, which git show c1278ea recovers)
         new = {"K3": lambda: ar_decoder.frame_decode(fw, spec, h, sos),
                "K3 bf16": lambda: ar_decoder.frame_decode(fw_b, spec, h_b,
                                                           sos_b),

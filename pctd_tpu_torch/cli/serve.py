@@ -10,10 +10,11 @@ A request enters as MIDI and leaves as MIDI:
               -> grids -> notes -> MIDI file
 
 The process loads a checkpoint once, builds one
-``Sampler(fixed_batch=N)`` (every request is padded or chunked to N rows;
-through K4 a request's chunks share launches, as many a launch as the card
-decodes at once) and answers requests on stdin, one JSON object a line, on
-stdout:
+``Sampler(fixed_batch=N)`` (a request's rows go in N-row chunks, the last
+padded with zero rows; on the card each chunk's encode is one CUDA-graph
+replay, and through K4 a request's chunks share decode launches, as many a
+launch as the card decodes at once) and answers requests on stdin, one
+JSON object a line, on stdout:
 
     {"op": "ping"}
     {"op": "style_transfer", "content": "a.mid", "style": "b.mid",
@@ -223,9 +224,11 @@ def parser() -> argparse.ArgumentParser:
         formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--checkpoint", default=None)
     ap.add_argument("--fixed-batch", type=int, default=16,
-                    help="rows a chunk: requests are padded or chunked to "
-                         "it; through K4 the chunks of a request share "
-                         "launches up to what the card decodes at once")
+                    help="rows a chunk: a request's rows go in chunks of "
+                         "it, the last padded with zero rows; on the card a "
+                         "chunk's encode is one graph replay, and through "
+                         "K4 the chunks of a request share launches up to "
+                         "what the card decodes at once")
     ap.add_argument("--max-windows", type=int, default=64)
     ap.add_argument("--frame-decoder", default="auto",
                     choices=["auto", "xla", "pallas", "pallas_full"],

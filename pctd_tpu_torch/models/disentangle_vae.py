@@ -25,7 +25,7 @@ only.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -116,20 +116,25 @@ def decode_z(params: dict, cfg: ModelConfig, z_chd: torch.Tensor,
     params (Gaussian heads excluded) and z are cast to the compute dtype
     first, as the JAX ``decode_z`` does; bfloat16 decodes with
     ``frame_decoder="frame"`` only."""
+    return decode_z_chunks(params, cfg, [(z_chd, z_rhy)], frame_decoder,
+                           fw)[0][0]
+
+
+def decode_z_chunks(params: dict, cfg: ModelConfig,
+                    chunks: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+                    frame_decoder: str = "full", fw=None
+                    ) -> Tuple[List[torch.Tensor], int]:
+    """:func:`decode_z` of the equal-sized chunks of one request, each
+    given as its (z_chd, z_rhy) and cast as :func:`decode_z` casts it,
+    through
+    :func:`~pctd_tpu_torch.models.pianotree_decoder.decode_grid_chunks`:
+    each chunk's rows decode to the bits of a ``decode_z`` of their own.
+    Returns (each chunk's grid, the launches made)."""
     check_config(cfg, frame_decoder)
-    z = torch.cat([z_chd, z_rhy], dim=-1)
-    params, z = _apply_precision(params, cfg, z)
-    return pt_dec.decode_grid(params["dec"], cfg, z,
-                              frame_decoder=frame_decoder, fw=fw)
-
-
-def decode_z_inputs(params: dict, cfg: ModelConfig, z_chd: torch.Tensor,
-                    z_rhy: torch.Tensor) -> pt_dec.DecodeInputs:
-    """The argmax decode's z-derived inputs of latents, cast and computed
-    as :func:`decode_z` computes them before its decode kernel."""
-    z = torch.cat([z_chd, z_rhy], dim=-1)
-    params, z = _apply_precision(params, cfg, z)
-    return pt_dec.decode_inputs(params["dec"], cfg, z)
+    params, *zs = _apply_precision(
+        params, cfg, *(torch.cat(chunk, dim=-1) for chunk in chunks))
+    return pt_dec.decode_grid_chunks(params["dec"], cfg, zs,
+                                     frame_decoder=frame_decoder, fw=fw)
 
 
 def inference(params: dict, cfg: ModelConfig, pr_mat, c, sample: bool,

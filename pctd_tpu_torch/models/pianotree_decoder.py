@@ -311,22 +311,39 @@ def decode_grid(p: dict, cfg: ModelConfig, z: torch.Tensor,
     ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``
     off, which a bf16 ``Sampler`` sets.
     """
+    return decode_grid_chunks(p, cfg, [z], frame_decoder, fw)[0][0]
+
+
+def decode_grid_chunks(p: dict, cfg: ModelConfig, zs: List[torch.Tensor],
+                       frame_decoder: str = "full", fw=None
+                       ) -> Tuple[List[torch.Tensor], int]:
+    """:func:`decode_grid` of the equal-sized chunks ``zs`` of one
+    request, each chunk's inputs computed at its own shape, so that its
+    rows decode to the bits of a decode of their own. ``"full"`` decodes
+    them in
+    :func:`~pctd_tpu_torch.ops.kernels.full_decoder.decode_grid_full_chunks`,
+    which decides the chunks that share a K4 launch; ``"frame"`` runs each
+    chunk through the K3 frame loop, counted as one launch a chunk.
+    Returns (each chunk's grid, the launches made)."""
     check_config(cfg, frame_decoder)
     if fw is None:
         fw = ar_decoder.folded_frame_weights(p, cfg)
     spec = cfg.pianotree
-    inputs = decode_inputs(p, cfg, z)
     if frame_decoder == "full":
-        return full_decoder.decode_grid_full(fw, spec, *inputs)
-    h, gi_z, token, sos_emb = inputs
-    steps = []
-    for _ in range(spec.num_step):
-        h = gru_gates_pre(gi_z + token @ fw.wt_tok, h @ fw.wt_hh + fw.bt_hh,
-                          h)
-        pitch_idx, dur_bits, token, _ = ar_decoder.frame_decode(
-            fw, spec, h, sos_emb)
-        steps.append(torch.cat([pitch_idx[..., None], dur_bits], -1))
-    return torch.stack(steps, 1)
+        return full_decoder.decode_grid_full_chunks(
+            fw, spec, [decode_inputs(p, cfg, z) for z in zs])
+    grids = []
+    for z in zs:
+        h, gi_z, token, sos_emb = decode_inputs(p, cfg, z)
+        steps = []
+        for _ in range(spec.num_step):
+            h = gru_gates_pre(gi_z + token @ fw.wt_tok,
+                              h @ fw.wt_hh + fw.bt_hh, h)
+            pitch_idx, dur_bits, token, _ = ar_decoder.frame_decode(
+                fw, spec, h, sos_emb)
+            steps.append(torch.cat([pitch_idx[..., None], dur_bits], -1))
+        grids.append(torch.stack(steps, 1))
+    return grids, len(grids)
 
 
 #: per-bit weights of the weighted duration loss

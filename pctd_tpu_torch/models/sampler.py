@@ -1,17 +1,19 @@
 """Serving sampler (``pctd_tpu/models/sampler.py``): the four latent-control
 workflows over a fixed batch shape, with numpy results.
 
-``fixed_batch=N`` pads every encode/decode batch up to N rows (zeros) and
-slices the result back; larger requests run in N-row chunks. The decode
-launches the chosen kernel: ``frame_decoder="full"`` (K4, the default) or
-``"frame"`` (K3 per frame, time GRU in torch). On the K4 route the chunks
-of one decode share K4 launches, as many a launch as the card runs at once
-(``full_decoder.decode_grid_full_chunks``; each chunk's K4 inputs are
-still computed at the chunk's shape, so its rows decode to the bits of a
-launch of their own); on the K3 route each chunk is decoded alone.
-``decoded_chunks`` and ``decode_launches`` count, per Sampler, the chunks
-decoded (an unchunked decode is one) and the decode launches made for
-them (K4 launches; one a chunk on the K3 route), each once a device.
+A request's rows reach the kernels by one route (``Sampler._plan``):
+``fixed_batch=N`` cuts them into N-row chunks, the last one padded with
+zero rows, and the results are sliced back to the real rows; without it
+the request is one chunk of all its rows. The decode hands every chunk to
+``disentangle_vae.decode_z_chunks`` at once, which launches the chosen
+kernel: ``frame_decoder="full"`` (K4, the default) or ``"frame"`` (K3 per
+frame, time GRU in torch). On the K4 route the chunks of one decode share
+K4 launches, as many a launch as the card runs at once (each chunk's K4
+inputs are still computed at the chunk's shape, so its rows decode to the
+bits of a launch of their own); on the K3 route each chunk is decoded
+alone. ``decoded_chunks`` and ``decode_launches`` count, per Sampler, the
+chunks decoded (an unchunked decode is one) and the decode launches made
+for them (K4 launches; one a chunk on the K3 route), each once a device.
 
 On the card a fixed-batch encode replays a CUDA graph a chunk
 (:class:`EncodeGraph`): one chunk's ``disentangle_vae.encode`` at the
@@ -51,8 +53,9 @@ names take ``dt_x``.
 ``make_mesh()``) serves data-parallel, as the JAX Sampler's mesh does: the
 workflows have no cross-row dependency, so each encode and decode chunk's
 rows split evenly over the mesh's devices, each of which holds its own
-copy of the (folded) weights; every device's launches are issued before
-any result is read, and the results come back to the first device in row
+copy of the (folded) weights; a device's share of a chunk is its real
+rows, then zero rows; every device's launches are issued before any
+result is read, and the results come back to the first device in row
 order. There are no collectives. ``fixed_batch`` must then be a multiple
 of the device count (without it, every request's rows).
 """
@@ -67,7 +70,6 @@ import torch
 from pctd_tpu_torch.config import ModelConfig, check_config
 from pctd_tpu_torch.models import disentangle_vae as dv
 from pctd_tpu_torch.ops import DiagNormal
-from pctd_tpu_torch.ops.kernels import full_decoder
 from pctd_tpu_torch.ops.kernels.ar_decoder import folded_frame_weights
 from pctd_tpu_torch.utils import precision, trace
 from pctd_tpu_torch.utils.device import names_device, resolve_device
@@ -108,9 +110,18 @@ def _replays(device: torch.device) -> bool:
     return device.type == "cuda"
 
 
+def _padded(rows: torch.Tensor, width: int) -> torch.Tensor:
+    """``rows`` then zero rows up to ``width`` rows: a share as the kernels
+    take it."""
+    if rows.shape[0] == width:
+        return rows
+    return torch.cat([rows, rows.new_zeros((width - rows.shape[0],)
+                                           + rows.shape[1:])])
+
+
 def fill_rows(static: torch.Tensor, rows: torch.Tensor) -> None:
     """Write ``rows`` over the first rows of ``static`` and zeros over the
-    rest: in place, the zero-padded chunk that ``Sampler._chunks`` makes."""
+    rest: in place, what :func:`_padded` makes."""
     k = rows.shape[0]
     static[:k].copy_(rows)
     if k < static.shape[0]:
@@ -220,128 +231,78 @@ class Sampler:
             a = torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
         return a.to(self.device, torch.float32)
 
-    def _split(self, fn, arrays):
-        """``fn(params, folds, *rows)`` of each device's even share of the
-        arrays' rows, launched on every device before any result is read;
-        the results on the first device, in row order."""
-        if len(self.devices) == 1:
-            return fn(*self._replicas[0], *arrays)
-        n = arrays[0].shape[0] // len(self.devices)
-        outs = []
-        for i, (device, replica) in enumerate(zip(self.devices,
-                                                  self._replicas)):
-            with _on(device):
-                outs.append(fn(*replica, *(a[i * n:(i + 1) * n].to(device)
-                                           for a in arrays)))
-        return _concat([_map(lambda t: t.to(self.device), o) for o in outs])
-
-    def _chunks(self, arrays):
-        """(real rows, chunk) of each fixed_batch-row chunk of the arrays
-        (axis 0), the last one zero-padded."""
-        n, fb = arrays[0].shape[0], self.fixed_batch
-        for lo in range(0, n, fb):
-            take = min(fb, n - lo)
-            yield take, [a[lo:lo + take] if take == fb else torch.cat(
-                [a[lo:lo + take], a.new_zeros((fb - take,) + a.shape[1:])])
-                for a in arrays]
-
-    def _chunked(self, fn, *arrays):
-        """Run ``fn(params, folds, *rows)`` over fixed_batch-row zero-padded
-        chunks of the arrays (axis 0), each chunk split over the devices,
-        and concatenate the un-padded results."""
-        n = arrays[0].shape[0]
+    def _plan(self, n: int):
+        """How a request of ``n`` rows reaches the kernels: (``share``,
+        [(``take``, ``slices``) for each chunk]). A chunk is
+        ``fixed_batch`` rows (one chunk of all ``n`` rows without it) of
+        which ``take`` are real; ``slices[i]`` are the request's rows in
+        device ``i``'s share of it, which the kernels take as ``share``
+        rows: those rows, then zero rows (:func:`_padded`, or
+        :func:`fill_rows` in place)."""
         if n == 0:
             raise ValueError("empty batch")
-        if self.fixed_batch is None:
+        width = self.fixed_batch
+        if width is None:
             if n % len(self.devices):
                 raise ValueError(f"batch {n} not divisible by the mesh's "
                                  f"{len(self.devices)} devices")
-            return self._split(fn, arrays)
-        return _concat([_map(lambda t: t[:take], self._split(fn, chunk))
-                        for take, chunk in self._chunks(arrays)])
+            width = n
+        share = width // len(self.devices)
+        chunks = []
+        for lo in range(0, n, width):
+            end = min(lo + width, n)
+            chunks.append((end - lo, [
+                slice(min(lo + i * share, end), min(lo + (i + 1) * share, end))
+                for i in range(len(self.devices))]))
+        return share, chunks
 
-    def _decode_shared(self, z_chd, z_rhy) -> torch.Tensor:
-        """The K4 decode of more than one fixed-batch chunk: on each device
-        the K4 inputs of its share of every chunk, each at the share's
-        shape as ``decode_z`` computes them, then K4 over those chunks in
-        shared launches; the grids in row order on the first device."""
-        chunks = list(self._chunks([z_chd, z_rhy]))
-        share = self.fixed_batch // len(self.devices)
-        grids = []
-        for i, (device, (params, fw)) in enumerate(zip(self.devices,
-                                                       self._replicas)):
-            with _on(device):
-                inputs = [dv.decode_z_inputs(params, self.cfg, *(
-                    a[i * share:(i + 1) * share].to(device) for a in chunk))
-                    for _, chunk in chunks]
-                got, launches = full_decoder.decode_grid_full_chunks(
-                    fw, self.cfg.pianotree, inputs)
-            grids.append(got)
-            self.decode_launches += launches
-        self.decoded_chunks += len(chunks) * len(self.devices)
-        return torch.cat([torch.cat([g[j].to(self.device) for g in grids])
-                          [:take] for j, (take, _) in enumerate(chunks)])
-
-    def _graph(self, i: int, arrays) -> EncodeGraph:
-        """Device ``i``'s encode graph of its share of a chunk of the
-        arrays' row shapes, captured at its first use."""
-        key = (i,) + tuple(tuple(a.shape[1:]) for a in arrays)
+    def _replay(self, i: int, rows, share: int):
+        """Device ``i``'s encode of its real ``rows`` of a chunk in one
+        replay of its graph of the rows' shapes, captured at its first use:
+        the rows written into the graph's inputs over zero padding, and the
+        posteriors taken as new tensors before the graph runs again."""
+        key = (i,) + tuple(tuple(x.shape[1:]) for x in rows)
         if key not in self._graphs:
             params, _ = self._replicas[i]
-            share = self.fixed_batch // len(self.devices)
-            with _on(self.devices[i]):
-                graph = EncodeGraph(
-                    lambda *rows: dv.encode(params, self.cfg, *rows),
-                    [(share,) + k for k in key[1:]], self.devices[i],
-                    self._pool)
+            graph = EncodeGraph(
+                lambda *rows: dv.encode(params, self.cfg, *rows),
+                [(share,) + k for k in key[1:]], self.devices[i], self._pool)
             self._graphs[key], self._pool = graph, graph.pool
-        return self._graphs[key]
-
-    def _encode_replayed(self, arrays):
-        """``encode`` a fixed_batch-row chunk at a time, each device's
-        share of a chunk a graph replay: the chunk's real rows written into
-        the graph's inputs over zero padding, every device's replay launched
-        before any result is read, and the posteriors of the real rows
-        taken as new tensors before the graph runs again."""
-        n, fb = arrays[0].shape[0], self.fixed_batch
-        if n == 0:
-            raise ValueError("empty batch")
-        share = fb // len(self.devices)
-        outs = []
-        for lo in range(0, n, fb):
-            take = min(fb, n - lo)
-            parts = []
-            for i, device in enumerate(self.devices):
-                graph = self._graph(i, arrays)
-                a, b = lo + i * share, lo + min(take, (i + 1) * share)
-                with _on(device):
-                    for static, array in zip(graph.inputs, arrays):
-                        fill_rows(static, array[a:b])
-                    graph.replay()
-                    parts.append(_map(torch.clone, graph.outputs))
-            self.encoded_chunks += len(self.devices)
-            self.encode_replays += len(self.devices)
-            outs.append(_map(lambda t: t[:take], _concat(
-                [_map(lambda t: t.to(self.device), p) for p in parts])))
-        return _concat(outs)
+        graph = self._graphs[key]
+        for static, x in zip(graph.inputs, rows):
+            fill_rows(static, x)
+        graph.replay()
+        return _map(torch.clone, graph.outputs)
 
     def encode(self, pr_mat, c, dt_x=None):
         """(B, T, 128) duration matrices, (B, T/4, 36) chords and, for the
         pianotree texture encoder, the (B, 32, 16, 39) detrended grids ->
-        (chord, texture) posteriors on the device."""
+        (chord, texture) posteriors on the device. Each device's share of
+        a chunk is one graph replay on the card with a fixed batch, else
+        ``disentangle_vae.encode`` op by op on the zero-padded share; every
+        device's share of a chunk is launched before any result is read."""
         with trace.span("sampler.encode"):
             arrays = [self._tensor(pr_mat), self._tensor(c)]
             if dt_x is not None:
                 arrays.append(self._tensor(dt_x))
-            fb = self.fixed_batch
-            if fb is not None and _replays(self.device):
-                return self._encode_replayed(arrays)
-            out = self._chunked(
-                lambda params, fw, pm, cc, *dd: dv.encode(
-                    params, self.cfg, pm, cc, *dd), *arrays)
-            chunks = 1 if fb is None else -(-arrays[0].shape[0] // fb)
-            self.encoded_chunks += chunks * len(self.devices)
-            return out
+            share, chunks = self._plan(arrays[0].shape[0])
+            outs = []
+            for take, slices in chunks:
+                parts = []
+                for i, (device, part) in enumerate(zip(self.devices, slices)):
+                    rows = [a[part] for a in arrays]
+                    replay = self.fixed_batch is not None and _replays(device)
+                    with _on(device):
+                        parts.append(self._replay(i, rows, share) if replay
+                                     else dv.encode(
+                                         self._replicas[i][0], self.cfg,
+                                         *(_padded(x, share).to(device)
+                                           for x in rows)))
+                    self.encoded_chunks += 1
+                    self.encode_replays += replay
+                outs.append(_map(lambda t: t[:take], _concat(
+                    [_map(lambda t: t.to(self.device), p) for p in parts])))
+            return _concat(outs)
 
     def _encode_request(self, workflow: str, pr_mat, c):
         """``encode`` for a workflow, which takes no detrended grid."""
@@ -354,19 +315,25 @@ class Sampler:
         return self.encode(pr_mat, c)
 
     def decode(self, z_chd, z_rhy) -> np.ndarray:
-        """Latents -> estimated grids (B, T, K-1, 6) int32, as numpy."""
+        """Latents -> estimated grids (B, T, K-1, 6) int32, as numpy: each
+        device's zero-padded shares of every chunk in one
+        ``disentangle_vae.decode_z_chunks``, which picks the launches."""
         with trace.span("sampler.decode"):
             zs = self._tensor(z_chd), self._tensor(z_rhy)
-            fb, n = self.fixed_batch, zs[0].shape[0]
-            if self.frame_decoder == "full" and fb is not None and n > fb:
-                return self._decode_shared(*zs).cpu().numpy()
-            grid = self._chunked(
-                lambda params, fw, zc, zr: dv.decode_z(
-                    params, self.cfg, zc, zr, self.frame_decoder, fw), *zs)
-            chunks = 1 if fb is None else -(-n // fb)
-            self.decoded_chunks += chunks * len(self.devices)
-            self.decode_launches += chunks * len(self.devices)
-            return grid.cpu().numpy()
+            share, chunks = self._plan(zs[0].shape[0])
+            grids = []
+            for i, (device, (params, fw)) in enumerate(zip(self.devices,
+                                                           self._replicas)):
+                with _on(device):
+                    got, launches = dv.decode_z_chunks(params, self.cfg, [
+                        [_padded(z[slices[i]], share).to(device) for z in zs]
+                        for _, slices in chunks], self.frame_decoder, fw)
+                grids.append(got)
+                self.decoded_chunks += len(chunks)
+                self.decode_launches += launches
+            return _concat([
+                _concat([g[j].to(self.device) for g in grids])[:take]
+                for j, (take, _) in enumerate(chunks)]).cpu().numpy()
 
     def reconstruct(self, pr_mat, c, sample: bool = False,
                     generator: Optional[torch.Generator] = None

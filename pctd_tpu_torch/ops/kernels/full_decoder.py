@@ -15,12 +15,12 @@ decode in float32 only: the JAX kernel has no bf16 mode (its ``fori_loop``
 carry enters in bf16 and leaves in f32, so ``decode_grid_fused`` raises on
 bf16 params).
 
-A request decoded in fixed-batch chunks takes
-:func:`decode_grid_full_chunks`: consecutive chunks share one launch, as
-many as the card runs at once in clusters of 16 blocks
-(:func:`groups_at_once`, :func:`launch_runs`), each chunk's rows on whole
-row groups of their own, so every row is decoded as in a launch of its
-chunk alone.
+A request's decode takes :func:`decode_grid_full_chunks`: one chunk is
+launched alone, on its own tensors; of several fixed-batch chunks,
+consecutive chunks share one launch, as many as the card runs at once in
+clusters of 16 blocks (:func:`groups_at_once`, :func:`launch_runs`), each
+chunk's rows on whole row groups of their own, so every row is decoded as
+in a launch of its chunk alone.
 """
 from __future__ import annotations
 
@@ -121,13 +121,15 @@ def decode_grid_full_chunks(fw: FoldedWeights, spec: PianoTreeSpec,
                             ) -> Tuple[List[torch.Tensor], int]:
     """K4 over the equal-sized chunks of one request, each given as its
     decode inputs (``h0``, ``gi_z``, ``token0``, ``sos_emb``, computed at
-    the chunk's shape): consecutive chunks share a launch
-    (:func:`launch_runs` with :func:`groups_at_once`), each padded with
-    zero rows to whole 16-row groups on the card, so that a row takes the
-    group position and cluster size it takes in its chunk's own launch
-    (16 where the chunks fit the card at once; a chunk wider than that is
-    launched alone), and its bits with them. Returns (each chunk's grid,
-    the launches made)."""
+    the chunk's shape). One chunk is launched on its own tensors. Of more,
+    consecutive chunks share a launch (:func:`launch_runs` with
+    :func:`groups_at_once`), each padded with zero rows to whole 16-row
+    groups on the card, so that a row takes the group position and cluster
+    size it takes in its chunk's own launch (16 where the chunks fit the
+    card at once; a chunk wider than that is launched alone), and its bits
+    with them. Returns (each chunk's grid, the launches made)."""
+    if len(chunks) == 1:
+        return [decode_grid_full(fw, spec, *chunks[0])], 1
     rows = chunks[0][0].shape[0]
     cap = groups_at_once(fw, spec, chunks[0][0].device)
     if cap is None:

@@ -1620,9 +1620,10 @@ def test_encode_replays_give_the_bits_of_the_op_by_op_encode(
     got = _posteriors(s.encode(*inputs))
     got2 = _posteriors(s.encode(*others))
     for ins, out in ((arrays, got), (others, got2)):
-        chunks = list(s._chunks(ins))
-        want = [_posteriors(dv.encode(s.params, cfg, *chunk))
-                for _, chunk in chunks]
+        share, chunks = s._plan(len(ins[0]))
+        want = [_posteriors(dv.encode(s.params, cfg, *(
+            sampler_mod._padded(a[part], share) for a in ins)))
+            for _, (part,) in chunks]
         for i, col in enumerate(zip(*want)):
             assert torch.equal(out[i], torch.cat(
                 [w[:take] for w, (take, _) in zip(col, chunks)])), i

@@ -168,14 +168,17 @@ def test_unchunked_and_k3_route_count_a_launch_a_chunk(weights):
             c + 1 for c in counts)
 
 
-@pytest.mark.parametrize("fb,n,rows", [(4, 9, [32, 16]), (24, 30, [32, 32])])
+@pytest.mark.parametrize("fb,n,rows", [(4, 9, [32, 16]), (24, 30, [32, 32]),
+                                       (24, 20, [24]), (None, 30, [30])])
 def test_shared_launches_pad_each_chunk_to_whole_groups(weights,
                                                         monkeypatch, fb, n,
                                                         rows):
     """With a card's cap (here 2 groups, by hand), a chunk of a size that is
     not a multiple of 16 takes whole 16-row groups of its own in a shared
     launch: 9 rows at fixed batch 4 launch 32 and 16 rows, 30 at 24 (two
-    chunks of two groups each, over the cap together) launch twice."""
+    chunks of two groups each, over the cap together) launch twice. A
+    decode of one chunk launches on the chunk's own rows, unpadded: 20
+    rows at 24 launch 24, an unchunked 30 launch 30."""
     _, tp = weights
     monkeypatch.setattr(full_decoder, "groups_at_once", lambda *a: 2)
     launched = []
@@ -215,9 +218,10 @@ def _posteriors(out):
 def _op_by_op(s, pr, c):
     """What ``encode`` computes: ``disentangle_vae.encode`` of each
     zero-padded fixed-batch chunk, its real rows kept."""
-    chunks = list(s._chunks([t(pr), t(c)]))
-    outs = [_posteriors(tdv.encode(s.params, TINY, *chunk))
-            for _, chunk in chunks]
+    share, chunks = s._plan(len(pr))
+    outs = [_posteriors(tdv.encode(s.params, TINY, *(
+        sampler_mod._padded(a[part], share) for a in (t(pr), t(c)))))
+        for _, (part,) in chunks]
     return [torch.cat([o[:take] for o, (take, _) in zip(col, chunks)])
             for col in zip(*outs)]
 
@@ -250,22 +254,21 @@ def test_encoded_chunks_count_as_decoded_chunks(weights, fb, n, chunks):
 @pytest.mark.parametrize("take", [1, 3, 4])
 def test_fill_rows_pads_as_chunks_does(weights, take):
     """A graph's static inputs, whatever they held, filled with a chunk's
-    real rows equal the zero-padded chunk that ``_chunks`` builds."""
+    real rows equal the zero-padded chunk that ``_padded`` builds."""
     _, tp = weights
     g = torch.Generator().manual_seed(take)
     arrays = [torch.rand((4 + take,) + shape, generator=g)
               for shape in ((32, 128), (8, 36), (32, 16, 39))]
     s = Sampler(tp, TINY, fixed_batch=4, device="cpu")
-    (_, first), (got_take, last) = s._chunks(arrays)
-    assert got_take == take
-    for rows, chunk in zip(arrays, last):
-        static = torch.full_like(chunk, float("nan"))
-        sampler_mod.fill_rows(static, rows[4:])
-        assert torch.equal(static, chunk)
-    for rows, chunk in zip(arrays, first):
-        static = torch.full_like(chunk, float("nan"))
-        sampler_mod.fill_rows(static, rows[:4])
-        assert torch.equal(static, chunk)
+    share, ((_, (first,)), (got_take, (last,))) = s._plan(4 + take)
+    assert (share, got_take) == (4, take)
+    for a in arrays:
+        for rows in (last, first):
+            chunk = sampler_mod._padded(a[rows], share)
+            assert chunk.shape == (4,) + a.shape[1:]
+            static = torch.full_like(chunk, float("nan"))
+            sampler_mod.fill_rows(static, a[rows])
+            assert torch.equal(static, chunk)
 
 
 class _OpByOpGraph:
