@@ -3,8 +3,11 @@ CUDA card.
 
     python3 chip_smoke.py [--seed N]
 
-Builds the CUDA kernels from the sources in this checkout and holds each
-against its plain PyTorch version on the card: the decode kernels K3 and
+Builds the CUDA kernels from the sources in this checkout and, while the
+card holds nothing else, runs the conv model's train step graph at the
+committed step envelope's batch through a train epoch, an eval epoch and
+a train epoch again (phase "step graph at the envelope"). It holds each
+kernel against its plain PyTorch version on the card: the decode kernels K3 and
 K4 (row groups in thread-block clusters, at B = 1, 37, 128 and 512 in
 clusters of 8 and of 16, the same bits over two launches), the
 train-frame forward K1 (row groups in thread-block clusters, its chain
@@ -32,10 +35,11 @@ against an f64 reference (f32) and against ``wgrad_plain`` in bf16 ulps
 (bf16), each gate beside a control that it must refuse, and across two
 launches (the same bits), measures the mma.sync issue rates that bound it,
 and times an f32 train step with K2b and one with ``wgrad_plain`` in its
-place, in turns. The phase "K2a by phase" times K2a, each of its three
-kernels alone and each of the two serial chains alone at B=128 and 512 in
-both storage types, the chains at each cluster size, and counts K2a's
-kernels in the profiled steps. The phase "timing" times the row-group K3
+place, both eager, in turns beside the main path's step (a replay). The
+phase "K2a by phase" times K2a, each of its three kernels alone and each
+of the two serial chains alone at B=128 and 512 in both storage types,
+the chains at each cluster size, and counts K2a's kernels in the profiled
+steps. The phase "timing" times the row-group K3
 (both storage types) and K4 queued behind a sleep kernel (the per-row
 kernels they replaced were timed by ``tools/decode_by_rows.py``, which
 ``git show c1278ea`` recovers); the phase "K3/K4 by phase"
@@ -46,8 +50,10 @@ at B=128 and 512 in both storage types and modes with every teacher coin
 given ``--parent-k1`` (the JSON line of ``tools/k1_by_rows.py`` run on a
 checkout of the per-row K1), prints the per-row times beside. The
 training run: the train CLI (``pctd_tpu_torch.cli.train``) in this process
-for two epochs of 9 steps at B=128 on 8 synthetic songs (launch counts,
-epoch lines, checkpoints, ``metrics.csv`` rows, a profile trace), a run
+for two epochs of 9 steps at B=128 on 8 synthetic songs (launch counts:
+the wrappers count the steps whose Python ran, the eager first step and
+the step graph's captures, and the profiled steps count a replay's kernels
+on the device timeline against an eager step's; epoch lines, checkpoints, ``metrics.csv`` rows, a profile trace), a run
 resumed from a checkpoint against two uninterrupted runs (the same bits),
 the evaluate CLI on the run's checkpoint against the plain frames, the
 pianotree texture encoder (its detrend on the card against the numpy copy,
@@ -847,9 +853,35 @@ def profile_call(fn, what: str) -> dict:
 
 
 def profile_step(trainer) -> dict:
-    """:func:`profile_call` of one train step."""
+    """:func:`profile_call` of one train step, a replay of the trainer's
+    step graph, with an eager step (:func:`eager_step_ms`) on the same
+    batch profiled beside it under "eager". A replay runs the kernels its
+    capture launched and no wrapper counts them, so they are counted here,
+    on the device timeline: K1, K2a and K2b the same in the two steps, and
+    the eager step's wrappers count T launches of each."""
+    wrappers = (tf.frame_fwd, tf.frame_core_fwd, tf.frame_bwd,
+                tf.frame_core_bwd, tf.weight_grads)
+    T = trainer.mcfg.pianotree.num_step
     batch = next(trainer.batches())
-    return profile_call(lambda: trainer.train_step(batch), "step")
+    replays = trainer.step_replays
+    out = profile_call(lambda: trainer.train_step(batch), "step (a replay)")
+    check(trainer.step_replays == replays + 1,
+          "the profiled step is not a replay")
+    before = [f.launches for f in wrappers]
+    out["eager"] = profile_call(lambda: eager_step_ms(trainer, batch),
+                                "eager step")
+    counted = sorted(f.launches - n for f, n in zip(wrappers, before))
+    check(counted == [0, 0, T, T, T],
+          f"the eager step's wrappers counted {counted}")
+    if out["measured"] and out["eager"]["measured"]:
+        got, want = ({k: p["kernel_count"].get(k, 0)
+                      for k in ("K1", "K2a", "K2b")}
+                     for p in (out, out["eager"]))
+        print(f"  frame kernels on the device timeline: replay {got}, "
+              f"eager step {want}")
+        check(got == want and min(got.values()) >= T,
+              f"a replay's frame kernels {got}, an eager step's {want}")
+    return out
 
 
 def eos_variant(params, cfg, fw_of, h, sos):
@@ -985,6 +1017,44 @@ def plain_wgrad():
         yield
     finally:
         tf.weight_grads = kernel_route
+
+
+def python_steps(trainer) -> int:
+    """Steps of ``trainer`` whose Python ran, so that the kernel wrappers
+    counted their launches: the eager steps and the step graph's captures.
+    A replay runs the captured kernels and no wrapper (:func:`profile_step`
+    counts them on the device timeline)."""
+    return trainer.step_count - trainer.step_replays + trainer.step_captures
+
+
+@contextlib.contextmanager
+def made_trainers():
+    """The Trainers made inside the block, in a list (a CLI run's)."""
+    made, init = [], tr.Trainer.__init__
+
+    def recording(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        made.append(self)
+
+    tr.Trainer.__init__ = recording
+    try:
+        yield made
+    finally:
+        tr.Trainer.__init__ = init
+
+
+def eager_step_ms(trainer, batch) -> float:
+    """ms of one train step of ``trainer`` run eagerly, through the function
+    its step graph captures (``Trainer._run``), so that a context that swaps
+    a kernel route (:func:`plain_wgrad`) reaches it: a replay runs the
+    captured kernels whatever the routes are."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer._run(*trainer._to_device(batch),
+                 trainer._scalars().to(trainer.device))
+    trainer.step_count += 1
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
 
 
 @contextlib.contextmanager
@@ -1207,7 +1277,9 @@ def captured(fn):
 def step_footprint(trainer, batch) -> int:
     """Bytes one train step needs: the trainer's params and Adam moments
     plus the peak allocation the step adds (torch.cuda.
-    max_memory_allocated), so tensors of other phases do not count."""
+    max_memory_allocated), so tensors of other phases do not count. After
+    one step, the step is the step graph's capture and first replay; the
+    graph keeps that memory as its own."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
@@ -1282,19 +1354,29 @@ def training_run_phases(args, cfg, dev, counted, step_ms: float, tmp: str
             str(RUN_LOG_EVERY), "--profile", "1", "--result-dir", tmp]
     print(f"  python -m pctd_tpu_torch.cli.train {' '.join(argv)}")
     reset()
-    result, text = captured(lambda: cli_train.main(argv))
+    with made_trainers() as made:
+        result, text = captured(lambda: cli_train.main(argv))
     torch.cuda.synchronize()
     got, others = launches_of(fused_k)
     steps = RUN_EPOCHS * RUN_STEPS
-    print(f"  launches in {RUN_EPOCHS} epochs ({steps} steps, "
-          f"{RUN_EPOCHS} eval batches): {got}; other frame and decode "
-          f"kernels {others}")
+    run_t, = made
+    py = python_steps(run_t)
+    print(f"  launches in {RUN_EPOCHS} epochs ({steps} steps, {py} of them "
+          f"run by Python, {run_t.step_captures} captures, "
+          f"{run_t.step_replays} replays; {RUN_EPOCHS} eval batches): "
+          f"{got}; other frame and decode kernels {others}")
+    # an eval lets the step graph go: one capture an epoch
+    check((run_t.step_captures, run_t.step_replays, py)
+          == (RUN_EPOCHS, steps - 1, RUN_EPOCHS + 1),
+          f"training-run captures {run_t.step_captures}, replays "
+          f"{run_t.step_replays}")
     check(f"corpus: 105 train / 15 val segments (synthetic, {RUN_SONGS} "
           "songs)" in text, "the CLI's corpus line")
     for e in range(1, RUN_EPOCHS + 1):
         check(f"Epoch: {e:02} |" in text, f"epoch line {e}")
-    check(got == {"K1": T * (steps + RUN_EPOCHS), "K2a": T * steps,
-                  "K2b": T * steps}, f"training-run launches {got}")
+    check(got == {"K1": T * (py + RUN_EPOCHS), "K2a": T * py,
+                  "K2b": T * py}, f"training-run launches {got}")
+    del run_t, made
     check(not any(others.values()),
           f"the training run launched another kernel: {others}")
     val_loss = result["val"]["loss"]
@@ -1448,7 +1530,7 @@ def training_run_phases(args, cfg, dev, counted, step_ms: float, tmp: str
     fx = tr.batch_features(*pt._to_device(first), cfg_pt)
     with plain_frames():
         ref_m, ref_g = tr.loss_and_grads(
-            pt.params, cfg_pt, tcfg, 0,
+            pt.params, cfg_pt, tcfg, schedules.train_params_at(0, tcfg),
             torch.Generator(device=dev).manual_seed(tcfg.seed), *fx[:3],
             1, fx[3])
     ref_m = {k: v.item() for k, v in ref_m.items()}
@@ -1459,11 +1541,11 @@ def training_run_phases(args, cfg, dev, counted, step_ms: float, tmp: str
     pt_val_m = pt.eval_epoch()
     torch.cuda.synchronize()
     got, others = launches_of(fused_k)
-    n_val = len(pt_val)
-    print(f"  launches in {PT_STEPS} pianotree train steps + {n_val} eval "
-          f"batch(es): {got}; other kernels {others}")
-    check(got == {"K1": T * (PT_STEPS + n_val), "K2a": T * PT_STEPS,
-                  "K2b": T * PT_STEPS}, f"pianotree launches {got}")
+    n_val, py = len(pt_val), python_steps(pt)
+    print(f"  launches in {PT_STEPS} pianotree train steps ({py} run by "
+          f"Python) + {n_val} eval batch(es): {got}; other kernels {others}")
+    check(got == {"K1": T * (py + n_val), "K2a": T * py, "K2b": T * py},
+          f"pianotree launches {got}")
     check(not any(others.values()),
           f"the pianotree path launched another kernel: {others}")
     for i, m in enumerate(pt.history):
@@ -1484,7 +1566,7 @@ def training_run_phases(args, cfg, dev, counted, step_ms: float, tmp: str
     check(pt_norm_err <= NORM_RTOL,
           f"pianotree step 1 grad norm rel err {pt_norm_err}")
     pt_step_ms = float(np.median(pt.step_seconds[1:])) * 1e3
-    pt_prof = profile_call(lambda: pt.train_step(first), "pianotree step")
+    pt_prof = profile_step(pt)
     leaves = tr.param_list(pt.params["txt_enc"])
 
     def encoder_fwd_bwd():
@@ -1522,6 +1604,46 @@ def training_run_phases(args, cfg, dev, counted, step_ms: float, tmp: str
     out["envelope"] = {"card_bytes": total, **envelopes}
     phase("auto accumulation", t0)
     return out, run_dir
+
+
+def envelope_epochs(cfg, seed: int, dev) -> dict:
+    """An f32 Trainer of ``cfg`` at its committed step envelope's batch B:
+    a train epoch of three steps (the step graph's eager warm-up, its
+    capture and a replay), an eval epoch of one batch of B, which has the
+    step's memory once the graph lets it go, and a second train epoch (a
+    capture and two replays). Fails if one runs out of memory; returns the
+    allocator's peak and the reserved bytes of each."""
+    B = tr.step_envelope(cfg)
+    val_c = segments(np.random.RandomState(seed), B)
+    n = -(-3 * B // 12)             # three steps over the 12 shifts
+    train_c = SegmentCorpus(val_c.pr[:n], val_c.chord[:n])
+    train_b, val_b = make_loaders(train_c, val_c, B, seed=seed)
+    t = tr.Trainer(cfg, TrainConfig(batch_size=B, seed=seed), train_b, val_b,
+                   device=dev)
+    out = {"batch": B, "accum": t.accum}
+    for what, run in (("train", t.train_epoch), ("eval", t.eval_epoch),
+                      ("train again", t.train_epoch)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        s0 = time.perf_counter()
+        m = run()
+        torch.cuda.synchronize()
+        out[what] = {"s": time.perf_counter() - s0,
+                     "peak_bytes": torch.cuda.max_memory_allocated(),
+                     "reserved_bytes": torch.cuda.memory_reserved(),
+                     "loss": m["loss"]}
+        print(f"  B={B} {what}: {out[what]['s']:.2f} s, loss "
+              f"{m['loss']:.6f}, peak allocated "
+              f"{out[what]['peak_bytes'] / 2**30:.2f} GiB, reserved "
+              f"{out[what]['reserved_bytes'] / 2**30:.2f} GiB")
+        check(np.isfinite(m["loss"]), f"B={B} {what}: loss {m['loss']}")
+    out.update(captures=t.step_captures, replays=t.step_replays)
+    check((t.accum, t.step_captures, t.step_replays) == (1, 2, 5),
+          f"at the envelope: accumulation {t.accum}, captures "
+          f"{t.step_captures}, replays {t.step_replays}")
+    del t
+    torch.cuda.empty_cache()
+    return out
 
 
 def daemon_inputs(seed: int, tmp: str) -> dict:
@@ -2159,14 +2281,12 @@ def stretch_training_phase(args, dev, counted) -> dict:
         feats = tr.batch_features(*trainer._to_device(first), cfg_r)[:3]
         fwd, bwd = ((tf.frame_fwd, tf.frame_bwd) if cfg_r.fused_loss
                     else (tf.frame_core_fwd, tf.frame_core_bwd))
-        want = {fwd.__name__: T * (steps + (name == "f32 fused")
-                                   * len(val_b)),
-                bwd.__name__: T * steps, tf.weight_grads.__name__: T * steps}
         ref = None
         if name == "f32 fused":
             with plain_frames():
-                ref_m, ref_g = tr.loss_and_grads(trainer.params, cfg_r, tcfg,
-                                                 0, step_gen(), *feats)
+                ref_m, ref_g = tr.loss_and_grads(
+                    trainer.params, cfg_r, tcfg,
+                    schedules.train_params_at(0, tcfg), step_gen(), *feats)
             ref = ({k: v.item() for k, v in ref_m.items()},
                    global_norm(ref_g).item())
             del ref_g
@@ -2179,8 +2299,10 @@ def stretch_training_phase(args, dev, counted) -> dict:
         if name == "f32 fused":
             trainer.eval_epoch()
         torch.cuda.synchronize()
-        got = counts(counted)
-        print(f"  {name}: launches in {steps} steps"
+        got, py = counts(counted), python_steps(trainer)
+        want = {fwd.__name__: T * (py + (name == "f32 fused") * len(val_b)),
+                bwd.__name__: T * py, tf.weight_grads.__name__: T * py}
+        print(f"  {name}: launches in {steps} steps ({py} run by Python)"
               f"{' + an eval batch' if name == 'f32 fused' else ''}: {got}")
         check(got == dict({k: 0 for k in got}, **want),
               f"stretch {name} launches {got}, expected {want}")
@@ -2650,8 +2772,9 @@ def data_parallel_phase(args, cfg, dev, counted, tmp: str) -> dict:
     ref_leaves = trainable(ref_p)
     x, c, pr_mat, _ = tr.batch_features(
         *(torch.as_tensor(a, device=dev) for a in batch), cfg)
-    ref_m, ref_g = tr.loss_and_grads(ref_p, cfg, tcfg, 0, None, x, c,
-                                     pr_mat, noise=noise)
+    ref_m, ref_g = tr.loss_and_grads(ref_p, cfg, tcfg,
+                                     schedules.train_params_at(0, tcfg),
+                                     None, x, c, pr_mat, noise=noise)
     ref_m = tr.stacked(ref_m).detach()
     ref_g = [g.detach().clone() for g in ref_g]
     ref_norm = Adam(ref_leaves, tcfg).step(ref_g)
@@ -2962,6 +3085,12 @@ def main() -> int:
           "their 6 instances (K3: 2 cluster sizes x 2 storage types; K4: 2 "
           "cluster sizes) in the build report")
     phase("build", t0)
+
+    # 2b. the step graph at the conv step envelope, while the card holds
+    # nothing else: a train epoch, an eval epoch, a train epoch again
+    t0 = time.perf_counter()
+    graph_at_envelope = envelope_epochs(cfg, args.seed, dev)
+    phase("step graph at the envelope", t0)
 
     # 3. weights
     t0 = time.perf_counter()
@@ -3629,7 +3758,7 @@ def main() -> int:
     k1_before = tf.frame_fwd.launches
     with plain_frames():
         ref_m, ref_g = tr.loss_and_grads(
-            trainer.params, cfg, tcfg, 0,
+            trainer.params, cfg, tcfg, schedules.train_params_at(0, tcfg),
             torch.Generator(device=dev).manual_seed(tcfg.seed), x, c, pr_mat)
     check(tf.frame_fwd.launches == k1_before,
           "the plain reference step launched K1")
@@ -3645,13 +3774,17 @@ def main() -> int:
     train_launches = {"K1": tf.frame_fwd.launches,
                       "K2a": tf.frame_bwd.launches,
                       "K2b": tf.weight_grads.launches}
-    n_val = len(val_b)
-    print(f"  launches in {TRAIN_STEPS} train steps + {n_val} eval "
-          f"batch(es): {train_launches}")
+    n_val, py = len(val_b), python_steps(trainer)
+    print(f"  launches in {TRAIN_STEPS} train steps ({py} run by Python: "
+          f"{trainer.step_captures} capture, {trainer.step_replays} "
+          f"replays) + {n_val} eval batch(es): {train_launches}")
     T = spec.num_step
-    check(train_launches == {"K1": T * (TRAIN_STEPS + n_val),
-                             "K2a": T * TRAIN_STEPS,
-                             "K2b": T * TRAIN_STEPS},
+    check((trainer.step_captures, trainer.step_replays, py)
+          == (1, TRAIN_STEPS - 1, 2),
+          f"captures {trainer.step_captures}, replays "
+          f"{trainer.step_replays}")
+    check(train_launches == {"K1": T * (py + n_val), "K2a": T * py,
+                             "K2b": T * py},
           f"train launches {train_launches}")
     check(full_decoder.decode_grid_full.launches == 0
           and ar_decoder.frame_decode.launches == 0,
@@ -3695,7 +3828,8 @@ def main() -> int:
     k1_before = tf.frame_core_fwd.launches
     with plain_frames():
         lo_ref_m, lo_ref_g = tr.loss_and_grads(
-            lo_trainer.params, cfg_lo, tcfg, 0, step_gen(), x, c, pr_mat)
+            lo_trainer.params, cfg_lo, tcfg,
+            schedules.train_params_at(0, tcfg), step_gen(), x, c, pr_mat)
     check(tf.frame_core_fwd.launches == k1_before,
           "the plain reference step launched K1")
     lo_ref_m = {k: v.item() for k, v in lo_ref_m.items()}
@@ -3719,13 +3853,12 @@ def main() -> int:
     others = {f.__name__: f.launches for f in counted
               if f not in (tf.frame_core_fwd, tf.frame_core_bwd,
                            tf.weight_grads)}
-    n_val = len(lo_val_b)
-    print(f"  launches in {LOGITS_STEPS} train steps + {n_val} eval "
-          f"batch(es) with logits out: {lo_launches}; loss-mode and decode "
-          f"kernels {others}")
-    check(lo_launches == {"K1": T * (LOGITS_STEPS + n_val),
-                          "K2a": T * LOGITS_STEPS,
-                          "K2b": T * LOGITS_STEPS},
+    n_val, py = len(lo_val_b), python_steps(lo_trainer)
+    print(f"  launches in {LOGITS_STEPS} train steps ({py} run by Python) "
+          f"+ {n_val} eval batch(es) with logits out: {lo_launches}; "
+          f"loss-mode and decode kernels {others}")
+    check(lo_launches == {"K1": T * (py + n_val), "K2a": T * py,
+                          "K2b": T * py},
           f"logits-out train launches {lo_launches}")
     check(not any(others.values()),
           f"the logits-out path launched another kernel: {others}")
@@ -3784,7 +3917,9 @@ def main() -> int:
         k1_before = fwd_k.launches
         with plain_frames():
             b_ref_m, b_ref_g = tr.loss_and_grads(
-                b_trainer.params, cfg_b, tcfg, 0, step_gen(), x, c, pr_mat)
+                b_trainer.params, cfg_b, tcfg,
+                schedules.train_params_at(0, tcfg), step_gen(), x, c,
+                pr_mat)
         check(fwd_k.launches == k1_before,
               "the plain reference step launched K1")
         # building the bf16 Trainer pins cuBLAS to f32 partial sums;
@@ -3805,13 +3940,13 @@ def main() -> int:
                       "K2b": tf.weight_grads.launches}
         others = {f.__name__: f.launches for f in counted
                   if f not in (fwd_k, bwd_k, tf.weight_grads)}
-        n_val = len(b_val)
-        print(f"  launches in {BF16_STEPS} bf16 train steps + {n_val} eval "
-              f"batch(es), {mode}: {b_launches}; other frame and decode "
-              f"kernels {others}; by (kernel, dtypes at the call) "
-              f"{launch_summary(seen)}")
-        check(b_launches == {"K1": T * (BF16_STEPS + n_val),
-                             "K2a": T * BF16_STEPS, "K2b": T * BF16_STEPS},
+        n_val, py = len(b_val), python_steps(b_trainer)
+        print(f"  launches in {BF16_STEPS} bf16 train steps ({py} run by "
+              f"Python) + {n_val} eval batch(es), {mode}: {b_launches}; "
+              f"other frame and decode kernels {others}; by (kernel, dtypes "
+              f"at the call) {launch_summary(seen)}")
+        check(b_launches == {"K1": T * (py + n_val), "K2a": T * py,
+                             "K2b": T * py},
               f"bf16 {mode} train launches {b_launches}")
         check(not any(others.values()),
               f"the bf16 {mode} path launched another kernel: {others}")
@@ -4225,16 +4360,19 @@ def main() -> int:
             check(r["tf32_vs_f64"] > WGRAD_F64_TOL,
                   f"{name}: the single-pass TF32 control "
                   f"{r['tf32_vs_f64']} is within the f64 gate")
-    # the f32 fused train step with K2b and with wgrad_plain, in turns
-    step_turns = {"K2b": [], "wgrad_plain": []}
+    # the f32 fused train step with K2b and with wgrad_plain, in turns,
+    # both run eagerly (a step graph's replay runs K2b whatever the route),
+    # and the main path's step, a replay, beside them
+    step_turns = {"K2b": [], "wgrad_plain": [], "replay": []}
     stream = trainer.batches()
     tf.weight_grads.launches = 0
     for _ in range(TURNS):
-        trainer.train_step(next(stream))
-        step_turns["K2b"].append(trainer.step_seconds[-1] * 1e3)
+        step_turns["K2b"].append(eager_step_ms(trainer, next(stream)))
         with plain_wgrad():
-            trainer.train_step(next(stream))
-        step_turns["wgrad_plain"].append(trainer.step_seconds[-1] * 1e3)
+            step_turns["wgrad_plain"].append(
+                eager_step_ms(trainer, next(stream)))
+        trainer.train_step(next(stream))
+        step_turns["replay"].append(trainer.step_seconds[-1] * 1e3)
     check(tf.weight_grads.launches == T * TURNS,
           f"K2b launches in the turns {tf.weight_grads.launches}")
     k2b["step_ms_in_turns"] = {k: float(np.median(v))
@@ -4245,7 +4383,9 @@ def main() -> int:
           + "; steps " + "; ".join(f"{k} " + " ".join(f"{v:.1f}" for v in ms)
                                    for k, ms in step_turns.items()))
     with plain_wgrad():
-        k2b["profile_wgrad_plain"] = profile_step(trainer)
+        batch = next(trainer.batches())
+        k2b["profile_wgrad_plain"] = profile_call(
+            lambda: eager_step_ms(trainer, batch), "step")
     training["k2b"] = k2b
     phase("K2b by task", t0)
 
@@ -4621,7 +4761,9 @@ def main() -> int:
                       "stretch_serving": stretch_serving,
                       "stretch_training": stretch_training,
                       "pianotree_serving": pianotree_serving,
-                      "data_parallel": data_parallel, "card": card}))
+                      "data_parallel": data_parallel,
+                      "graph_at_envelope": graph_at_envelope,
+                      "card": card}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}))

@@ -20,6 +20,8 @@ the first slot of each beat and 0 elsewhere.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -84,6 +86,15 @@ def detrend_pianotree_batch(grids: np.ndarray, chords: np.ndarray
     return feats.reshape(N, 32, 16, 39)
 
 
+@functools.lru_cache(maxsize=None)
+def _tables(device: torch.device):
+    """DEG_TABLE, SEMI_TABLE and NSTATE_TABLE (flat) as int64 tensors on
+    ``device``, copied there once: a detrend inside a captured CUDA graph
+    copies nothing from the host."""
+    return tuple(torch.as_tensor(t, device=device).long().reshape(-1)
+                 for t in (DEG_TABLE, SEMI_TABLE, NSTATE_TABLE))
+
+
 def detrend_pianotree(grids: torch.Tensor, chords: torch.Tensor
                       ) -> torch.Tensor:
     """The device detrend in torch ops: (N, 32, 16, 6) int grid + (N, 8, 36)
@@ -103,12 +114,12 @@ def detrend_pianotree(grids: torch.Tensor, chords: torch.Tensor
     safe_pitch = torch.where(special, 0, pitch)
     octave = torch.where(special, 11, safe_pitch // 12)
     degree = (safe_pitch - root[:, :, None, None]) % 12
-    scale_deg = torch.as_tensor(DEG_TABLE, device=dev).long()[degree]
-    semitone = torch.as_tensor(SEMI_TABLE, device=dev).long()[scale_deg]
+    deg_t, semi_t, nstate_t = _tables(dev)
+    scale_deg = deg_t[degree]
+    semitone = semi_t[scale_deg]
     c_state = states[:, :, None, None, :].expand(
         *scale_deg.shape, 7).gather(-1, scale_deg[..., None])[..., 0]
-    n_state = torch.as_tensor(NSTATE_TABLE, device=dev).long().reshape(-1)[
-        c_state * 2 + semitone]
+    n_state = nstate_t[c_state * 2 + semitone]
     is_note = torch.where(special, pitch - 127, 0)
     scale_deg = torch.where(special, 7, scale_deg)
     n_state = torch.where(special, 6, n_state)

@@ -960,13 +960,22 @@ def pack_panels(cw: CoreWeights, d: Dims, C: int) -> torch.Tensor:
     dt, dev = cw.w_hh.dtype, cw.w_hh.device
     lay = panel_layout(d, C, dt)
     buf = torch.zeros(lay.size, dtype=dt, device=dev)
-    for field, shape, dst, src in panel_index(d, C, dt):
+    for field, shape, dst, src in panel_index_on(d, C, dt, dev):
         w = getattr(cw, field).detach()
         if tuple(w.shape) != shape:
             raise ValueError(f"{field} has shape {tuple(w.shape)}, expected "
                              f"{shape}")
-        buf[dst.to(dev)] = w.reshape(-1)[src.to(dev)]
+        buf[dst] = w.reshape(-1)[src]
     return buf
+
+
+@functools.lru_cache(maxsize=None)
+def panel_index_on(d: Dims, C: int, dtype: torch.dtype, device):
+    """:func:`panel_index` with its indices on ``device``, copied there
+    once: a packing inside a captured CUDA graph copies nothing from the
+    host."""
+    return tuple((f, shape, dst.to(device), src.to(device))
+                 for f, shape, dst, src in panel_index(d, C, dtype))
 
 
 def unpack_panels(buf: torch.Tensor, d: Dims, C: int) -> dict:
@@ -987,8 +996,9 @@ _PANELS: dict = {}
 def panels(cw: CoreWeights, d: Dims, C: int) -> torch.Tensor:
     """:func:`pack_panels`, cached: a train step's T frames and its eval
     reuse one packing (the key holds no T) while the weights are the same
-    tensors at the same version (an in-place update bumps it; new tensors,
-    as a bf16 cast each step makes, miss). Counts its packings in
+    tensors at the same version (an in-place update bumps it, and so does
+    the Trainer after a step graph's replay writes the weights; new
+    tensors, as a bf16 cast each step makes, miss). Counts its packings in
     ``panels.packs``."""
     srcs = [getattr(cw, f) for f in PANEL_FIELDS]
     key = (C, srcs[0].dtype, srcs[0].device, d)
@@ -1286,3 +1296,4 @@ def frame_core(cw: CoreWeights, spec: PianoTreeSpec, frame_h: torch.Tensor,
     return CoreOut(*FrameCore.apply(
         spec, stash, frame_h.contiguous(), x_emb.contiguous(),
         coins.to(torch.int32).contiguous(), *(w.contiguous() for w in cw)))
+

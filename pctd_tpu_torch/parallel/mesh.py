@@ -43,6 +43,7 @@ import torch
 import torch.distributed as dist
 
 from pctd_tpu_torch.config import ModelConfig, TrainConfig
+from pctd_tpu_torch.train import schedules
 from pctd_tpu_torch.train.optim import Adam
 
 #: the stride between the ranks' generator seeds (the golden-ratio
@@ -223,8 +224,8 @@ def make_parallel_train_step(mcfg: ModelConfig, tcfg: TrainConfig,
              shift, noise=None):
         x, c, pr_mat, dt_x = tr.batch_features(pr, chord, shift, mcfg)
         metrics, grads = tr.loss_and_grads(
-            params, mcfg, tcfg, step_count, gen, x, c, pr_mat, dt_x=dt_x,
-            group=group, noise=noise)
+            params, mcfg, tcfg, schedules.train_params_at(step_count, tcfg),
+            gen, x, c, pr_mat, dt_x=dt_x, group=group, noise=noise)
         *grads, m = mean_over_ranks(mesh, [*grads, tr.stacked(metrics)])
         return m, opt.step(grads)
 

@@ -6,6 +6,13 @@ eps 1e-8, eps_root 0) at the scheduled learning rate.
 with no epsilon in the norm, so it is not
 ``torch.nn.utils.clip_grad_norm_``. The update is written out in tensor
 ops in optax's order of operations; parameters are updated in place.
+
+The scalars that change from update to update (the learning rate and the
+two bias corrections, :meth:`Adam.hyper`) are host numbers, or a tensor
+that the caller passes: the Trainer's on the card, which a captured CUDA
+graph reads at each replay. The same ops run either way, but CUDA divides
+by a host number as a multiply by its f32 reciprocal and by a tensor as a
+true division, so the two differ by rounding.
 """
 from __future__ import annotations
 
@@ -44,20 +51,29 @@ class Adam:
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0
 
+    def hyper(self) -> List[float]:
+        """The next update's (learning rate, 1 - b1^t, 1 - b2^t), t =
+        ``count`` + 1, on the host."""
+        t = self.count + 1
+        return [schedules.lr_at(self.count, self.cfg), 1.0 - self.b1 ** t,
+                1.0 - self.b2 ** t]
+
     @torch.no_grad()
-    def step(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
-        """One update from ``grads`` (same order as the params); returns
-        their global norm before clipping (a 0-d tensor)."""
+    def step(self, grads: Sequence[torch.Tensor], scalars=None
+             ) -> torch.Tensor:
+        """One update from ``grads`` (same order as the params) at
+        ``scalars``, the update's (learning rate, 1 - b1^t, 1 - b2^t): a
+        (3,) tensor of them, or by default :meth:`hyper`'s host numbers.
+        Advances ``count``; returns the gradients' global norm before
+        clipping (a 0-d tensor)."""
         with trace.span("train.optim"):
             grads, norm = clip_by_global_norm(grads, self.cfg.clip_norm)
-            lr = schedules.lr_at(self.count, self.cfg)
-            self.count += 1
-            c1 = 1.0 - self.b1 ** self.count
-            c2 = 1.0 - self.b2 ** self.count
+            lr, c1, c2 = self.hyper() if scalars is None else scalars
             for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
                 mu.copy_((1.0 - self.b1) * g + self.b1 * mu)
                 nu.copy_((1.0 - self.b2) * (g * g) + self.b2 * nu)
                 upd = (mu / c1) / (torch.sqrt(nu / c2 + self.eps_root)
                                    + self.eps)
-                p.add_(-lr * upd)
+                p.sub_(lr * upd)
+            self.count += 1
             return norm

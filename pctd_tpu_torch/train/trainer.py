@@ -7,7 +7,11 @@ that ``ModelConfig.fused_loss`` names) -> backward -> global-norm clip +
 Adam at the scheduled learning rate. The schedules are evaluated at the
 step count; the latent noise and the teacher coins come from one
 ``torch.Generator`` seeded from ``TrainConfig.seed``. Eval draws from a
-generator of its own (:data:`EVAL_SEED`).
+generator of its own (:data:`EVAL_SEED`). On the card a single-device
+step, from the batch on the device to its metrics and gradient norm, is a
+CUDA-graph replay (:class:`StepGraph`, one a batch shape): the host copies
+the batch and the step's scalars and launches the graph, where it issued
+every op of the step before.
 
 :class:`Trainer` runs epochs (``run``): the train and eval epochs sum their
 metrics on the device and read the host only every ``log_every`` steps
@@ -32,6 +36,7 @@ products in bf16, where JAX sums them in f32.
 """
 from __future__ import annotations
 
+import gc
 import os
 import time
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
@@ -52,6 +57,11 @@ from pctd_tpu_torch.utils.weights import named_leaves
 #: the constant that keeps eval noise apart from the train stream (the JAX
 #: trainer's ``fold_in(key, 0x5EED)``)
 EVAL_SEED = 0x5EED
+
+#: the scheduled values of a step (``schedules.train_params_at``), the
+#: first four of a step's scalars (``Trainer._scalars``); Adam's three
+#: (``Adam.hyper``) follow
+SCHEDULED = ("tfr1", "tfr2", "tfr3", "beta")
 
 
 #: the largest batch (segments) of one step that fits the card, by
@@ -120,18 +130,20 @@ def param_list(params) -> List[torch.Tensor]:
     return list(named_leaves(params).values())
 
 
-def loss_and_grads(params, mcfg: ModelConfig, tcfg: TrainConfig, step: int,
-                   gen: torch.Generator, x, c, pr_mat, accum: int = 1,
-                   dt_x=None, group=None, noise: Optional[dv.Noise] = None
+def loss_and_grads(params, mcfg: ModelConfig, tcfg: TrainConfig,
+                   sched: Dict[str, object], gen: torch.Generator, x, c,
+                   pr_mat, accum: int = 1, dt_x=None, group=None,
+                   noise: Optional[dv.Noise] = None
                    ) -> Tuple[Dict[str, torch.Tensor], List[torch.Tensor]]:
     """The 11 metrics and the gradients of every parameter (``param_list``
-    order) at ``step``'s schedules. With ``accum`` > 1 the batch splits into
-    that many contiguous microbatches, each with its own noise, and metrics
-    and gradients are their means. ``dt_x`` as :func:`batch_features`
-    gives it. ``group`` as :func:`~pctd_tpu_torch.models.disentangle_vae.
-    loss` takes it (the data-parallel step's). ``noise`` replaces the draw
-    from ``gen`` (one microbatch only)."""
-    sched = schedules.train_params_at(step, tcfg)
+    order) at the scheduled values ``sched``
+    (:func:`schedules.train_params_at`'s keys, as numbers or as 0-d tensors
+    on the batch's device). With ``accum`` > 1 the batch splits into that
+    many contiguous microbatches, each with its own noise, and metrics and
+    gradients are their means. ``dt_x`` as :func:`batch_features` gives it.
+    ``group`` as :func:`~pctd_tpu_torch.models.disentangle_vae.loss` takes
+    it (the data-parallel step's). ``noise`` replaces the draw from ``gen``
+    (one microbatch only)."""
     leaves = param_list(params)
     B = x.shape[0]
     if B % accum:
@@ -184,6 +196,65 @@ def eval_metrics(params, mcfg: ModelConfig, tcfg: TrainConfig, step: int,
     return metrics
 
 
+def _replays(device: torch.device) -> bool:
+    """Whether a single-device step on ``device`` goes through a
+    :class:`StepGraph`."""
+    return device.type == "cuda"
+
+
+class StepGraph:
+    """One batch shape's train step ``run(*inputs)`` as a CUDA graph on a
+    side stream of ``device``; ``inputs`` are the batch and the step's
+    scalars on the device. :meth:`warm` runs a step eagerly on that stream
+    (the warm-up PyTorch asks for before a capture: lazy set-up, the
+    stream's cuBLAS workspace). :meth:`capture` captures the next one over
+    its inputs, which stay the graph's static inputs, and registers ``gen``,
+    so a replay draws the noise an eager step would and advances the
+    generator's state as it would; ``torch.cuda.graph`` empties the
+    allocator's cache first, so the warm-up's blocks do not stay beside the
+    graph's. The kernel wrappers count their launches at the capture, as
+    in an eager step; a replay runs the captured kernels and no wrapper, so
+    it counts none. :meth:`replay` reruns the step over what the inputs
+    hold now and overwrites ``outputs``. :meth:`release` lets the graph
+    and its memory go; the next step captures again, with no warm-up. The
+    graph keeps no reference to ``run``'s Trainer, so a Trainer let go
+    frees its graphs at once; no garbage collection runs during a capture,
+    since freeing another CUDA graph there would invalidate it."""
+
+    def __init__(self, gen: torch.Generator, device: torch.device):
+        self._gen = gen
+        self._stream = torch.cuda.Stream(device)
+        self._graph = None
+        self.inputs = self.outputs = None
+
+    def warm(self, run, inputs):
+        main = torch.cuda.current_stream(self._stream.device)
+        self._stream.wait_stream(main)
+        with torch.cuda.stream(self._stream):
+            out = run(*inputs)
+        main.wait_stream(self._stream)
+        return out
+
+    def capture(self, run, inputs) -> None:
+        self.inputs = inputs
+        self._graph = torch.cuda.CUDAGraph()
+        self._graph.register_generator_state(self._gen)
+        collecting = gc.isenabled()
+        gc.disable()    # a graph that a collection frees ends the capture
+        try:
+            with torch.cuda.graph(self._graph, stream=self._stream):
+                self.outputs = run(*inputs)
+        finally:
+            if collecting:
+                gc.enable()
+
+    def replay(self) -> None:
+        self._graph.replay()
+
+    def release(self) -> None:
+        self._graph = self.inputs = self.outputs = None
+
+
 def stacked(metrics: Dict[str, torch.Tensor]) -> torch.Tensor:
     """The 11 metrics as one (11,) tensor in ``METRIC_NAMES`` order."""
     return torch.stack([metrics[k] for k in dv.METRIC_NAMES])
@@ -205,6 +276,14 @@ class Trainer:
     ``profile_steps`` (start, stop) takes a ``torch.profiler`` trace of
     those train steps of the first epoch into ``<run>/profile``; checkpoints
     go to ``run_paths.model_path(name, tag)``.
+
+    On a CUDA device without a mesh a step is a CUDA-graph replay
+    (:meth:`_graph_step`): the first step of a batch shape runs eagerly, the
+    second is captured (:class:`StepGraph`, one a shape), and it and every
+    later step of that shape replay the graph. An eval lets the graphs go,
+    so that it has the step's memory, and the next train step captures
+    again. ``step_captures`` and ``step_replays`` count them; on the CPU and
+    with a mesh every step runs eagerly and both stay 0.
 
     With ``mesh`` (a :class:`~pctd_tpu_torch.parallel.mesh.Mesh` of one
     device and a process group) the Trainer is one rank of a data-parallel
@@ -262,6 +341,12 @@ class Trainer:
             self._parallel_eval = pm.make_parallel_eval_step(mcfg, tcfg,
                                                              mesh)
         self.step_count = 0
+        self.step_captures = self.step_replays = 0
+        self._graphs: Dict[tuple, StepGraph] = {}
+        if mesh is None and _replays(self.device):
+            # one copy a step writes the schedules' and Adam's scalars
+            self._dev_scalars = torch.zeros(len(SCHEDULED) + 3,
+                                            device=self.device)
         self.train_counter = self.val_counter = 0
         self.history: List[Dict[str, float]] = []
         self.grad_norms: List[float] = []
@@ -291,21 +376,99 @@ class Trainer:
             return tuple(torch.as_tensor(np.asarray(a), device=self.device)
                          for a in arrays)
 
+    def _scalars(self) -> torch.Tensor:
+        """The step's scalars, a (7,) f32 CPU tensor: the scheduled values
+        at ``step_count`` (:data:`SCHEDULED`), then Adam's next update's
+        (lr, 1 - b1^t, 1 - b2^t) (:meth:`Adam.hyper`)."""
+        sched = schedules.train_params_at(self.step_count, self.tcfg)
+        return torch.tensor([sched[k] for k in SCHEDULED]
+                            + self.opt.hyper(), dtype=torch.float32)
+
+    def _run(self, pr, chord, shift, scalars
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """A single-device step's device work: the features, the noise,
+        loss and gradients of every microbatch, clip + Adam, from the batch
+        and ``scalars`` (:meth:`_scalars`) on the device to (its 11 metrics
+        (11,), the gradient norm). Reads nothing to the host and counts no
+        step but Adam's ``count``: the function a :class:`StepGraph`
+        captures."""
+        n = len(SCHEDULED)
+        with trace.span("train.forward"):
+            x, c, pr_mat, dt_x = batch_features(pr, chord, shift, self.mcfg)
+        metrics, grads = loss_and_grads(
+            self.params, self.mcfg, self.tcfg,
+            dict(zip(SCHEDULED, scalars[:n])), self.gen, x, c, pr_mat,
+            self.accum, dt_x)
+        return stacked(metrics), self.opt.step(grads, scalars[n:])
+
+    def _graph_step(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`_run` through a :class:`StepGraph` a batch shape: the
+        shape's first step warms it, its second is captured and replayed,
+        every later one replayed over the batch copied into the graph's
+        inputs. The step's scalars go to the device in one copy first. The
+        host's copies leave from pinned memory and do not wait for the
+        card. The outputs are cloned, so no caller holds what the next
+        replay overwrites."""
+        arrays = [np.asarray(batch[k]) for k in ("pr", "chord", "shift")]
+        key = tuple((a.shape, a.dtype.str) for a in arrays)
+        graph = self._graphs.get(key)
+        self._dev_scalars.copy_(self._pinned(self._scalars()),
+                                non_blocking=True)
+        if graph is None or graph.inputs is None:
+            inputs = (*self._to_device(batch), self._dev_scalars)
+            if graph is None:
+                graph = self._graphs[key] = StepGraph(self.gen, self.device)
+                return graph.warm(self._run, inputs)
+            self._written()     # the weights' caches miss: packed inside
+            count = self.opt.count
+            graph.capture(self._run, inputs)
+            self.opt.count = count  # the captured update runs at a replay
+            self.step_captures += 1
+        else:
+            with trace.span("train.data"):
+                for dst, a in zip(graph.inputs, arrays):
+                    dst.copy_(self._pinned(torch.as_tensor(a)),
+                              non_blocking=True)
+        with trace.span("train.step"):
+            graph.replay()
+            out = tuple(t.clone() for t in graph.outputs)
+        self.opt.count += 1
+        self.step_replays += 1
+        self._written()
+        return out
+
+    def _pinned(self, t: torch.Tensor) -> torch.Tensor:
+        """A host tensor in pinned memory where the device is a card, so
+        that a copy to it need not wait for the card; as it is elsewhere."""
+        return t.pin_memory() if self.device.type == "cuda" else t
+
+    def _release_graphs(self) -> None:
+        """Let every captured step graph and its memory go; the next step
+        of each shape captures again. What runs next (an eval) then reuses
+        the step's memory as it would beside eager steps, and fits beside
+        the train state at the step envelope."""
+        if any(g.inputs is not None for g in self._graphs.values()):
+            for graph in self._graphs.values():
+                graph.release()
+            torch.cuda.empty_cache()
+
+    def _written(self) -> None:
+        """Bump the params' version counters: a replay writes them where
+        no PyTorch op says so, and a cache keyed by the weights' versions
+        (K1's panels, ``train_frame.panels``) has to miss after it, and at
+        a capture, so that the capture packs inside the graph."""
+        torch.autograd.graph.increment_version(self.leaves)
+
     def _step(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """One optimizer step; (its 11 metrics (11,), the gradient norm) on
         the device, nothing read to the host."""
-        pr, chord, shift = self._to_device(batch)
         if self.mesh is not None:
             m, norm = self._parallel_step(self.params, self.step_count,
-                                          self.gen, pr, chord, shift)
+                                          self.gen, *self._to_device(batch))
         else:
-            with trace.span("train.forward"):
-                x, c, pr_mat, dt_x = batch_features(pr, chord, shift,
-                                                    self.mcfg)
-            metrics, grads = loss_and_grads(
-                self.params, self.mcfg, self.tcfg, self.step_count,
-                self.gen, x, c, pr_mat, self.accum, dt_x)
-            m, norm = stacked(metrics), self.opt.step(grads)
+            m, norm = (self._graph_step(batch) if _replays(self.device)
+                       else self._run(*self._to_device(batch),
+                                      self._scalars()))
         self.step_count += 1
         return m, norm
 
@@ -399,9 +562,11 @@ class Trainer:
     def eval_epoch(self) -> Dict[str, float]:
         """Mean metrics over the val batches, summed on the device (inf when
         there are none, so an empty split never looks best). Writes a
-        batch's metrics every ``log_every`` batches."""
+        batch's metrics every ``log_every`` batches. Lets the step graphs go
+        first (:meth:`_release_graphs`)."""
         gen = self.eval_generator()
         sums, n = None, 0
+        self._release_graphs()
         batches = () if self.val_batches is None else self.val_batches.epoch()
         for batch in batches:
             if self.mesh is not None:

@@ -23,7 +23,11 @@ The spans, one range a call (none inside a per-frame or per-chunk loop):
 - ``pctd.train.forward``: the batch's features, and each microbatch's noise
   and loss;
 - ``pctd.train.backward``: each microbatch's ``torch.autograd.grad``;
-- ``pctd.train.optim``: clip + Adam.
+- ``pctd.train.optim``: clip + Adam;
+- ``pctd.train.step``: on the card, the replay of a captured train step
+  (``train.trainer.StepGraph``) and the copies of its two outputs. The
+  three spans above are then recorded only by the steps that run eagerly
+  or are captured: a shape's first two.
 """
 from torch._C._profiler import _RecordFunctionFast
 

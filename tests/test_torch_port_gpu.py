@@ -11,7 +11,10 @@ version, one train step through K1/K2a/K2b against the plain path in both
 loss modes; and the
 pianotree Sampler's encode with the detrended grid on the card; the
 Sampler's fixed-batch encode as CUDA graph replays against the op-by-op
-encode, bit for bit, and on the profiler's device timeline; and the
+encode, bit for bit, and on the profiler's device timeline; the
+Trainer's train step as a CUDA-graph replay against the eager step it
+captures, bit for bit, and a run resumed from a checkpoint taken after
+replays against the uninterrupted run; and the
 program's spans (``utils/trace.py``), which get no mirror on the device
 timeline and launch nothing.
 
@@ -34,6 +37,7 @@ from pctd_tpu_torch.models import pianotree_decoder as ptd
 from pctd_tpu_torch.models import sampler as sampler_mod
 from pctd_tpu_torch.models.sampler import Sampler
 from pctd_tpu_torch.ops.kernels import ar_decoder, full_decoder, train_frame
+from pctd_tpu_torch.train import schedules
 
 pytestmark = pytest.mark.gpu
 
@@ -1332,8 +1336,8 @@ def test_pianotree_train_step_matches_plain_path(cuda, monkeypatch):
     feats = tr.batch_features(
         *(torch.as_tensor(a, device=cuda) for a in (pr, chord, shift)), cfg)
     step = lambda: tr.loss_and_grads(
-        params, cfg, tcfg, 0, torch.Generator(device=cuda).manual_seed(5),
-        *feats[:3], 1, feats[3])
+        params, cfg, tcfg, schedules.train_params_at(0, tcfg),
+        torch.Generator(device=cuda).manual_seed(5), *feats[:3], 1, feats[3])
     kernels = (train_frame.frame_fwd, train_frame.frame_bwd,
                train_frame.weight_grads)
     before = [f.launches for f in kernels]
@@ -1517,8 +1521,8 @@ def test_stretch_train_step_matches_plain_path(cuda, monkeypatch,
         torch.as_tensor(corpus.chord[idx], device=cuda),
         torch.zeros(16, dtype=torch.int32, device=cuda), cfg)
     step = lambda: tr.loss_and_grads(
-        params, cfg, tcfg, 0, torch.Generator(device=cuda).manual_seed(5),
-        *feats[:3])
+        params, cfg, tcfg, schedules.train_params_at(0, tcfg),
+        torch.Generator(device=cuda).manual_seed(5), *feats[:3])
     kernels = ((train_frame.frame_fwd, train_frame.frame_bwd) if fused_loss
                else (train_frame.frame_core_fwd, train_frame.frame_core_bwd)
                ) + (train_frame.weight_grads,)
@@ -1700,6 +1704,157 @@ def test_encode_replay_kernels_show_on_the_device_timeline(cuda,
     assert replayed == op_by_op
 
 
+# --- the train step as a CUDA graph -------------------------------------------
+
+#: (model config, batch, accumulation steps) of the step-graph tests: both
+#: texture encoders at canonical width and the benchmark's batch (f32, the
+#: CE fused in); at tiny width bf16, logits out, two microbatches and the
+#: stretch (num_step=128)
+GRAPH_CASES = {
+    "conv": (ModelConfig(), 512, 1),
+    "pianotree": (ModelConfig(txt_encoder="pianotree"), 512, 1),
+    "tiny_bf16": (tiny_model_config(compute_dtype="bfloat16"), 16, 1),
+    "tiny_logits_out": (tiny_model_config(fused_loss=False), 16, 1),
+    "tiny_accum_2": (tiny_model_config(), 16, 2),
+    "tiny_stretch": (_stretch(tiny_model_config()), 16, 1),
+}
+
+
+def _raw_batch(cfg, B, seed):
+    """A host batch of B raw segments at ``cfg``'s steps, over all 12
+    shifts."""
+    rng = np.random.RandomState(seed)
+    T, S = cfg.pianotree.num_step, cfg.chord.num_step
+    pr = np.zeros((B, T, 128), np.uint8)
+    pr[rng.rand(B, T, 128) < 0.03] = 2
+    chord = np.zeros((B, S, 14), np.float32)
+    chord[..., 0] = rng.randint(0, 12, (B, S))
+    chord[..., 1:13] = rng.randint(0, 2, (B, S, 12))
+    chord[..., 13] = rng.randint(0, 12, (B, S))
+    return dict(pr=pr, chord=chord,
+                shift=(np.arange(B) % 12 - 6).astype(np.int32))
+
+
+def _graph_case(cuda, cfg, B, accum, n, seed=3):
+    """A Trainer factory (every Trainer on the same weights and train seed)
+    and n host batches of B raw segments."""
+    from pctd_tpu_torch.config import TrainConfig
+    from pctd_tpu_torch.train import trainer as tr
+
+    tcfg = TrainConfig(batch_size=B, accum_steps=accum)
+    make = lambda wseed=seed: tr.Trainer(
+        cfg, tcfg, None, device=cuda,
+        params=dv.init_params(cfg, seed=wseed, device=cuda))
+    return make, [_raw_batch(cfg, B, 20 + i) for i in range(n)]
+
+
+def _eager_step(run, batch):
+    """One step of ``run`` through the function its step graph captures,
+    run eagerly on the current stream (Adam writes its scalars and counts
+    its update)."""
+    out = run._run(*run._to_device(batch), run._scalars().to(run.device))
+    run.step_count += 1
+    return out
+
+
+def _state(run):
+    return run.leaves + run.opt.mu + run.opt.nu
+
+
+#: the frame kernels' wrappers, which count their launches
+FRAME_WRAPPERS = (train_frame.frame_fwd, train_frame.frame_core_fwd,
+                  train_frame.frame_bwd, train_frame.frame_core_bwd,
+                  train_frame.weight_grads)
+
+
+def _frame_kernels(cuda, fn):
+    """The K1, K2a and K2b kernels on the device timeline of ``fn``, by
+    name."""
+    import collections
+    import re
+
+    from torch.autograd import DeviceType
+
+    return collections.Counter(
+        e.name for e in _profiled(cuda, fn)
+        if e.device_type == DeviceType.CUDA
+        and re.search(r"train_fwd|train_bwd_|wgrad_", e.name))
+
+
+@pytest.mark.parametrize("case", sorted(GRAPH_CASES))
+def test_graph_step_is_the_eager_step(cuda, case):
+    """Four steps through the step graph (the first eager, the second
+    captured and replayed, two more replays) against four eager steps
+    through the function the graph captures: each step's 11 metrics and
+    gradient norm, the params, Adam's mu and nu and the generator's state
+    after them, bit for bit; one capture and three replays. The wrappers
+    count the launches of the two steps whose Python ran (the eager one and
+    the capture), half of four eager steps'; a fifth step's K1, K2a and K2b
+    kernels on the profiler's device timeline are the same in a replay as
+    in an eager step."""
+    cfg, B, accum = GRAPH_CASES[case]
+    make, batches = _graph_case(cuda, cfg, B, accum, 4)
+    graph, eager = make(), make()
+    assert graph.accum == accum
+    counts = lambda: [f.launches for f in FRAME_WRAPPERS]
+    before = counts()
+    got = [graph._step(b) for b in batches]
+    mid = counts()
+    want = [_eager_step(eager, b) for b in batches]
+    after = counts()
+    by_graph = [b - a for a, b in zip(before, mid)]
+    by_eager = [b - a for a, b in zip(mid, after)]
+    assert [2 * n for n in by_graph] == by_eager and sum(by_eager) > 0
+    assert (graph.step_captures, graph.step_replays) == (1, 3)
+    assert (eager.step_captures, eager.step_replays) == (0, 0)
+    for (m, norm), (m_e, norm_e) in zip(got, want):
+        assert torch.equal(m, m_e) and torch.equal(norm, norm_e)
+    assert all(torch.equal(a, b) for a, b in zip(_state(graph),
+                                                 _state(eager)))
+    assert torch.equal(graph.gen.get_state(), eager.gen.get_state())
+    assert graph.opt.count == graph.step_count == 4
+    replayed = _frame_kernels(cuda, lambda: graph._step(batches[0]))
+    assert graph.step_replays == 4
+    assert replayed == _frame_kernels(cuda,
+                                      lambda: _eager_step(eager, batches[0]))
+    assert len(replayed) >= 3
+
+
+def test_resume_after_graph_steps_is_the_uninterrupted_run(cuda, tmp_path):
+    """Six graph steps in one Trainer against three, a checkpoint, and
+    three more in a fresh Trainer restored from it (other weights before
+    the restore), and in the first Trainer, its graph captured, restored
+    from it after one more step: metrics, params, Adam's state, counts and
+    the registered generator's state bit for bit."""
+    from pctd_tpu_torch.train import checkpoint
+
+    cfg = tiny_model_config()
+    make, batches = _graph_case(cuda, cfg, 16, 1, 6)
+    whole = make()
+    want = [whole._step(b)[0] for b in batches]
+    part = make()
+    head = [part._step(b)[0] for b in batches[:3]]
+    path = str(tmp_path / "after_replays")
+    checkpoint.save_state(path, part.params, part.opt, part.step_count,
+                          part.gen, cfg)
+    fresh = make(wseed=4)
+    fresh.restore_checkpoint(path)
+    runs = {"fresh": (fresh, head + [fresh._step(b)[0]
+                                     for b in batches[3:]])}
+    part._step(batches[3])
+    part.restore_checkpoint(path)
+    runs["restored in place"] = (part, head + [part._step(b)[0]
+                                               for b in batches[3:]])
+    for name, (run, ms) in runs.items():
+        assert all(torch.equal(a, b) for a, b in zip(ms, want)), name
+        assert all(torch.equal(a, b) for a, b in zip(_state(run),
+                                                     _state(whole))), name
+        assert torch.equal(run.gen.get_state(), whole.gen.get_state()), name
+        assert (run.step_count, run.opt.count) == (6, 6), name
+    assert (fresh.step_captures, fresh.step_replays) == (1, 2)
+    assert (part.step_captures, part.step_replays) == (1, 6)
+
+
 # --- data parallel -----------------------------------------------------------
 
 def _dp_case(cfg, device, B, seed=2):
@@ -1739,8 +1894,9 @@ def test_world_of_one_over_nccl_is_the_single_device_step(cuda):
     ref_p, ref_leaves, batch, noise = _dp_case(cfg, cuda, B)
     x, c, pr_mat, _ = tr.batch_features(
         *(torch.as_tensor(a, device=cuda) for a in batch), cfg)
-    ref_m, ref_g = tr.loss_and_grads(ref_p, cfg, tcfg, 0, None, x, c,
-                                     pr_mat, noise=noise)
+    ref_m, ref_g = tr.loss_and_grads(ref_p, cfg, tcfg,
+                                     schedules.train_params_at(0, tcfg),
+                                     None, x, c, pr_mat, noise=noise)
     ref_g = [g.clone() for g in ref_g]
     Adam(ref_leaves, tcfg).step(ref_g)
     par_p, par_leaves, _, _ = _dp_case(cfg, cuda, B)
@@ -1831,8 +1987,10 @@ def test_two_gloo_ranks_on_the_card_are_one_process(cuda, tmp_path):
     params, _, batch, noise = _dp_case(cfg, cuda, B)
     x, c, pr_mat, _ = tr.batch_features(
         *(torch.as_tensor(a, device=cuda) for a in batch), cfg)
-    ref_m, ref_g = tr.loss_and_grads(params, cfg, TrainConfig(batch_size=B),
-                                     0, None, x, c, pr_mat, noise=noise)
+    tcfg = TrainConfig(batch_size=B)
+    ref_m, ref_g = tr.loss_and_grads(params, cfg, tcfg,
+                                     schedules.train_params_at(0, tcfg),
+                                     None, x, c, pr_mat, noise=noise)
     assert torch.equal(ranks[0]["metrics"], ranks[1]["metrics"])
     assert ranks[0]["k1"] == ranks[1]["k1"] == cfg.pianotree.num_step
     torch.testing.assert_close(ranks[0]["metrics"],
@@ -1904,7 +2062,8 @@ def test_demo_tree_through_k3_is_the_k4_tree(cuda, tmp_path):
 def _span_run(cuda):
     """A tiny-width f32 Sampler and Trainer on the card, the Trainer warmed
     by one step: (a swap of 20 rows through K4, one train step at B=16
-    through K1/K2a/K2b)."""
+    through K1/K2a/K2b: the next is the step graph's capture and first
+    replay, every later one a replay)."""
     from pctd_tpu_torch.config import TrainConfig
     from pctd_tpu_torch.data.corpus import SegmentCorpus
     from pctd_tpu_torch.data.loaders import SegmentBatches
@@ -1956,7 +2115,8 @@ def test_spans_have_no_device_mirror(cuda):
     for fn, want in ((swap, {"pctd.sampler.swap", "pctd.sampler.encode",
                              "pctd.sampler.decode"}),
                      (step, {"pctd.train.data", "pctd.train.forward",
-                             "pctd.train.backward", "pctd.train.optim"})):
+                             "pctd.train.backward", "pctd.train.optim",
+                             "pctd.train.step"})):
         def annotated():
             with torch.profiler.record_function("annotated.call"):
                 fn()
@@ -1972,7 +2132,9 @@ def test_spans_have_no_device_mirror(cuda):
 
 def test_spans_launch_nothing(cuda, monkeypatch):
     """A traced train step launches as many kernels with its spans as with
-    ``trace.span`` made null."""
+    ``trace.span`` made null: a replay of the step graph (its spans
+    ``pctd.train.data`` and ``.step``), and an eager step through the
+    function the graph captures (``.forward``, ``.backward``, ``.optim``)."""
     import contextlib
     import re
 
@@ -1980,12 +2142,18 @@ def test_spans_launch_nothing(cuda, monkeypatch):
     from pctd_tpu_torch.utils import trace
 
     _, step = _span_run(cuda)
+    step()                      # the capture: every later step replays
+    run = step.__self__
+    batch = next(iter(run.train_batches.epoch()))
+    eager = lambda: run._run(*run._to_device(batch),
+                             run._scalars().to(cuda))
 
     def kernels():
-        return sum(1 for e in _profiled(cuda, step)
-                   if e.device_type == DeviceType.CUDA
-                   and not re.match(r"(Memcpy|Memset)", e.name))
+        return [sum(1 for e in _profiled(cuda, fn)
+                    if e.device_type == DeviceType.CUDA
+                    and not re.match(r"(Memcpy|Memset)", e.name))
+                for fn in (step, eager)]
 
     with_spans = kernels()
     monkeypatch.setattr(trace, "span", lambda name: contextlib.nullcontext())
-    assert kernels() == with_spans > 100
+    assert kernels() == with_spans and min(with_spans) > 100

@@ -72,10 +72,12 @@ def test_three_train_steps_match_jax(fused_loss, monkeypatch):
                           params=params_from_jax(jp, "cpu"))
 
     def jax_step_noise(gen, cfg, batch, tfr1, tfr2, tfr3):
+        # the Trainer's scheduled rates are 0-d tensors of the step's
+        # scalars
         assert batch == B
         key = jax.random.fold_in(base_key, run.step_count)
         return tdv.Noise(*(torch.from_numpy(a) for a in jax_noise(
-            key, JAX_TINY, B, tfr1, tfr2, tfr3)))
+            key, JAX_TINY, B, *(float(t) for t in (tfr1, tfr2, tfr3)))))
 
     monkeypatch.setattr(trainer.dv, "draw_noise", jax_step_noise)
     for step, (batch, want) in enumerate(zip(batches, jrows)):

@@ -192,8 +192,9 @@ def test_the_step_at_world_size_one_is_loss_and_grads_and_adam(
             m, norm = step(params, 0, gen, *(torch.from_numpy(a) for a in
                                              (pr, chord, shift)))
         else:
-            metrics, grads = tr.loss_and_grads(params, cfg, tcfg, 0, gen, x,
-                                               c, pr_mat)
+            metrics, grads = tr.loss_and_grads(
+                params, cfg, tcfg, schedules.train_params_at(0, tcfg), gen,
+                x, c, pr_mat)
             m, norm = tr.stacked(metrics), opt.step(grads)
         after.append((m, norm, [t.detach().clone() for t in leaves]))
     assert torch.equal(after[0][0], after[1][0])

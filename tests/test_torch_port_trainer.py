@@ -1,8 +1,10 @@
 """The port's Trainer on the CPU at tiny width: a step runs and moves every
 parameter, the updated tree carries back to the JAX layouts bit-exactly,
 gradient accumulation averages its microbatches, an empty epoch reports
-zeros, eval draws its noise apart from the train stream, and two bf16
-steps match two JAX bf16 steps."""
+zeros, eval draws its noise apart from the train stream, two bf16 steps
+match two JAX bf16 steps, a CPU Trainer steps eagerly, and the step
+graph's bookkeeping (with a CPU stand-in for the CUDA graph) gives the
+eager steps' bits, an eval between steps included."""
 import numpy as np
 import torch
 
@@ -10,6 +12,7 @@ from pctd_tpu_torch import config as tcfg
 from pctd_tpu_torch.data.loaders import SegmentBatches, SegmentCorpus, \
     make_loaders
 from pctd_tpu_torch.models import disentangle_vae as tdv
+from pctd_tpu_torch.train import schedules
 from pctd_tpu_torch.train import trainer
 from pctd_tpu_torch.utils.weights import export_params, params_from_jax
 from tests.test_torch_port_training import _case, _named
@@ -59,12 +62,13 @@ def test_accumulation_averages_microbatches():
     for v in trainer.param_list(params):
         v.requires_grad_(True)
     cfg = tcfg.TrainConfig(batch_size=2)
-    m2, g2 = trainer.loss_and_grads(params, TINY, cfg, 0,
+    sched = schedules.train_params_at(0, cfg)
+    m2, g2 = trainer.loss_and_grads(params, TINY, cfg, sched,
                                     torch.Generator().manual_seed(0), x, c,
                                     pr_mat, accum=2)
     gen = torch.Generator().manual_seed(0)
-    parts = [trainer.loss_and_grads(params, TINY, cfg, 0, gen, x[i:i + 1],
-                                    c[i:i + 1], pr_mat[i:i + 1])
+    parts = [trainer.loss_and_grads(params, TINY, cfg, sched, gen,
+                                    x[i:i + 1], c[i:i + 1], pr_mat[i:i + 1])
              for i in range(2)]
     for name in tdv.METRIC_NAMES:
         np.testing.assert_allclose(
@@ -160,9 +164,12 @@ def test_two_bf16_train_steps_match_jax(monkeypatch):
     assert not matmul.allow_bf16_reduced_precision_reduction
 
     def jax_step_noise(gen, cfg, batch, tfr1, tfr2, tfr3):
+        # the Trainer's scheduled rates are 0-d tensors of the step's
+        # scalars
         key = jax.random.fold_in(base_key, run.step_count)
         return tdv.Noise(*(torch.from_numpy(a) for a in jax_noise(
-            key, JAX_TINY, batch, tfr1, tfr2, tfr3)))
+            key, JAX_TINY, batch, *(float(t) for t in (tfr1, tfr2,
+                                                      tfr3)))))
 
     monkeypatch.setattr(trainer.dv, "draw_noise", jax_step_noise)
     for step, (batch, want, rtol) in enumerate(zip(batches, jrows,
@@ -175,3 +182,110 @@ def test_two_bf16_train_steps_match_jax(monkeypatch):
     assert all(t.dtype == torch.float32 for t in run.leaves)
     assert all(t.dtype == torch.float32 for t in run.opt.mu + run.opt.nu)
     assert np.isfinite(run.grad_norms).all()
+
+
+def _host_batches(B, n, seed=30):
+    return [dict(pr=pr, chord=chord, shift=(np.arange(B) % 12 - 6).astype(
+        np.int32)) for pr, chord in (raw_segments(B, seed=seed + i)
+                                      for i in range(n))]
+
+
+def _cpu_trainer():
+    return trainer.Trainer(TINY, tcfg.TrainConfig(batch_size=2), None,
+                           device="cpu",
+                           params=tdv.init_params(TINY, seed=4, device="cpu"))
+
+
+def test_cpu_trainer_steps_eagerly():
+    """A CPU Trainer runs every step eagerly: no step graph is made,
+    captured or replayed, and both counters stay 0."""
+    run = _cpu_trainer()
+    for batch in _host_batches(2, 2):
+        run._step(batch)
+    assert (run.step_captures, run.step_replays) == (0, 0)
+    assert run._graphs == {}
+    assert run.step_count == run.opt.count == 2
+
+
+class _EagerStepGraph:
+    """``StepGraph`` as the CPU can run it: ``warm`` runs the step,
+    ``capture`` keeps its inputs and runs nothing, ``replay`` overwrites
+    static outputs (NaN until the first replay) with the step over what
+    the inputs hold now, and leaves Adam's ``count`` as it found it, as a
+    replay, which runs no Python, does."""
+
+    def __init__(self, gen, device):
+        self.inputs = self.outputs = None
+
+    def warm(self, run, inputs):
+        return run(*inputs)
+
+    def capture(self, run, inputs):
+        self._run = run
+        self.inputs = inputs
+        self.outputs = (torch.full((len(tdv.METRIC_NAMES),), float("nan")),
+                        torch.full((), float("nan")))
+
+    def replay(self):
+        opt = self._run.__self__.opt
+        count = opt.count
+        for static, new in zip(self.outputs, self._run(*self.inputs)):
+            static.copy_(new)
+        opt.count = count
+
+    def release(self):
+        self.inputs = self.outputs = None
+
+
+def test_step_graph_bookkeeping_gives_the_eager_steps(monkeypatch):
+    """The graph path's bookkeeping (``_replays`` and ``StepGraph`` swapped
+    for a CPU stand-in): three steps of one shape and two of another warm
+    each shape's graph once, capture it once and replay from then on,
+    copying each batch and the step's scalars into the graph's inputs;
+    metrics, norms, params, Adam's state and the generator's state are the
+    bits of five eager steps, and a step's outputs outlive the next
+    replay."""
+    batches = _host_batches(2, 3) + _host_batches(4, 2, seed=40)
+    eager = _cpu_trainer()
+    want = [eager._step(b) for b in batches]
+    monkeypatch.setattr(trainer, "_replays", lambda device: True)
+    monkeypatch.setattr(trainer, "StepGraph", _EagerStepGraph)
+    run = _cpu_trainer()
+    got = [run._step(b) for b in batches]
+    assert (run.step_captures, run.step_replays) == (2, 3)
+    assert len(run._graphs) == 2
+    for (m, norm), (m_e, norm_e) in zip(got, want):
+        assert torch.equal(m, m_e) and torch.equal(norm, norm_e)
+    for a, b in zip(run.leaves + run.opt.mu + run.opt.nu,
+                    eager.leaves + eager.opt.mu + eager.opt.nu):
+        assert torch.equal(a, b)
+    assert torch.equal(run.gen.get_state(), eager.gen.get_state())
+    assert run.step_count == run.opt.count == 5
+
+
+def test_eval_lets_the_step_graphs_go(monkeypatch):
+    """On the graph path (the CPU stand-in) an eval lets the captured step
+    graph go, and the next train step captures it again, with no second
+    warm-up: two steps, an eval, two steps give two captures and three
+    replays, and the bits of the same sequence of eager steps."""
+    batches = _host_batches(2, 4)
+
+    def steps(t):
+        out = [t._step(b) for b in batches[:2]]
+        t.eval_epoch()
+        return out + [t._step(b) for b in batches[2:]]
+
+    eager = _cpu_trainer()
+    want = steps(eager)
+    monkeypatch.setattr(trainer, "_replays", lambda device: True)
+    monkeypatch.setattr(trainer, "StepGraph", _EagerStepGraph)
+    run = _cpu_trainer()
+    got = steps(run)
+    assert (run.step_captures, run.step_replays) == (2, 3)
+    assert len(run._graphs) == 1
+    for (m, norm), (m_e, norm_e) in zip(got, want):
+        assert torch.equal(m, m_e) and torch.equal(norm, norm_e)
+    for a, b in zip(run.leaves + run.opt.mu + run.opt.nu,
+                    eager.leaves + eager.opt.mu + eager.opt.nu):
+        assert torch.equal(a, b)
+    assert torch.equal(run.gen.get_state(), eager.gen.get_state())
