@@ -1,9 +1,12 @@
 """The benchmark's harness, driven by data: a cell
 (``workloads/<cell>.json``) names its configuration
 (``configs/<config>.json``) and its traffic mix (``traffic/<mix>.json``),
-the mix names its driver (``traffic/<driver>.py``), and each metric that
+the configuration names its plain reference (``reference``, a path from
+the checkout's root), whose ``widths_of`` gives its sizes, the mix names
+its driver (``traffic/<driver>.py``), and each metric that
 ``BENCHMARK.json`` lists for the cell is read by its own reader
-(``metrics/<metric>.py``). Nothing here names a cell, a mix or a metric.
+(``metrics/<metric>.py``). Nothing here names a cell, a configuration, a
+model's sections, a mix or a metric.
 
 One call of :func:`run_cell` is one run of one cell: the traffic driver
 sets up the program and warms every shape the traffic uses (``setup_s``
@@ -18,6 +21,7 @@ limit, ends standard error and is the result's last key.
 from __future__ import annotations
 
 import gc
+import importlib
 import importlib.util
 import json
 import math
@@ -27,12 +31,10 @@ import sys
 import time
 import zlib
 from pathlib import Path
-from typing import List, NamedTuple, Optional
+from typing import Any, List, NamedTuple, Optional
 
 import numpy as np
 import torch
-
-from benchmark.reference.model import Widths, widths_of
 
 BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
@@ -67,12 +69,24 @@ def load_module(kind: str, name: str, root: Path = BENCH):
     return mod
 
 
+def reference_module(cfg: dict):
+    """The plain reference that a configuration names (``reference``: a
+    ``.py`` file under the checkout's root), imported by the dotted name of
+    its path, so that it is the one module object the traffic drivers
+    import."""
+    path = Path(cfg["reference"])
+    if (path.suffix != ".py" or path.is_absolute() or ".." in path.parts
+            or not all(NAME.match(p) for p in path.with_suffix("").parts)):
+        raise ValueError(f"bad reference {cfg['reference']!r}")
+    return importlib.import_module(".".join(path.with_suffix("").parts))
+
+
 class Cell(NamedTuple):
     name: str
     config: dict
     mix: dict
     limits: dict
-    widths: Widths
+    widths: Any             # the reference module's ``widths_of(config)``
 
 
 def load_cell(name: str, root: Path = BENCH, overrides: Optional[dict] = None
@@ -85,7 +99,8 @@ def load_cell(name: str, root: Path = BENCH, overrides: Optional[dict] = None
     if overrides:
         cfg = {**cfg, **overrides.get("config", {})}
         mix = {**mix, **overrides.get("mix", {})}
-    return Cell(name, cfg, mix, spec.get("limits", {}), widths_of(cfg))
+    return Cell(name, cfg, mix, spec.get("limits", {}),
+                reference_module(cfg).widths_of(cfg))
 
 
 def manifest_metrics(cell: str, trace: bool, root: Path = ROOT) -> List[dict]:
@@ -139,6 +154,7 @@ class RunRecord:
         self.epochs: List[Epoch] = []
         self.batch_size: Optional[int] = cell.mix.get("batch_size")
         self.trace = None                 # tracing.TraceView with --trace 1
+        self.setup_peak_bytes: Optional[int] = None
         self.window_peak_bytes: Optional[int] = None
 
 
@@ -218,7 +234,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     drv.setup()
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-        setup_peak = torch.cuda.max_memory_allocated(dev)
+        run.setup_peak_bytes = torch.cuda.max_memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
     run.window_t0 = time.perf_counter()
     run.setup_s = run.window_t0 - t_start
@@ -227,15 +243,14 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         run.window_peak_bytes = torch.cuda.max_memory_allocated(dev)
-        memory_peak = max(setup_peak, run.window_peak_bytes)
+        memory_peak = max(run.setup_peak_bytes, run.window_peak_bytes)
     if tracer is not None:
         run.trace = tracer.view()
     drv.release()
     free_device_memory()
     checks = drv.check()
     failed = sum(not r.ok for r in run.requests)
-    attempted = (len(run.requests) if run.kind == "serve"
-                 else sum(e.steps for e in run.epochs))
+    attempted = len(run.requests) + sum(e.steps for e in run.epochs)
     correct = failed == 0 and bool(checks) and all(
         v <= lim for v, lim in checks.values())
     values = {}

@@ -1,8 +1,11 @@
-"""Layer: the device. The allocator's peak (``max_memory_allocated``)
-over the window, in GiB."""
+"""Layer: the device. The allocator's peak (``max_memory_allocated``) over
+set-up and the window, in GiB: the step graph's memory is allocated at
+its capture, in set-up, so the window's peak alone leaves the step out.
+The same quantity as the result's ``memory_peak_bytes``."""
 
 
 def read(run):
-    if run.kind != "train" or not run.window_peak_bytes:
+    peaks = [p for p in (run.setup_peak_bytes, run.window_peak_bytes) if p]
+    if run.kind != "train" or not peaks:
         return None
-    return run.window_peak_bytes / 2 ** 30
+    return max(peaks) / 2 ** 30

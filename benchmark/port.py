@@ -4,12 +4,14 @@ from the benchmark's weights, and its entry points. This is the only
 module of the benchmark that imports the program."""
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict
 
 import torch
 
 from pctd_tpu_torch.config import (ChordSpec, ModelConfig,  # noqa: F401
-                                   PianoTreeSpec, TrainConfig)
+                                   PianoTreeSpec, TrainConfig,
+                                   tiny_model_config)
 from pctd_tpu_torch.models.sampler import Sampler  # noqa: F401
 from pctd_tpu_torch.ops.gru import GRUParams
 from pctd_tpu_torch.train.trainer import Trainer  # noqa: F401
@@ -21,6 +23,18 @@ def model_config(cfg: dict) -> ModelConfig:
     return ModelConfig(**cfg["model"],
                        pianotree=PianoTreeSpec(**cfg["pianotree"]),
                        chord=ChordSpec(**cfg["chord"]))
+
+
+def tiny_config(cfg: dict) -> dict:
+    """A configuration file's configuration at the widths of the program's
+    CPU tests (``tiny_model_config``), its texture encoder and its
+    ``pianotree`` and ``chord`` sections kept: the size at which the
+    benchmark's CPU tests run a cell."""
+    tiny = dataclasses.asdict(tiny_model_config(
+        txt_encoder=cfg["model"]["txt_encoder"]))
+    tiny.pop("pianotree")
+    tiny.pop("chord")
+    return dict(cfg, model=tiny)
 
 
 def params_tree(flat: Dict[str, torch.Tensor]) -> dict:

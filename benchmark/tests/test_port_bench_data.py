@@ -1,11 +1,16 @@
 """The harness is driven by data: a configuration, a traffic mix, a cell
 and a per-layer metric added as new files are found by name with no edit
-to a file that is there; every cell names a configuration and a mix that
-exist, every mix a driver that exists, every metric a reader; the
-manifest agrees with the cell files and keeps the allowed characters."""
+to a file that is there, also where the configuration is of another model
+family, with its own reference and driver; every cell names a
+configuration and a mix that exist, every mix a driver that exists, every
+metric a reader; the manifest agrees with the cell files and keeps the
+allowed characters."""
 import json
+import os
 import re
 import shutil
+import subprocess
+import sys
 
 import pytest
 
@@ -47,6 +52,185 @@ def test_new_files_are_found_by_name(tmp_path):
     assert harness.load_module("metrics", "new_metric.serve",
                                root).read(None) == 42.0
     assert harness.load_module("traffic", cell.mix["driver"], root).Driver
+    assert all(p.read_bytes() == b for p, b in before.items())
+
+
+#: a model family of its own: sizes in a section no DisentangleVAE
+#: configuration has, its plain reference in float64
+STUB_REFERENCE = '''"""A stub family's plain reference: ``depth`` products
+and tanh over ``channels``, in float64, or in bfloat16 (the control)."""
+import torch
+
+
+def widths_of(cfg):
+    return cfg["unet"]["channels"], cfg["unet"]["depth"]
+
+
+def chain(x, w, depth, dtype=torch.float64):
+    x, w = x.to(dtype), w.to(dtype)
+    for _ in range(depth):
+        x = torch.tanh(x @ w)
+    return x.double()
+'''
+
+#: its driver: the program is the same products in float32 under a span
+#: of its own, one step an epoch
+STUB_DRIVER = '''"""A stub family's traffic driver."""
+import contextlib
+import time
+
+import torch
+
+from benchmark import harness
+from benchmark.reference import stub as ref
+from pctd_tpu_torch.utils import trace
+
+TINY_MIX = {"rows": 4}
+
+
+def tiny_config(cfg):
+    return dict(cfg, unet=dict(cfg["unet"], channels=8))
+
+
+class Driver:
+    def __init__(self, cell, seed, device, tracer=None):
+        self.cell, self.device, self.tracer = cell, device, tracer
+        self.ch, self.depth = cell.widths
+        self.gen = torch.Generator().manual_seed(
+            harness.sub_seed(seed, "stub"))
+
+    def setup(self):
+        rows = self.cell.mix["rows"]
+        self.x = torch.randn(rows, self.ch, generator=self.gen)
+        self.w = torch.randn(self.ch, self.ch, generator=self.gen)
+        self.w /= self.ch ** 0.5
+        self.step()
+
+    def step(self):
+        with trace.span("stub.step"):
+            y = self.x.to(self.device)
+            for _ in range(self.depth):
+                y = torch.tanh(y @ self.w.to(self.device))
+        self.y = y.cpu().double()
+
+    def run_window(self, run):
+        traced = self.tracer is not None
+        t0 = time.perf_counter()
+        if traced:
+            self.tracer.start()
+        with self.tracer.span() if traced else contextlib.nullcontext():
+            self.step()
+        if traced:
+            self.tracer.stop()
+        t1 = time.perf_counter()
+        run.epochs.append(harness.Epoch(t0, t1, 1, len(self.x), traced))
+        run.window_s = t1 - run.window_t0
+
+    def release(self):
+        pass
+
+    def _gap(self, y):
+        return float((y - ref.chain(self.x, self.w, self.depth)).abs().max())
+
+    def check(self):
+        return {"gap": (self._gap(self.y), self.cell.limits["gap"])}
+
+    def control(self, emulate=False):
+        low = ref.chain(self.x, self.w, self.depth, torch.bfloat16)
+        return {"control": {"gap": self._gap(low)}}
+'''
+
+STUB_RUN = """
+import sys, time
+sys.path.insert(0, {root!r})
+from benchmark import harness
+import benchmark.reference.stub as stub
+assert stub.__file__.startswith({root!r}), stub.__file__
+for trace in (False, True):
+    assert harness.run_cell("stub-cell", 2 ** 33 + 3, 0.1, trace,
+                            time.perf_counter(), device="cpu") == 0
+"""
+
+
+def _stub_family(root):
+    """Add, as new files only, a cell of a stub family to the copy of the
+    benchmark at ``root``: a configuration without the DisentangleVAE's
+    sections, its reference, a mix naming a new driver, the driver, a
+    cell and two metric readers, and their manifest entries."""
+    bench = root / "benchmark"
+    (bench / "configs" / "stub-config.json").write_text(json.dumps(
+        {"name": "stub-config", "reference": "benchmark/reference/stub.py",
+         "unet": {"channels": 16, "depth": 3}}))
+    (bench / "reference" / "stub.py").write_text(STUB_REFERENCE)
+    (bench / "traffic" / "stub-mix.json").write_text(json.dumps(
+        {"driver": "stub", "rows": 8}))
+    (bench / "traffic" / "stub.py").write_text(STUB_DRIVER)
+    why = "a stub family: products on the CPU"
+    (bench / "workloads" / "stub-cell.json").write_text(json.dumps(
+        {"config": "stub-config", "traffic": "stub-mix", "chips": 1,
+         "why": why, "limits": {"gap": 1e-5}}))
+    (bench / "metrics" / "stub_rows_per_s.py").write_text(
+        "def read(run):\n"
+        "    return sum(e.segments for e in run.epochs) / run.window_s\n")
+    (bench / "metrics" / "stub_idle_ms.py").write_text(
+        "from benchmark import spans\n\n\n"
+        "def read(run):\n"
+        "    return spans.idle_ms(run.trace, ['pctd.stub.step'], 1)\n")
+    b = manifest()
+    b["configs"].append({"name": "stub-config", "source": "none",
+                         "file": "benchmark/configs/stub-config.json",
+                         "reduced": [], "why": why})
+    b["workloads"].append({"name": "stub-cell", "config": "stub-config",
+                           "traffic": "stub-mix", "chips": 1, "why": why})
+    b["end_to_end"].append({"name": "stub_rows_per_s", "unit": "rows/s",
+                            "better": "higher", "bound": 0.1,
+                            "source": "host_clock",
+                            "workloads": ["stub-cell"]})
+    b["per_layer"].append({"name": "stub_idle_ms", "unit": "ms",
+                           "better": "lower", "source": "device_trace",
+                           "layer": "stub", "moves": "stub_rows_per_s",
+                           "workloads": ["stub-cell"]})
+    (root / "BENCHMARK.json").write_text(json.dumps(b))
+
+
+def _in_copy(root, args, timeout):
+    """``python args`` from the checkout copy at ``root``, which finds the
+    copy's ``benchmark`` first and the program where it is."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, *args], capture_output=True,
+                         text=True, timeout=timeout, cwd=root, env=env)
+    assert out.returncode == 0, out.stdout[-4000:] + out.stderr[-4000:]
+    return out
+
+
+def test_a_family_of_its_own_runs_from_new_files_only(tmp_path):
+    """A configuration with none of the DisentangleVAE's sections, with its
+    own reference, driver, cell and readers added as new files, runs
+    through ``run_cell`` on the CPU with ``correct`` true, with and
+    without a trace; the cell-parametrised tests take it; no file that
+    was there changes."""
+    shutil.copytree(ROOT / "benchmark", tmp_path / "benchmark",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    before = {p: p.read_bytes() for p in tmp_path.rglob("*") if p.is_file()}
+    _stub_family(tmp_path)
+    out = _in_copy(tmp_path, ["-c", STUB_RUN.format(root=str(tmp_path))],
+                   300)
+    lines = [json.loads(x) for x in out.stdout.splitlines()
+             if x.startswith("{")]
+    assert len(lines) == 2
+    for result, key in zip(lines, ("stub_rows_per_s", "stub_idle_ms")):
+        assert result["correct"] is True, result
+        assert result["attempted"] == 1 and result["failed"] == 0
+        assert result["metrics"][key]["value"] > 0
+        assert list(result["checks"]) == ["gap"]
+    assert "setup_s" in lines[0]["metrics"]
+    tests = tmp_path / "benchmark" / "tests"
+    got = _in_copy(tmp_path, [
+        "-m", "pytest", "-q", "-p", "no:cacheprovider", "-k", "stub-cell",
+        str(tests / "test_port_bench_isolation.py"),
+        str(tests / "test_port_bench_data.py"),
+        str(tests / "test_port_bench_faults.py")], 600).stdout
+    assert re.search(r"\b3 passed", got), got[-2000:]
     assert all(p.read_bytes() == b for p, b in before.items())
 
 

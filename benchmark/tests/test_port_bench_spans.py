@@ -2,9 +2,11 @@
 hand-built trace, known spans and device operations give known idle ms;
 ranges of one name that overlap count once; a span is clipped to the
 traced window; a trace without the spans (the program before them) reads
-``None``. Every per-layer metric has its reader and lists only cells that
-report the end-to-end metric it moves. A traced run of the harness on the
-CPU reads every span metric of its cell."""
+``None``; the train step's idle reads the step graph's replay and the
+eager step alike. Every per-layer metric has its reader and lists only
+cells that report the end-to-end metric it moves. A traced run of the
+harness on the CPU reads every span metric of its cell. The train cells'
+memory peak takes set-up's and the window's."""
 import io
 import json
 import time
@@ -30,17 +32,35 @@ def _train_run(trace, steps=2):
         harness.Epoch(1.0, 2.0, 16, 128, False)])
 
 
-def test_idle_inside_spans_is_their_length_less_the_busy_time():
-    t = _trace(host_ops=[("pctd.train.optim", 100.0, 300.0),
-                         ("pctd.train.optim", 500.0, 600.0),
-                         ("aten::mul", 150.0, 160.0)],
+#: a traced step's host spans over 100-300 and 500-600 us, on the card's
+#: graph path, on the eager path (the CPU, a mesh), both at once (a
+#: shape's eager step beside a replay), and on neither
+STEP_PATHS = {
+    "graph": [("pctd.train.step", 100.0, 300.0),
+              ("pctd.train.step", 500.0, 600.0)],
+    "eager": [("pctd.train.forward", 100.0, 180.0),
+              ("pctd.train.backward", 180.0, 300.0),
+              ("pctd.train.optim", 500.0, 600.0)],
+    "both": [("pctd.train.step", 100.0, 300.0),
+             ("pctd.train.forward", 150.0, 250.0),
+             ("pctd.train.optim", 500.0, 600.0)],
+    "neither": [("pctd.train.data", 100.0, 300.0)],
+}
+
+
+@pytest.mark.parametrize("path", sorted(STEP_PATHS))
+def test_idle_inside_spans_is_their_length_less_the_busy_time(path):
+    t = _trace(host_ops=STEP_PATHS[path] + [("aten::mul", 150.0, 160.0)],
                device_ops=[("k", 120.0, 180.0), ("k", 250.0, 550.0)])
-    # idle: 100-120, 180-250 in the first; 550-600 in the second: 140 us
-    assert spans.idle_ms(t, ["pctd.train.optim"], 2) == pytest.approx(0.07)
+    reader = harness.load_module("metrics", "step_idle_ms.train")
     run = _train_run(t)
-    assert spans.step_idle_ms(run, ["pctd.train.optim"]) == pytest.approx(
-        0.07)
-    reader = harness.load_module("metrics", "optim_idle_ms.train")
+    if path == "neither":
+        assert reader.read(run) is None
+        return
+    # idle: 100-120, 180-250 in the first; 550-600 in the second: 140 us
+    names = {n for n, _, _ in STEP_PATHS[path]}
+    assert spans.idle_ms(t, names, 2) == pytest.approx(0.07)
+    assert spans.step_idle_ms(run, names) == pytest.approx(0.07)
     assert reader.read(run) == pytest.approx(0.07)
 
 
@@ -88,8 +108,8 @@ def test_a_trace_without_spans_reads_none(name):
     other = "serve" if kind == "train" else "train"
     full = _trace(host_ops=[(n, 0.0, 900.0) for n in (
         *spans.WORKFLOWS, "pctd.sampler.encode", "pctd.sampler.decode",
-        "pctd.train.data", "pctd.train.forward", "pctd.train.backward",
-        "pctd.train.optim")])
+        "pctd.train.data", "pctd.train.step", "pctd.train.forward",
+        "pctd.train.backward", "pctd.train.optim")])
     assert reader.read(SimpleNamespace(kind=other, trace=full,
                                        epochs=[])) is None
 
@@ -103,7 +123,7 @@ def test_every_metric_lists_cells_that_report_what_it_moves():
         moves = e2e[m["moves"]]
         assert set(m.get("workloads", every)) <= set(
             moves.get("workloads", every)), m["name"]
-    assert len(SPAN_METRICS) == 10
+    assert len(SPAN_METRICS) == 8
 
 
 @pytest.mark.parametrize("cell", [c for c in cells() if c in (
@@ -117,6 +137,21 @@ def test_a_traced_run_reads_every_span_metric(cell):
     got = json.loads(out.getvalue().strip().splitlines()[-1])["metrics"]
     mine = [m for m in harness.manifest_metrics(cell, True)
             if m["name"] in SPAN_METRICS]
-    assert len(mine) == (3 if "serve" in cell else 4)
+    assert len(mine) == (3 if "serve" in cell else 2)
     for m in mine:
         assert got[m["name"]]["value"] > 0, m["name"]
+
+
+@pytest.mark.parametrize("setup,window,gib", [
+    (3 * 2 ** 30, 2 ** 29, 3.0),        # the step graph's capture, in set-up
+    (2 ** 29, 3 * 2 ** 30, 3.0),        # eager steps: the window's
+    (None, 2 ** 30, 1.0),
+    (None, None, None)])                # the CPU: no peak read
+def test_peak_memory_takes_the_larger_of_setup_and_window(setup, window,
+                                                          gib):
+    reader = harness.load_module("metrics", "peak_mem_gib.train")
+    run = SimpleNamespace(kind="train", setup_peak_bytes=setup,
+                          window_peak_bytes=window)
+    assert reader.read(run) == gib
+    run.kind = "serve"
+    assert reader.read(run) is None

@@ -39,6 +39,13 @@ from benchmark.reference import serve as ref_serve
 from benchmark.reference.model import Reference, make_weights
 
 KINDS = ("swap", "posterior_sample", "prior_sample", "interp")
+#: the mix cut to a few tiny requests, and the configuration at the
+#: program's CPU-test widths: the size of the benchmark's CPU tests
+TINY_MIX = {"deck": 4, "check_requests": 4, "trace_requests": 2,
+            "windows": {"min": 2, "max": 4, "spread": "log"},
+            "interp": {"pairs": {"min": 1, "max": 2}, "int_count": 3,
+                       "what": ["chord", "texture", "both"]}}
+tiny_config = port.tiny_config
 
 
 def _split(total: int, shares: dict) -> dict:

@@ -30,6 +30,11 @@ from benchmark.reference.model import make_weights
 #: a leaf whose reference gradient is under this share of the median
 #: leaf's moves under Adam by rounding alone: its change is not compared
 STILL_LEAF = 1e-3
+#: the mix cut to a few tiny steps, and the configuration at the
+#: program's CPU-test widths: the size of the benchmark's CPU tests
+TINY_MIX = {"batch_size": 8, "segments": 64, "steps_per_epoch": 2,
+            "trace_steps": 1}
+tiny_config = port.tiny_config
 
 
 def segments(rng: np.random.Generator, n: int, density: float, hold: float):
